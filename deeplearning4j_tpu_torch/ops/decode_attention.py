@@ -1,23 +1,32 @@
-"""Single-query decode attention over the paged KV pool (counterpart of
-ops/decode_attention.py).
+"""Decode attention over the KV cache (counterpart of
+ops/decode_attention.py): one query per slot (K1, K6) or Q consecutive
+queries per slot (K2, speculative verification).
 
-- `decode_attention_dense` / `decode_attention_dense_paged`: the plain
-  PyTorch versions (gather through the block table, then dense masked
-  softmax attention), the same math as the JAX package's oracles. The CPU
-  path and the tests use them; on the card they are only the yardstick the
-  kernel is checked against.
-- `flash_decode_attention_paged`: the wrapper of the hand-written CUDA
-  kernel `csrc/flash_decode_paged.cu` (the port of the Pallas kernel K1).
-  One CTA per (slot, kv head, logical block) emits a normalized partial and
-  its log-sum-exp; `merge_partials` combines them with the logaddexp
-  algebra of the JAX package (:389-:394). On a CPU tensor the wrapper runs
-  the plain version; on a CUDA tensor it launches the kernel or raises.
+- `decode_attention_dense` / `decode_attention_dense_paged` /
+  `decode_attention_dense_spec_paged`: the plain PyTorch versions (gather
+  through the block table, then dense masked softmax attention), the same
+  math as the JAX package's oracles. The CPU path and the tests use them;
+  on the card they are only the yardstick the kernels are checked against.
+- `flash_decode_attention_paged` (K1) and `flash_decode_attention_spec_paged`
+  (K2): wrappers of the hand-written CUDA kernel `csrc/flash_decode_paged.cu`.
+  One CTA per (logical block, kv head, slot) emits a normalized partial and
+  its log-sum-exp for each of its Q x G query rows; `merge_partials`
+  combines them with the logaddexp algebra of the JAX package (:389-:394,
+  :579-:587). K1 is the Q = 1 case of the same kernel.
+- `flash_decode_attention` (K6): split-K decode over a contiguous
+  (S, L, Hk, D) cache, launched on the same kernel: the cache viewed as
+  S * nk physical blocks of bkv positions, with the table bt[s, j] =
+  s * nk + j (no copy, no trash block).
 
-Shapes: q (S, H, D); kp/vp (NB+1, bs, Hk, D) physical blocks, the last one
-the trash block; block_tables (S, bps) int32; visible (S,) int32 (position
-index + 1); window > 0 is a sliding window (the query at visible-1 sees keys
-j with visible-1-j < window). An int8 pool passes k_scale/v_scale
-(NB+1, Hk) float32, applied per gathered block.
+On a CPU tensor each wrapper runs the plain version; on a CUDA tensor it
+launches the kernel or raises.
+
+Shapes: q (S, H, D), or (S, Q, H, D) for K2; kp/vp (NB+1, bs, Hk, D)
+physical blocks, the last one the trash block; block_tables (S, bps)
+int32; visible (S,) int32 (position index + 1 of query 0; query i of K2
+sees j < visible + i); window > 0 is a sliding window (the query at
+position p sees keys j with p - j < window). An int8 pool passes
+k_scale/v_scale (NB+1, Hk) float32, applied per gathered block.
 """
 from __future__ import annotations
 
@@ -30,6 +39,9 @@ from deeplearning4j_tpu_torch.ops.helpers import register_helper
 
 NEG_INF = -1e30
 SOURCE = "flash_decode_paged.cu"
+DEFAULT_BKV = 0            # 0 = auto: 256-position partitions (K6)
+# shared memory a CTA may hold on the H100 (227 KB)
+SMEM_LIMIT = 232448
 _DTYPE_CODE = {torch.float32: 0, torch.float16: 1, torch.bfloat16: 2,
                torch.int8: 3}
 
@@ -81,23 +93,44 @@ def decode_attention_dense_paged(q, kp, vp, block_tables, visible, scale,
                                   scale, window)
 
 
+def decode_attention_dense_spec_paged(q, kp, vp, block_tables, visible,
+                                      scale, window: int = 0, k_scale=None,
+                                      v_scale=None):
+    """The plain version of K2: Q calls of the single-query plain paged
+    version, query i at visible + i. Row i is therefore exactly what a
+    sequential decode step would compute at that position. q (S, Q, H, D)
+    -> (S, Q, H, D) in q.dtype."""
+    visible = visible.to(torch.int32)
+    return torch.stack(
+        [decode_attention_dense_paged(q[:, i], kp, vp, block_tables,
+                                      visible + i, scale, window,
+                                      k_scale=k_scale, v_scale=v_scale)
+         for i in range(q.shape[1])], dim=1)
+
+
 def merge_partials(o_p, l_p, dtype):
-    """Logaddexp merge of per-block partials: o_p (S, Hk, bps, G, D),
-    l_p (S, Hk, bps, G) -> (S, Hk*G, D) in `dtype`. Skipped blocks carry
-    L_p = NEG_INF and weigh zero."""
-    S, Hk, _, G, D = o_p.shape
-    m = l_p.amax(dim=2, keepdim=True)                 # (S, Hk, 1, G)
-    w = torch.exp(l_p - m.clamp(min=NEG_INF))         # (S, Hk, bps, G)
-    denom = w.sum(dim=2).clamp(min=1e-30)             # (S, Hk, G)
-    out = torch.einsum("shkg,shkgd->shgd", w, o_p) / denom[..., None]
-    return out.reshape(S, Hk * G, D).to(dtype)
+    """Logaddexp merge of per-block partials over the block axis: o_p
+    (S, Hk, bps, G, D), l_p (S, Hk, bps, G) -> (S, Hk*G, D); with K2's
+    query axis, o_p (S, Hk, bps, Q, G, D), l_p (S, Hk, bps, Q, G) ->
+    (S, Q, Hk*G, D). In `dtype`. Skipped blocks carry L_p = NEG_INF and
+    weigh zero."""
+    m = l_p.amax(dim=2, keepdim=True)
+    w = torch.exp(l_p - m.clamp(min=NEG_INF))
+    denom = w.sum(dim=2).clamp(min=1e-30)
+    if o_p.dim() == 5:
+        S, Hk, _, G, D = o_p.shape
+        out = torch.einsum("shkg,shkgd->shgd", w, o_p) / denom[..., None]
+        return out.reshape(S, Hk * G, D).to(dtype)
+    S, Hk, _, Q, G, D = o_p.shape
+    out = torch.einsum("shkqg,shkqgd->shqgd", w, o_p) / denom[..., None]
+    return out.transpose(1, 2).reshape(S, Q, Hk * G, D).to(dtype)
 
 
 def _library():
     lib = build.load(SOURCE)
     fn = lib.dl4j_flash_decode_paged
     if fn.argtypes is None:
-        fn.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 9 + [
+        fn.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 10 + [
             ctypes.c_float, ctypes.c_void_p]
         fn.restype = ctypes.c_int
         lib.dl4j_cuda_error_string.argtypes = [ctypes.c_int]
@@ -105,30 +138,23 @@ def _library():
     return lib
 
 
-def flash_decode_attention_paged(q, kp, vp, block_tables, visible, scale,
-                                 window: int = 0, k_scale=None, v_scale=None):
-    """Paged split-K flash-decode; same contract as
-    `decode_attention_dense_paged`. CPU tensors run the plain version; CUDA
-    tensors launch the CUDA kernel on the current stream (no sync, counted
-    in `flash_decode_attention_paged.launches`) and merge its partials."""
-    if q.device.type != "cuda":
-        return decode_attention_dense_paged(q, kp, vp, block_tables, visible,
-                                            scale, window, k_scale=k_scale,
-                                            v_scale=v_scale)
-    o_p, l_p = flash_decode_partials(q, kp, vp, block_tables, visible, scale,
-                                     window, k_scale, v_scale)
-    return merge_partials(o_p, l_p, q.dtype)
+def smem_bytes(rows: int, D: int, bs: int) -> int:
+    """Dynamic shared memory of one CTA of the kernel: the (rows, D) query
+    tile, the (bs, D+1) K and (bs, D) V tiles, the (rows, bs) scores and
+    two row statistics, all float32 (rows = Q * G)."""
+    return 4 * (rows * D + bs * (D + 1) + bs * D + rows * bs + 2 * rows)
 
 
-def flash_decode_partials(q, kp, vp, block_tables, visible, scale,
-                          window: int = 0, k_scale=None, v_scale=None):
-    """Launch the CUDA kernel on CUDA tensors: per-block partials
-    (o_p (S, Hk, bps, G, D), l_p (S, Hk, bps, G)) in float32. Checks
-    device, dtype, shape and contiguity and raises on what the kernel does
-    not take; a refused launch raises too."""
+def _launch(q, kp, vp, block_tables, visible, scale, window, k_scale,
+            v_scale, what: str):
+    """Launch the CUDA kernel on q (S, Q, H, D): per-block partials
+    (o_p (S, Hk, bps, Q, G, D), l_p (S, Hk, bps, Q, G)) in float32, on the
+    current stream, without a sync. Checks device, dtype, shape and
+    contiguity and raises on what the kernel does not take; a refused
+    launch raises too."""
     if q.device.type != "cuda":
-        raise ValueError("flash_decode_partials runs on CUDA tensors only")
-    S, H, D = q.shape
+        raise ValueError(f"{what} runs on CUDA tensors only")
+    S, Q, H, D = q.shape
     _, bs, Hk, Dk = kp.shape
     bps = block_tables.shape[1]
     quantized = k_scale is not None
@@ -163,24 +189,153 @@ def flash_decode_partials(q, kp, vp, block_tables, visible, scale,
     bt = block_tables.to(torch.int32).contiguous()
     vis = visible.to(torch.int32).contiguous()
     G = H // Hk
-    o_p = torch.empty((S, Hk, bps, G, D), dtype=torch.float32,
+    o_p = torch.empty((S, Hk, bps, Q, G, D), dtype=torch.float32,
                       device=q.device)
-    l_p = torch.empty((S, Hk, bps, G), dtype=torch.float32, device=q.device)
+    l_p = torch.empty((S, Hk, bps, Q, G), dtype=torch.float32,
+                      device=q.device)
     lib = _library()
     err = lib.dl4j_flash_decode_paged(
         q.data_ptr(), kp.data_ptr(), vp.data_ptr(),
         k_scale.data_ptr() if quantized else None,
         v_scale.data_ptr() if quantized else None,
         bt.data_ptr(), vis.data_ptr(), o_p.data_ptr(), l_p.data_ptr(),
-        S, Hk, G, D, bs, bps, int(window), _DTYPE_CODE[q.dtype],
+        S, Q, Hk, G, D, bs, bps, int(window), _DTYPE_CODE[q.dtype],
         _DTYPE_CODE[kp.dtype], float(scale),
         torch.cuda.current_stream(q.device).cuda_stream)
     if err != 0:
-        raise RuntimeError("flash_decode_attention_paged launch failed: "
+        raise RuntimeError(f"{what} launch failed: "
                            f"{lib.dl4j_cuda_error_string(err).decode()}")
-    flash_decode_attention_paged.launches += 1
     return o_p, l_p
+
+
+def flash_decode_attention_paged(q, kp, vp, block_tables, visible, scale,
+                                 window: int = 0, k_scale=None, v_scale=None):
+    """K1, paged split-K flash-decode; same contract as
+    `decode_attention_dense_paged`. CPU tensors run the plain version; CUDA
+    tensors launch the CUDA kernel on the current stream (no sync, counted
+    in `flash_decode_attention_paged.launches`) and merge its partials."""
+    if q.device.type != "cuda":
+        return decode_attention_dense_paged(q, kp, vp, block_tables, visible,
+                                            scale, window, k_scale=k_scale,
+                                            v_scale=v_scale)
+    o_p, l_p = flash_decode_partials(q, kp, vp, block_tables, visible, scale,
+                                     window, k_scale, v_scale)
+    return merge_partials(o_p, l_p, q.dtype)
+
+
+def flash_decode_partials(q, kp, vp, block_tables, visible, scale,
+                          window: int = 0, k_scale=None, v_scale=None):
+    """K1's kernel launch on CUDA tensors q (S, H, D): per-block partials
+    (o_p (S, Hk, bps, G, D), l_p (S, Hk, bps, G)) in float32."""
+    if q.device.type != "cuda":
+        raise ValueError("flash_decode_partials runs on CUDA tensors only")
+    o_p, l_p = _launch(q[:, None], kp, vp, block_tables, visible, scale,
+                       window, k_scale, v_scale,
+                       "flash_decode_attention_paged")
+    flash_decode_attention_paged.launches += 1
+    return o_p[:, :, :, 0], l_p[:, :, :, 0]
 
 
 flash_decode_attention_paged.launches = 0
 register_helper("decode_attention_paged")(flash_decode_attention_paged)
+
+
+def flash_decode_attention_spec_paged(q, kp, vp, block_tables, visible,
+                                      scale, window: int = 0, k_scale=None,
+                                      v_scale=None):
+    """K2, the multi-query paged split-K flash-decode of speculative
+    verification; same contract as `decode_attention_dense_spec_paged`
+    (q (S, Q, H, D), query i sees j < visible + i). CPU tensors run the
+    plain version; CUDA tensors launch the kernel once for all Q queries
+    (counted in `flash_decode_attention_spec_paged.launches`), so each K/V
+    element is read once per call whatever Q is, and merge its partials.
+    Any block size runs on the kernel (the TPU's bs < 8 dense fallback was
+    a tiling limit)."""
+    if q.device.type != "cuda":
+        return decode_attention_dense_spec_paged(
+            q, kp, vp, block_tables, visible, scale, window,
+            k_scale=k_scale, v_scale=v_scale)
+    o_p, l_p = flash_decode_spec_partials(q, kp, vp, block_tables, visible,
+                                          scale, window, k_scale, v_scale)
+    return merge_partials(o_p, l_p, q.dtype)
+
+
+def flash_decode_spec_partials(q, kp, vp, block_tables, visible, scale,
+                               window: int = 0, k_scale=None, v_scale=None):
+    """K2's kernel launch on CUDA tensors q (S, Q, H, D): per-block
+    partials (o_p (S, Hk, bps, Q, G, D), l_p (S, Hk, bps, Q, G))."""
+    out = _launch(q, kp, vp, block_tables, visible, scale, window, k_scale,
+                  v_scale, "flash_decode_attention_spec_paged")
+    flash_decode_attention_spec_paged.launches += 1
+    return out
+
+
+flash_decode_attention_spec_paged.launches = 0
+register_helper("decode_attention_spec_paged")(
+    flash_decode_attention_spec_paged)
+
+
+# ------------------------------------------------------ contiguous cache (K6)
+def _resolve_bkv(bkv: int, L: int) -> int:
+    """Largest feasible partition size <= the request that divides L (the
+    cache is never copied or padded: partitions tile L exactly)."""
+    if not bkv:
+        bkv = 256
+    bkv = min(bkv, L)
+    while bkv > 1 and L % bkv:
+        bkv //= 2
+    return bkv
+
+
+def kernel_bkv(bkv: int, L: int, G: int, D: int) -> int:
+    """The partition K6's kernel runs: `_resolve_bkv`, lowered to the
+    largest divisor of L whose CTA fits in shared memory. The merge makes
+    the values independent of the partition size."""
+    bkv = _resolve_bkv(bkv, L)
+    while bkv > 1 and smem_bytes(G, D, bkv) > SMEM_LIMIT:
+        bkv = max(d for d in range(1, bkv) if L % d == 0)
+    return bkv
+
+
+def flash_decode_attention(q, kc, vc, visible, scale, window: int = 0,
+                           bkv: int = DEFAULT_BKV):
+    """K6, split-K flash-decode over a contiguous cache; same contract as
+    `decode_attention_dense` (q (S, H, D), kc/vc (S, L, Hk, D), visible
+    (S,)). CPU tensors run the plain version. On CUDA tensors the cache is
+    viewed as S * nk blocks of bkv positions and K1's kernel runs on it
+    with the table bt[s, j] = s * nk + j (counted in
+    `flash_decode_attention.launches`); the partials merge as K1's. Any
+    partition size runs on the kernel (the TPU's bkv < 8 dense fallback
+    was a tiling limit)."""
+    if q.device.type != "cuda":
+        return decode_attention_dense(q, kc, vc, visible, scale, window)
+    o_p, l_p = flash_decode_contiguous_partials(q, kc, vc, visible, scale,
+                                                window, bkv)
+    return merge_partials(o_p, l_p, q.dtype)
+
+
+def flash_decode_contiguous_partials(q, kc, vc, visible, scale,
+                                     window: int = 0, bkv: int = DEFAULT_BKV):
+    """K6's kernel launch on CUDA tensors: per-partition partials
+    (o_p (S, Hk, nk, G, D), l_p (S, Hk, nk, G)) in float32."""
+    S, H, D = q.shape
+    L, Hk = kc.shape[1], kc.shape[2]
+    if H % Hk != 0:
+        raise ValueError(f"n_heads {H} % n_kv_heads {Hk} != 0")
+    if vc.shape != kc.shape or kc.shape[0] != S:
+        raise ValueError(f"shape mismatch: q {tuple(q.shape)}, kc "
+                         f"{tuple(kc.shape)}, vc {tuple(vc.shape)}")
+    bkv = kernel_bkv(bkv, L, H // Hk, D)
+    nk = L // bkv
+    kp = kc.contiguous().view(S * nk, bkv, Hk, D)
+    vp = vc.contiguous().view(S * nk, bkv, Hk, D)
+    bt = torch.arange(S * nk, dtype=torch.int32,
+                      device=q.device).view(S, nk)
+    o_p, l_p = _launch(q[:, None], kp, vp, bt, visible, scale, window, None,
+                       None, "flash_decode_attention")
+    flash_decode_attention.launches += 1
+    return o_p[:, :, :, 0], l_p[:, :, :, 0]
+
+
+flash_decode_attention.launches = 0
+register_helper("decode_attention")(flash_decode_attention)

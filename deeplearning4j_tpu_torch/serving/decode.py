@@ -12,7 +12,16 @@ steps mutate the paged cache in place (serving/kv_cache.py):
   (start, end) in the (shared_len, plen) seats;
 - `_decode_fn`: one token for every slot, attending through
   `paged_attention` (default `decode_attention_paged`: the CUDA kernel on
-  the card, the plain version on the CPU).
+  the card, the plain version on the CPU);
+- `_spec_decode_fn`: speculative verification, Q consecutive positions
+  per slot (the last committed token plus the drafts) appended and
+  attended in ONE multi-query call per layer through
+  `paged_spec_attention` (default `decode_attention_spec_paged`, K2).
+
+With `kv_quant` the pool is int8 (serving/kv_cache.py) and every attention
+call gets the layer's per-(block, head) scales; with `quant_weights` the
+attention projections run as int8 products with per-channel scales
+(`quantize_attention_weights`). The output head stays float.
 
 Prompt buckets are the JAX package's (`prefill_bucket`, `shared_buckets`),
 so writes are block-granular the same way and the engine's first-use
@@ -35,14 +44,24 @@ from deeplearning4j_tpu_torch.nn.conf.layers.recurrent import RnnOutputLayer
 from deeplearning4j_tpu_torch.nn.multilayer import (MultiLayerNetwork,
                                                     torch_dtype)
 from deeplearning4j_tpu_torch.ops.decode_attention import (
-    decode_attention_dense_paged)
+    decode_attention_dense, decode_attention_dense_paged,
+    decode_attention_dense_spec_paged)
 from deeplearning4j_tpu_torch.ops.helpers import helper_for
-from deeplearning4j_tpu_torch.serving import kv_cache
+from deeplearning4j_tpu_torch.serving import kv_cache, quant
 
 NEG_INF = -1e30
 
 # Non-attention layers a decode step may apply one position at a time.
 _POSITIONWISE = (RnnOutputLayer, ActivationLayer, DropoutLayer, LossLayer)
+
+
+def decode_attention(q, kc, vc, visible, scale, window: int = 0):
+    """Single-query attention against a contiguous (S, L, Hk, D) cache
+    (current position already appended; visible = position index + 1),
+    resolved through the kernel seam: K6 (`flash_decode_attention`) for
+    CUDA tensors, the plain version for CPU tensors. Returns (S, H, D)."""
+    fn = helper_for("decode_attention", decode_attention_dense, q)
+    return fn(q, kc, vc, visible, scale, window)
 
 
 def decode_attention_paged(q, kp, vp, block_tables, visible, scale,
@@ -56,18 +75,58 @@ def decode_attention_paged(q, kp, vp, block_tables, visible, scale,
               k_scale=k_scale, v_scale=v_scale)
 
 
+def decode_attention_spec_paged(q, kp, vp, block_tables, visible, scale,
+                                window: int = 0, k_scale=None, v_scale=None):
+    """Multi-query (speculative verification) attention against the PAGED
+    cache: q (S, Q, H, D), query i of slot s at position visible[s] - 1 + i
+    sees j < visible + i. Resolved through the kernel seam: K2 for CUDA
+    tensors, the plain version (Q single-query calls) for CPU tensors."""
+    fn = helper_for("decode_attention_spec_paged",
+                    decode_attention_dense_spec_paged, q)
+    return fn(q, kp, vp, block_tables, visible, scale, window,
+              k_scale=k_scale, v_scale=v_scale)
+
+
 def _attn_heads(layer: SelfAttentionLayer, params, xt):
-    """(.., n_in) -> q (.., H, Dh), k/v (.., Hk, Dh)."""
+    """(.., n_in) -> q (.., H, Dh), k/v (.., Hk, Dh). A `w_*_scale` entry
+    beside a weight (weight-only int8) makes that projection
+    (x @ w_int8) * scale."""
     H, Hk = layer.n_heads, layer.kv_heads
     Dh = layer.n_out // H
     lead = xt.shape[:-1]
-    return ((xt @ params["w_q"]).reshape(lead + (H, Dh)),
-            (xt @ params["w_k"]).reshape(lead + (Hk, Dh)),
-            (xt @ params["w_v"]).reshape(lead + (Hk, Dh)))
+
+    def proj(name, heads):
+        sc = params.get(name + "_scale")
+        y = xt @ params[name] if sc is None \
+            else quant.int8_matmul(xt, params[name], sc)
+        return y.reshape(lead + (heads, Dh))
+
+    return proj("w_q", H), proj("w_k", Hk), proj("w_v", Hk)
 
 
 def _out_proj(params, out):
-    return out @ params["w_o"] + params["b"]
+    """out @ w_o + b, int8-aware as `_attn_heads`."""
+    sc = params.get("w_o_scale")
+    y = out @ params["w_o"] if sc is None \
+        else quant.int8_matmul(out, params["w_o"], sc)
+    return y + params["b"]
+
+
+def quantize_attention_weights(params, layers):
+    """Weight-only int8 for every SelfAttentionLayer's q/k/v/o projections
+    (per-output-channel scales, serving/quant.py): each weight is replaced
+    by its int8 payload plus a `<name>_scale` sibling. The output head
+    stays float (logits are the accuracy-critical surface). Returns a new
+    list; the layer dicts are copied, never mutated."""
+    out = list(params)
+    for i, layer in enumerate(layers):
+        if not isinstance(layer, SelfAttentionLayer):
+            continue
+        p = dict(out[i])
+        for name in ("w_q", "w_k", "w_v", "w_o"):
+            p[name], p[name + "_scale"] = quant.quantize_weight(p[name])
+        out[i] = p
+    return out
 
 
 def _dense_causal_attention(layer, q, k, v):
@@ -103,13 +162,6 @@ class StackDecoder:
                  paged_spec_attention=None, kv_quant: Optional[bool] = None,
                  quant_weights: Optional[bool] = None,
                  prefix_radix: Optional[bool] = None, device="cuda"):
-        if paged_spec_attention is not None:
-            raise NotImplementedError(
-                "speculative verification (paged_spec_attention, kernel K2) "
-                "is not ported yet")
-        if quant_weights:
-            raise NotImplementedError(
-                "weight-only int8 (quant_weights) is not ported yet")
         layers, params = _extract_stack(net)
         self.layers = layers
         self.device = resolve_device(device)
@@ -119,6 +171,9 @@ class StackDecoder:
         self.dtype = torch_dtype(dtype) if dtype is not None else net.dtype
         self.params = [{k: v.to(self.dtype) if v.is_floating_point() else v
                         for k, v in p.items()} for p in params]
+        self.quant_weights = quant.resolve_quant_weights(quant_weights)
+        if self.quant_weights:
+            self.params = quantize_attention_weights(self.params, layers)
         self.attn_idx = [i for i, l in enumerate(layers)
                          if isinstance(l, SelfAttentionLayer)]
         if not self.attn_idx:
@@ -150,6 +205,9 @@ class StackDecoder:
             prefix_radix=prefix_radix, device=self.device)
         self._paged_attention = (paged_attention if paged_attention
                                  is not None else decode_attention_paged)
+        self._paged_spec_attention = (
+            paged_spec_attention if paged_spec_attention is not None
+            else decode_attention_spec_paged)
 
     # ------------------------------------------------------------ steps
     def _positionwise(self, layer, params, x):
@@ -223,8 +281,14 @@ class StackDecoder:
                 q, k, v = _attn_heads(layer, p, xt)
                 kv_cache.write_positions(st, li, slot, qpos, valid, k, v)
                 row = st.block_tables[slot, :kv_blocks].long()
-                kl = st.k[li][row].reshape(L, self.n_kv_heads, self.head_dim)
-                vl = st.v[li][row].reshape(L, self.n_kv_heads, self.head_dim)
+                kb, vb = st.k[li][row], st.v[li][row]    # (kvb, bs, Hk, D)
+                if st.quantized:
+                    # dequantize per gathered block (the slot's view, never
+                    # the pool), the paged plain version's math
+                    kb = quant.kv_dequantize(kb, st.k_scale[li][row])
+                    vb = quant.kv_dequantize(vb, st.v_scale[li][row])
+                kl = kb.reshape(L, self.n_kv_heads, self.head_dim)
+                vl = vb.reshape(L, self.n_kv_heads, self.head_dim)
                 li += 1
                 H, Dh = layer.n_heads, self.head_dim
                 G = H // self.n_kv_heads
@@ -263,7 +327,7 @@ class StackDecoder:
                 kv_cache.append_token(st, li, k_t, v_t, active)
                 out = self._paged_attention(
                     q, st.k[li], st.v[li], st.block_tables, visible, scale,
-                    layer.attention_window)
+                    layer.attention_window, **st.scales(li))
                 li += 1
                 h = layer._act(_out_proj(p, out.reshape(h.shape[0],
                                                         layer.n_out)))
@@ -271,6 +335,41 @@ class StackDecoder:
                 h = self._positionwise(layer, p, h)
         kv_cache.advance_lengths(st, active)
         return self._head_logprobs(h)
+
+    def _spec_decode_fn(self, x, active, draft_len):
+        """One SPECULATIVE decode iteration for all slots: x (S, Q, n_in)
+        features of [last committed token, draft 0, ..., draft Q-2], active
+        (S,) bool, draft_len (S,) int in [0, Q-1]. Row i's k/v land at
+        position lengths + i (trash-routed for inactive slots and rows past
+        the slot's draft length), and all Q queries are verified in ONE
+        multi-query attention call per layer. Returns (S, Q, vocab)
+        logprobs; row i is the distribution of the token after position
+        lengths + i - 1. Does NOT move `lengths`: the engine commits the
+        accepted count afterwards, and rejected rows stay invisible."""
+        st = self.cache.state
+        S, Q = x.shape[0], x.shape[1]
+        h = x.to(self.dtype)                                # (S, Q, n_in)
+        pos = st.lengths.long()                             # pre-commit
+        i = torch.arange(Q, device=self.device)[None, :]
+        positions = pos[:, None] + i                        # (S, Q)
+        valid = active[:, None] & (i <= draft_len[:, None])
+        visible = pos + 1
+        scale = 1.0 / math.sqrt(self.head_dim)
+        li = 0
+        for idx, layer in enumerate(self.layers[:-1]):
+            p = self.params[idx]
+            if isinstance(layer, SelfAttentionLayer):
+                q, k_t, v_t = _attn_heads(layer, p, h)      # (S, Q, ., Dh)
+                kv_cache.append_tokens(st, li, k_t, v_t, positions, valid)
+                out = self._paged_spec_attention(
+                    q, st.k[li], st.v[li], st.block_tables, visible, scale,
+                    layer.attention_window, **st.scales(li))
+                li += 1
+                h = layer._act(_out_proj(p, out.reshape(S, Q, layer.n_out)))
+            else:
+                h = self._positionwise(
+                    layer, p, h.reshape(S * Q, -1)).reshape(S, Q, -1)
+        return self._head_logprobs(h.reshape(S * Q, -1)).reshape(S, Q, -1)
 
     # ------------------------------------------------------- stateful API
     def _features(self, x) -> torch.Tensor:

@@ -28,11 +28,23 @@ chunk uses the position the i-th sequential step would, and only the
 micro-steps that ran with an active slot are committed, so K in {1, 8} is
 token-identical in synchronous stepping even at temperature > 0.
 
+Speculative decoding (`spec_decode`, env DL4J_TPU_SPEC_DECODE=1) replaces
+the chunk: each iteration proposes per-slot n-gram drafts on the host
+(serving/spec.py), verifies [last token, drafts] at Q consecutive positions
+in ONE multi-query dispatch (StackDecoder._spec_decode_fn, kernel K2 on the
+card), accepts with the point-mass rule (sampler.spec_accept_tokens) and
+commits the accepted prefix by setting `lengths`; rejected rows stay
+invisible. Still one counted sync per iteration, and a spec engine always
+steps synchronously (the committed tokens feed the draft index).
+`kv_quant` (env DL4J_TPU_KV_QUANT) stores the KV pool in int8 with
+per-(block, head) scales, `quant_weights` (env DL4J_TPU_W8) the attention
+projections in int8 (serving/quant.py).
+
 Options of the JAX engine that this slice does not port raise
-NotImplementedError when set (argument or environment variable): spec
-decode, the int8 KV pool, int8 weights, the radix prefix tree, KV
-eviction/swap/disk tiers and the prefix store, non-colocated policies, the
-flight recorder, the KV observatory, time series and alerts, the journal.
+NotImplementedError when set (argument or environment variable): the radix
+prefix tree, KV eviction/swap/disk tiers and the prefix store,
+non-colocated policies, the flight recorder, the KV observatory, time
+series and alerts, the journal.
 """
 from __future__ import annotations
 
@@ -46,10 +58,12 @@ import numpy as np
 import torch
 
 from deeplearning4j_tpu_torch.device import resolve_device
+from deeplearning4j_tpu_torch.serving import spec as spec_mod
 from deeplearning4j_tpu_torch.serving.decode import (StackDecoder,
                                                      one_hot_embedder)
 from deeplearning4j_tpu_torch.serving.policy import ColocatedPolicy
-from deeplearning4j_tpu_torch.serving.sampler import Sampler
+from deeplearning4j_tpu_torch.serving.sampler import (Sampler,
+                                                      spec_accept_tokens)
 from deeplearning4j_tpu_torch.telemetry.registry import (DEFAULT_S_BUCKETS,
                                                          MetricsRegistry)
 
@@ -58,8 +72,6 @@ DEFAULT_PREFILL_CHUNK = 256
 # (constructor argument, environment variable) of every JAX engine option
 # this slice does not port
 _UNPORTED = (
-    ("spec_decode", "DL4J_TPU_SPEC_DECODE"), ("spec_draft", None),
-    ("kv_quant", "DL4J_TPU_KV_QUANT"), ("quant_weights", "DL4J_TPU_W8"),
     ("prefix_radix", "DL4J_TPU_PREFIX_RADIX"),
     ("kv_evict", "DL4J_TPU_KV_EVICT"), ("kv_swap_bytes", None),
     ("kv_disk", "DL4J_TPU_KV_DISK"), ("kv_disk_bytes", None),
@@ -178,7 +190,10 @@ class ServingEngine:
     True) lets `drain` dispatch the next chunk before reading the previous
     one's masks (off under capture_logprobs); `prefill_chunk` (default 256;
     env DL4J_TPU_PREFILL_CHUNK; 0 disables) is the per-iteration prefill
-    token budget."""
+    token budget. `spec_decode` (env DL4J_TPU_SPEC_DECODE=1) turns on
+    n-gram speculative decoding with at most `spec_draft` (default 4; env
+    DL4J_TPU_SPEC_DRAFT) drafts per slot and step; `kv_quant` and
+    `quant_weights` select the int8 KV pool and int8 attention weights."""
 
     def __init__(self, net, max_seqs: int, max_len: int, *, dtype=None,
                  seed: int = 0, top_k: int = 0,
@@ -191,6 +206,10 @@ class ServingEngine:
                  kv_block: Optional[int] = None,
                  kv_blocks: Optional[int] = None,
                  prefix_share: Optional[bool] = None,
+                 spec_decode: Optional[bool] = None,
+                 spec_draft: Optional[int] = None,
+                 kv_quant: Optional[bool] = None,
+                 quant_weights: Optional[bool] = None,
                  policy=None,
                  device="cuda",
                  **unported):
@@ -220,6 +239,8 @@ class ServingEngine:
         self.decoder = StackDecoder(net, max_seqs, max_len, dtype=dtype,
                                     block_size=kv_block, num_blocks=kv_blocks,
                                     prefix_share=prefix_share,
+                                    kv_quant=kv_quant,
+                                    quant_weights=quant_weights,
                                     device=self.device)
         if embed is None:
             if self.decoder.n_in is None:
@@ -246,6 +267,12 @@ class ServingEngine:
             prefill_chunk = max(bs_kv, (prefill_chunk // bs_kv) * bs_kv)
         self.prefill_chunk = int(prefill_chunk)
         self.policy = policy if policy is not None else ColocatedPolicy()
+        # speculative decoding replaces chunking: one spec step is one
+        # scheduling opportunity committing 1..Q tokens per slot
+        self.spec_decode = spec_mod.resolve_spec_decode(spec_decode)
+        self.spec_draft = spec_mod.resolve_spec_draft(spec_draft)
+        self._spec_index = (spec_mod.NgramDraftIndex()
+                            if self.spec_decode else None)
         S = self.decoder.cache.max_seqs
         dev = self.device
         # device-side per-slot state, mutated in place
@@ -300,6 +327,19 @@ class ServingEngine:
         self._h_chunk_ms = m.histogram("serving.decode_chunk_ms",
                                        "dispatch+readback wall per chunk")
         self._h_stall = m.histogram("serving.decode_stall_ms")
+        self._c_spec_acc = m.counter(
+            "serving.spec_tokens_accepted", "draft tokens accepted by "
+            "speculative verification")
+        self._c_spec_rej = m.counter(
+            "serving.spec_tokens_rejected", "draft tokens rejected by "
+            "speculative verification")
+        self._h_spec_accept = m.histogram(
+            "serving.spec_accept_rate", "per-slot accepted/drafted ratio per "
+            "spec step (steps that proposed at least one draft)",
+            buckets=(0.01, 0.125, 0.25, 0.5, 0.75, 0.9, 1.0))
+        self._h_spec_draft = m.histogram(
+            "serving.spec_draft_len", "draft tokens proposed per slot per "
+            "spec step", buckets=(1, 2, 4, 8, 16))
         self._h_tps = m.histogram(
             "serving.tokens_per_sec",
             buckets=(1, 5, 10, 25, 50, 100, 250, 500, 1000, 2500, 5000,
@@ -363,7 +403,13 @@ class ServingEngine:
                     "prefix_shared_tokens": self._c_prefix_tokens.value,
                     "prefix_lineage_hits": self._c_lineage_hits.value,
                     "admission_retries": self._c_adm_retries.value,
-                    "resident_seqs_max": self._resident_seqs_max}
+                    "resident_seqs_max": self._resident_seqs_max,
+                    "spec_decode": int(self.spec_decode),
+                    "spec_draft": self.spec_draft,
+                    "spec_tokens_accepted": self._c_spec_acc.value,
+                    "spec_tokens_rejected": self._c_spec_rej.value,
+                    "spec_accept_rate": self._c_spec_acc.value / max(
+                        1, self._c_spec_acc.value + self._c_spec_rej.value)}
 
     # ------------------------------------------------------------- submit
     def submit(self, request) -> _Future:
@@ -511,6 +557,10 @@ class ServingEngine:
         first = int(t0)            # admission readback (scheduling event)
         self._c_syncs.inc()
         self._c_tokens.inc()
+        if self._spec_index is not None:
+            # seed the draft index from host values: prompt + first token
+            self._spec_index.reset(slot, req.tokens)
+            self._spec_index.extend(slot, [first])
         act.t_first = time.monotonic()
         self._update_kv_resident()
         self._h_ttft.observe(act.t_first - act.t_submit)
@@ -560,6 +610,8 @@ class ServingEngine:
         act = self._by_slot.pop(slot)
         if act in self._prefilling:
             self._prefilling.remove(act)
+        if self._spec_index is not None:
+            self._spec_index.drop(slot)
         n = act.n_generated
         if hist is not None:
             row = [int(t) for t in hist[slot, :n]]
@@ -718,6 +770,8 @@ class ServingEngine:
                 return bool(self._by_slot or self._queue)
             snapshot = {s: a for s, a in self._by_slot.items()
                         if self._active_mask[s]}
+            if self.spec_decode:
+                return self._spec_step(snapshot) or bool(self._queue)
             k_eff = self._chunk_size()
             t_chunk = time.perf_counter()
             _, rb, lps = self._dispatch(self._h2d(self._active_mask), k_eff)
@@ -733,6 +787,152 @@ class ServingEngine:
             self._finish_steps(snapshot, got["entries"], got["final"], lp_np,
                                hist=got["hist"])
             return bool(self._by_slot or self._queue)
+
+    # ------------------------------------------------ speculative decoding
+    @torch.no_grad()
+    def _run_spec(self, active: torch.Tensor, positions: List[int],
+                  draft: torch.Tensor, draft_len: torch.Tensor):
+        """One speculative iteration of device work with no host read
+        inside: verify [last, draft_0..draft_{Q-2}] at Q consecutive
+        positions per slot, accept (row i samples at chain position
+        positions[i]), then COMMIT the accepted prefix by setting `lengths`
+        (the whole rollback: rejected rows' KV lies at positions >= the new
+        length and stays invisible). draft (S, Q-1), draft_len (S,) real
+        draft rows per slot (0 = a plain decode row). Returns (tokens,
+        committed counts, accepted counts, final active mask, logprobs,
+        nonfinite sentinel), all device tensors; history and last tokens
+        update in place."""
+        dec = self.decoder
+        st = dec.cache.state
+        temps = self._h2d(self._temps)
+        any_sampled = bool((self._temps > 0).any())
+        Q = draft.shape[1] + 1
+        toks_in = torch.cat([self._last[:, None], draft], dim=1)  # (S, Q)
+        x = torch.stack([self.embed(toks_in[:, i]) for i in range(Q)],
+                        dim=1)                                    # (S,Q,n_in)
+        pos = st.lengths.clone()                                  # pre-commit
+        lp = dec._spec_decode_fn(x, active, draft_len)
+        toks, n_accept, n_commit = spec_accept_tokens(
+            self.sampler, positions, lp, draft, draft_len, temps,
+            any_sampled)
+        i = torch.arange(Q, dtype=torch.int32, device=self.device)[None, :]
+        gen0 = pos - self._plens + 1      # generation index of row 0's token
+        # EOS inside the accepted prefix truncates the commit to include it
+        eos_hit = (i < n_commit[:, None]) & (toks == self._eos[:, None])
+        first_eos = torch.argmax(eos_hit.to(torch.int32), dim=1)
+        c_eff = torch.where(eos_hit.any(dim=1), first_eos.to(torch.int32) + 1,
+                            n_commit)
+        # never past max_new_tokens (the host caps drafts to the budget, so
+        # this is a backstop); inactive slots commit nothing
+        c_eff = torch.minimum(c_eff, torch.clamp(self._maxgen - gen0, min=1))
+        c_eff = torch.where(active, c_eff, torch.zeros_like(c_eff))
+        st.lengths.copy_(pos + c_eff)           # the only lengths move
+        # history: committed offset j lands at column gen0 + j
+        col = torch.arange(self._cap, dtype=torch.int32,
+                           device=self.device)[None, :]
+        j = col - gen0[:, None]                                   # (S, cap)
+        sel = active[:, None] & (j >= 0) & (j < c_eff[:, None])
+        vals = torch.gather(toks, 1, j.clamp(0, Q - 1).long())
+        self._hist.copy_(torch.where(sel, vals, self._hist))
+        last_c = torch.gather(toks, 1, (c_eff - 1).clamp(0, Q - 1)
+                              .long()[:, None])[:, 0]
+        self._last = torch.where(active, last_c, self._last)
+        new_active = active & (last_c != self._eos) \
+            & (gen0 + c_eff < self._maxgen)
+        # nonfinite sentinel over the rows that fed the accept decision
+        row_ok = i <= draft_len[:, None]
+        nf = (active[:, None] & row_ok
+              & ~torch.isfinite(lp).all(dim=-1)).any()
+        return toks, c_eff, n_accept, new_active, lp, nf
+
+    def _spec_step(self, snapshot: Dict[int, _Active]) -> bool:
+        """One SPECULATIVE scheduler iteration, in place of the decode
+        chunk: propose per-slot n-gram drafts on the host (the index only
+        sees tokens already read back), verify them plus the bonus token in
+        ONE dispatch, commit the accepted prefix. Exactly one counted host
+        sync per iteration, so spec with no n-gram match is sync-for-sync
+        K=1 stepping. Lock held."""
+        return self._spec_finish(snapshot, *self._spec_dispatch(snapshot))
+
+    def _spec_dispatch(self, snapshot: Dict[int, _Active]):
+        """Propose the drafts and dispatch one spec step without reading
+        the device. Returns (readback bundle, per-slot draft lengths,
+        logprobs, dispatch start time). Lock held."""
+        cache = self.decoder.cache
+        S = cache.max_seqs
+        drafts: Dict[int, List[int]] = {}
+        d_max = 0
+        for s, a in snapshot.items():
+            cap_s = min(self.spec_draft, a.req.max_new_tokens
+                        - a.n_generated - 1)
+            prop = self._spec_index.propose(s, cap_s) if cap_s > 0 else []
+            drafts[s] = prop
+            d_max = max(d_max, len(prop))
+        # the draft width buckets to a power of two: Q in {2, 3, 5, 9}
+        d_bucket = 1
+        while d_bucket < d_max:
+            d_bucket *= 2
+        q_eff = d_bucket + 1
+        draft_np = np.zeros((S, d_bucket), np.int32)
+        dl_np = np.zeros((S,), np.int32)
+        for s, prop in drafts.items():
+            draft_np[s, :len(prop)] = prop
+            dl_np[s] = len(prop)
+            if prop:
+                # the verify rows [pos, pos + d] must not land in COW-shared
+                # blocks (a shared prefix may end past the prompt)
+                act = snapshot[s]
+                pos = act.prefilled + act.n_generated - 1
+                cache.ensure_writable(s, pos, pos + len(prop) + 1)
+        t_chunk = time.perf_counter()
+        self._h_chunk_k.observe(q_eff)
+        self._g_queue.set(len(self._queue))
+        self._g_occ.set(len(self._by_slot))
+        if ("spec", q_eff) not in self._seen_shapes:
+            self._seen_shapes.add(("spec", q_eff))
+            self._c_compiles.inc()
+        toks, c_eff, n_accept, new_active, lps, nf = self._run_spec(
+            self._h2d(self._active_mask), self.sampler.peek_keys(q_eff),
+            self._h2d(draft_np), self._h2d(dl_np))
+        rb = _Readback({"toks": toks, "c_eff": c_eff, "acc": n_accept,
+                        "final": new_active, "nf": nf, "hist": self._hist})
+        return rb, dl_np, lps, t_chunk
+
+    def _spec_finish(self, snapshot: Dict[int, _Active], rb: _Readback,
+                     dl_np: np.ndarray, lps, t_chunk: float) -> bool:
+        """Read a spec step's bundle (the counted sync) and commit on the
+        host: tokens, draft index, counters, retirements. Lock held."""
+        got = rb.wait()                      # the counted per-iteration sync
+        if bool(got["nf"]):
+            self._c_nonfinite.inc()
+        self._c_syncs.inc()
+        toks_np, c_np, acc_np = got["toks"], got["c_eff"], got["acc"]
+        # chain positions consumed = the deepest commit across slots
+        self.sampler.advance(int(c_np.max()))
+        self._h_chunk_ms.observe((time.perf_counter() - t_chunk) * 1e3)
+        lp_np = _host_rows(lps) if self.capture_logprobs else None
+        for slot, act in snapshot.items():
+            if self._by_slot.get(slot) is not act \
+                    or not self._active_mask[slot]:
+                continue
+            n_new = int(c_np[slot])
+            d_s = int(dl_np[slot])
+            acc = int(acc_np[slot])
+            act.n_generated += n_new
+            self._c_tokens.inc(n_new)
+            self._spec_index.extend(slot, toks_np[slot, :n_new])
+            if d_s > 0:
+                self._c_spec_acc.inc(acc)
+                self._c_spec_rej.inc(d_s - acc)
+                self._h_spec_accept.observe(acc / d_s)
+                self._h_spec_draft.observe(d_s)
+            if lp_np is not None and act.logprobs is not None:
+                act.logprobs.extend(lp_np[slot, j] for j in range(n_new))
+            if not got["final"][slot]:
+                self._active_mask[slot] = False
+                self._retire(slot, "length", hist=got["hist"])
+        self._update_kv_resident()
+        return bool(self._by_slot or self._queue)
 
     # ------------------------------------------------- overlapped pipeline
     def _drain_overlapped(self) -> None:
@@ -779,9 +979,10 @@ class ServingEngine:
                 self._dev_active = None
 
     def drain(self) -> None:
-        """Run iterations until no active or queued work remains."""
+        """Run iterations until no active or queued work remains (a spec
+        engine always steps synchronously)."""
         if self.overlap and self.decode_chunk > 1 \
-                and not self.capture_logprobs:
+                and not self.capture_logprobs and not self.spec_decode:
             self._drain_overlapped()
         else:
             while self.step():

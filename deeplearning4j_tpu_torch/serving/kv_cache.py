@@ -1,5 +1,4 @@
-"""Paged preallocated KV cache (counterpart of serving/kv_cache.py), float
-pool only.
+"""Paged preallocated KV cache (counterpart of serving/kv_cache.py).
 
 One preallocated pair of buffers carved into physical blocks:
 
@@ -22,8 +21,14 @@ before the sharer's first write, as in the JAX package).
 
 The invariants are the JAX package's: position p of slot s is visible iff
 p < lengths[s]; shared (refcount >= 2) blocks are never written.
-The int8 pool (`kv_quant`) and the radix prefix tree (`prefix_radix`) are
-not ported yet and raise.
+
+The int8 pool (`kv_quant`, serving/quant.py) stores int8 k/v plus float32
+k_scale/v_scale (n_layers, num_blocks + 1, n_kv_heads), one scale per
+(block, kv head). Whole-block prefill writes quantize the block; every
+sub-block write is a read-modify-write of the blocks it touches
+(dequantize, insert, requantize), and only touched blocks are written back
+with new bytes. The radix prefix tree (`prefix_radix`) is not ported yet
+and raises.
 """
 from __future__ import annotations
 
@@ -35,6 +40,7 @@ from typing import Dict, List, Optional, Sequence
 import numpy as np
 import torch
 
+from deeplearning4j_tpu_torch.serving import quant
 from deeplearning4j_tpu_torch.serving.block_table import (BlockAllocator,
                                                           PrefixRegistry)
 
@@ -54,15 +60,27 @@ def resolve_block_size(block_size: Optional[int], max_len: int) -> int:
 
 
 class CacheState:
-    """The device tensors of the paged cache."""
+    """The device tensors of the paged cache. With `kv_quant` the payload
+    is int8 and `k_scale`/`v_scale` (n_layers, num_blocks + 1, Hk) float32
+    hold the per-(block, head) scales (1.0 everywhere at start: payload 0
+    dequantizes to 0 either way); otherwise both are None."""
 
     def __init__(self, n_layers: int, max_seqs: int, max_len: int,
                  n_kv_heads: int, head_dim: int, dtype: torch.dtype,
-                 block_size: int, num_blocks: int, device: torch.device):
+                 block_size: int, num_blocks: int, device: torch.device,
+                 kv_quant: bool = False):
         bps = max_len // block_size
         shape = (n_layers, num_blocks + 1, block_size, n_kv_heads, head_dim)
-        self.k = torch.zeros(shape, dtype=dtype, device=device)
-        self.v = torch.zeros(shape, dtype=dtype, device=device)
+        pdt = quant.PAYLOAD_DTYPE if kv_quant else dtype
+        self.k = torch.zeros(shape, dtype=pdt, device=device)
+        self.v = torch.zeros(shape, dtype=pdt, device=device)
+        self.k_scale = self.v_scale = None
+        if kv_quant:
+            sshape = (n_layers, num_blocks + 1, n_kv_heads)
+            self.k_scale = torch.ones(sshape, dtype=quant.SCALE_DTYPE,
+                                      device=device)
+            self.v_scale = torch.ones(sshape, dtype=quant.SCALE_DTYPE,
+                                      device=device)
         self.lengths = torch.zeros((max_seqs,), dtype=torch.int32,
                                    device=device)
         self.block_tables = torch.full((max_seqs, bps), num_blocks,
@@ -71,12 +89,47 @@ class CacheState:
         self.blocks_per_seq = bps
         self.trash = num_blocks
 
+    @property
+    def quantized(self) -> bool:
+        return self.k_scale is not None
+
+    def scales(self, layer: int) -> dict:
+        """The layer's k_scale/v_scale keywords for the attention calls
+        (empty for a float pool)."""
+        if self.k_scale is None:
+            return {}
+        return {"k_scale": self.k_scale[layer],
+                "v_scale": self.v_scale[layer]}
+
+
+def _rmw_blocks(state: CacheState, layer: int, phys: torch.Tensor,
+                idx, k_new: torch.Tensor, v_new: torch.Tensor,
+                touched: torch.Tensor) -> None:
+    """Read-modify-write of the int8 blocks `phys` (any index shape P):
+    dequantize them plus one zero dummy block (appended last along the
+    block axis), scatter k_new/v_new at `idx` (an index tuple into the
+    (P + dummy, bs) block/offset axes; rows aimed at the dummy are
+    discarded), requantize, and write back new bytes only where `touched`
+    (P,) is set. Untouched blocks get their own bytes back."""
+    for pool, scales, new in ((state.k, state.k_scale, k_new),
+                              (state.v, state.v_scale, v_new)):
+        pq = pool[layer][phys]                       # (P, bs, Hk, D)
+        ps = scales[layer][phys]                     # (P, Hk)
+        f = quant.kv_dequantize(pq, ps)
+        f = torch.cat([f, torch.zeros_like(f.narrow(-4, 0, 1))], dim=-4)
+        f[idx] = new.to(f.dtype)
+        q2, s2 = quant.kv_quantize(f.narrow(-4, 0, f.shape[-4] - 1))
+        pool[layer][phys] = torch.where(touched[..., None, None, None], q2,
+                                        pq)
+        scales[layer][phys] = torch.where(touched[..., None], s2, ps)
+
 
 def write_prefill(state: CacheState, layer: int, slot: int,
                   k_block: torch.Tensor, v_block: torch.Tensor) -> None:
     """Write one layer's prompt k/v (T_pad, Hk, D) into `slot` at logical
     positions [0, T_pad), whole blocks at a time. Padding blocks past the
-    slot's reservation hit table entries that point at trash."""
+    slot's reservation hit table entries that point at trash. An int8
+    pool quantizes each whole block and scatters payload and scale."""
     bs = state.block_size
     T = k_block.shape[0]
     if T % bs:
@@ -84,23 +137,40 @@ def write_prefill(state: CacheState, layer: int, slot: int,
                          f"block_size {bs}")
     nb = T // bs
     phys = state.block_tables[slot, :nb].long()
-    state.k[layer].index_put_(
-        (phys,), k_block.reshape((nb, bs) + k_block.shape[1:])
-        .to(state.k.dtype))
-    state.v[layer].index_put_(
-        (phys,), v_block.reshape((nb, bs) + v_block.shape[1:])
-        .to(state.v.dtype))
+    kb = k_block.reshape((nb, bs) + k_block.shape[1:])
+    vb = v_block.reshape((nb, bs) + v_block.shape[1:])
+    if state.quantized:
+        kq, ks = quant.kv_quantize(kb)
+        vq, vs = quant.kv_quantize(vb)
+        state.k[layer].index_put_((phys,), kq)
+        state.v[layer].index_put_((phys,), vq)
+        state.k_scale[layer].index_put_((phys,), ks)
+        state.v_scale[layer].index_put_((phys,), vs)
+        return
+    state.k[layer].index_put_((phys,), kb.to(state.k.dtype))
+    state.v[layer].index_put_((phys,), vb.to(state.v.dtype))
 
 
 def write_positions(state: CacheState, layer: int, slot: int,
                     positions: torch.Tensor, valid: torch.Tensor,
                     k_seq: torch.Tensor, v_seq: torch.Tensor) -> None:
     """Scatter k/v (T, Hk, D) to logical `positions` (T,) of `slot`
-    through its block table; rows with valid=False route to trash."""
+    through its block table; rows with valid=False route to trash. An
+    int8 pool does a read-modify-write over the slot's whole row (a
+    prefill-time call): invalid rows land in the dummy block, and only
+    touched blocks get new bytes."""
     bs, bps = state.block_size, state.blocks_per_seq
     row = state.block_tables[slot].long()
     bidx = torch.clamp(positions // bs, 0, bps - 1)
     off = positions % bs
+    if state.quantized:
+        tgt = torch.where(valid, bidx, bps)                # bps = dummy
+        touched = torch.zeros((bps + 1,), dtype=torch.int32,
+                              device=row.device)
+        touched.index_add_(0, tgt, valid.to(torch.int32))
+        _rmw_blocks(state, layer, row, (tgt, off), k_seq, v_seq,
+                    touched[:bps] > 0)
+        return
     phys = torch.where(valid, row[bidx], state.trash)
     state.k[layer].index_put_((phys, off), k_seq.to(state.k.dtype))
     state.v[layer].index_put_((phys, off), v_seq.to(state.v.dtype))
@@ -114,15 +184,71 @@ def append_token(state: CacheState, layer: int, k_t: torch.Tensor,
                  v_t: torch.Tensor, active: torch.Tensor) -> None:
     """Batched one-position append for ALL slots at each slot's current
     `lengths` position. Inactive slots route to trash (a freed slot's stale
-    row may point at reused blocks). Does not move `lengths`."""
+    row may point at reused blocks). Does not move `lengths`. An int8 pool
+    read-modify-writes each active slot's current block; an inactive slot
+    reads and writes back trash only."""
     bs, bps = state.block_size, state.blocks_per_seq
     pos = state.lengths.long()
     bidx = torch.clamp(pos // bs, 0, bps - 1)
     phys = torch.gather(state.block_tables, 1, bidx[:, None])[:, 0].long()
     phys = torch.where(active, phys, state.trash)
     off = pos % bs
+    if state.quantized:
+        S = pos.shape[0]
+        rows = torch.arange(S, device=pos.device)
+        _rmw_blocks(state, layer, phys, (rows, off), k_t, v_t,
+                    active.to(torch.bool))
+        return
     state.k[layer].index_put_((phys, off), k_t.to(state.k.dtype))
     state.v[layer].index_put_((phys, off), v_t.to(state.v.dtype))
+
+
+def append_tokens(state: CacheState, layer: int, k_t: torch.Tensor,
+                  v_t: torch.Tensor, positions: torch.Tensor,
+                  valid: torch.Tensor) -> None:
+    """Batched MULTI-position append for all slots (speculative verify):
+    k_t/v_t (S, Q, Hk, D) land at logical `positions` (S, Q) of each slot
+    through its block table. Rows with valid=False (inactive slots, rows
+    past a slot's draft length) route to trash, so a short draft's padding
+    never lands in live blocks. Valid rows of one slot are distinct
+    consecutive positions and slots own disjoint blocks, so valid rows
+    never alias. Does not move `lengths`: rollback after verification is
+    the engine's set-length commit.
+
+    An int8 pool read-modify-writes a fixed window of blocks per slot: Q
+    consecutive positions from positions[:, 0] span at most
+    (Q + bs - 2) // bs + 1 blocks. A slot with no valid row, and a window
+    entry past the table's end, reads and writes back trash only."""
+    bs, bps = state.block_size, state.blocks_per_seq
+    S, Q = positions.shape
+    positions = positions.long()
+    bidx = torch.clamp(positions // bs, 0, bps - 1)           # (S, Q)
+    if state.quantized:
+        dev = positions.device
+        nblk = min(bps, (Q + bs - 2) // bs + 1)
+        b0 = torch.clamp(positions[:, 0] // bs, 0, bps - 1)   # (S,)
+        lidx = b0[:, None] + torch.arange(nblk, device=dev)   # (S, nblk)
+        in_range = lidx < bps
+        physw = torch.gather(state.block_tables, 1,
+                             torch.clamp(lidx, 0, bps - 1)).long()
+        live = valid.any(dim=1)
+        physw = torch.where(live[:, None] & in_range, physw, state.trash)
+        rel = bidx - b0[:, None]                              # (S, Q)
+        ok = valid & (rel >= 0) & (rel < nblk)
+        tgt = torch.where(ok, rel, nblk)                      # nblk = dummy
+        sidx = torch.arange(S, device=dev)[:, None].expand(S, Q)
+        touched = torch.zeros((S, nblk + 1), dtype=torch.int32, device=dev)
+        touched.index_put_((sidx, tgt), ok.to(torch.int32), accumulate=True)
+        _rmw_blocks(state, layer, physw, (sidx, tgt, positions % bs), k_t,
+                    v_t, touched[:, :nblk] > 0)
+        return
+    phys = torch.gather(state.block_tables, 1, bidx).long()
+    phys = torch.where(valid, phys, state.trash).reshape(S * Q)
+    off = (positions % bs).reshape(S * Q)
+    state.k[layer].index_put_((phys, off), k_t.reshape(
+        (S * Q,) + k_t.shape[2:]).to(state.k.dtype))
+    state.v[layer].index_put_((phys, off), v_t.reshape(
+        (S * Q,) + v_t.shape[2:]).to(state.v.dtype))
 
 
 def advance_lengths(state: CacheState, active: torch.Tensor) -> None:
@@ -139,9 +265,13 @@ def set_block_table(state: CacheState, slot: int, row: np.ndarray) -> None:
 
 
 def copy_block(state: CacheState, src: int, dst: int) -> None:
-    """Copy one physical block across ALL layers (the COW copy)."""
+    """Copy one physical block across ALL layers (the COW copy); an int8
+    block's scales travel with its payload, bit-exact."""
     state.k[:, dst].copy_(state.k[:, src])
     state.v[:, dst].copy_(state.v[:, src])
+    if state.quantized:
+        state.k_scale[:, dst].copy_(state.k_scale[:, src])
+        state.v_scale[:, dst].copy_(state.v_scale[:, src])
 
 
 @dataclass
@@ -167,9 +297,6 @@ class KVCache:
                  kv_quant: Optional[bool] = None,
                  prefix_radix: Optional[bool] = None,
                  device="cuda"):
-        if kv_quant:
-            raise NotImplementedError(
-                "the int8 KV pool (kv_quant) is not ported yet")
         if prefix_radix:
             raise NotImplementedError(
                 "the radix prefix tree (prefix_radix) is not ported yet")
@@ -193,11 +320,11 @@ class KVCache:
             prefix_share = os.environ.get("DL4J_TPU_PREFIX_SHARE", "1") != "0"
         self.prefix_share = bool(prefix_share)
         self.prefix_radix = False
-        self.kv_quant = False
+        self.kv_quant = quant.resolve_kv_quant(kv_quant)
         self.state = CacheState(self.n_layers, self.max_seqs, self.max_len,
                                 self.n_kv_heads, self.head_dim, dtype,
                                 self.block_size, self.num_blocks,
-                                torch.device(device))
+                                torch.device(device), kv_quant=self.kv_quant)
         self._free_slots: List[int] = list(range(max_seqs))
         self.allocator = BlockAllocator(self.num_blocks)
         self.registry = PrefixRegistry(self.block_size).bind_pool(self)
@@ -360,14 +487,29 @@ class KVCache:
 
     @property
     def bytes_per_position(self) -> int:
-        """Per-token KV payload bytes (k+v, all layers)."""
+        """Per-token KV payload bytes (k+v, all layers), from the pool's
+        own dtype (int8 when quantized). Scale bytes are per block and
+        live in `block_overhead_bytes`."""
         return self.n_layers * self.n_kv_heads * self.head_dim * (
             self.state.k.element_size() + self.state.v.element_size())
 
     @property
+    def block_overhead_bytes(self) -> int:
+        """Scale bytes per physical block (0 on a float pool): one float32
+        per (layer, kv head) for each of k and v."""
+        st = self.state
+        if not st.quantized:
+            return 0
+        return self.n_layers * self.n_kv_heads * (
+            st.k_scale.element_size() + st.v_scale.element_size())
+
+    @property
     def block_bytes(self) -> int:
-        return self.block_size * self.bytes_per_position
+        """Bytes of one physical block: payload plus its scales."""
+        return self.block_size * self.bytes_per_position \
+            + self.block_overhead_bytes
 
     def bytes(self) -> int:
-        """Device memory held by the k/v buffers (trash block included)."""
+        """Device memory held by the k/v buffers and their scales (trash
+        block included)."""
         return (self.num_blocks + 1) * self.block_bytes

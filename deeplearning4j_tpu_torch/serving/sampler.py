@@ -62,6 +62,37 @@ def sample_tokens(logprobs: torch.Tensor, temperature: torch.Tensor,
     return torch.where(temperature > 0, drawn.to(torch.int32), greedy)
 
 
+def spec_accept_tokens(sampler: "Sampler", positions, logprobs, draft,
+                       draft_len, temperature, any_sampled: bool = True):
+    """Speculative accept/resample for DETERMINISTIC (n-gram) drafts,
+    batched and sync-free.
+
+    positions: Q chain positions (Sampler.peek_keys); row i samples at
+    positions[i], exactly the draw the i-th sequential decode step would
+    use. logprobs (S, Q, V): verified target rows, row i conditioned on the
+    last committed token plus drafts 0..i-1; draft (S, Q-1) proposed
+    tokens; draft_len (S,) how many leading draft rows are real (0 = plain
+    decode step); temperature (S,) as in `sample_tokens`.
+
+    With a point-mass draft, accepting d_i with probability p_i(d_i) and
+    resampling the residual on reject collapse into one draw t_i from the
+    target row: the commit is the sampled tokens up to and including the
+    first mismatch. Because each row uses its sequential chain position and,
+    on the accepted prefix, the same conditioning, the committed tokens
+    equal plain decode's on the same chain (greedy: argmax comparison).
+
+    Returns (tokens (S, Q) int32, n_accept (S,) drafts accepted, n_commit
+    (S,) = n_accept + 1 tokens to commit)."""
+    S, Q, V = logprobs.shape
+    toks = torch.stack([sampler.sample(logprobs[:, i], temperature,
+                                       positions[i], any_sampled)
+                        for i in range(Q)], dim=1)               # (S, Q)
+    i = torch.arange(Q - 1, device=logprobs.device)[None, :]
+    ok = (toks[:, :-1] == draft) & (i < draft_len[:, None])       # (S, Q-1)
+    n_accept = torch.cumprod(ok.to(torch.int32), dim=1).sum(dim=1)
+    return toks, n_accept.to(torch.int32), (n_accept + 1).to(torch.int32)
+
+
 class Sampler:
     """Sampling config plus the chain position counter. `peek_keys(n)` are
     the next n positions without advancing; `advance(n)` commits n;

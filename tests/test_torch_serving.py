@@ -196,7 +196,7 @@ def test_unported_option_raises(nets, option):
                       **{option: True})
 
 
-@pytest.mark.parametrize("env", ["DL4J_TPU_SPEC_DECODE", "DL4J_TPU_KV_QUANT",
+@pytest.mark.parametrize("env", ["DL4J_TPU_PREFIX_RADIX", "DL4J_TPU_KV_EVICT",
                                  "DL4J_TPU_DISAGG"])
 def test_unported_env_knob_raises(nets, env, monkeypatch):
     _, tnet = nets
@@ -210,9 +210,8 @@ def test_non_colocated_policy_and_cache_options_raise(nets):
     with pytest.raises(NotImplementedError, match="policy"):
         ServingEngine(tnet, max_seqs=2, max_len=32, device="cpu",
                       policy=SchedulingPolicy())
-    for kw in ({"kv_quant": True}, {"prefix_radix": True}):
-        with pytest.raises(NotImplementedError):
-            KVCache(1, 2, 8, 1, 2, torch.float64, device="cpu", **kw)
+    with pytest.raises(NotImplementedError):
+        KVCache(1, 2, 8, 1, 2, torch.float64, device="cpu", prefix_radix=True)
 
 
 def test_kv_append_in_place_with_trash_routing():
