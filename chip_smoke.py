@@ -12,12 +12,15 @@ Phases, each printing one JSON line; any failure exits non-zero:
               then timed at the served shape (device time by CUDA-graph
               replay, kernel alone and with the merge; the eager call; the
               plain version):
-              K1 (paged decode): fp32, bf16 and an int8 pool; GQA groups
-              1/2/4; windows 0/64; block sizes 8/16; ragged visible lengths;
-              shuffled block tables with trash entries.
+              K1 (paged decode): fp32, bf16, and an int8 pool with fp32
+              and with bf16 queries; GQA groups 1/2/4; windows 0/64; block
+              sizes 8/16; ragged visible lengths; shuffled block tables
+              with trash entries; then the served shape with the bf16 pool
+              and with the int8 pool (bf16 queries, as the serves run).
               K2 (multi-query paged decode, "kernel_spec"): the same sweep
               with Q = 2/3/5/9 queries per slot, and each row i of K2
-              against K1 at visible + i on the same pool.
+              against K1 at visible + i on the same pool; then the served
+              shape at Q = 2/3/5 with both pools.
               K6 (contiguous split-K decode, "kernel_contiguous"): fp32 and
               bf16, cache lengths whose partition is 256, 64 and 4 (below
               8), head dims 64 and 128 (the shared-memory cap); timed beside
@@ -29,8 +32,8 @@ Phases, each printing one JSON line; any failure exits non-zero:
               weights from seed 42) served by ServingEngine: a warmup
               request, then 4 requests of 512 prompt tokens and 256 new
               tokens with 4 more submitted at the halfway mark. The kernel
-              launch counts are zeroed just before and read just after; one
-              decode chunk is then dispatched under
+              launch counts are zeroed just before and read just after; a
+              new request then decodes 4 engine steps under
               torch.cuda.set_sync_debug_mode("error").
 5. oracle   - the same model in fp32 with capture_logprobs: every captured
               row matches the full-recompute MultiLayerNetwork.output at its
@@ -42,8 +45,8 @@ Phases, each printing one JSON line; any failure exits non-zero:
               greedy: 8 requests of 512 prompt tokens, each a seeded 6-token
               motif tiled to length, 256 new tokens each; then the same
               prompts with spec off at K=1 and at the default chunking. K2
-              must have launched and K1 not at all in the spec run; one
-              spec step is then dispatched under
+              must have launched and K1 not at all in the spec run; a new
+              request then takes 4 spec steps, drafts verified, under
               torch.cuda.set_sync_debug_mode("error").
 8. spec_oracle - the fp32 model with spec_decode=True and
               capture_logprobs: every captured row within atol 2e-3 of the
@@ -178,19 +181,33 @@ def paged_case(torch, S, Hk, G, D, bs, bps, window, dtype, quant, seed,
     return (q, kp, vp, bt.to(dev), vis, 1.0 / math.sqrt(D), window), scales
 
 
+# sweep kinds: (q dtype, pool int8?) and the tolerance against the plain
+# version; the served int8 pool meets bf16 queries ("int8_bf16q")
+SWEEP = {"float32": ("float32", False, 1e-4),
+         "bfloat16": ("bfloat16", False, 2e-2),
+         "int8": ("float32", True, 1e-4),
+         "int8_bf16q": ("bfloat16", True, 2e-2)}
+
+
+def served_shape():
+    """(S, Hk, G, D, bs, bps, visible) of the serve: 8 slots at ~768
+    visible positions."""
+    return (MAX_SEQS, KV_HEADS, HEADS // KV_HEADS, D_MODEL // HEADS, 16,
+            MAX_LEN // 16, [MAX_LEN * 3 // 4 - 3 * s for s in range(MAX_SEQS)])
+
+
 def phase_kernel(torch):
     from deeplearning4j_tpu_torch.ops import decode_attention as da
-    tol = {"float32": 1e-4, "int8": 1e-4, "bfloat16": 2e-2}
+    tol = {k: t for k, (_, _, t) in SWEEP.items()}
     worst = {}
     n_cases = 0
-    for kind in ("float32", "bfloat16", "int8"):
-        dtype = torch.bfloat16 if kind == "bfloat16" else torch.float32
+    for kind, (qt, quant, _) in SWEEP.items():
+        dtype = getattr(torch, qt)
         for G in (1, 2, 4):
             for window in (0, 64):
                 for bs in (8, 16):
                     args, sc = paged_case(torch, 6, 2, G, 64, bs, 12, window,
-                                          dtype, kind == "int8",
-                                          seed=n_cases)
+                                          dtype, quant, seed=n_cases)
                     out = da.flash_decode_attention_paged(*args, **sc)
                     ref = da.decode_attention_dense_paged(*args, **sc)
                     torch.cuda.synchronize()
@@ -200,17 +217,21 @@ def phase_kernel(torch):
                              f"bs={bs}: max abs err {err} > {tol[kind]}")
                     worst[kind] = max(worst.get(kind, 0.0), err)
                     n_cases += 1
-    # the served shape: 8 slots at ~768 visible positions, bf16 pool
-    S, Hk, G, D, bs, bps = MAX_SEQS, KV_HEADS, HEADS // KV_HEADS, \
-        D_MODEL // HEADS, 16, MAX_LEN // 16
-    visible = [MAX_LEN * 3 // 4 - 3 * s for s in range(S)]
-    args, _ = paged_case(torch, S, Hk, G, D, bs, bps, 0, torch.bfloat16,
-                         False, seed=1234, visible=visible)
-    out = da.flash_decode_attention_paged(*args)
-    ref = da.decode_attention_dense_paged(*args)
-    served_err = (out.float() - ref.float()).abs().max().item()
-    if served_err > tol["bfloat16"]:
-        fail(f"kernel vs plain at the served shape: {served_err}")
+    # the served shape, with the bf16 pool of the float serve and the int8
+    # pool of the int8 serve, bf16 queries both
+    S, Hk, G, D, bs, bps, visible = served_shape()
+    served = {}
+    for kind in ("bfloat16", "int8_bf16q"):
+        a, sc = paged_case(torch, S, Hk, G, D, bs, bps, 0, torch.bfloat16,
+                           SWEEP[kind][1], seed=1234, visible=visible)
+        out = da.flash_decode_attention_paged(*a, **sc)
+        ref = da.decode_attention_dense_paged(*a, **sc)
+        served[kind] = (out.float() - ref.float()).abs().max().item()
+        if not served[kind] <= tol[kind]:
+            fail(f"kernel vs plain at the served shape, {kind}: "
+                 f"{served[kind]} > {tol[kind]}")
+        if kind == "bfloat16":
+            args = a
     # device time per call (CUDA-graph replay) and the eager call's time,
     # which the host's launch overhead dominates at this size
     ms = graph_ms(torch, lambda: da.flash_decode_attention_paged(*args))
@@ -236,7 +257,7 @@ def phase_kernel(torch):
            "tolerance": tol, "served_shape": {
                "S": S, "H": Hk * G, "Hk": Hk, "D": D, "bs": bs, "bps": bps,
                "visible": visible, "dtype": "bfloat16"},
-           "served_max_abs_err": served_err, "ms": ms, "plain_ms": plain_ms,
+           "served_max_abs_err": served, "ms": ms, "plain_ms": plain_ms,
            "kernel_only_ms": kernel_only_ms, "eager_ms": eager_ms,
            "eager_plain_ms": eager_plain_ms,
            "bound_ms": bound_ms, "bound_by": bound_by,
@@ -266,17 +287,17 @@ def phase_kernel_spec(torch):
     """K2 against its plain version over the sweep, each row i against K1
     at visible + i, then timed at the served shape of the spec serve."""
     from deeplearning4j_tpu_torch.ops import decode_attention as da
-    tol = {"float32": 1e-4, "int8": 1e-4, "bfloat16": 2e-2}
+    tol = {k: t for k, (_, _, t) in SWEEP.items()}
     worst, worst_row = {}, {}
     n_cases = 0
-    for kind in ("float32", "bfloat16", "int8"):
-        dtype = torch.bfloat16 if kind == "bfloat16" else torch.float32
+    for kind, (qt, quant, _) in SWEEP.items():
+        dtype = getattr(torch, qt)
         for Q in (2, 3, 5, 9):
             for G in (1, 2, 4):
                 for window in (0, 64):
                     for bs in (8, 16):
                         args, sc = paged_case(torch, 6, 2, G, 64, bs, 12,
-                                              window, dtype, kind == "int8",
+                                              window, dtype, quant,
                                               seed=5000 + n_cases, Q=Q)
                         out = da.flash_decode_attention_spec_paged(*args,
                                                                    **sc)
@@ -299,19 +320,29 @@ def phase_kernel_spec(torch):
                         worst_row[kind] = max(worst_row.get(kind, 0.0),
                                               row_err)
                         n_cases += 1
-    # the served shape: 8 slots at ~768 visible positions, Q = 5 (spec_draft
-    # 4), bf16 pool
-    S, Hk, G, D, bs, bps, Q = MAX_SEQS, KV_HEADS, HEADS // KV_HEADS, \
-        D_MODEL // HEADS, 16, MAX_LEN // 16, SPEC_DRAFT + 1
-    visible = [MAX_LEN * 3 // 4 - 3 * s for s in range(S)]
-    args, _ = paged_case(torch, S, Hk, G, D, bs, bps, 0, torch.bfloat16,
-                         False, seed=4321, visible=visible, Q=Q)
-    out = da.flash_decode_attention_spec_paged(*args)
-    ref = da.decode_attention_dense_spec_paged(*args)
-    served_err = (out.float() - ref.float()).abs().max().item()
-    if not served_err <= tol["bfloat16"]:
-        fail(f"K2 vs plain at the served shape: {served_err}")
-    ms = graph_ms(torch, lambda: da.flash_decode_attention_spec_paged(*args))
+    # the served shape at every Q the spec serve runs with spec_draft 4
+    # (2, 3, 5), with the bf16 pool and the int8 pool, bf16 queries both;
+    # timed at Q = 5 on the bf16 pool, and by Q beside it
+    S, Hk, G, D, bs, bps, visible = served_shape()
+    served, ms_by_q = {}, {}
+    for Q in (2, 3, SPEC_DRAFT + 1):
+        for kind in ("bfloat16", "int8_bf16q"):
+            a, sc = paged_case(torch, S, Hk, G, D, bs, bps, 0,
+                               torch.bfloat16, SWEEP[kind][1],
+                               seed=4321 + Q, visible=visible, Q=Q)
+            out = da.flash_decode_attention_spec_paged(*a, **sc)
+            ref = da.decode_attention_dense_spec_paged(*a, **sc)
+            err = (out.float() - ref.float()).abs().max().item()
+            served[f"{kind}_Q{Q}"] = err
+            if not err <= tol[kind]:
+                fail(f"K2 vs plain at the served shape, {kind} Q={Q}: "
+                     f"{err} > {tol[kind]}")
+            if kind == "bfloat16":
+                args = a
+                ms_by_q[Q] = graph_ms(
+                    torch, lambda: da.flash_decode_attention_spec_paged(*a))
+    Q = SPEC_DRAFT + 1                 # args: the bf16 pool at this Q
+    ms = ms_by_q[Q]
     plain_ms = graph_ms(torch,
                         lambda: da.decode_attention_dense_spec_paged(*args))
     kernel_only_ms = graph_ms(torch,
@@ -331,9 +362,9 @@ def phase_kernel_spec(torch):
            "tolerance": tol, "served_shape": {
                "S": S, "Q": Q, "H": Hk * G, "Hk": Hk, "D": D, "bs": bs,
                "bps": bps, "visible": visible, "dtype": "bfloat16"},
-           "served_max_abs_err": served_err, "ms": ms, "plain_ms": plain_ms,
-           "kernel_only_ms": kernel_only_ms, "eager_ms": eager_ms,
-           "k1_times_q_ms": k1_times_q_ms,
+           "served_max_abs_err": served, "ms": ms, "ms_by_q": ms_by_q,
+           "plain_ms": plain_ms, "kernel_only_ms": kernel_only_ms,
+           "eager_ms": eager_ms, "k1_times_q_ms": k1_times_q_ms,
            "bound_ms": bound_ms, "bound_by": bound_by, "bytes": nbytes,
            "ops": ops}
     emit(res)
@@ -389,7 +420,7 @@ def phase_kernel_contiguous(torch):
                         fail(f"K6 vs plain: {kind} L={L} D={D} G={G} "
                              f"window={window}: max abs err {err}")
                     worst[kind] = max(worst.get(kind, 0.0), err)
-                    plans[f"L{L}_D{D}_G{G}"] = da.kernel_bkv(0, L, G, D)
+                    plans[f"L{L}_D{D}_G{G}"] = da.kernel_bkv(L, G, D)
                     n_cases += 1
     S, Hk, G, D, L = MAX_SEQS, KV_HEADS, HEADS // KV_HEADS, \
         D_MODEL // HEADS, MAX_LEN
@@ -424,7 +455,7 @@ def phase_kernel_contiguous(torch):
     res = {"phase": "kernel_contiguous", "cases": n_cases,
            "max_abs_err": worst, "tolerance": tol, "bkv_plans": plans,
            "served_shape": {"S": S, "L": L, "H": Hk * G, "Hk": Hk, "D": D,
-                            "bkv": da.kernel_bkv(0, L, G, D),
+                            "bkv": da.kernel_bkv(L, G, D),
                             "visible": visible, "dtype": "bfloat16"},
            "served_max_abs_err": served_err,
            "library_max_abs_err": lib_err, "ms": ms, "plain_ms": plain_ms,
@@ -571,9 +602,8 @@ def phase_serve(torch, np):
            "flash_decode_launches": k1, "launches": launches,
            "launches_per_token": k1 / total,
            "kv_bytes_per_token": eng.decoder.cache.bytes_per_position}
-    res["sync_free_chunk"] = sync_free_chunk(torch, eng,
-                                             rng.randint(0, VOCAB, PROMPT)
-                                             .tolist())
+    res["sync_free_steps"] = sync_free_steps(
+        torch, eng, rng.randint(0, VOCAB, 64).tolist())
     res["decode_profile"] = profile_decode(torch, eng, rng)
     emit(res)
     res["streams"] = [r.tokens for r in results]
@@ -644,7 +674,7 @@ def phase_spec_serve(torch, np):
            "speedup_vs_k1": res_on["tokens_per_s"] / res_off1["tokens_per_s"],
            "speedup_vs_default": res_on["tokens_per_s"]
            / res_off8["tokens_per_s"]}
-    res["sync_free_spec_step"] = sync_free_spec_step(
+    res["sync_free_steps"] = sync_free_steps(
         torch, eng_on, motif_prompts(np, 1, 64, seed=9)[0])
 
     def make_prompt(rng):
@@ -804,65 +834,36 @@ def profile_decode(torch, eng, rng, make_prompt=None) -> dict:
                            for us, k, n in rows[:8]]}
 
 
-def sync_free_chunk(torch, eng, tokens) -> int:
-    """Admit one request (syncs allowed), then dispatch one K-step decode
-    chunk with CUDA sync debugging set to raise on any host sync."""
+def sync_free_steps(torch, eng, tokens, steps: int = 4) -> dict:
+    """Submit one request of `tokens` (shorter than a prefill chunk) and
+    run the step that admits and prefills it (syncs allowed), then `steps`
+    scheduler steps with CUDA sync debugging set to raise on any host sync:
+    only the step's readback, a wait on its CUDA event, may block. The
+    request's budget keeps it from retiring inside them. Returns the tokens
+    those steps generated and, on a spec engine, how many slot-steps
+    verified a draft; fails if they generated nothing or, with spec, never
+    verified a draft."""
     from deeplearning4j_tpu_torch.serving import Request
-    fut = eng.submit(Request(tokens, max_new_tokens=2 * eng.decode_chunk))
-    with eng._lock:
-        eng._admit()
-        while eng._prefilling:
-            eng._prefill_step()
-        snapshot = {s: a for s, a in eng._by_slot.items()
-                    if eng._active_mask[s]}
-        active = eng._h2d(eng._active_mask)
-        torch.cuda.synchronize()
-        k = eng.decode_chunk
-        torch.cuda.set_sync_debug_mode("error")
-        try:
-            _, rb, _ = eng._dispatch(active, k)
-        finally:
-            torch.cuda.set_sync_debug_mode(0)
-        eng.sampler.advance(k)
-        got = rb.wait()
-        eng._c_syncs.inc()
-        eng._finish_steps(snapshot, got["entries"], got["final"], None,
-                          hist=got["hist"])
+    fut = eng.submit(Request(tokens, max_new_tokens=NEW_TOKENS))
+    eng.step()
+    drafts = eng.metrics.get("serving.spec_draft_len") \
+        if eng.spec_decode else None
+    n0, d0 = eng.tokens_out, drafts.count if drafts else 0
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        for _ in range(steps):
+            eng.step()
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    out = {"steps": steps, "tokens": eng.tokens_out - n0}
+    if drafts:
+        out["draft_steps"] = drafts.count - d0
     eng.drain()
     fut.get(timeout=60)
-    return k
-
-
-def sync_free_spec_step(torch, eng, tokens) -> int:
-    """Admit one request on a spec engine and step until its draft index
-    proposes, then dispatch one spec step (drafts, verify, accept, commit)
-    with CUDA sync debugging set to raise on any host sync. Returns the
-    step's query count Q."""
-    from deeplearning4j_tpu_torch.serving import Request
-    fut = eng.submit(Request(tokens, max_new_tokens=min(32, NEW_TOKENS)))
-    for _ in range(8):
-        eng.step()
-        with eng._lock:
-            live = [s for s in eng._by_slot if eng._active_mask[s]]
-            if live and eng._spec_index.propose(live[0], eng.spec_draft):
-                break
-    with eng._lock:
-        snapshot = {s: a for s, a in eng._by_slot.items()
-                    if eng._active_mask[s]}
-        if not snapshot:
-            fail("the sync-free spec step found no active request")
-        torch.cuda.synchronize()
-        torch.cuda.set_sync_debug_mode("error")
-        try:
-            rb, dl_np, lps, t0 = eng._spec_dispatch(snapshot)
-        finally:
-            torch.cuda.set_sync_debug_mode(0)
-        eng._spec_finish(snapshot, rb, dl_np, lps, t0)
-    eng.drain()
-    fut.get(timeout=60)
-    if not dl_np.any():
-        fail("the sync-free spec step proposed no draft")
-    return int(rb.host["toks"].shape[1])
+    if out["tokens"] <= 0 or out.get("draft_steps", 1) <= 0:
+        fail(f"the sync-free steps generated {out}")
+    return out
 
 
 # ------------------------------------------------------------------ oracle
@@ -937,7 +938,7 @@ def main() -> int:
         "replaces": "deeplearning4j_tpu/ops/decode_attention.py:281",
         "launches": serve["flash_decode_launches"],
         "max_abs_err": max(max(kern["max_abs_err"].values()),
-                           kern["served_max_abs_err"]),
+                           max(kern["served_max_abs_err"].values())),
         "ms": kern["ms"], "plain_ms": kern["plain_ms"],
         "bound_ms": kern["bound_ms"], "bound_by": kern["bound_by"],
         "library_ms": None, "kernel_only_ms": kern["kernel_only_ms"],
@@ -947,7 +948,7 @@ def main() -> int:
         "replaces": "deeplearning4j_tpu/ops/decode_attention.py:480",
         "launches": spec["k2_launches"],
         "max_abs_err": max(max(kspec["max_abs_err"].values()),
-                           kspec["served_max_abs_err"]),
+                           max(kspec["served_max_abs_err"].values())),
         "ms": kspec["ms"], "plain_ms": kspec["plain_ms"],
         "bound_ms": kspec["bound_ms"], "bound_by": kspec["bound_by"],
         "library_ms": None, "kernel_only_ms": kspec["kernel_only_ms"],

@@ -39,7 +39,7 @@ from deeplearning4j_tpu_torch.ops.helpers import register_helper
 
 NEG_INF = -1e30
 SOURCE = "flash_decode_paged.cu"
-DEFAULT_BKV = 0            # 0 = auto: 256-position partitions (K6)
+BKV = 256                  # K6's partition, as the JAX package resolves it
 # shared memory a CTA may hold on the H100 (227 KB)
 SMEM_LIMIT = 232448
 _DTYPE_CODE = {torch.float32: 0, torch.float16: 1, torch.bfloat16: 2,
@@ -110,17 +110,12 @@ def decode_attention_dense_spec_paged(q, kp, vp, block_tables, visible,
 
 def merge_partials(o_p, l_p, dtype):
     """Logaddexp merge of per-block partials over the block axis: o_p
-    (S, Hk, bps, G, D), l_p (S, Hk, bps, G) -> (S, Hk*G, D); with K2's
-    query axis, o_p (S, Hk, bps, Q, G, D), l_p (S, Hk, bps, Q, G) ->
-    (S, Q, Hk*G, D). In `dtype`. Skipped blocks carry L_p = NEG_INF and
+    (S, Hk, bps, Q, G, D), l_p (S, Hk, bps, Q, G) -> (S, Q, Hk*G, D) in
+    `dtype` (Q = 1 for K1 and K6). Skipped blocks carry L_p = NEG_INF and
     weigh zero."""
     m = l_p.amax(dim=2, keepdim=True)
     w = torch.exp(l_p - m.clamp(min=NEG_INF))
     denom = w.sum(dim=2).clamp(min=1e-30)
-    if o_p.dim() == 5:
-        S, Hk, _, G, D = o_p.shape
-        out = torch.einsum("shkg,shkgd->shgd", w, o_p) / denom[..., None]
-        return out.reshape(S, Hk * G, D).to(dtype)
     S, Hk, _, Q, G, D = o_p.shape
     out = torch.einsum("shkqg,shkqgd->shqgd", w, o_p) / denom[..., None]
     return out.transpose(1, 2).reshape(S, Q, Hk * G, D).to(dtype)
@@ -220,20 +215,20 @@ def flash_decode_attention_paged(q, kp, vp, block_tables, visible, scale,
                                             v_scale=v_scale)
     o_p, l_p = flash_decode_partials(q, kp, vp, block_tables, visible, scale,
                                      window, k_scale, v_scale)
-    return merge_partials(o_p, l_p, q.dtype)
+    return merge_partials(o_p, l_p, q.dtype)[:, 0]
 
 
 def flash_decode_partials(q, kp, vp, block_tables, visible, scale,
                           window: int = 0, k_scale=None, v_scale=None):
     """K1's kernel launch on CUDA tensors q (S, H, D): per-block partials
-    (o_p (S, Hk, bps, G, D), l_p (S, Hk, bps, G)) in float32."""
+    (o_p (S, Hk, bps, 1, G, D), l_p (S, Hk, bps, 1, G)) in float32."""
     if q.device.type != "cuda":
         raise ValueError("flash_decode_partials runs on CUDA tensors only")
     o_p, l_p = _launch(q[:, None], kp, vp, block_tables, visible, scale,
                        window, k_scale, v_scale,
                        "flash_decode_attention_paged")
     flash_decode_attention_paged.launches += 1
-    return o_p[:, :, :, 0], l_p[:, :, :, 0]
+    return o_p, l_p
 
 
 flash_decode_attention_paged.launches = 0
@@ -276,48 +271,40 @@ register_helper("decode_attention_spec_paged")(
 
 
 # ------------------------------------------------------ contiguous cache (K6)
-def _resolve_bkv(bkv: int, L: int) -> int:
-    """Largest feasible partition size <= the request that divides L (the
-    cache is never copied or padded: partitions tile L exactly)."""
-    if not bkv:
-        bkv = 256
-    bkv = min(bkv, L)
+def kernel_bkv(L: int, G: int, D: int) -> int:
+    """The partition K6's kernel runs: the largest size <= BKV that divides
+    L (the JAX package's `_resolve_bkv(256, L)`: the cache is never copied
+    or padded), lowered to the largest divisor of L whose CTA fits in
+    shared memory. The merge makes the values independent of the
+    partition size."""
+    bkv = min(BKV, L)
     while bkv > 1 and L % bkv:
         bkv //= 2
-    return bkv
-
-
-def kernel_bkv(bkv: int, L: int, G: int, D: int) -> int:
-    """The partition K6's kernel runs: `_resolve_bkv`, lowered to the
-    largest divisor of L whose CTA fits in shared memory. The merge makes
-    the values independent of the partition size."""
-    bkv = _resolve_bkv(bkv, L)
     while bkv > 1 and smem_bytes(G, D, bkv) > SMEM_LIMIT:
         bkv = max(d for d in range(1, bkv) if L % d == 0)
     return bkv
 
 
-def flash_decode_attention(q, kc, vc, visible, scale, window: int = 0,
-                           bkv: int = DEFAULT_BKV):
+def flash_decode_attention(q, kc, vc, visible, scale, window: int = 0):
     """K6, split-K flash-decode over a contiguous cache; same contract as
     `decode_attention_dense` (q (S, H, D), kc/vc (S, L, Hk, D), visible
     (S,)). CPU tensors run the plain version. On CUDA tensors the cache is
-    viewed as S * nk blocks of bkv positions and K1's kernel runs on it
-    with the table bt[s, j] = s * nk + j (counted in
+    viewed as S * nk blocks of `kernel_bkv` positions and K1's kernel runs
+    on it with the table bt[s, j] = s * nk + j (counted in
     `flash_decode_attention.launches`); the partials merge as K1's. Any
     partition size runs on the kernel (the TPU's bkv < 8 dense fallback
     was a tiling limit)."""
     if q.device.type != "cuda":
         return decode_attention_dense(q, kc, vc, visible, scale, window)
     o_p, l_p = flash_decode_contiguous_partials(q, kc, vc, visible, scale,
-                                                window, bkv)
-    return merge_partials(o_p, l_p, q.dtype)
+                                                window)
+    return merge_partials(o_p, l_p, q.dtype)[:, 0]
 
 
 def flash_decode_contiguous_partials(q, kc, vc, visible, scale,
-                                     window: int = 0, bkv: int = DEFAULT_BKV):
+                                     window: int = 0):
     """K6's kernel launch on CUDA tensors: per-partition partials
-    (o_p (S, Hk, nk, G, D), l_p (S, Hk, nk, G)) in float32."""
+    (o_p (S, Hk, nk, 1, G, D), l_p (S, Hk, nk, 1, G)) in float32."""
     S, H, D = q.shape
     L, Hk = kc.shape[1], kc.shape[2]
     if H % Hk != 0:
@@ -325,7 +312,7 @@ def flash_decode_contiguous_partials(q, kc, vc, visible, scale,
     if vc.shape != kc.shape or kc.shape[0] != S:
         raise ValueError(f"shape mismatch: q {tuple(q.shape)}, kc "
                          f"{tuple(kc.shape)}, vc {tuple(vc.shape)}")
-    bkv = kernel_bkv(bkv, L, H // Hk, D)
+    bkv = kernel_bkv(L, H // Hk, D)
     nk = L // bkv
     kp = kc.contiguous().view(S * nk, bkv, Hk, D)
     vp = vc.contiguous().view(S * nk, bkv, Hk, D)
@@ -334,7 +321,7 @@ def flash_decode_contiguous_partials(q, kc, vc, visible, scale,
     o_p, l_p = _launch(q[:, None], kp, vp, bt, visible, scale, window, None,
                        None, "flash_decode_attention")
     flash_decode_attention.launches += 1
-    return o_p[:, :, :, 0], l_p[:, :, :, 0]
+    return o_p, l_p
 
 
 flash_decode_attention.launches = 0

@@ -852,12 +852,6 @@ class ServingEngine:
         ONE dispatch, commit the accepted prefix. Exactly one counted host
         sync per iteration, so spec with no n-gram match is sync-for-sync
         K=1 stepping. Lock held."""
-        return self._spec_finish(snapshot, *self._spec_dispatch(snapshot))
-
-    def _spec_dispatch(self, snapshot: Dict[int, _Active]):
-        """Propose the drafts and dispatch one spec step without reading
-        the device. Returns (readback bundle, per-slot draft lengths,
-        logprobs, dispatch start time). Lock held."""
         cache = self.decoder.cache
         S = cache.max_seqs
         drafts: Dict[int, List[int]] = {}
@@ -896,12 +890,6 @@ class ServingEngine:
             self._h2d(draft_np), self._h2d(dl_np))
         rb = _Readback({"toks": toks, "c_eff": c_eff, "acc": n_accept,
                         "final": new_active, "nf": nf, "hist": self._hist})
-        return rb, dl_np, lps, t_chunk
-
-    def _spec_finish(self, snapshot: Dict[int, _Active], rb: _Readback,
-                     dl_np: np.ndarray, lps, t_chunk: float) -> bool:
-        """Read a spec step's bundle (the counted sync) and commit on the
-        host: tokens, draft index, counters, retirements. Lock held."""
         got = rb.wait()                      # the counted per-iteration sync
         if bool(got["nf"]):
             self._c_nonfinite.inc()

@@ -98,8 +98,8 @@ def test_merge_of_exact_partials_equals_dense():
     S, H, D = q.shape
     Hk, bs, bps = kp.shape[2], kp.shape[1], bt.shape[1]
     G = H // Hk
-    o_p = torch.zeros(S, Hk, bps, G, D, dtype=torch.float64)
-    l_p = torch.full((S, Hk, bps, G), tda.NEG_INF, dtype=torch.float64)
+    o_p = torch.zeros(S, Hk, bps, 1, G, D, dtype=torch.float64)
+    l_p = torch.full((S, Hk, bps, 1, G), tda.NEG_INF, dtype=torch.float64)
     q4 = q.reshape(S, Hk, G, D)
     for s in range(S):
         v = int(vis[s])
@@ -114,9 +114,10 @@ def test_merge_of_exact_partials_equals_dense():
             m = sc.amax(-1)
             p = torch.exp(sc - m[..., None]) * ok
             l = p.sum(-1)
-            o_p[s, :, j] = torch.einsum("hgt,thd->hgd", p, vv) / l[..., None]
-            l_p[s, :, j] = m + torch.log(l)
-    out = tda.merge_partials(o_p, l_p, torch.float64)
+            o_p[s, :, j, 0] = torch.einsum("hgt,thd->hgd", p,
+                                           vv) / l[..., None]
+            l_p[s, :, j, 0] = m + torch.log(l)
+    out = tda.merge_partials(o_p, l_p, torch.float64)[:, 0]
     ref = tda.decode_attention_dense_paged(q, kp, vp, bt, vis, scale, window)
     np.testing.assert_allclose(out.numpy(), ref.numpy(), atol=ATOL, rtol=0)
 

@@ -34,6 +34,7 @@ import jax.numpy as jnp
 import torch
 
 from deeplearning4j_tpu.ops.decode_attention import (
+    _resolve_bkv as jax_resolve_bkv,
     decode_attention_dense as jax_dense,
     decode_attention_dense_spec_paged as jax_dense_spec,
     flash_decode_attention as jax_flash,
@@ -373,8 +374,8 @@ def test_plain_contiguous_decode_matches_jax_flash_and_dense(L, G, window):
                                np.asarray(jax_dense(*jargs, 0.3, window)),
                                atol=ATOL, rtol=0)
     assert torch.equal(out, tda.decode_attention_dense(*targs, 0.3, window))
-    assert tda._resolve_bkv(0, L) == {32: 32, 24: 24, 12: 12, 6: 6,
-                                      20: 20}[L]
+    assert tda.kernel_bkv(L, G, D) == jax_resolve_bkv(0, L) \
+        == {32: 32, 24: 24, 12: 12, 6: 6, 20: 20}[L]
 
 
 @pytest.mark.parametrize("L,G,D", [(1024, 2, 64), (1024, 2, 128),
@@ -383,13 +384,13 @@ def test_plain_contiguous_decode_matches_jax_flash_and_dense(L, G, window):
 def test_k6_partition_fits_shared_memory_and_divides_l(L, G, D):
     """The CUDA launch plan of K6: the JAX partition where its CTA fits the
     H100's shared memory, else the largest divisor of L that does."""
-    bkv = tda.kernel_bkv(0, L, G, D)
-    assert L % bkv == 0 and bkv <= tda._resolve_bkv(0, L)
+    bkv = tda.kernel_bkv(L, G, D)
+    assert L % bkv == 0 and bkv <= jax_resolve_bkv(0, L)
     assert tda.smem_bytes(G, D, bkv) <= tda.SMEM_LIMIT
-    if tda.smem_bytes(G, D, tda._resolve_bkv(0, L)) <= tda.SMEM_LIMIT:
-        assert bkv == tda._resolve_bkv(0, L)
-    assert tda.kernel_bkv(0, 1024, 2, 64) == 256
-    assert tda.kernel_bkv(0, 1024, 2, 128) == 128
+    if tda.smem_bytes(G, D, jax_resolve_bkv(0, L)) <= tda.SMEM_LIMIT:
+        assert bkv == jax_resolve_bkv(0, L)
+    assert tda.kernel_bkv(1024, 2, 64) == 256
+    assert tda.kernel_bkv(1024, 2, 128) == 128
 
 
 def test_spec_and_contiguous_seams_route_by_device():
