@@ -1,14 +1,40 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's serving path on one NVIDIA H100.
+"""Drive the PyTorch port's training and serving paths on one NVIDIA H100.
 
     python3 chip_smoke.py            # from the root of a checkout
 
 Phases, each printing one JSON line; any failure exits non-zero:
 
 1. device   - CUDA present with compute capability (9, 0).
-2. build    - compile every CUDA kernel of the path from the checkout's
+2. build    - compile every CUDA kernel of the paths from the checkout's
               sources (one nvcc per source, all started together).
-3. kernel   - each kernel against its plain PyTorch version on the card,
+3. kernel_flash - K3 (flash-attention forward) against flash_fwd_plain:
+              fp32 and bf16, head dims 32/64/128, T 1/63/64/65/200/1000,
+              causal on/off, window 0/17/256, no key mask or a random one
+              with a fully masked batch row, kv heads 4 and 2 (GQA) of 4;
+              then the training shape (B 4, H 4, T 8192, D 64, bf16,
+              causal), timed (CUDA events) beside the plain version and
+              scaled_dot_product_attention (a yardstick only).
+4. kernel_flash_bwd - K4 (fused backward) and K5 (two-pass backward)
+              against flash_bwd_plain over the same sweep, K4 against K5,
+              with a non-zero lse cotangent in every other case; then the
+              training shape, timed beside the plain version and the
+              backward of scaled_dot_product_attention.
+5. train    - the bench's long-context stack (bench.py
+              bench_attention_longcontext: 2 causal SelfAttentionLayer(256,
+              4 heads, block 512) + RnnOutputLayer(64), bf16 compute over
+              fp32 params, Sgd(1e-3), XAVIER, seed 42; batch 4, T 8192, the
+              bench's own data) trained through MultiLayerNetwork:
+              fit_on_device(steps=5, sync=False) after a warm step (tokens
+              per second, ms per step, peak memory, K3/K4 launches per
+              step), two fit(x, y) steps, two steps under
+              configure(bwd="two_pass") (K5 launches, K4 none), and one
+              output(); every loss finite, peak memory under 2 GiB.
+6. train_oracle - the same stack in fp32: one gradient_and_score through
+              the kernels, held against the dense plain versions on the
+              card in fp64 (the fp32 dense path is reported beside it);
+              loss and every gradient within 1e-4 relative.
+7. kernel   - each kernel against its plain PyTorch version on the card,
               then timed at the served shape (device time by CUDA-graph
               replay, kernel alone and with the merge; the eager call; the
               plain version):
@@ -26,7 +52,7 @@ Phases, each printing one JSON line; any failure exits non-zero:
               8), head dims 64 and 128 (the shared-memory cap); timed beside
               torch's scaled_dot_product_attention with a boolean mask
               (a yardstick only, never the route).
-4. serve    - the bench_decode_serving model at full width (2 causal GQA
+8. serve    - the bench_decode_serving model at full width (2 causal GQA
               attention layers, d_model 256, 4 heads, 2 kv heads, vocab 64,
               bf16, max_seqs 8, max_len 1024, KV block 16; random XAVIER
               weights from seed 42) served by ServingEngine: a warmup
@@ -35,25 +61,25 @@ Phases, each printing one JSON line; any failure exits non-zero:
               launch counts are zeroed just before and read just after; a
               new request then decodes 4 engine steps under
               torch.cuda.set_sync_debug_mode("error").
-5. oracle   - the same model in fp32 with capture_logprobs: every captured
+9. oracle   - the same model in fp32 with capture_logprobs: every captured
               row matches the full-recompute MultiLayerNetwork.output at its
               position within atol 2e-3.
-6. decode_attention - the public contiguous-cache entry point
+10. decode_attention - the public contiguous-cache entry point
               serving.decode_attention (K6) driven over 64 growing cache
               lengths per layer at the served shape, counts zeroed before.
-7. spec_serve - the same bf16 model with spec_decode=True, spec_draft=4,
+11. spec_serve - the same bf16 model with spec_decode=True, spec_draft=4,
               greedy: 8 requests of 512 prompt tokens, each a seeded 6-token
               motif tiled to length, 256 new tokens each; then the same
               prompts with spec off at K=1 and at the default chunking. K2
               must have launched and K1 not at all in the spec run; a new
               request then takes 4 spec steps, drafts verified, under
               torch.cuda.set_sync_debug_mode("error").
-8. spec_oracle - the fp32 model with spec_decode=True and
+12. spec_oracle - the fp32 model with spec_decode=True and
               capture_logprobs: every captured row within atol 2e-3 of the
               full recompute, and the greedy stream equal to spec off
               (where they differ, the top-2 logprob gap there must be below
               1e-5, a tie).
-9. int8_serve - kv_quant=True, quant_weights=True on the serve phase's
+13. int8_serve - kv_quant=True, quant_weights=True on the serve phase's
               model and traffic, and once more with spec_decode=True: tokens
               per second, KV bytes per token against the float pool, K1/K2
               launches, greedy agreement with the float serve; and on the
@@ -62,7 +88,7 @@ Phases, each printing one JSON line; any failure exits non-zero:
               non-finite row only (int8 exactness is held by the kernel
               phase and the CPU tests).
 
-Then the kernels line (K1, K2, K6), the card's name and power limit as
+Then the kernels line (K1-K6), the card's name and power limit as
 nvidia-smi gives them, and finally {"ok": true, "device": {...}}. Exits
 non-zero without a result when CUDA is not available or the package is not
 beside this file.
@@ -886,6 +912,460 @@ def phase_oracle(torch, np):
     return res
 
 
+# ---------------------------------------------------------------- training
+BF16_OPS_PER_S = 989e12              # H100 SXM bf16 dense, NVIDIA data sheet
+TF32_OPS_PER_S = 495e12              # H100 SXM tf32 dense, NVIDIA data sheet
+TRAIN_B, TRAIN_T, TRAIN_D_MODEL, TRAIN_HEADS, TRAIN_CLASSES = 4, 8192, 256, \
+    4, 64
+FLASH_TOL = {"float32": 1e-4, "bfloat16": 2e-2}
+
+
+def flash_case(torch, B, H, Hk, T, D, dtype, masked, seed):
+    """Random q, k, v, dO (and a (B, T) key mask whose first row masks
+    every key) on the card. v and dO are drawn at half scale so the
+    outputs stay below 4, where one bf16 ulp (2**-6) is under the bf16
+    tolerance: the kernel and the plain version round the same fp32
+    values to bf16 and may land one ulp apart."""
+    g = torch.Generator().manual_seed(seed)
+    q = torch.randn(B, H, T, D, generator=g).to("cuda", dtype)
+    k = torch.randn(B, Hk, T, D, generator=g).to("cuda", dtype)
+    v = (0.5 * torch.randn(B, Hk, T, D, generator=g)).to("cuda", dtype)
+    do = (0.5 * torch.randn(B, H, T, D, generator=g)).to("cuda", dtype)
+    mask = None
+    if masked:
+        mask = (torch.rand(B, T, generator=g) > 0.3).float()
+        mask[0] = 0.0
+        mask = mask.to("cuda")
+    return q, k, v, do, mask
+
+
+def visible_pairs(T, causal, window):
+    """(query, key) pairs one head sees (no key mask)."""
+    if causal and window:
+        return sum(min(window, t + 1) for t in range(T))
+    if causal:
+        return T * (T + 1) // 2
+    if window:
+        return sum(min(T, t + window) - max(0, t - window + 1)
+                   for t in range(T))
+    return T * T
+
+
+def flash_bound(kind, B, H, T, D, elt, pairs):
+    """(bytes, ops, ms, bound_by) of one call at the least work: each input
+    read once, each output written once; products over the visible pairs
+    at the bf16 tensor-core rate (TF32 for fp32 inputs). K3: q k v read, o
+    written (elt bytes), L written (fp32); 2 products. K4: q k v dO read,
+    dq dk dv written, L and D_i read; 5 products. K5: the same bytes, 3 + 4
+    products."""
+    n = B * H * T * D * elt
+    rows = B * H * T * 4
+    if kind == "fwd":
+        nbytes, prods = 4 * n + rows, 2
+    else:
+        nbytes, prods = 7 * n + 2 * rows, 5 if kind == "fused" else 7
+    ops = 2 * prods * pairs * D * B * H
+    rate = BF16_OPS_PER_S if elt == 2 else TF32_OPS_PER_S
+    t_b, t_o = nbytes / HBM_BYTES_PER_S, ops / rate
+    return nbytes, ops, max(t_b, t_o) * 1e3, \
+        ("bytes" if t_b >= t_o else "operations")
+
+
+def event_ms(torch, fn, iters: int = 5) -> float:
+    """Mean device time of one call of a long-running `fn`: CUDA events
+    around `iters` back-to-back calls after one warm call."""
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def max_err(a, b) -> float:
+    return (a.float() - b.float()).abs().max().item() if a.numel() else 0.0
+
+
+def lse_err(torch, l, ref) -> float:
+    """|L - L_ref| over rows with a visible key (both NEG_INF elsewhere)."""
+    if not l.numel():
+        return 0.0
+    vis = ref > -1e29
+    if not torch.equal(vis, l > -1e29):
+        return float("inf")
+    return (l - ref).abs().masked_fill(~vis, 0).max().item()
+
+
+def flash_sweep():
+    """(dtype, D, T, causal, window, masked) of the kernel sweeps."""
+    for dt in ("float32", "bfloat16"):
+        for D in (32, 64, 128):
+            for T in (1, 63, 64, 65, 200, 1000):
+                for causal in (False, True):
+                    for window in (0, 17, 256):
+                        for masked in (False, True):
+                            yield dt, D, T, causal, window, masked
+
+
+def train_shape_case(torch, seed):
+    return flash_case(torch, TRAIN_B, TRAIN_HEADS, TRAIN_HEADS, TRAIN_T,
+                      TRAIN_D_MODEL // TRAIN_HEADS, torch.bfloat16, False,
+                      seed)
+
+
+def phase_kernel_flash(torch):
+    """K3 against flash_fwd_plain over the sweep (GQA Hk 4 and 2 of H 4),
+    then at the training shape, timed beside the plain version and
+    scaled_dot_product_attention (a yardstick, never the route)."""
+    from deeplearning4j_tpu_torch.ops import flash_attention as fa
+    worst, n_cases = {}, 0
+    for dt, D, T, causal, window, masked in flash_sweep():
+        for Hk in (4, 2):
+            q, k, v, _, m = flash_case(torch, 2, 4, Hk, T, D,
+                                       getattr(torch, dt), masked,
+                                       seed=n_cases)
+            o, l = fa.flash_attention_fwd_cuda(q, k, v, m, causal, None,
+                                               window)
+            ro, rl = fa.flash_fwd_plain(q, k, v, m, causal, None, window)
+            torch.cuda.synchronize()
+            err = max(max_err(o, ro), lse_err(torch, l, rl))
+            if not err <= FLASH_TOL[dt]:
+                fail(f"K3 vs plain: {dt} D={D} T={T} causal={causal} "
+                     f"window={window} masked={masked} Hk={Hk}: max abs "
+                     f"err {err} > {FLASH_TOL[dt]}")
+            worst[dt] = max(worst.get(dt, 0.0), err)
+            n_cases += 1
+    q, k, v, _, _ = train_shape_case(torch, 4242)
+    o, l = fa.flash_attention_fwd_cuda(q, k, v, None, True)
+    ro, rl = fa.flash_fwd_plain(q, k, v, None, True)
+    train_err = max(max_err(o, ro), lse_err(torch, l, rl))
+    del ro, rl
+    if not train_err <= FLASH_TOL["bfloat16"]:
+        fail(f"K3 vs plain at the training shape: {train_err}")
+    ms = event_ms(torch, lambda: fa.flash_attention_fwd_cuda(q, k, v, None,
+                                                             True))
+    plain_ms = event_ms(torch, lambda: fa.flash_fwd_plain(q, k, v, None,
+                                                          True), iters=3)
+    library_ms = event_ms(torch, lambda: torch.nn.functional
+                          .scaled_dot_product_attention(q, k, v,
+                                                        is_causal=True))
+    B, H, T, D = q.shape
+    nbytes, ops, bound_ms, bound_by = flash_bound(
+        "fwd", B, H, T, D, 2, visible_pairs(T, True, 0))
+    res = {"phase": "kernel_flash", "cases": n_cases, "max_abs_err": worst,
+           "tolerance": FLASH_TOL, "train_shape": {
+               "B": B, "H": H, "T": T, "D": D, "causal": True,
+               "dtype": "bfloat16"},
+           "train_max_abs_err": train_err, "ms": ms, "plain_ms": plain_ms,
+           "library_ms": library_ms, "bound_ms": bound_ms,
+           "bound_by": bound_by, "bytes": nbytes, "ops": ops,
+           "tflops": ops / ms / 1e9}
+    emit(res)
+    return res
+
+
+def phase_kernel_flash_bwd(torch):
+    """K4 and K5 against flash_bwd_plain over the sweep (full heads), K4
+    against K5, with a non-zero dlse (the flash_attention_lse cotangent)
+    in every other case; then the training shape, timed beside the plain
+    version and the backward of scaled_dot_product_attention."""
+    from deeplearning4j_tpu_torch.ops import flash_attention as fa
+    worst, worst_45, n_cases = {}, {}, 0
+    for dt, D, T, causal, window, masked in flash_sweep():
+        q, k, v, do, m = flash_case(torch, 2, 4, 4, T, D, getattr(torch, dt),
+                                    masked, seed=9000 + n_cases)
+        o, l = fa.flash_fwd_plain(q, k, v, m, causal, None, window)
+        dlse = None if n_cases % 2 else 0.3 * torch.randn(
+            l.shape, device="cuda", generator=torch.Generator(
+                "cuda").manual_seed(n_cases))
+        ref = fa.flash_bwd_plain(q, k, v, m, o, l, do, dlse, causal, None,
+                                 window)
+        got = {mode: fa.flash_attention_bwd_cuda(q, k, v, m, o, l, do, dlse,
+                                                 causal, None, window, mode)
+               for mode in fa.BWD_MODES}
+        torch.cuda.synchronize()
+        for mode, g in got.items():
+            err = max(max_err(a, b) for a, b in zip(g, ref))
+            if not err <= FLASH_TOL[dt]:
+                fail(f"{mode} backward vs plain: {dt} D={D} T={T} "
+                     f"causal={causal} window={window} masked={masked} "
+                     f"dlse={dlse is not None}: max abs err {err}")
+            worst[f"{mode}_{dt}"] = max(worst.get(f"{mode}_{dt}", 0.0), err)
+        e45 = max(max_err(a, b) for a, b in zip(got["fused"],
+                                                got["two_pass"]))
+        if not e45 <= FLASH_TOL[dt]:
+            fail(f"K4 vs K5: {dt} D={D} T={T}: {e45}")
+        worst_45[dt] = max(worst_45.get(dt, 0.0), e45)
+        n_cases += 1
+    q, k, v, do, _ = train_shape_case(torch, 4343)
+    o, l = fa.flash_attention_fwd_cuda(q, k, v, None, True)
+    ref = fa.flash_bwd_plain(q, k, v, None, o, l, do, None, True)
+    train_err = {}
+    for mode in fa.BWD_MODES:
+        g = fa.flash_attention_bwd_cuda(q, k, v, None, o, l, do, None, True,
+                                        None, 0, mode)
+        train_err[mode] = max(max_err(a, b) for a, b in zip(g, ref))
+        if not train_err[mode] <= FLASH_TOL["bfloat16"]:
+            fail(f"{mode} backward at the training shape: {train_err}")
+    del ref, g
+    ms = {mode: event_ms(torch, lambda mode=mode: fa.flash_attention_bwd_cuda(
+        q, k, v, None, o, l, do, None, True, None, 0, mode))
+        for mode in fa.BWD_MODES}
+    plain_ms = event_ms(torch, lambda: fa.flash_bwd_plain(
+        q, k, v, None, o, l, do, None, True), iters=2)
+    qr, kr, vr = (t.detach().requires_grad_(True) for t in (q, k, v))
+    out = torch.nn.functional.scaled_dot_product_attention(qr, kr, vr,
+                                                           is_causal=True)
+    library_ms = event_ms(torch, lambda: torch.autograd.grad(
+        out, (qr, kr, vr), do, retain_graph=True))
+    B, H, T, D = q.shape
+    bounds = {mode: flash_bound(mode, B, H, T, D, 2,
+                                visible_pairs(T, True, 0))
+              for mode in fa.BWD_MODES}
+    res = {"phase": "kernel_flash_bwd", "cases": n_cases,
+           "max_abs_err": worst, "max_abs_err_k4_vs_k5": worst_45,
+           "tolerance": FLASH_TOL, "train_max_abs_err": train_err,
+           "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
+           "bound_ms": {m: b[2] for m, b in bounds.items()},
+           "bound_by": {m: b[3] for m, b in bounds.items()},
+           "bytes": {m: b[0] for m, b in bounds.items()},
+           "ops": {m: b[1] for m, b in bounds.items()},
+           "tflops": {m: bounds[m][1] / ms[m] / 1e9 for m in ms}}
+    emit(res)
+    return res
+
+
+def build_train_net(torch, compute_dtype):
+    """The bench's long-context stack (bench.py bench_attention_longcontext)
+    at full width: 2 causal SelfAttentionLayer(256, 4 heads, block 512) +
+    RnnOutputLayer(64, SOFTMAX), float32 params, Sgd(1e-3), XAVIER, seed
+    42; `compute_dtype` "bfloat16" as the bench runs it, or None."""
+    from deeplearning4j_tpu_torch import (Activation, InputType,
+                                          MultiLayerNetwork,
+                                          NeuralNetConfiguration,
+                                          RnnOutputLayer, SelfAttentionLayer,
+                                          WeightInit)
+    from deeplearning4j_tpu_torch.nn.updater.updaters import Sgd
+    b = (NeuralNetConfiguration.Builder().seed(42)
+         .weight_init(WeightInit.XAVIER).updater(Sgd(learning_rate=1e-3))
+         .compute_dtype(compute_dtype).list())
+    for _ in range(2):
+        b.layer(SelfAttentionLayer(n_out=TRAIN_D_MODEL, n_heads=TRAIN_HEADS,
+                                   causal=True, block_size=512))
+    b.layer(RnnOutputLayer(n_out=TRAIN_CLASSES,
+                           activation=Activation.SOFTMAX))
+    conf = b.set_input_type(InputType.recurrent(TRAIN_D_MODEL,
+                                                TRAIN_T)).build()
+    return MultiLayerNetwork(conf, device="cuda").init()
+
+
+def train_data(np):
+    """The bench's data: RandomState(0), x = rand(4, 256, 8192), y one-hot
+    of randint(0, 64, (4, 8192)) as (4, 64, 8192)."""
+    rng = np.random.RandomState(0)
+    x = rng.rand(TRAIN_B, TRAIN_D_MODEL, TRAIN_T).astype(np.float32)
+    y = np.eye(TRAIN_CLASSES, dtype=np.float32)[
+        rng.randint(0, TRAIN_CLASSES, (TRAIN_B, TRAIN_T))].transpose(0, 2, 1)
+    return x, y
+
+
+def flash_launches(fa) -> dict:
+    return {"K3": fa.flash_attention_fwd_cuda.launches,
+            "K4": fa.flash_attention_bwd_cuda.fused_launches,
+            "K5": fa.flash_attention_bwd_cuda.two_pass_launches}
+
+
+def reset_flash_launches(fa) -> None:
+    fa.flash_attention_fwd_cuda.launches = 0
+    fa.flash_attention_bwd_cuda.fused_launches = 0
+    fa.flash_attention_bwd_cuda.two_pass_launches = 0
+
+
+def phase_train(torch, np):
+    """fit_on_device(x, y, steps=5, sync=False) after one warm step, then
+    two fit(x, y) steps, two more under configure(bwd="two_pass"), and one
+    output() at T > block_size; launch counts zeroed just before each run
+    and read just after. Every loss must be finite."""
+    from deeplearning4j_tpu_torch.ops import flash_attention as fa
+    net = build_train_net(torch, "bfloat16")
+    x_np, y_np = train_data(np)
+    x = torch.from_numpy(x_np).cuda()
+    y = torch.from_numpy(y_np).cuda()
+    steps = 5
+    warm = net.fit_on_device(x, y, steps=1)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    reset_flash_launches(fa)                           # main path starts
+    t0 = time.perf_counter()
+    losses = net.fit_on_device(x, y, steps=steps, sync=False)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = flash_launches(fa)                      # main path ends
+    peak = torch.cuda.max_memory_allocated()
+    losses = losses.cpu().numpy().tolist()
+    diverged = net._diverged_at
+    reset_flash_launches(fa)
+    t0 = time.perf_counter()
+    fit_losses = []
+    for _ in range(2):
+        net.fit(x, y)
+        fit_losses.append(net.score())
+    fit_wall = time.perf_counter() - t0
+    fit_launches = flash_launches(fa)
+    prev = fa.configure(bwd="two_pass")
+    try:
+        reset_flash_launches(fa)
+        t0 = time.perf_counter()
+        tp_losses = net.fit_on_device(x, y, steps=2).tolist()
+        tp_wall = time.perf_counter() - t0
+        tp_launches = flash_launches(fa)
+    finally:
+        fa.configure(bwd=prev[0])
+    reset_flash_launches(fa)
+    out = net.output(x)
+    torch.cuda.synchronize()
+    out_launches = flash_launches(fa)
+    all_losses = list(warm) + losses + fit_losses + tp_losses
+    if not all(math.isfinite(v) for v in all_losses) or diverged is not None:
+        fail(f"non-finite training loss: {all_losses}")
+    if launches != {"K3": 2 * steps, "K4": 2 * steps, "K5": 0}:
+        fail(f"fit_on_device launches {launches}, expected 2 K3 + 2 K4 per "
+             "step")
+    if fit_launches != {"K3": 4, "K4": 4, "K5": 0}:
+        fail(f"fit launches {fit_launches}")
+    if tp_launches != {"K3": 4, "K4": 0, "K5": 8}:
+        fail(f"two_pass launches {tp_launches}, expected 2 K3 + 2 + 2 K5 "
+             "per step")
+    if out_launches["K3"] != 2 or not bool(torch.isfinite(out).all()):
+        fail(f"output(): {out_launches}, finite {bool(torch.isfinite(out).all())}")
+    if not peak < 2 * 1024 ** 3:
+        fail(f"peak memory {peak} B over the timed steps (limit 2 GiB)")
+    tokens = TRAIN_B * TRAIN_T
+    res = {"phase": "train", "config": {
+               "layers": "2 x SelfAttentionLayer(256, 4 heads, causal, block "
+                         "512) + RnnOutputLayer(64, SOFTMAX)",
+               "batch": TRAIN_B, "T": TRAIN_T, "compute_dtype": "bfloat16",
+               "params_dtype": "float32", "updater": "Sgd(1e-3)",
+               "num_params": net.num_params()},
+           "steps": steps, "wall_s": wall, "ms_per_step": wall / steps * 1e3,
+           "tokens_per_s": tokens * steps / wall,
+           "peak_bytes": peak, "peak_bytes_above_start": peak - base,
+           "launches": launches, "launches_per_step": {
+               k: v / steps for k, v in launches.items()},
+           "losses": losses, "fit_losses": fit_losses,
+           "fit_ms_per_step": fit_wall / 2 * 1e3,
+           "two_pass": {"losses": tp_losses, "launches": tp_launches,
+                        "ms_per_step": tp_wall / 2 * 1e3},
+           "output_launches": out_launches}
+    res["profile"] = profile_train(torch, net, x, y)
+    emit(res)
+    return res
+
+
+def profile_train(torch, net, x, y) -> dict:
+    """Device busy share and the top kernels over two fit_on_device steps,
+    from torch.profiler; None where the profiler saw no device time."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        net.fit_on_device(x, y, steps=2, sync=False)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    rows = []
+    for evt in prof.key_averages():
+        if str(getattr(evt, "device_type", "")).split(".")[-1] != "CUDA":
+            continue
+        us = getattr(evt, "self_device_time_total", None)
+        if us is None:
+            us = getattr(evt, "self_cuda_time_total", 0)
+        if us:
+            rows.append((us, evt.key, evt.count))
+    busy_s = sum(r[0] for r in rows) / 1e6
+    rows.sort(reverse=True)
+    return {"wall_s": wall, "steps": 2,
+            "device_busy_s": busy_s if rows else None,
+            "device_idle_share": 1 - busy_s / wall if rows else None,
+            "top_device": [{"name": k[:80], "ms": us / 1e3, "calls": n}
+                           for us, k, n in rows[:8]]}
+
+
+def phase_train_oracle(torch, np):
+    """The stack in float32 at full width: one gradient_and_score through
+    the kernels, held against the same stack in float64 through the dense
+    plain versions on the card (registered in the kernels' place for that
+    call only), loss and every parameter gradient by max |diff| / max |ref|
+    within 1e-4. The float64 dense path is the reference because the
+    float32 one is not exact enough to be: at T = 8192 the second layer's
+    w_q and w_k gradients are four orders of magnitude below the others
+    and float32 attention (dense or kernel) resolves them to about 1e-4;
+    the float32 dense path's own error against float64 is reported beside
+    the kernels'."""
+    from deeplearning4j_tpu_torch import MultiLayerNetwork
+    from deeplearning4j_tpu_torch.nn.conf.configuration import \
+        MultiLayerConfiguration
+    from deeplearning4j_tpu_torch.ops import flash_attention as fa
+    from deeplearning4j_tpu_torch.ops import helpers
+    from deeplearning4j_tpu_torch.util.flat_params import unflatten_params
+    net = build_train_net(torch, None)
+    d = json.loads(net.conf.to_json())
+    d["global_conf"]["dtype"] = "float64"
+    net64 = MultiLayerNetwork(MultiLayerConfiguration.from_dict(d),
+                              device="cuda").init(params=net.params_tree)
+    x_np, y_np = train_data(np)
+    x = torch.from_numpy(x_np).cuda()
+    y = torch.from_numpy(y_np).cuda()
+    reset_flash_launches(fa)
+    g_k, s_k = net.gradient_and_score(x, y)
+    launches = flash_launches(fa)
+    if launches["K3"] != 2 or launches["K4"] != 2:
+        fail(f"train_oracle: the kernel pass launched {launches}")
+    helpers.register_helper("flash_attention_fwd")(fa.flash_fwd_plain)
+    helpers.register_helper("flash_attention_bwd")(fa.flash_bwd_plain)
+    try:
+        g_ref, s_ref = net64.gradient_and_score(x.double(), y.double())
+        g_p32, s_p32 = net.gradient_and_score(x, y)
+    finally:
+        helpers.register_helper("flash_attention_fwd")(
+            fa.flash_attention_fwd_cuda)
+        helpers.register_helper("flash_attention_bwd")(
+            fa.flash_attention_bwd_cuda)
+    torch.cuda.synchronize()
+    if flash_launches(fa) != launches:
+        fail("train_oracle: a dense pass launched a kernel")
+
+    def rel_errs(g):
+        out = {}
+        for i, (gg, gr) in enumerate(zip(
+                unflatten_params(net64.params_tree, g.double()),
+                unflatten_params(net64.params_tree, g_ref))):
+            for name in sorted(gr):
+                out[f"{i}.{name}"] = max_err(gg[name], gr[name]) / max(
+                    gr[name].abs().max().item(), 1e-300)
+        return out
+    rel, rel_p32 = rel_errs(g_k), rel_errs(g_p32)
+    loss_rel = abs(s_k - s_ref) / max(abs(s_ref), 1e-300)
+    worst = max(rel.values())
+    if not (math.isfinite(s_k) and loss_rel <= 1e-4 and worst <= 1e-4):
+        fail(f"train_oracle: loss rel {loss_rel}, grad rel {rel}")
+    res = {"phase": "train_oracle", "loss_kernels": s_k,
+           "loss_dense_fp64": s_ref, "loss_rel_err": loss_rel,
+           "grad_rel_err": rel, "max_grad_rel_err": worst,
+           "tolerance": 1e-4, "dense_fp32": {
+               "loss_rel_err": abs(s_p32 - s_ref) / max(abs(s_ref), 1e-300),
+               "grad_rel_err": rel_p32,
+               "max_grad_rel_err": max(rel_p32.values())},
+           "launches": launches}
+    emit(res)
+    return res
+
+
 def main() -> int:
     try:
         import numpy as np
@@ -912,16 +1392,23 @@ def main() -> int:
         fail(f"compute capability {cap}, expected (9, 0)")
 
     from deeplearning4j_tpu_torch.ops import build, decode_attention as da
+    from deeplearning4j_tpu_torch.ops import flash_attention as fa
     t0 = time.perf_counter()
-    # K1, K2 and K6 are one source: the Q-query kernel, K6 on its view
-    built = build.build(sorted({da.SOURCE}))
+    # K1, K2 and K6 are one source (the Q-query kernel, K6 on its view);
+    # K3, K4 and K5 another. One nvcc each, started together.
+    built = build.build(sorted({da.SOURCE, fa.SOURCE}))
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
-          "kernels": list(KERNEL_WRAPPERS),
+          "kernels": list(KERNEL_WRAPPERS) + [
+              "flash_attention_fwd_cuda", "flash_attention_bwd_cuda"],
           "sources": {s: {"seconds": b["seconds"],
                           "ptxas": [ln.strip() for ln in b["log"].splitlines()
                                     if "registers" in ln or "smem" in ln]}
                       for s, b in built.items()}})
 
+    kflash = phase_kernel_flash(torch)
+    kflash_bwd = phase_kernel_flash_bwd(torch)
+    train = phase_train(torch, np)
+    train_oracle = phase_train_oracle(torch, np)
     kern = phase_kernel(torch)
     kspec = phase_kernel_spec(torch)
     kcont = phase_kernel_contiguous(torch)
@@ -932,6 +1419,7 @@ def main() -> int:
     spec_oracle = phase_spec_oracle(torch, np)
     phase_int8_serve(torch, np, serve)
     src = "deeplearning4j_tpu_torch/ops/csrc/flash_decode_paged.cu"
+    fsrc = "deeplearning4j_tpu_torch/ops/csrc/flash_attention.cu"
     emit({"kernels": [{
         "name": "flash_decode_attention_paged", "route": "cuda",
         "source": src,
@@ -962,7 +1450,30 @@ def main() -> int:
         "ms": kcont["ms"], "plain_ms": kcont["plain_ms"],
         "bound_ms": kcont["bound_ms"], "bound_by": kcont["bound_by"],
         "library_ms": kcont["library_ms"],
-        "kernel_only_ms": kcont["kernel_only_ms"]}]})
+        "kernel_only_ms": kcont["kernel_only_ms"]}, {
+        "name": "flash_attention_fwd", "route": "cuda", "source": fsrc,
+        "replaces": "deeplearning4j_tpu/ops/flash_attention.py:448",
+        "launches": train["launches"]["K3"],
+        "max_abs_err": max(max(kflash["max_abs_err"].values()),
+                           kflash["train_max_abs_err"]),
+        "ms": kflash["ms"], "plain_ms": kflash["plain_ms"],
+        "bound_ms": kflash["bound_ms"], "bound_by": kflash["bound_by"],
+        "library_ms": kflash["library_ms"],
+        "oracle_max_grad_rel_err": train_oracle["max_grad_rel_err"]}] + [{
+        "name": f"flash_attention_bwd_{mode}", "route": "cuda",
+        "source": fsrc, "replaces": replaces,
+        "launches": (train["launches"]["K4"] if mode == "fused"
+                     else train["two_pass"]["launches"]["K5"]),
+        "max_abs_err": max(
+            kflash_bwd["max_abs_err"][f"{mode}_float32"],
+            kflash_bwd["max_abs_err"][f"{mode}_bfloat16"],
+            kflash_bwd["train_max_abs_err"][mode]),
+        "ms": kflash_bwd["ms"][mode], "plain_ms": kflash_bwd["plain_ms"],
+        "bound_ms": kflash_bwd["bound_ms"][mode],
+        "bound_by": kflash_bwd["bound_by"][mode],
+        "library_ms": kflash_bwd["library_ms"]} for mode, replaces in (
+            ("fused", "deeplearning4j_tpu/ops/flash_attention.py:349"),
+            ("two_pass", "deeplearning4j_tpu/ops/flash_attention.py:262"))]})
     for line in smi:
         print(line, flush=True)
     print(json.dumps({"ok": True, "device": {

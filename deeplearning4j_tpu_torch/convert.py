@@ -6,6 +6,9 @@
   JAX network's (a list of dicts of arrays). Names stay `w_q`, `w_k`,
   `w_v`, `w_o`, `b`, `W`, and so does the JAX (n_in, n_out) layout: the
   port applies weights as `x @ W`, so nothing is transposed anywhere.
+- `opt_state_from_jax(net._opt_state)`: the updater state (Adam's m/v,
+  ...) in the same nest of lists and dicts, so a port network resumes
+  training where the JAX one stopped (`net._opt_state = ...`).
 
 Only numpy crosses between the packages: this module imports neither JAX
 nor the JAX package, and takes anything `numpy.asarray` accepts.
@@ -41,3 +44,23 @@ def params_from_jax(params_tree: Sequence[Dict[str, object]],
             p[name] = t.to(dev, dtype) if dtype is not None else t.to(dev)
         out.append(p)
     return out
+
+
+def _nest_from_jax(node, dev, dtype):
+    if node is None:
+        return None
+    if isinstance(node, dict):
+        return {k: _nest_from_jax(v, dev, dtype) for k, v in node.items()}
+    if isinstance(node, (list, tuple)):
+        return type(node)(_nest_from_jax(v, dev, dtype) for v in node)
+    t = torch.from_numpy(np.array(np.asarray(node), copy=True))
+    return t.to(dev, dtype) if dtype is not None else t.to(dev)
+
+
+def opt_state_from_jax(opt_state_tree, device: DeviceLike = "cuda",
+                       dtype: Optional[torch.dtype] = None):
+    """The port's updater state from the JAX network's `_opt_state` (one
+    nest of dicts per layer, e.g. {"m": {...}, "v": {...}} for Adam, {}
+    for Sgd), structure and keys kept, arrays copied to tensors."""
+    return _nest_from_jax(list(opt_state_tree), resolve_device(device),
+                          dtype)

@@ -3,10 +3,10 @@ nn/conf/configuration.py).
 
 Configurations are pure data with the JAX package's JSON schema, so
 `MultiLayerConfiguration.from_json(jax_conf.to_json())` builds the same
-layer stack here. Two parts are not ported yet and raise instead of being
-dropped: input preprocessors (no layer of this slice needs one) and
-updater objects (the global updater is carried as its serialized dict; the
-updaters themselves come with the training slice).
+layer stack here. The global updater is kept as its serialized dict
+(`get_updater()` builds the updater object from it, as the JAX package
+does). Input preprocessors are not ported yet and raise instead of being
+dropped: no layer of the ported slices needs one.
 """
 from __future__ import annotations
 
@@ -22,6 +22,8 @@ from deeplearning4j_tpu_torch.common.enums import (Activation, BackpropType,
                                                    WeightInit)
 from deeplearning4j_tpu_torch.nn.conf.input_type import InputType
 from deeplearning4j_tpu_torch.nn.conf.layers.base import BaseLayerConf
+from deeplearning4j_tpu_torch.nn.updater.updaters import (BaseUpdater, Sgd,
+                                                          updater_from_name)
 
 # Which input kind each ported layer family expects (None: accepts anything
 # as-is). A stack whose input kinds disagree would need a preprocessor.
@@ -112,6 +114,12 @@ class MultiLayerConfiguration:
     def from_json(s: str) -> "MultiLayerConfiguration":
         return MultiLayerConfiguration.from_dict(json.loads(s))
 
+    def get_updater(self) -> BaseUpdater:
+        """The global updater (Sgd() when none is set)."""
+        if self.global_conf.updater is None:
+            return Sgd()
+        return BaseUpdater.from_dict(self.global_conf.updater)
+
     def input_types_per_layer(self) -> List[InputType]:
         """InputType *into* each layer."""
         if self.input_type is None:
@@ -138,12 +146,23 @@ class NeuralNetConfiguration:
             return self
 
         def updater(self, u):
-            """The global updater as its serialized dict (a dict, or an
-            object with `to_dict()`); carried as data until the training
-            slice ports the updaters."""
+            """The global updater, kept as its serialized dict: an updater
+            object (the port's or anything with `to_dict()`), a dict, or a
+            DL4J updater name ("adam", ...) at the builder's learning
+            rate."""
+            if isinstance(u, str):
+                lr = self._layer_defaults.get("learning_rate", 0.1)
+                u = updater_from_name(u, learning_rate=lr)
             self._global.updater = dict(u) if isinstance(u, dict) \
                 else u.to_dict()
             return self
+
+        def learning_rate(self, lr: float):
+            self._layer_defaults["learning_rate"] = float(lr)
+            if self._global.updater is not None:
+                self._global.updater["learning_rate"] = float(lr)
+            return self
+        learningRate = learning_rate
 
         def dtype(self, dt: str):
             self._global.dtype = dt

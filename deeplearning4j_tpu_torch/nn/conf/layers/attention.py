@@ -2,10 +2,13 @@
 nn/conf/layers/attention.py).
 
 Ported: the dense path with causal masking, the sliding window, the (batch,
-time) key-padding mask and the GQA head repeat. The long-context branch
-(T > block_size > 0) runs the flash-attention kernel in the JAX package
-(K3 in ROADMAP.md); until K3 is ported it raises rather than silently
-running the dense math at a length the configuration asked to run blockwise.
+time) key-padding mask and the GQA head repeat, and the long-context branch
+(T > block_size > 0), which runs `ops/flash_attention.flash_attention`
+(the K3 forward, K4 or K5 backward on the card; their plain versions on
+the CPU) once k/v are repeated to full heads, so the (B, H, T, T) score
+tensor never exists there. The JAX package's ring and GSPMD branches
+belong to the sharding slice: the port has no sequence-parallel context,
+so they are never taken.
 """
 from __future__ import annotations
 
@@ -17,6 +20,7 @@ import torch
 from deeplearning4j_tpu_torch.nn.conf.input_type import InputType
 from deeplearning4j_tpu_torch.nn.conf.layers.base import (
     FeedForwardLayerConf, register_layer)
+from deeplearning4j_tpu_torch.ops.flash_attention import flash_attention
 
 NEG_INF = -1e30
 
@@ -70,12 +74,6 @@ class SelfAttentionLayer(FeedForwardLayerConf):
         if x.ndim != 3:
             raise ValueError("SelfAttentionLayer expects (batch, size, time)")
         B, _, T = x.shape
-        if self.block_size and T > self.block_size:
-            raise NotImplementedError(
-                f"SelfAttentionLayer at T={T} > block_size={self.block_size} "
-                "takes the long-context flash-attention path, whose kernel "
-                "(K3, ops/flash_attention.py _call_fwd) is not ported yet; "
-                "set block_size=0 for the dense path")
         H, Hk = self.n_heads, self.kv_heads
         Dh = self.n_out // H
         xt = x.transpose(1, 2)                           # (B, T, n_in)
@@ -88,9 +86,22 @@ class SelfAttentionLayer(FeedForwardLayerConf):
         if Hk != H:       # broadcast kv groups to full heads
             k = k.repeat_interleave(H // Hk, dim=1)
             v = v.repeat_interleave(H // Hk, dim=1)
+        if self.block_size and T > self.block_size:
+            out = flash_attention(q, k, v, mask, self.causal, None,
+                                  self.attention_window)
+        else:
+            out = self._dense(q, k, v, mask, T, Dh)
+        out = out.transpose(1, 2).reshape(B, T, self.n_out)
+        out = self._act(out @ params["w_o"] + params["b"])
+        if mask is not None:  # zero padded query positions
+            out = out * mask[:, :, None].to(out.dtype)
+        return out.transpose(1, 2), state, mask
+
+    def _dense(self, q, k, v, mask, T, Dh):
+        """Dense softmax attention over the (B, H, T, T) scores."""
         scores = torch.einsum("bhqd,bhkd->bhqk", q, k) / math.sqrt(Dh)
-        qi = torch.arange(T, device=x.device)[:, None]
-        kj = torch.arange(T, device=x.device)[None, :]
+        qi = torch.arange(T, device=q.device)[:, None]
+        kj = torch.arange(T, device=q.device)[None, :]
         if self.causal:
             scores = scores.masked_fill(~(qi >= kj), NEG_INF)
         if self.attention_window:
@@ -102,9 +113,4 @@ class SelfAttentionLayer(FeedForwardLayerConf):
             scores = scores.masked_fill(~(mask[:, None, None, :] > 0),
                                         NEG_INF)
         attn = torch.softmax(scores, dim=-1)
-        out = torch.einsum("bhqk,bhkv->bhqv", attn, v)   # (B, H, T, Dh)
-        out = out.transpose(1, 2).reshape(B, T, self.n_out)
-        out = self._act(out @ params["w_o"] + params["b"])
-        if mask is not None:  # zero padded query positions
-            out = out * mask[:, :, None].to(out.dtype)
-        return out.transpose(1, 2), state, mask
+        return torch.einsum("bhqk,bhkv->bhqv", attn, v)  # (B, H, T, Dh)

@@ -24,6 +24,7 @@ from deeplearning4j_tpu_torch.nn.conf.input_type import InputType
 from deeplearning4j_tpu_torch.nn.weights import init_weights
 
 LAYER_REGISTRY: Dict[str, type] = {}
+WEIGHT_KEY_PREFIXES = ("W", "RW", "gamma_w", "w_")
 
 
 def register_layer(cls):
@@ -60,10 +61,12 @@ def _serde_value(v):
 
 @dataclass
 class BaseLayerConf:
-    """Common fields, the JAX package's BaseLayerConf field for field. The
-    training-only fields (l1/l2, dropout, updater, frozen, gradient
-    normalization, weight sharding) are carried as data for the JSON round
-    trip; the serving slice reads none of them."""
+    """Common fields, the JAX package's BaseLayerConf field for field.
+    `fit` reads the training fields: l1/l2 (and their bias variants) via
+    `regularization_score`, `dropout` (the retain probability of the
+    network's input dropout), `updater` (a per-layer updater dict),
+    `frozen` and the gradient normalization. `weight_sharding` is carried
+    as data for the JSON round trip until the sharding slice."""
     name: Optional[str] = None
     activation: Activation = Activation.IDENTITY
     weight_init: WeightInit = WeightInit.XAVIER
@@ -110,6 +113,27 @@ class BaseLayerConf:
 
     def has_params(self) -> bool:
         return True
+
+    # ---------------- regularization ----------------
+    def regularization_score(self, params: Dict[str, torch.Tensor]
+                             ) -> torch.Tensor:
+        """l1 * sum|w| + l2/2 * sum w^2 over weights (names starting with
+        W, RW, gamma_w or w_) and l1_bias/l2_bias over the rest; frozen
+        layers contribute nothing. A float32 scalar, promoted by the
+        params it sums."""
+        s = torch.zeros((), dtype=torch.float32)
+        if self.frozen:
+            return s
+        for k, p in params.items():
+            is_weight = any(k.startswith(pref)
+                            for pref in WEIGHT_KEY_PREFIXES)
+            l1 = self.l1 if is_weight else self.l1_bias
+            l2 = self.l2 if is_weight else self.l2_bias
+            if l1:
+                s = s.to(p.device) + l1 * p.abs().sum()
+            if l2:
+                s = s.to(p.device) + 0.5 * l2 * (p * p).sum()
+        return s
 
     # ---------------- helpers ----------------
     def _act(self, z):
@@ -160,6 +184,16 @@ def _deserde_value(hint, v):
         return tuple(v) if origin is tuple else [
             _deserde_value(None, x) for x in v]
     return v
+
+
+def apply_dropout(x: torch.Tensor, retain_prob: float,
+                  generator: torch.Generator) -> torch.Tensor:
+    """Inverted dropout on a layer's input: keep each entry with
+    probability `retain_prob` (a Bernoulli draw from `generator`, which
+    lies on x's device) and scale the kept ones by 1 / retain_prob."""
+    keep = torch.rand(x.shape, generator=generator, device=x.device,
+                      dtype=torch.float32) < retain_prob
+    return torch.where(keep, x / retain_prob, torch.zeros_like(x))
 
 
 @dataclass

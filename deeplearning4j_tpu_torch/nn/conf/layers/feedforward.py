@@ -3,7 +3,7 @@ nn/conf/layers/feedforward.py).
 
 Only the layers StackDecoder accepts between attention layers are ported:
 ActivationLayer, DropoutLayer and LossLayer. DenseLayer, OutputLayer,
-EmbeddingLayer and AutoEncoder wait for the training slice.
+EmbeddingLayer and AutoEncoder wait for the training-breadth slice.
 """
 from __future__ import annotations
 
@@ -12,6 +12,8 @@ from dataclasses import dataclass
 from deeplearning4j_tpu_torch.common.enums import Activation, LossFunction
 from deeplearning4j_tpu_torch.nn.conf.layers.base import (BaseLayerConf,
                                                           register_layer)
+from deeplearning4j_tpu_torch.nn.losses import (compute_loss,
+                                                compute_loss_per_example)
 
 
 @register_layer
@@ -36,6 +38,13 @@ class LossLayer(BaseLayerConf):
     def preout(self, params, x):
         return x
 
+    def compute_score(self, params, x, labels, mask=None):
+        return compute_loss(self.loss_fn, labels, x, self.activation, mask)
+
+    def compute_score_per_example(self, params, x, labels, mask=None):
+        return compute_loss_per_example(self.loss_fn, labels, x,
+                                        self.activation, mask)
+
 
 @register_layer
 @dataclass
@@ -54,8 +63,10 @@ class ActivationLayer(BaseLayerConf):
 @register_layer
 @dataclass
 class DropoutLayer(BaseLayerConf):
-    """Dropout as an explicit layer: identity (plus its activation) at
-    inference, which is all this slice runs."""
+    """Dropout as an explicit layer. Its `dropout` field (the retain
+    probability) is applied by the network's input-dropout pass in
+    training; the layer itself is its activation, in training and at
+    inference."""
     dropout: float = 0.5
 
     def has_params(self):
@@ -65,7 +76,4 @@ class DropoutLayer(BaseLayerConf):
         return input_type
 
     def forward(self, params, state, x, *, train=False, mask=None):
-        if train:
-            raise NotImplementedError(
-                "training-mode dropout waits for the training slice")
         return self._act(x), state, mask

@@ -13,6 +13,8 @@ from deeplearning4j_tpu_torch.common.enums import Activation, LossFunction
 from deeplearning4j_tpu_torch.nn.conf.input_type import InputType
 from deeplearning4j_tpu_torch.nn.conf.layers.base import (
     FeedForwardLayerConf, register_layer)
+from deeplearning4j_tpu_torch.nn.losses import (compute_loss,
+                                                compute_loss_per_example)
 
 
 @register_layer
@@ -58,3 +60,24 @@ class RnnOutputLayer(FeedForwardLayerConf):
         if mask is not None:
             out = out * mask[:, None, :].to(out.dtype)
         return out, state, mask
+
+    def _score_args(self, params, x, labels, mask):
+        """(labels, pre-activations, activation, mask) for the loss, as
+        (batch * time, n_out) rows with the feature axis last."""
+        z = self.preout(params, x).transpose(1, 2).reshape(-1, self.n_out)
+        lab = labels.transpose(1, 2).reshape(-1, self.n_out)
+        return lab, z, self.activation, \
+            None if mask is None else mask.reshape(-1)
+
+    def compute_score(self, params, x, labels, mask=None):
+        """Mean loss over the (batch * time) rows."""
+        return compute_loss(self.loss_fn, *self._score_args(
+            params, x, labels, mask))
+
+    def compute_score_per_example(self, params, x, labels, mask=None):
+        """(batch,) scores: each example's loss summed over its unmasked
+        timesteps (the scalar score normalizes by batch * time, so
+        mean(per_example) / T == score)."""
+        per_bt = compute_loss_per_example(
+            self.loss_fn, *self._score_args(params, x, labels, mask))
+        return per_bt.reshape(x.shape[0], -1).sum(dim=1)

@@ -1,0 +1,1133 @@
+// Flash attention for Hopper (sm_90a): forward (K3), fused backward (K4)
+// and two-pass backward (K5). bf16 inputs run the products of each tile on
+// the tensor cores (nvcuda::wmma bf16 fragments, fp32 accumulators); fp32
+// inputs run them in fp32 on the CUDA cores (wmma has no fp32 product short
+// of TF32, whose ~3 decimal digits would miss the fp32 tolerance).
+//
+// Replaces the Pallas kernels of deeplearning4j_tpu/ops/flash_attention.py:
+//   - K3 `_call_fwd` (:448, body `_fwd_kernel` :123): online-softmax
+//     forward, o and the row log-sum-exp L;
+//   - K4 `_fused_bwd_kernel` (:349, bwd="fused"): one pass per key tile
+//     giving dk, dv and dq;
+//   - K5 `_dq_kernel` (:262) and `_dkv_kernel` (:301), bwd="two_pass".
+// Layout: q (B*H, T, D), k/v (B*Hk, T, D) row-major; L and D_i (B*H, T)
+// fp32; key mask (B, T) int32 or null. Query head h reads kv row
+// b*Hk + h / (H/Hk) (GQA, forward only; the backward gets Hk == H).
+//
+// The TPU kernels walk a sequential grid with the accumulators in VMEM
+// scratch carried across grid steps. Here a loop inside the CTA takes the
+// place of the sequential axis, and nothing carries between CTAs:
+//   - K3: one CTA per (64-row q tile, b*h); the loop runs over the 64-row
+//     key tiles that causal/window leave visible (fully invalid tiles are
+//     never visited, the counterpart of `_dispatch_tile` :201).
+//   - K4: one CTA per (64-row key tile, b*h), looping over the q tiles
+//     that can see it; dk/dv accumulate in the CTA. dq cannot (it sums
+//     over key tiles, i.e. over CTAs), so each tile adds scale * dS K into
+//     a zeroed fp32 (B*H, T, D) buffer with fp32 atomicAdd. This replaces
+//     the JAX package's per-key-block dq partials; the order of the
+//     additions varies from run to run, so dq is not deterministic in its
+//     last bits.
+//   - K5: the dq kernel is one CTA per q tile looping over key tiles, dq
+//     accumulated in the CTA and written once (deterministic); the dk/dv
+//     kernel is K4's kernel with the dq atomics compiled out (one
+//     template, WITH_DQ = false).
+// Every tile is recomputed from q, k and L: p = exp(scale q.k - L), masked
+// before the exp (a row with L = NEG_INF has no visible key, and its p is
+// 0 by the mask, never exp of an unmasked NEG_INF). Validity (keys past T,
+// causal, window, key mask, and in the backward queries past T) is
+// evaluated on edge tiles and under a key mask only; interior tiles skip
+// it. Rows with no visible key give o = 0 and L = NEG_INF (:161-169).
+//
+// fp32 accuracy: the forward computes each score exactly as the backward
+// recomputes it (dot, then times scale), and every long sum (o over key
+// tiles, dk/dv over q tiles, dq over key tiles) adds one tile's partial
+// sum at a time. On the training stack in fp32 this brings the gradients
+// of the second layer's w_q/w_k, which are four orders of magnitude below
+// the others, from 1.3e-4 to 2.8e-5 of a float64 reference (chip_smoke.py
+// train_oracle).
+//
+// CUDA-core kernels (fp32): 256 threads as 16 x 16; a thread holds a 4 x 4
+// micro-tile of each 64 x 64 score tile (rows ty + 16 i, columns tx + 16 j)
+// and a 4 x D/16 micro-tile of each (64, D) accumulator. K and V tiles are
+// staged transposed with a padded stride (65) and q-side tiles with stride
+// D + 1, so the shared-memory reads of the inner loops are free of bank
+// conflicts. At D = 128 a backward CTA needs ~166 KB of dynamic shared
+// memory (above 48 KB it takes cudaFuncSetAttribute).
+//
+// What bounds it on the H100, at the training shape (B*H = 16, T = 8192,
+// D = 64, causal, 33,558,528 visible pairs per head): operations. K3 does
+// 4 * pairs * D * 16 = 137.5 GFLOP, 0.139 ms at 989 TFLOP/s of bf16 tensor
+// cores, while its 67.6 MB of q/k/v/o/L take 0.020 ms at 3.35 TB/s. K4
+// does 5 products (343.6 GFLOP, 0.347 ms); K5 3 + 4 (481 GFLOP, 0.486 ms).
+// What the design does about it: every score tile stays out of device
+// memory (only q, k, v, o, L, dO, D_i and the outputs move), invisible
+// tiles are skipped, and the bf16 products run on the tensor cores. It is
+// still far from the bound: the softmax and the p/ds passes go through
+// shared memory between the products, the tiles are loaded without a
+// pipeline, and wmma is not wgmma. Those, and TMA, are later work.
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <mma.h>
+#include <stdint.h>
+
+#include <type_traits>
+
+#define DL4J_NEG_INF (-1e30f)
+
+namespace {
+
+constexpr int BM = 64;        // query rows per tile
+constexpr int BN = 64;        // key rows per tile
+constexpr int NT = 256;       // threads per CTA: 16 x 16
+constexpr int KP = BN + 1;    // padded stride of transposed K/V and scores
+
+__device__ __forceinline__ float to_f(float x) { return x; }
+__device__ __forceinline__ float to_f(__nv_bfloat16 x) {
+  return __bfloat162float(x);
+}
+__device__ __forceinline__ void put(float* p, float x) { *p = x; }
+__device__ __forceinline__ void put(__nv_bfloat16* p, float x) {
+  *p = __float2bfloat16(x);
+}
+
+// max / sum over the 16 lanes (tx = 0..15) that share a score row
+__device__ __forceinline__ float row_max(float x) {
+#pragma unroll
+  for (int o = 8; o > 0; o >>= 1)
+    x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, o));
+  return x;
+}
+__device__ __forceinline__ float row_sum(float x) {
+#pragma unroll
+  for (int o = 8; o > 0; o >>= 1) x += __shfl_xor_sync(0xffffffffu, x, o);
+  return x;
+}
+
+struct Geometry {
+  int T, causal, window;
+};
+
+// Does this (q tile, key tile) pair hold any pair that is not visible?
+// Only such tiles evaluate validity per element.
+__device__ __forceinline__ bool tile_masked(const Geometry& g, int q_lo,
+                                            int k_lo, bool has_km) {
+  const int q_hi = q_lo + BM - 1, k_hi = k_lo + BN - 1;
+  if (has_km || k_hi >= g.T || q_hi >= g.T) return true;
+  if (g.causal && k_hi > q_lo) return true;
+  if (g.window > 0) {
+    if (q_hi - k_lo >= g.window) return true;
+    if (!g.causal && k_hi - q_lo >= g.window) return true;
+  }
+  return false;
+}
+
+// visibility of (qi, kj); key_ok = kj < T and the key mask allows kj
+__device__ __forceinline__ bool visible(const Geometry& g, int qi, int kj,
+                                        bool key_ok) {
+  if (!key_ok || qi >= g.T) return false;
+  if (g.causal && kj > qi) return false;
+  if (g.window > 0) {
+    if (qi - kj >= g.window) return false;
+    if (!g.causal && kj - qi >= g.window) return false;
+  }
+  return true;
+}
+
+// key tiles [j0, j1) that q tile i can see
+__device__ __forceinline__ void key_tiles(const Geometry& g, int q_lo,
+                                          int* j0, int* j1) {
+  const int q_hi = min(q_lo + BM, g.T) - 1;
+  const int k_begin = g.window > 0 ? max(0, q_lo - g.window + 1) : 0;
+  int k_end = g.T;
+  if (g.causal) k_end = min(k_end, q_hi + 1);
+  else if (g.window > 0) k_end = min(k_end, q_hi + g.window);
+  *j0 = k_begin / BN;
+  *j1 = k_end > k_begin ? (k_end + BN - 1) / BN : *j0;
+}
+
+// q tiles [i0, i1) that can see key tile starting at k_lo
+__device__ __forceinline__ void query_tiles(const Geometry& g, int k_lo,
+                                            int* i0, int* i1) {
+  const int k_hi = min(k_lo + BN, g.T) - 1;
+  int q_begin = 0, q_end = g.T;
+  if (g.causal) q_begin = k_lo;
+  else if (g.window > 0) q_begin = max(0, k_lo - g.window + 1);
+  if (g.window > 0) q_end = min(q_end, k_hi + g.window);
+  *i0 = q_begin / BM;
+  *i1 = q_end > q_begin ? (q_end + BM - 1) / BM : *i0;
+}
+
+// Stage a (BN, D) key-side tile transposed: dst[d * KP + c]; rows past T
+// are zero.
+template <typename TI, int D>
+__device__ __forceinline__ void stage_kv_t(float* dst, const TI* src,
+                                           int k_lo, int T) {
+  for (int e = threadIdx.x; e < BN * D; e += NT) {
+    const int c = e / D, d = e - c * D, kj = k_lo + c;
+    dst[d * KP + c] = kj < T ? to_f(src[(long)kj * D + d]) : 0.f;
+  }
+}
+
+// Stage a (BM, D) query-side tile row-major with stride D + 1; rows past T
+// are zero.
+template <typename TI, int D>
+__device__ __forceinline__ void stage_q(float* dst, const TI* src, int q_lo,
+                                        int T) {
+  for (int e = threadIdx.x; e < BM * D; e += NT) {
+    const int r = e / D, d = e - r * D, qi = q_lo + r;
+    dst[r * (D + 1) + d] = qi < T ? to_f(src[(long)qi * D + d]) : 0.f;
+  }
+}
+
+__device__ __forceinline__ void stage_key_ok(int* kms, const int* km, int b,
+                                             int k_lo, int T) {
+  for (int c = threadIdx.x; c < BN; c += blockDim.x) {
+    const int kj = k_lo + c;
+    kms[c] = kj < T && (km == nullptr || km[(long)b * T + kj] != 0);
+  }
+}
+
+// ------------------------------------------------------------------ K3
+template <typename TI, int D>
+__global__ void __launch_bounds__(NT)
+flash_fwd_kernel(const TI* __restrict__ q, const TI* __restrict__ k,
+                 const TI* __restrict__ v, const int* __restrict__ km,
+                 TI* __restrict__ o, float* __restrict__ lse, int H, int Hk,
+                 Geometry g, float scale) {
+  constexpr int DC = D / 16;
+  const int nq = gridDim.x;
+  const int i = nq - 1 - blockIdx.x;     // the longest causal rows first
+  const int bh = blockIdx.y, b = bh / H, h = bh - b * H;
+  const int kvrow = b * Hk + h / (H / Hk);
+  const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
+  const int T = g.T, q_lo = i * BM;
+
+  extern __shared__ float smem[];
+  float* Qs = smem;                     // BM x (D+1)
+  float* Kt = Qs + BM * (D + 1);        // D x KP
+  float* Vt = Kt + D * KP;              // D x KP
+  float* Ps = Vt + D * KP;              // BM x KP
+  int* kms = reinterpret_cast<int*>(Ps + BM * KP);   // BN
+
+  const TI* qb = q + (long)bh * T * D;
+  const TI* kb = k + (long)kvrow * T * D;
+  const TI* vb = v + (long)kvrow * T * D;
+  stage_q<TI, D>(Qs, qb, q_lo, T);
+
+  float acc[4][DC], m[4], l[4], alpha[4];
+#pragma unroll
+  for (int a = 0; a < 4; ++a) {
+    m[a] = DL4J_NEG_INF;
+    l[a] = 0.f;
+#pragma unroll
+    for (int c = 0; c < DC; ++c) acc[a][c] = 0.f;
+  }
+  int j0, j1;
+  key_tiles(g, q_lo, &j0, &j1);
+  for (int j = j0; j < j1; ++j) {
+    const int k_lo = j * BN;
+    __syncthreads();                    // the last tile's readers are done
+    stage_kv_t<TI, D>(Kt, kb, k_lo, T);
+    stage_kv_t<TI, D>(Vt, vb, k_lo, T);
+    stage_key_ok(kms, km, b, k_lo, T);
+    __syncthreads();
+    const bool masked = tile_masked(g, q_lo, k_lo, km != nullptr);
+
+    float s[4][4];
+#pragma unroll
+    for (int a = 0; a < 4; ++a)
+#pragma unroll
+      for (int c = 0; c < 4; ++c) s[a][c] = 0.f;
+#pragma unroll 8
+    for (int d = 0; d < D; ++d) {
+      float qa[4], kc[4];
+#pragma unroll
+      for (int a = 0; a < 4; ++a) qa[a] = Qs[(ty + 16 * a) * (D + 1) + d];
+#pragma unroll
+      for (int c = 0; c < 4; ++c) kc[c] = Kt[d * KP + tx + 16 * c];
+#pragma unroll
+      for (int a = 0; a < 4; ++a)
+#pragma unroll
+        for (int c = 0; c < 4; ++c) s[a][c] += qa[a] * kc[c];
+    }
+    unsigned ok = 0xffffu;              // bit a*4+c: pair visible
+    if (masked) {
+      ok = 0;
+#pragma unroll
+      for (int a = 0; a < 4; ++a)
+#pragma unroll
+        for (int c = 0; c < 4; ++c)
+          if (visible(g, q_lo + ty + 16 * a, k_lo + tx + 16 * c,
+                      kms[tx + 16 * c] != 0))
+            ok |= 1u << (a * 4 + c);
+    }
+#pragma unroll
+    for (int a = 0; a < 4; ++a) {
+      float mx = DL4J_NEG_INF;
+#pragma unroll
+      for (int c = 0; c < 4; ++c) {
+        // scale after the dot, as the backward recomputes it: the two
+        // passes then see the same scores to the last bit
+        s[a][c] = ((ok >> (a * 4 + c)) & 1u) ? s[a][c] * scale
+                                             : DL4J_NEG_INF;
+        mx = fmaxf(mx, s[a][c]);
+      }
+      const float m_new = fmaxf(m[a], row_max(mx));
+      float rs = 0.f;
+#pragma unroll
+      for (int c = 0; c < 4; ++c) {
+        const float p =
+            ((ok >> (a * 4 + c)) & 1u) ? expf(s[a][c] - m_new) : 0.f;
+        Ps[(ty + 16 * a) * KP + tx + 16 * c] = p;
+        rs += p;
+      }
+      alpha[a] = expf(m[a] - m_new);
+      l[a] = l[a] * alpha[a] + row_sum(rs);
+      m[a] = m_new;
+    }
+    __syncthreads();
+    // this tile's p v in its own sum, then one rescaled add per tile: the
+    // running sum takes T / 64 additions instead of T (fp32 error)
+    float t[4][DC];
+#pragma unroll
+    for (int a = 0; a < 4; ++a)
+#pragma unroll
+      for (int e = 0; e < DC; ++e) t[a][e] = 0.f;
+#pragma unroll 4
+    for (int c = 0; c < BN; ++c) {
+      float pa[4], vd[DC];
+#pragma unroll
+      for (int a = 0; a < 4; ++a) pa[a] = Ps[(ty + 16 * a) * KP + c];
+#pragma unroll
+      for (int e = 0; e < DC; ++e) vd[e] = Vt[(tx + 16 * e) * KP + c];
+#pragma unroll
+      for (int a = 0; a < 4; ++a)
+#pragma unroll
+        for (int e = 0; e < DC; ++e) t[a][e] += pa[a] * vd[e];
+    }
+#pragma unroll
+    for (int a = 0; a < 4; ++a)
+#pragma unroll
+      for (int e = 0; e < DC; ++e) acc[a][e] = acc[a][e] * alpha[a] + t[a][e];
+  }
+#pragma unroll
+  for (int a = 0; a < 4; ++a) {
+    const int qi = q_lo + ty + 16 * a;
+    if (qi >= T) continue;
+    const float inv = 1.f / fmaxf(l[a], 1e-30f);
+    TI* orow = o + ((long)bh * T + qi) * D;
+#pragma unroll
+    for (int e = 0; e < DC; ++e) put(orow + tx + 16 * e, acc[a][e] * inv);
+    if (tx == 0)
+      lse[(long)bh * T + qi] =
+          l[a] > 0.f ? m[a] + logf(fmaxf(l[a], 1e-30f)) : DL4J_NEG_INF;
+  }
+}
+
+// Scores of one (q tile, key tile) pair for the backward: p (masked) and
+// ds = p * (dO.v - D_i), each thread's 4 x 4 micro-tile, written to Ps
+// and dSs. Qs/dOs row-major (stride D+1), Kt/Vt transposed (stride KP).
+template <int D>
+__device__ __forceinline__ void bwd_scores(
+    const float* Qs, const float* dOs, const float* Kt, const float* Vt,
+    const float* Ls, const float* Dis, const int* kms, float* Ps, float* dSs,
+    const Geometry& g, int q_lo, int k_lo, bool masked, float scale) {
+  const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
+  float s[4][4], dp[4][4];
+#pragma unroll
+  for (int a = 0; a < 4; ++a)
+#pragma unroll
+    for (int c = 0; c < 4; ++c) s[a][c] = dp[a][c] = 0.f;
+#pragma unroll 4
+  for (int d = 0; d < D; ++d) {
+    float qa[4], oa[4], kc[4], vc[4];
+#pragma unroll
+    for (int a = 0; a < 4; ++a) {
+      qa[a] = Qs[(ty + 16 * a) * (D + 1) + d];
+      oa[a] = dOs[(ty + 16 * a) * (D + 1) + d];
+    }
+#pragma unroll
+    for (int c = 0; c < 4; ++c) {
+      kc[c] = Kt[d * KP + tx + 16 * c];
+      vc[c] = Vt[d * KP + tx + 16 * c];
+    }
+#pragma unroll
+    for (int a = 0; a < 4; ++a)
+#pragma unroll
+      for (int c = 0; c < 4; ++c) {
+        s[a][c] += qa[a] * kc[c];
+        dp[a][c] += oa[a] * vc[c];
+      }
+  }
+#pragma unroll
+  for (int a = 0; a < 4; ++a) {
+    const int r = ty + 16 * a;
+    const float L = Ls[r], Di = Dis[r];
+#pragma unroll
+    for (int c = 0; c < 4; ++c) {
+      const int col = tx + 16 * c;
+      const bool ok =
+          !masked || visible(g, q_lo + r, k_lo + col, kms[col] != 0);
+      const float p = ok ? expf(s[a][c] * scale - L) : 0.f;
+      Ps[r * KP + col] = p;
+      dSs[r * KP + col] = p * (dp[a][c] - Di);
+    }
+  }
+}
+
+// Stage L and D_i of a q tile (rows past T: 0; their pairs are masked).
+__device__ __forceinline__ void stage_rows(float* Ls, float* Dis,
+                                           const float* lse, const float* di,
+                                           long row0, int q_lo, int T) {
+  for (int r = threadIdx.x; r < BM; r += blockDim.x) {
+    const int qi = q_lo + r;
+    Ls[r] = qi < T ? lse[row0 + qi] : 0.f;
+    Dis[r] = qi < T ? di[row0 + qi] : 0.f;
+  }
+}
+
+// ------------------------------------------------ K4, and K5's dk/dv pass
+template <typename TI, int D, bool WITH_DQ>
+__global__ void __launch_bounds__(NT)
+flash_bwd_kv_kernel(const TI* __restrict__ q, const TI* __restrict__ k,
+                    const TI* __restrict__ v, const int* __restrict__ km,
+                    const TI* __restrict__ dout, const float* __restrict__ lse,
+                    const float* __restrict__ di, float* __restrict__ dq,
+                    TI* __restrict__ dk, TI* __restrict__ dv, int H,
+                    Geometry g, float scale) {
+  constexpr int DC = D / 16;
+  const int j = blockIdx.x;             // the most-visited key tiles first
+  const int bh = blockIdx.y, b = bh / H;
+  const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
+  const int T = g.T, k_lo = j * BN;
+
+  extern __shared__ float smem[];
+  float* Kt = smem;                     // D x KP
+  float* Vt = Kt + D * KP;              // D x KP
+  float* Qs = Vt + D * KP;              // BM x (D+1)
+  float* dOs = Qs + BM * (D + 1);       // BM x (D+1)
+  float* Ps = dOs + BM * (D + 1);       // BM x KP
+  float* dSs = Ps + BM * KP;            // BM x KP
+  float* Ls = dSs + BM * KP;            // BM
+  float* Dis = Ls + BM;                 // BM
+  int* kms = reinterpret_cast<int*>(Dis + BM);   // BN
+
+  const long base = (long)bh * T * D;
+  stage_kv_t<TI, D>(Kt, k + base, k_lo, T);
+  stage_kv_t<TI, D>(Vt, v + base, k_lo, T);
+  stage_key_ok(kms, km, b, k_lo, T);
+
+  // dk/dv micro-tiles: key rows ty + 16 a, columns tx + 16 e
+  float dk_acc[4][DC], dv_acc[4][DC];
+#pragma unroll
+  for (int a = 0; a < 4; ++a)
+#pragma unroll
+    for (int e = 0; e < DC; ++e) dk_acc[a][e] = dv_acc[a][e] = 0.f;
+
+  int i0, i1;
+  query_tiles(g, k_lo, &i0, &i1);
+  for (int i = i0; i < i1; ++i) {
+    const int q_lo = i * BM;
+    __syncthreads();
+    stage_q<TI, D>(Qs, q + base, q_lo, T);
+    stage_q<TI, D>(dOs, dout + base, q_lo, T);
+    stage_rows(Ls, Dis, lse, di, (long)bh * T, q_lo, T);
+    __syncthreads();
+    bwd_scores<D>(Qs, dOs, Kt, Vt, Ls, Dis, kms, Ps, dSs, g, q_lo, k_lo,
+                  tile_masked(g, q_lo, k_lo, km != nullptr), scale);
+    __syncthreads();
+    // dv += p^T dO, dk += ds^T q (scale applied at the end), this q tile's
+    // terms summed on their own first, as in the forward
+    float dk_t[4][DC], dv_t[4][DC];
+#pragma unroll
+    for (int a = 0; a < 4; ++a)
+#pragma unroll
+      for (int e = 0; e < DC; ++e) dk_t[a][e] = dv_t[a][e] = 0.f;
+#pragma unroll 4
+    for (int r = 0; r < BM; ++r) {
+      float pa[4], sa[4], od[DC], qd[DC];
+#pragma unroll
+      for (int a = 0; a < 4; ++a) {
+        pa[a] = Ps[r * KP + ty + 16 * a];
+        sa[a] = dSs[r * KP + ty + 16 * a];
+      }
+#pragma unroll
+      for (int e = 0; e < DC; ++e) {
+        od[e] = dOs[r * (D + 1) + tx + 16 * e];
+        qd[e] = Qs[r * (D + 1) + tx + 16 * e];
+      }
+#pragma unroll
+      for (int a = 0; a < 4; ++a)
+#pragma unroll
+        for (int e = 0; e < DC; ++e) {
+          dv_t[a][e] += pa[a] * od[e];
+          dk_t[a][e] += sa[a] * qd[e];
+        }
+    }
+#pragma unroll
+    for (int a = 0; a < 4; ++a)
+#pragma unroll
+      for (int e = 0; e < DC; ++e) {
+        dk_acc[a][e] += dk_t[a][e];
+        dv_acc[a][e] += dv_t[a][e];
+      }
+    if constexpr (WITH_DQ) {
+      // dq[q rows ty + 16 a, columns tx + 16 e] += scale * ds k
+      float dq_t[4][DC];
+#pragma unroll
+      for (int a = 0; a < 4; ++a)
+#pragma unroll
+        for (int e = 0; e < DC; ++e) dq_t[a][e] = 0.f;
+#pragma unroll 4
+      for (int c = 0; c < BN; ++c) {
+        float sa[4], kd[DC];
+#pragma unroll
+        for (int a = 0; a < 4; ++a) sa[a] = dSs[(ty + 16 * a) * KP + c];
+#pragma unroll
+        for (int e = 0; e < DC; ++e) kd[e] = Kt[(tx + 16 * e) * KP + c];
+#pragma unroll
+        for (int a = 0; a < 4; ++a)
+#pragma unroll
+          for (int e = 0; e < DC; ++e) dq_t[a][e] += sa[a] * kd[e];
+      }
+#pragma unroll
+      for (int a = 0; a < 4; ++a) {
+        const int qi = q_lo + ty + 16 * a;
+        if (qi >= T) continue;
+        float* row = dq + base + (long)qi * D;
+#pragma unroll
+        for (int e = 0; e < DC; ++e)
+          atomicAdd(row + tx + 16 * e, scale * dq_t[a][e]);
+      }
+    }
+  }
+#pragma unroll
+  for (int a = 0; a < 4; ++a) {
+    const int kj = k_lo + ty + 16 * a;
+    if (kj >= T) continue;
+#pragma unroll
+    for (int e = 0; e < DC; ++e) {
+      const long off = base + (long)kj * D + tx + 16 * e;
+      put(dk + off, scale * dk_acc[a][e]);
+      put(dv + off, dv_acc[a][e]);
+    }
+  }
+}
+
+// -------------------------------------------------------- K5's dq pass
+template <typename TI, int D>
+__global__ void __launch_bounds__(NT)
+flash_bwd_q_kernel(const TI* __restrict__ q, const TI* __restrict__ k,
+                   const TI* __restrict__ v, const int* __restrict__ km,
+                   const TI* __restrict__ dout, const float* __restrict__ lse,
+                   const float* __restrict__ di, float* __restrict__ dq,
+                   int H, Geometry g, float scale) {
+  constexpr int DC = D / 16;
+  const int nq = gridDim.x;
+  const int i = nq - 1 - blockIdx.x;
+  const int bh = blockIdx.y, b = bh / H;
+  const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
+  const int T = g.T, q_lo = i * BM;
+
+  extern __shared__ float smem[];
+  float* Kt = smem;
+  float* Vt = Kt + D * KP;
+  float* Qs = Vt + D * KP;
+  float* dOs = Qs + BM * (D + 1);
+  float* Ps = dOs + BM * (D + 1);
+  float* dSs = Ps + BM * KP;
+  float* Ls = dSs + BM * KP;
+  float* Dis = Ls + BM;
+  int* kms = reinterpret_cast<int*>(Dis + BM);
+
+  const long base = (long)bh * T * D;
+  stage_q<TI, D>(Qs, q + base, q_lo, T);
+  stage_q<TI, D>(dOs, dout + base, q_lo, T);
+  stage_rows(Ls, Dis, lse, di, (long)bh * T, q_lo, T);
+
+  float dq_acc[4][DC];
+#pragma unroll
+  for (int a = 0; a < 4; ++a)
+#pragma unroll
+    for (int e = 0; e < DC; ++e) dq_acc[a][e] = 0.f;
+
+  int j0, j1;
+  key_tiles(g, q_lo, &j0, &j1);
+  for (int j = j0; j < j1; ++j) {
+    const int k_lo = j * BN;
+    __syncthreads();
+    stage_kv_t<TI, D>(Kt, k + base, k_lo, T);
+    stage_kv_t<TI, D>(Vt, v + base, k_lo, T);
+    stage_key_ok(kms, km, b, k_lo, T);
+    __syncthreads();
+    bwd_scores<D>(Qs, dOs, Kt, Vt, Ls, Dis, kms, Ps, dSs, g, q_lo, k_lo,
+                  tile_masked(g, q_lo, k_lo, km != nullptr), scale);
+    __syncthreads();
+    float dq_t[4][DC];                  // this key tile's terms first
+#pragma unroll
+    for (int a = 0; a < 4; ++a)
+#pragma unroll
+      for (int e = 0; e < DC; ++e) dq_t[a][e] = 0.f;
+#pragma unroll 4
+    for (int c = 0; c < BN; ++c) {
+      float sa[4], kd[DC];
+#pragma unroll
+      for (int a = 0; a < 4; ++a) sa[a] = dSs[(ty + 16 * a) * KP + c];
+#pragma unroll
+      for (int e = 0; e < DC; ++e) kd[e] = Kt[(tx + 16 * e) * KP + c];
+#pragma unroll
+      for (int a = 0; a < 4; ++a)
+#pragma unroll
+        for (int e = 0; e < DC; ++e) dq_t[a][e] += sa[a] * kd[e];
+    }
+#pragma unroll
+    for (int a = 0; a < 4; ++a)
+#pragma unroll
+      for (int e = 0; e < DC; ++e) dq_acc[a][e] += dq_t[a][e];
+  }
+#pragma unroll
+  for (int a = 0; a < 4; ++a) {
+    const int qi = q_lo + ty + 16 * a;
+    if (qi >= T) continue;
+#pragma unroll
+    for (int e = 0; e < DC; ++e)
+      dq[base + (long)qi * D + tx + 16 * e] = scale * dq_acc[a][e];
+  }
+}
+
+
+// ======================================================================
+// bf16 inputs: the same three kernels with the products of each tile on
+// the tensor cores (nvcuda::wmma 16x16x16 bf16 fragments, fp32
+// accumulators). 4 warps per CTA; in a (64 q, 64 key) tile warp w owns
+// query rows 16w..16w+15 for S = q k^T and dP = dO v^T, and (backward)
+// key rows 16w..16w+15 for dv and dk. The fp32 scores go through shared
+// memory, where two lanes per row apply the mask, the online softmax or
+// p and ds, and write p / ds back as bf16 for the next products (the
+// JAX kernels round p and ds to the input dtype there too, :153, :331).
+// ======================================================================
+namespace wm = nvcuda::wmma;
+using bf16 = __nv_bfloat16;
+using FragA = wm::fragment<wm::matrix_a, 16, 16, 16, bf16, wm::row_major>;
+using FragAt = wm::fragment<wm::matrix_a, 16, 16, 16, bf16, wm::col_major>;
+using FragBt = wm::fragment<wm::matrix_b, 16, 16, 16, bf16, wm::col_major>;
+using FragB = wm::fragment<wm::matrix_b, 16, 16, 16, bf16, wm::row_major>;
+using FragC = wm::fragment<wm::accumulator, 16, 16, 16, float>;
+
+constexpr int WT = 128;                 // threads of a tensor-core CTA
+
+template <int D>
+struct TcLayout {
+  static constexpr int NK = D / 16;     // 16-wide blocks of the head dim
+  static constexpr int LDB = D + 8;     // bf16 rows of q/k/v/dO tiles
+  static constexpr int LDS = BN + 4;    // fp32 rows of score tiles
+  static constexpr int LDP = BN + 8;    // bf16 rows of p / ds tiles
+  static constexpr int LDO = D + 4;     // fp32 rows of (64, D) tiles
+};
+
+// Stage a (64, D) bf16 tile, rows past T zero, 16 bytes per copy.
+template <int D>
+__device__ __forceinline__ void stage_tile(bf16* dst, const bf16* src,
+                                           int lo, int T) {
+  constexpr int V = D / 8;
+  for (int e = threadIdx.x; e < 64 * V; e += blockDim.x) {
+    const int r = e / V, c = e - r * V, row = lo + r;
+    uint4 val = make_uint4(0u, 0u, 0u, 0u);
+    if (row < T) val = reinterpret_cast<const uint4*>(src + (long)row * D)[c];
+    reinterpret_cast<uint4*>(dst + r * TcLayout<D>::LDB)[c] = val;
+  }
+}
+
+// S (q rows of this warp x 64 keys) = A B^T for (64, D) tiles A (this
+// warp's rows) and B, stored fp32 row-major at dst (stride LDS).
+template <int D>
+__device__ __forceinline__ void tile_products(float* dst, const bf16* A,
+                                              const bf16* B, int warp) {
+  using L = TcLayout<D>;
+#pragma unroll
+  for (int n = 0; n < 4; ++n) {
+    FragC acc;
+    wm::fill_fragment(acc, 0.f);
+#pragma unroll
+    for (int kk = 0; kk < L::NK; ++kk) {
+      FragA a;
+      FragBt bt;
+      wm::load_matrix_sync(a, A + 16 * warp * L::LDB + 16 * kk, L::LDB);
+      wm::load_matrix_sync(bt, B + 16 * n * L::LDB + 16 * kk, L::LDB);
+      wm::mma_sync(acc, a, bt, acc);
+    }
+    wm::store_matrix_sync(dst + 16 * warp * L::LDS + 16 * n, acc, L::LDS,
+                          wm::mem_row_major);
+  }
+}
+
+// ------------------------------------------------------------- K3, bf16
+template <int D>
+__global__ void __launch_bounds__(WT)
+flash_fwd_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                    const bf16* __restrict__ v, const int* __restrict__ km,
+                    bf16* __restrict__ o, float* __restrict__ lse, int H,
+                    int Hk, Geometry g, float scale) {
+  using L = TcLayout<D>;
+  const int nq = gridDim.x;
+  const int i = nq - 1 - blockIdx.x;     // the longest causal rows first
+  const int bh = blockIdx.y, b = bh / H, h = bh - b * H;
+  const int kvrow = b * Hk + h / (H / Hk);
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int T = g.T, q_lo = i * BM;
+
+  extern __shared__ __align__(128) unsigned char tc_smem[];
+  bf16* Qs = reinterpret_cast<bf16*>(tc_smem);        // BM x LDB
+  bf16* Ks = Qs + BM * L::LDB;                        // BN x LDB
+  bf16* Vs = Ks + BN * L::LDB;                        // BN x LDB
+  float* Ss = reinterpret_cast<float*>(Vs + BN * L::LDB);   // BM x LDS
+  bf16* Ps = reinterpret_cast<bf16*>(Ss + BM * L::LDS);     // BM x LDP
+  float* Os = reinterpret_cast<float*>(Ps + BM * L::LDP);   // BM x LDO
+  int* kms = reinterpret_cast<int*>(Os + BM * L::LDO);      // BN
+
+  stage_tile<D>(Qs, q + (long)bh * T * D, q_lo, T);
+  for (int e = threadIdx.x; e < BM * L::LDO; e += blockDim.x) Os[e] = 0.f;
+  __syncthreads();
+  const long kvbase = (long)kvrow * T * D;
+  // two lanes per score row: row r = lane / 2, columns 32 * (lane & 1) + c
+  const int row = 16 * warp + (lane >> 1), half = lane & 1;
+  const int qi = q_lo + row;
+  float m = DL4J_NEG_INF, l = 0.f;
+  int j0, j1;
+  key_tiles(g, q_lo, &j0, &j1);
+  for (int j = j0; j < j1; ++j) {
+    const int k_lo = j * BN;
+    __syncthreads();
+    stage_tile<D>(Ks, k + kvbase, k_lo, T);
+    stage_tile<D>(Vs, v + kvbase, k_lo, T);
+    stage_key_ok(kms, km, b, k_lo, T);
+    __syncthreads();
+    tile_products<D>(Ss, Qs, Ks, warp);
+    __syncwarp();
+    const bool masked = tile_masked(g, q_lo, k_lo, km != nullptr);
+    float* srow = Ss + row * L::LDS + 32 * half;
+    unsigned ok = 0xffffffffu;
+    float mx = DL4J_NEG_INF;
+#pragma unroll 8
+    for (int c = 0; c < 32; ++c) {
+      const int col = 32 * half + c;
+      if (masked && !visible(g, qi, k_lo + col, kms[col] != 0))
+        ok &= ~(1u << c);
+      const float sv = ((ok >> c) & 1u) ? srow[c] * scale : DL4J_NEG_INF;
+      srow[c] = sv;
+      mx = fmaxf(mx, sv);
+    }
+    const float m_new = fmaxf(m, fmaxf(mx, __shfl_xor_sync(0xffffffffu,
+                                                           mx, 1)));
+    bf16* prow = Ps + row * L::LDP + 32 * half;
+    float rs = 0.f;
+#pragma unroll 8
+    for (int c = 0; c < 32; ++c) {
+      const float p = ((ok >> c) & 1u) ? expf(srow[c] - m_new) : 0.f;
+      prow[c] = __float2bfloat16(p);
+      rs += p;
+    }
+    rs += __shfl_xor_sync(0xffffffffu, rs, 1);
+    const float alpha = expf(m - m_new);
+    l = l * alpha + rs;
+    m = m_new;
+    float* orow = Os + row * L::LDO + (D / 2) * half;
+#pragma unroll 8
+    for (int d = 0; d < D / 2; ++d) orow[d] *= alpha;
+    __syncwarp();
+    // O (this warp's rows) += P V
+#pragma unroll
+    for (int n = 0; n < L::NK; ++n) {
+      FragC acc;
+      wm::load_matrix_sync(acc, Os + 16 * warp * L::LDO + 16 * n, L::LDO,
+                           wm::mem_row_major);
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) {
+        FragA a;
+        FragB bv;
+        wm::load_matrix_sync(a, Ps + 16 * warp * L::LDP + 16 * kk, L::LDP);
+        wm::load_matrix_sync(bv, Vs + 16 * kk * L::LDB + 16 * n, L::LDB);
+        wm::mma_sync(acc, a, bv, acc);
+      }
+      wm::store_matrix_sync(Os + 16 * warp * L::LDO + 16 * n, acc, L::LDO,
+                            wm::mem_row_major);
+    }
+    __syncwarp();
+  }
+  if (qi < T) {
+    const float inv = 1.f / fmaxf(l, 1e-30f);
+    const float* orow = Os + row * L::LDO + (D / 2) * half;
+    bf16* og = o + ((long)bh * T + qi) * D + (D / 2) * half;
+    for (int d = 0; d < D / 2; ++d) og[d] = __float2bfloat16(orow[d] * inv);
+    if (half == 0)
+      lse[(long)bh * T + qi] =
+          l > 0.f ? m + logf(fmaxf(l, 1e-30f)) : DL4J_NEG_INF;
+  }
+}
+
+// p and ds of this lane's half row from the fp32 S and dP tiles, as bf16
+// (p only where Pb is given).
+template <int D>
+__device__ __forceinline__ void tc_p_ds(const float* Ss, const float* dPs,
+                                        const float* Ls, const float* Dis,
+                                        const int* kms, bf16* Pb, bf16* dSb,
+                                        const Geometry& g, int q_lo,
+                                        int k_lo, bool masked, float scale) {
+  using L = TcLayout<D>;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int row = 16 * warp + (lane >> 1), half = lane & 1;
+  const float Lr = Ls[row], Dr = Dis[row];
+  const float* srow = Ss + row * L::LDS + 32 * half;
+  const float* dprow = dPs + row * L::LDS + 32 * half;
+#pragma unroll 8
+  for (int c = 0; c < 32; ++c) {
+    const int col = 32 * half + c;
+    const bool ok =
+        !masked || visible(g, q_lo + row, k_lo + col, kms[col] != 0);
+    const float p = ok ? expf(srow[c] * scale - Lr) : 0.f;
+    if (Pb) Pb[row * L::LDP + col] = __float2bfloat16(p);
+    dSb[row * L::LDP + col] = __float2bfloat16(p * (dprow[c] - Dr));
+  }
+}
+
+// (64, D) accumulators of this warp (rows 16w..) times `mul`, written as
+// rows lo + r < T of a (T, D) output through the fp32 staging tile St.
+template <typename TO, int D>
+__device__ __forceinline__ void tc_write_rows(TO* out, const FragC* acc,
+                                              float mul, float* St, int lo,
+                                              int T) {
+  using L = TcLayout<D>;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+#pragma unroll
+  for (int n = 0; n < L::NK; ++n)
+    wm::store_matrix_sync(St + 16 * warp * L::LDO + 16 * n, acc[n], L::LDO,
+                          wm::mem_row_major);
+  __syncwarp();
+  for (int e = lane; e < 16 * D; e += 32) {
+    const int r = 16 * warp + e / D, d = e % D;
+    if (lo + r < T) put(out + (long)(lo + r) * D + d, mul * St[r * L::LDO + d]);
+  }
+  __syncwarp();
+}
+
+// ------------------------------------- K4, and K5's dk/dv pass, bf16
+template <int D, bool WITH_DQ>
+__global__ void __launch_bounds__(WT)
+flash_bwd_kv_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                       const bf16* __restrict__ v, const int* __restrict__ km,
+                       const bf16* __restrict__ dout,
+                       const float* __restrict__ lse,
+                       const float* __restrict__ di, float* __restrict__ dq,
+                       bf16* __restrict__ dk, bf16* __restrict__ dv, int H,
+                       Geometry g, float scale) {
+  using L = TcLayout<D>;
+  const int j = blockIdx.x;             // the most-visited key tiles first
+  const int bh = blockIdx.y, b = bh / H;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int T = g.T, k_lo = j * BN;
+
+  extern __shared__ __align__(128) unsigned char tc_smem[];
+  bf16* Ks = reinterpret_cast<bf16*>(tc_smem);        // BN x LDB
+  bf16* Vs = Ks + BN * L::LDB;
+  bf16* Qs = Vs + BN * L::LDB;                        // BM x LDB
+  bf16* dOs = Qs + BM * L::LDB;
+  float* Ss = reinterpret_cast<float*>(dOs + BM * L::LDB);  // BM x LDS
+  float* dPs = Ss + BM * L::LDS;                      // BM x LDS
+  bf16* Pb = reinterpret_cast<bf16*>(dPs + BM * L::LDS);    // BM x LDP
+  bf16* dSb = Pb + BM * L::LDP;
+  float* Ls = reinterpret_cast<float*>(dSb + BM * L::LDP);  // BM
+  float* Dis = Ls + BM;
+  int* kms = reinterpret_cast<int*>(Dis + BM);        // BN
+  float* St = Ss;   // (64, D) fp32 staging over Ss/dPs once they are read
+
+  const long base = (long)bh * T * D;
+  stage_tile<D>(Ks, k + base, k_lo, T);
+  stage_tile<D>(Vs, v + base, k_lo, T);
+  stage_key_ok(kms, km, b, k_lo, T);
+  FragC dk_acc[L::NK], dv_acc[L::NK];   // key rows 16w.., all of D
+#pragma unroll
+  for (int n = 0; n < L::NK; ++n) {
+    wm::fill_fragment(dk_acc[n], 0.f);
+    wm::fill_fragment(dv_acc[n], 0.f);
+  }
+  int i0, i1;
+  query_tiles(g, k_lo, &i0, &i1);
+  for (int i = i0; i < i1; ++i) {
+    const int q_lo = i * BM;
+    __syncthreads();
+    stage_tile<D>(Qs, q + base, q_lo, T);
+    stage_tile<D>(dOs, dout + base, q_lo, T);
+    stage_rows(Ls, Dis, lse, di, (long)bh * T, q_lo, T);
+    __syncthreads();
+    tile_products<D>(Ss, Qs, Ks, warp);
+    tile_products<D>(dPs, dOs, Vs, warp);
+    __syncwarp();
+    tc_p_ds<D>(Ss, dPs, Ls, Dis, kms, Pb, dSb, g, q_lo, k_lo,
+               tile_masked(g, q_lo, k_lo, km != nullptr), scale);
+    __syncthreads();                    // every row of p and ds is written
+    // dv += p^T dO, dk += ds^T q over this q tile (key rows 16w..)
+#pragma unroll
+    for (int n = 0; n < L::NK; ++n)
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) {
+        FragAt pt, st;
+        FragB ob, qb;
+        wm::load_matrix_sync(pt, Pb + 16 * kk * L::LDP + 16 * warp, L::LDP);
+        wm::load_matrix_sync(ob, dOs + 16 * kk * L::LDB + 16 * n, L::LDB);
+        wm::mma_sync(dv_acc[n], pt, ob, dv_acc[n]);
+        wm::load_matrix_sync(st, dSb + 16 * kk * L::LDP + 16 * warp, L::LDP);
+        wm::load_matrix_sync(qb, Qs + 16 * kk * L::LDB + 16 * n, L::LDB);
+        wm::mma_sync(dk_acc[n], st, qb, dk_acc[n]);
+      }
+    if constexpr (WITH_DQ) {
+      // this warp's q rows: dq += scale * ds k, added into the fp32 buffer
+      FragC dq_t[L::NK];
+#pragma unroll
+      for (int n = 0; n < L::NK; ++n) {
+        wm::fill_fragment(dq_t[n], 0.f);
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk) {
+          FragA sa;
+          FragB kb;
+          wm::load_matrix_sync(sa, dSb + 16 * warp * L::LDP + 16 * kk,
+                               L::LDP);
+          wm::load_matrix_sync(kb, Ks + 16 * kk * L::LDB + 16 * n, L::LDB);
+          wm::mma_sync(dq_t[n], sa, kb, dq_t[n]);
+        }
+        wm::store_matrix_sync(St + 16 * warp * L::LDO + 16 * n, dq_t[n],
+                              L::LDO, wm::mem_row_major);
+      }
+      __syncwarp();
+      for (int e = lane; e < 16 * D; e += 32) {
+        const int r = 16 * warp + e / D, d = e % D;
+        if (q_lo + r < T)
+          atomicAdd(dq + base + (long)(q_lo + r) * D + d,
+                    scale * St[r * L::LDO + d]);
+      }
+    }
+  }
+  __syncthreads();                      // St overlays the score tiles
+  tc_write_rows<bf16, D>(dk + base, dk_acc, scale, St, k_lo, T);
+  tc_write_rows<bf16, D>(dv + base, dv_acc, 1.f, St, k_lo, T);
+}
+
+// ---------------------------------------------------- K5's dq pass, bf16
+template <int D>
+__global__ void __launch_bounds__(WT)
+flash_bwd_q_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                      const bf16* __restrict__ v, const int* __restrict__ km,
+                      const bf16* __restrict__ dout,
+                      const float* __restrict__ lse,
+                      const float* __restrict__ di, float* __restrict__ dq,
+                      int H, Geometry g, float scale) {
+  using L = TcLayout<D>;
+  const int nq = gridDim.x;
+  const int i = nq - 1 - blockIdx.x;
+  const int bh = blockIdx.y, b = bh / H;
+  const int warp = threadIdx.x >> 5;
+  const int T = g.T, q_lo = i * BM;
+
+  extern __shared__ __align__(128) unsigned char tc_smem[];
+  bf16* Ks = reinterpret_cast<bf16*>(tc_smem);
+  bf16* Vs = Ks + BN * L::LDB;
+  bf16* Qs = Vs + BN * L::LDB;
+  bf16* dOs = Qs + BM * L::LDB;
+  float* Ss = reinterpret_cast<float*>(dOs + BM * L::LDB);
+  float* dPs = Ss + BM * L::LDS;
+  bf16* Pb = reinterpret_cast<bf16*>(dPs + BM * L::LDS);
+  bf16* dSb = Pb + BM * L::LDP;
+  float* Ls = reinterpret_cast<float*>(dSb + BM * L::LDP);
+  float* Dis = Ls + BM;
+  int* kms = reinterpret_cast<int*>(Dis + BM);
+
+  const long base = (long)bh * T * D;
+  stage_tile<D>(Qs, q + base, q_lo, T);
+  stage_tile<D>(dOs, dout + base, q_lo, T);
+  stage_rows(Ls, Dis, lse, di, (long)bh * T, q_lo, T);
+  FragC dq_acc[L::NK];                  // q rows 16w.., all of D
+#pragma unroll
+  for (int n = 0; n < L::NK; ++n) wm::fill_fragment(dq_acc[n], 0.f);
+  int j0, j1;
+  key_tiles(g, q_lo, &j0, &j1);
+  for (int j = j0; j < j1; ++j) {
+    const int k_lo = j * BN;
+    __syncthreads();
+    stage_tile<D>(Ks, k + base, k_lo, T);
+    stage_tile<D>(Vs, v + base, k_lo, T);
+    stage_key_ok(kms, km, b, k_lo, T);
+    __syncthreads();
+    tile_products<D>(Ss, Qs, Ks, warp);
+    tile_products<D>(dPs, dOs, Vs, warp);
+    __syncwarp();
+    tc_p_ds<D>(Ss, dPs, Ls, Dis, kms, nullptr, dSb, g, q_lo, k_lo,
+               tile_masked(g, q_lo, k_lo, km != nullptr), scale);
+    __syncwarp();                       // this warp's ds rows are written
+#pragma unroll
+    for (int n = 0; n < L::NK; ++n)
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) {
+        FragA sa;
+        FragB kb;
+        wm::load_matrix_sync(sa, dSb + 16 * warp * L::LDP + 16 * kk, L::LDP);
+        wm::load_matrix_sync(kb, Ks + 16 * kk * L::LDB + 16 * n, L::LDB);
+        wm::mma_sync(dq_acc[n], sa, kb, dq_acc[n]);
+      }
+  }
+  __syncthreads();
+  tc_write_rows<float, D>(dq + base, dq_acc, scale, Ss, q_lo, T);
+}
+
+template <int D>
+constexpr size_t fwd_tc_smem() {
+  using L = TcLayout<D>;
+  return 2 * (BM + 2 * BN) * L::LDB + 4 * BM * L::LDS + 2 * BM * L::LDP +
+         4 * BM * L::LDO + 4 * BN;
+}
+
+template <int D>
+constexpr size_t bwd_tc_smem() {
+  using L = TcLayout<D>;
+  return 2 * 4 * BM * L::LDB + 4 * 2 * BM * L::LDS + 2 * 2 * BM * L::LDP +
+         4 * 2 * BM + 4 * BN;
+}
+
+template <typename K>
+int prepare(K kern, size_t smem) {
+  if (smem > 48 * 1024) {
+    cudaError_t e = cudaFuncSetAttribute(
+        kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (e != cudaSuccess) return (int)e;
+  }
+  return 0;
+}
+
+template <int D>
+constexpr size_t fwd_smem() {
+  return sizeof(float) * (BM * (D + 1) + 2 * D * KP + BM * KP) +
+         sizeof(int) * BN;
+}
+
+template <int D>
+constexpr size_t bwd_smem() {
+  return sizeof(float) *
+             (2 * D * KP + 2 * BM * (D + 1) + 2 * BM * KP + 2 * BM) +
+         sizeof(int) * BN;
+}
+
+// The kernels for TI: the tensor-core ones for bf16, the CUDA-core ones
+// for fp32 (wmma has no fp32 product short of TF32, which would miss the
+// fp32 tolerance).
+template <typename TI, int D>
+int launch_fwd(const void* q, const void* k, const void* v, const int* km,
+               void* o, float* lse, int B, int H, int Hk, Geometry g,
+               float scale, cudaStream_t st) {
+  constexpr bool tc = std::is_same<TI, bf16>::value;
+  constexpr size_t smem = tc ? fwd_tc_smem<D>() : fwd_smem<D>();
+  auto kern = [] {
+    if constexpr (tc) return flash_fwd_tc_kernel<D>;
+    else return flash_fwd_kernel<TI, D>;
+  }();
+  int err = prepare(kern, smem);
+  if (err) return err;
+  dim3 grid((g.T + BM - 1) / BM, B * H);
+  kern<<<grid, tc ? WT : NT, smem, st>>>(
+      static_cast<const TI*>(q), static_cast<const TI*>(k),
+      static_cast<const TI*>(v), km, static_cast<TI*>(o), lse, H, Hk, g,
+      scale);
+  return (int)cudaGetLastError();
+}
+
+template <typename TI, int D>
+int launch_bwd(const void* q, const void* k, const void* v, const int* km,
+               const void* dout, const float* lse, const float* di,
+               float* dq, void* dk, void* dv, int B, int H, Geometry g,
+               int two_pass, float scale, cudaStream_t st) {
+  constexpr bool tc = std::is_same<TI, bf16>::value;
+  constexpr size_t smem = tc ? bwd_tc_smem<D>() : bwd_smem<D>();
+  constexpr int threads = tc ? WT : NT;
+  const TI* q_ = static_cast<const TI*>(q);
+  const TI* k_ = static_cast<const TI*>(k);
+  const TI* v_ = static_cast<const TI*>(v);
+  const TI* do_ = static_cast<const TI*>(dout);
+  TI* dk_ = static_cast<TI*>(dk);
+  TI* dv_ = static_cast<TI*>(dv);
+  dim3 grid_k((g.T + BN - 1) / BN, B * H);
+  dim3 grid_q((g.T + BM - 1) / BM, B * H);
+  auto kv = [](auto with_dq) {
+    if constexpr (tc) return flash_bwd_kv_tc_kernel<D, decltype(with_dq)::value>;
+    else return flash_bwd_kv_kernel<TI, D, decltype(with_dq)::value>;
+  };
+  int err;
+  if (!two_pass) {
+    auto kern = kv(std::true_type{});
+    if ((err = prepare(kern, smem))) return err;
+    kern<<<grid_k, threads, smem, st>>>(q_, k_, v_, km, do_, lse, di, dq,
+                                        dk_, dv_, H, g, scale);
+    return (int)cudaGetLastError();
+  }
+  auto kq = [] {
+    if constexpr (tc) return flash_bwd_q_tc_kernel<D>;
+    else return flash_bwd_q_kernel<TI, D>;
+  }();
+  if ((err = prepare(kq, smem))) return err;
+  kq<<<grid_q, threads, smem, st>>>(q_, k_, v_, km, do_, lse, di, dq, H, g,
+                                    scale);
+  if ((err = (int)cudaGetLastError())) return err;
+  auto kkv = kv(std::false_type{});
+  if ((err = prepare(kkv, smem))) return err;
+  kkv<<<grid_k, threads, smem, st>>>(q_, k_, v_, km, do_, lse, di, nullptr,
+                                     dk_, dv_, H, g, scale);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+// dtype codes: 0 float32, 2 bfloat16. Head dims 16, 32, 64, 128. Return a
+// cudaError_t code (0 on success). They allocate nothing and do not
+// synchronize: the kernels launch on `stream`.
+#define DL4J_DISPATCH(FN, ...)                                     \
+  {                                                                \
+    if (dtype == 0) {                                              \
+      if (D == 16) return FN<float, 16>(__VA_ARGS__);              \
+      if (D == 32) return FN<float, 32>(__VA_ARGS__);              \
+      if (D == 64) return FN<float, 64>(__VA_ARGS__);              \
+      if (D == 128) return FN<float, 128>(__VA_ARGS__);            \
+    } else if (dtype == 2) {                                       \
+      if (D == 16) return FN<__nv_bfloat16, 16>(__VA_ARGS__);      \
+      if (D == 32) return FN<__nv_bfloat16, 32>(__VA_ARGS__);      \
+      if (D == 64) return FN<__nv_bfloat16, 64>(__VA_ARGS__);      \
+      if (D == 128) return FN<__nv_bfloat16, 128>(__VA_ARGS__);    \
+    }                                                              \
+    return (int)cudaErrorInvalidValue;                             \
+  }
+
+extern "C" int dl4j_flash_fwd(const void* q, const void* k, const void* v,
+                              const void* key_mask, void* o, void* lse,
+                              int B, int H, int Hk, int T, int D, int causal,
+                              int window, int dtype, float scale,
+                              void* stream) {
+  if (T <= 0 || B <= 0 || H <= 0) return 0;
+  if (Hk <= 0 || H % Hk != 0) return (int)cudaErrorInvalidValue;
+  const Geometry g{T, causal, window};
+  DL4J_DISPATCH(launch_fwd, q, k, v, static_cast<const int*>(key_mask), o,
+                static_cast<float*>(lse), B, H, Hk, g, scale,
+                static_cast<cudaStream_t>(stream));
+}
+
+extern "C" int dl4j_flash_bwd(const void* q, const void* k, const void* v,
+                              const void* key_mask, const void* dout,
+                              const void* lse, const void* di, void* dq,
+                              void* dk, void* dv, int B, int H, int T, int D,
+                              int causal, int window, int dtype, int two_pass,
+                              float scale, void* stream) {
+  if (T <= 0 || B <= 0 || H <= 0) return 0;
+  const Geometry g{T, causal, window};
+  DL4J_DISPATCH(launch_bwd, q, k, v, static_cast<const int*>(key_mask), dout,
+                static_cast<const float*>(lse), static_cast<const float*>(di),
+                static_cast<float*>(dq), dk, dv, B, H, g, two_pass, scale,
+                static_cast<cudaStream_t>(stream));
+}
+
+extern "C" const char* dl4j_flash_error_string(int code) {
+  return cudaGetErrorString(static_cast<cudaError_t>(code));
+}

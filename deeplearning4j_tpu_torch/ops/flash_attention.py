@@ -1,0 +1,387 @@
+"""Flash attention, forward and backward (counterpart of
+ops/flash_attention.py): the long-context hot path of
+`SelfAttentionLayer` at T > block_size.
+
+Public functions keep the JAX package's layout, (B, H, T, D), and its
+semantics:
+- `flash_attention(q, k, v, mask, causal, scale, window, bwd)` and
+  `flash_attention_lse(...)`, which also returns the row log-sum-exp
+  (B, H, T) and is differentiable in both outputs (a cotangent on the
+  lse shifts D_i, as in the JAX package);
+- `flash_attention_reference`: the dense oracle;
+- `configure(bwd=...)`: the backward schedule, "fused" (K4, default) or
+  "two_pass" (K5), also read from DL4J_TPU_FLASH_BWD when the module is
+  imported.
+
+Masking: keys past T drop; `causal` keeps kj <= qi; `window` > 0 keeps
+qi - window < kj <= qi (causal) or |qi - kj| < window (non-causal); a
+(B, T) key mask drops keys whose mask is 0. Masked scores are NEG_INF =
+-1e30 (never -inf). A row with no visible key gives o = 0 and L = NEG_INF,
+and zero gradients. `scale` defaults to 1/sqrt(D). GQA: k/v may carry Hk |
+H heads in the forward (query head h reads kv head h // (H / Hk)); the
+grouped backward raises, as in the JAX package: the layer repeats k/v to
+full heads before the call, so training never reaches it.
+
+Kernels (`csrc/flash_attention.cu`, CUDA C++ for sm_90a, one source; bf16
+inputs take tensor-core versions of each, fp32 inputs CUDA-core ones):
+- K3 `flash_attention_fwd_cuda` replaces `_call_fwd` / `_fwd_kernel`;
+- K4 `flash_attention_bwd_cuda(..., bwd="fused")` replaces
+  `_fused_bwd_kernel`; dq accumulates through fp32 atomics into one
+  zeroed (B*H, T, D) buffer (no per-k-block partials);
+- K5 `flash_attention_bwd_cuda(..., bwd="two_pass")` replaces `_dq_kernel`
+  and `_dkv_kernel`.
+Each has a plain PyTorch version with the kernel's own signature,
+`flash_fwd_plain` and `flash_bwd_plain` (dense, fp32 scores, fp64 for
+fp64 inputs); the backward recomputes p from the lse, as the kernels do.
+One `torch.autograd.Function` takes each direction through
+`ops/helpers.helper_for`: CUDA tensors get the kernel, CPU tensors the
+plain version. D_i = rowsum(dO * o) - dlse is a torch reduction outside
+the kernels, as it is an XLA reduction in the JAX package.
+
+Left out of the port: the TPU tile arguments `bq`/`bk` (the CUDA kernels
+pick 64-row tiles), the (B*H, nk, T, D) dq-partials buffer and its byte
+cap, and `dq_partials="io"`, which raises. DL4J_TPU_FLASH_DQ_PARTIALS and
+DL4J_TPU_FLASH_DQP_MAX_BYTES are not read.
+"""
+from __future__ import annotations
+
+import ctypes
+import math
+import os
+from typing import Optional
+
+import torch
+
+from deeplearning4j_tpu_torch.ops import build
+from deeplearning4j_tpu_torch.ops.helpers import helper_for, register_helper
+
+NEG_INF = -1e30
+SOURCE = "flash_attention.cu"
+BWD_MODES = ("fused", "two_pass")
+HEAD_DIMS = (16, 32, 64, 128)         # head dims the kernels are built for
+_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 2}
+
+_CONFIG = {"bwd": os.environ.get("DL4J_TPU_FLASH_BWD", "fused")}
+
+
+def _check_dq_partials(dq_partials: Optional[str]) -> None:
+    if dq_partials not in (None, "acc"):
+        raise NotImplementedError(
+            f"dq_partials={dq_partials!r}: the port's fused backward "
+            "accumulates dq in fp32 on the card (no per-k-block partials "
+            "buffer); only 'acc' exists (ROADMAP queue 2, K4)")
+
+
+def configure(bwd: Optional[str] = None, dq_partials: Optional[str] = None):
+    """Set the default backward schedule ('fused' | 'two_pass'); returns the
+    previous (bwd, dq_partials) pair. The default is read when
+    `flash_attention` is called, so it takes effect for every later call.
+    `dq_partials` exists for the JAX package's signature: 'acc' is the
+    only mode, 'io' raises NotImplementedError."""
+    _check_dq_partials(dq_partials)
+    prev = (_CONFIG["bwd"], "acc")
+    if bwd is not None:
+        if bwd not in BWD_MODES:
+            raise ValueError(f"unknown flash bwd mode {bwd!r}")
+        _CONFIG["bwd"] = bwd
+    return prev
+
+
+def _resolve_bwd(bwd: Optional[str]) -> str:
+    bwd = _CONFIG["bwd"] if bwd is None else bwd
+    if bwd not in BWD_MODES:
+        raise ValueError(f"unknown flash bwd mode {bwd!r} (DL4J_TPU_FLASH_BWD "
+                         f"or the bwd argument: {BWD_MODES})")
+    return bwd
+
+
+def _acc_dtype(dtype: torch.dtype) -> torch.dtype:
+    return torch.promote_types(dtype, torch.float32)
+
+
+def _scale(scale, D: int) -> float:
+    return float(scale) if scale is not None else 1.0 / math.sqrt(D)
+
+
+def _check_shapes(q, k, v):
+    B, H, T, D = q.shape
+    Hk = k.shape[1]
+    if k.shape != v.shape or k.shape[0] != B or k.shape[2] != T \
+            or k.shape[3] != D or H % Hk != 0:
+        raise ValueError(
+            f"bad GQA shapes: q {tuple(q.shape)}, k {tuple(k.shape)}, v "
+            f"{tuple(v.shape)} (need k == v, same B/T/D, and n_heads % "
+            "n_kv_heads == 0)")
+
+
+def _no_grouped_backward(q, k):
+    if k.shape[1] != q.shape[1]:
+        raise NotImplementedError(
+            f"flash_attention backward with grouped k/v heads "
+            f"(H={q.shape[1]}, Hk={k.shape[1]}) is not implemented; "
+            "repeat k/v to the full head count before differentiating")
+
+
+def _valid(T: int, mask, causal: bool, window: int, device):
+    """(B or 1, 1, T, T) bool: which (query, key) pairs are visible."""
+    qi = torch.arange(T, device=device)[:, None]
+    kj = torch.arange(T, device=device)[None, :]
+    valid = torch.ones((T, T), dtype=torch.bool, device=device)
+    if causal:
+        valid = valid & (qi >= kj)
+    if window:
+        valid = valid & (qi - kj < window)
+        if not causal:
+            valid = valid & (kj - qi < window)
+    valid = valid[None, None]
+    if mask is not None:
+        valid = valid & (mask > 0)[:, None, None, :]
+    return valid
+
+
+def _full_heads(q, k, v):
+    H, Hk = q.shape[1], k.shape[1]
+    if Hk != H:
+        k = k.repeat_interleave(H // Hk, dim=1)
+        v = v.repeat_interleave(H // Hk, dim=1)
+    return k, v
+
+
+# ------------------------------------------------------------ plain versions
+def flash_fwd_plain(q, k, v, mask=None, causal: bool = False, scale=None,
+                    window: int = 0):
+    """The plain version of K3: dense attention with the kernel's masking.
+    Returns (o (B, H, T, D) in q.dtype, lse (B, H, T) in the accumulation
+    dtype: float32, float64 for float64 inputs)."""
+    _check_shapes(q, k, v)
+    acc = _acc_dtype(q.dtype)
+    T, D = q.shape[2], q.shape[3]
+    k, v = _full_heads(q, k, v)
+    s = torch.einsum("bhqd,bhkd->bhqk", q.to(acc), k.to(acc)) \
+        * _scale(scale, D)
+    valid = _valid(T, mask, causal, window, q.device)
+    s = s.masked_fill(~valid, NEG_INF)
+    any_valid = valid.any(dim=-1)                      # (B|1, 1, T)
+    lse = torch.logsumexp(s, dim=-1)
+    p = torch.exp((s - lse[..., None]).masked_fill(~valid, float("-inf")))
+    o = torch.einsum("bhqk,bhkd->bhqd", p, v.to(acc))
+    lse = torch.where(any_valid, lse, torch.full_like(lse, NEG_INF))
+    return o.to(q.dtype), lse
+
+
+def flash_bwd_plain(q, k, v, mask, o, lse, do, dlse=None,
+                    causal: bool = False, scale=None, window: int = 0,
+                    bwd: Optional[str] = None):
+    """The plain version of K4 and K5 (they compute the same function):
+    p recomputed from the lse, D_i = rowsum(dO * o) - dlse, then
+    dv = p^T dO, ds = p * (dO v^T - D_i), dq = scale ds k, dk = scale ds^T q.
+    Returns (dq, dk, dv) in the dtypes of q, k, v."""
+    _resolve_bwd(bwd)
+    _check_shapes(q, k, v)
+    _no_grouped_backward(q, k)
+    acc = _acc_dtype(q.dtype)
+    T, D = q.shape[2], q.shape[3]
+    sc = _scale(scale, D)
+    qa, ka, va, doa = q.to(acc), k.to(acc), v.to(acc), do.to(acc)
+    di = _di(do, o, dlse, acc)
+    valid = _valid(T, mask, causal, window, q.device)
+    s = torch.einsum("bhqd,bhkd->bhqk", qa, ka) * sc
+    p = torch.exp((s - lse.to(acc)[..., None]).masked_fill(
+        ~valid, float("-inf")))
+    dv = torch.einsum("bhqk,bhqd->bhkd", p, doa)
+    dp = torch.einsum("bhqd,bhkd->bhqk", doa, va)
+    ds = p * (dp - di[..., None])
+    dq = torch.einsum("bhqk,bhkd->bhqd", ds, ka) * sc
+    dk = torch.einsum("bhqk,bhqd->bhkd", ds, qa) * sc
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+
+
+def _di(do, o, dlse, acc):
+    """D_i = rowsum(dO * o) - dlse, accumulated in `acc` (B, H, T)."""
+    di = (do.to(acc) * o.to(acc)).sum(dim=-1)
+    if dlse is not None:
+        di = di - dlse.to(acc)
+    return di
+
+
+def flash_attention_reference(q, k, v, mask=None, causal=False, scale=None,
+                              window=0):
+    """Dense oracle with the same mask, window and GQA semantics, in
+    differentiable torch ops."""
+    D = q.shape[-1]
+    k, v = _full_heads(q, k, v)
+    s = torch.einsum("bhqd,bhkd->bhqk", q, k) * _scale(scale, D)
+    valid = _valid(q.shape[2], mask, causal, window, q.device)
+    s = s.masked_fill(~valid, NEG_INF)
+    p = torch.softmax(s, dim=-1).masked_fill(~valid, 0.0)
+    return torch.einsum("bhqk,bhkv->bhqv", p, v)
+
+
+# ---------------------------------------------------------------- autograd
+class _FlashAttention(torch.autograd.Function):
+    """Forward through K3 (or its plain version), backward through K4/K5
+    (or theirs), chosen by the device of q."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, mask, causal, scale, window, bwd):
+        fwd = helper_for("flash_attention_fwd", flash_fwd_plain, q)
+        o, lse = fwd(q, k, v, mask, causal, scale, window)
+        ctx.save_for_backward(q, k, v, o, lse)
+        ctx.mask, ctx.causal, ctx.scale = mask, causal, scale
+        ctx.window, ctx.bwd = window, bwd
+        ctx.set_materialize_grads(False)
+        return o, lse
+
+    @staticmethod
+    def backward(ctx, do, dlse):
+        q, k, v, o, lse = ctx.saved_tensors
+        if do is None:
+            do = torch.zeros_like(o)
+        bwd = helper_for("flash_attention_bwd", flash_bwd_plain, q)
+        dq, dk, dv = bwd(q, k, v, ctx.mask, o, lse, do, dlse, ctx.causal,
+                         ctx.scale, ctx.window, ctx.bwd)
+        return dq, dk, dv, None, None, None, None, None
+
+
+def flash_attention_lse(q, k, v, mask=None, causal: bool = False,
+                        scale: Optional[float] = None, window: int = 0,
+                        bwd: Optional[str] = None,
+                        dq_partials: Optional[str] = None):
+    """Like `flash_attention`, and also returns the per-row log-sum-exp
+    (B, H, T) in float32 (float64 for float64 inputs); differentiable in
+    both outputs."""
+    _check_dq_partials(dq_partials)
+    _check_shapes(q, k, v)
+    return _FlashAttention.apply(q, k, v, mask, bool(causal), scale,
+                                 int(window), _resolve_bwd(bwd))
+
+
+def flash_attention(q, k, v, mask=None, causal: bool = False,
+                    scale: Optional[float] = None, window: int = 0,
+                    bwd: Optional[str] = None,
+                    dq_partials: Optional[str] = None):
+    """q/k/v (B, H, T, D), k/v possibly with Hk | H heads (forward only);
+    mask an optional (B, T) key mask. Returns (B, H, T, D). `bwd`
+    overrides the `configure()` default for this call."""
+    return flash_attention_lse(q, k, v, mask, causal, scale, window, bwd,
+                               dq_partials)[0]
+
+
+# ------------------------------------------------------------------ kernels
+def _library():
+    lib = build.load(SOURCE)
+    if lib.dl4j_flash_fwd.argtypes is None:
+        # fwd: q, k, v, km, o, lse, 8 ints, scale, stream
+        lib.dl4j_flash_fwd.argtypes = [ctypes.c_void_p] * 6 + [
+            ctypes.c_int] * 8 + [ctypes.c_float, ctypes.c_void_p]
+        # bwd: q, k, v, km, do, lse, di, dq, dk, dv, 8 ints, scale, stream
+        lib.dl4j_flash_bwd.argtypes = [ctypes.c_void_p] * 10 + [
+            ctypes.c_int] * 8 + [ctypes.c_float, ctypes.c_void_p]
+        lib.dl4j_flash_fwd.restype = ctypes.c_int
+        lib.dl4j_flash_bwd.restype = ctypes.c_int
+        lib.dl4j_flash_error_string.argtypes = [ctypes.c_int]
+        lib.dl4j_flash_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def _check_cuda(what, q, k, v, mask, *more):
+    if q.device.type != "cuda":
+        raise ValueError(f"{what} runs on CUDA tensors only")
+    _check_shapes(q, k, v)
+    if q.dtype not in _DTYPE_CODE:
+        raise TypeError(f"{what}: dtype {q.dtype} has no kernel on the card "
+                        "(float32, bfloat16)")
+    if k.dtype != q.dtype or v.dtype != q.dtype:
+        raise TypeError(f"{what}: q, k, v dtypes differ")
+    if q.shape[3] not in HEAD_DIMS:
+        raise ValueError(f"{what}: head dim {q.shape[3]} not in {HEAD_DIMS}")
+    tensors = [q, k, v] + [t for t in (mask,) + more if t is not None]
+    if any(t.device != q.device for t in tensors):
+        raise ValueError(f"{what}: all inputs must lie on one CUDA device")
+    if mask is not None and tuple(mask.shape) != (q.shape[0], q.shape[2]):
+        raise ValueError(f"{what}: mask must be (B, T) = "
+                         f"{(q.shape[0], q.shape[2])}, got {tuple(mask.shape)}")
+
+
+def _aligned(t: torch.Tensor) -> torch.Tensor:
+    """`t` contiguous with a 16-byte-aligned start (the bf16 kernels copy
+    rows 16 bytes at a time)."""
+    t = t.contiguous()
+    return t if t.data_ptr() % 16 == 0 else t.clone()
+
+
+def _key_mask(mask):
+    return None if mask is None else (mask > 0).to(torch.int32).contiguous()
+
+
+def _raise_on(lib, err, what):
+    if err != 0:
+        raise RuntimeError(f"{what} launch failed: "
+                           f"{lib.dl4j_flash_error_string(err).decode()}")
+
+
+def flash_attention_fwd_cuda(q, k, v, mask=None, causal: bool = False,
+                             scale=None, window: int = 0):
+    """K3 on CUDA tensors; same contract as `flash_fwd_plain`. Launches on
+    the current stream without a sync; counted in `.launches`."""
+    _check_cuda("flash_attention_fwd", q, k, v, mask)
+    B, H, T, D = q.shape
+    Hk = k.shape[1]
+    q, k, v = _aligned(q), _aligned(k), _aligned(v)
+    km = _key_mask(mask)
+    o = torch.empty_like(q)
+    lse = torch.empty((B, H, T), dtype=torch.float32, device=q.device)
+    lib = _library()
+    err = lib.dl4j_flash_fwd(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(),
+        None if km is None else km.data_ptr(), o.data_ptr(), lse.data_ptr(),
+        B, H, Hk, T, D, int(bool(causal)), int(window), _DTYPE_CODE[q.dtype],
+        _scale(scale, D), torch.cuda.current_stream(q.device).cuda_stream)
+    _raise_on(lib, err, "flash_attention_fwd")
+    flash_attention_fwd_cuda.launches += 1
+    return o, lse
+
+
+flash_attention_fwd_cuda.launches = 0
+register_helper("flash_attention_fwd")(flash_attention_fwd_cuda)
+
+
+def flash_attention_bwd_cuda(q, k, v, mask, o, lse, do, dlse=None,
+                             causal: bool = False, scale=None,
+                             window: int = 0, bwd: Optional[str] = None):
+    """K4 (bwd "fused": one kernel, dq through fp32 atomics, counted in
+    `flash_attention_bwd_cuda.fused_launches`) or K5 (bwd "two_pass": the
+    dq kernel and the dk/dv kernel, counted in `.two_pass_launches`, two
+    per call) on CUDA tensors; same contract as `flash_bwd_plain`. D_i is
+    a torch reduction here, before the launch."""
+    bwd = _resolve_bwd(bwd)
+    _check_cuda("flash_attention_bwd", q, k, v, mask, o, lse, do)
+    _no_grouped_backward(q, k)
+    B, H, T, D = q.shape
+    q, k, v = _aligned(q), _aligned(k), _aligned(v)
+    do = _aligned(do.to(q.dtype))
+    lse = lse.to(torch.float32).contiguous()
+    di = _di(do, o, dlse, torch.float32).contiguous()
+    km = _key_mask(mask)
+    dq = torch.zeros((B, H, T, D), dtype=torch.float32, device=q.device)
+    dk, dv = torch.empty_like(k), torch.empty_like(v)
+    lib = _library()
+    mode = 0 if bwd == "fused" else 1
+    err = lib.dl4j_flash_bwd(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(),
+        None if km is None else km.data_ptr(), do.data_ptr(), lse.data_ptr(),
+        di.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+        B, H, T, D, int(bool(causal)), int(window), _DTYPE_CODE[q.dtype],
+        mode, _scale(scale, D),
+        torch.cuda.current_stream(q.device).cuda_stream)
+    _raise_on(lib, err, f"flash_attention_bwd ({bwd})")
+    if mode == 0:
+        flash_attention_bwd_cuda.fused_launches += 1
+    else:
+        flash_attention_bwd_cuda.two_pass_launches += 2
+    return dq.to(q.dtype), dk, dv
+
+
+flash_attention_bwd_cuda.fused_launches = 0
+flash_attention_bwd_cuda.two_pass_launches = 0
+register_helper("flash_attention_bwd")(flash_attention_bwd_cuda)

@@ -1,0 +1,195 @@
+"""The port's flash attention (deeplearning4j_tpu_torch/ops/flash_attention)
+against the JAX package's, in float64 on the CPU.
+
+On the CPU the port runs the plain versions of K3, K4 and K5
+(`flash_fwd_plain`, `flash_bwd_plain`) behind its autograd function; the
+JAX side runs its Pallas kernels in interpret mode with explicit small
+tiles (bq = bk = 8, so T = 21 leaves a ragged tail tile), and its dense
+oracle. Values and gradients for one numpy cotangent agree within 1e-10.
+The CUDA kernels themselves are held against the same plain versions on
+the card by chip_smoke.py.
+"""
+import numpy as np
+import pytest
+
+import jax
+import jax.numpy as jnp
+import torch
+
+from deeplearning4j_tpu.ops import flash_attention as jfa
+from deeplearning4j_tpu_torch.ops import flash_attention as tfa
+from deeplearning4j_tpu_torch.ops import helpers
+
+ATOL = 1e-10
+BLK = 8
+
+
+def _data(B=2, H=4, Hk=4, T=21, D=8, seed=0, mask="none"):
+    rng = np.random.RandomState(seed)
+    q = rng.randn(B, H, T, D) * 0.5
+    k = rng.randn(B, Hk, T, D) * 0.5
+    v = rng.randn(B, Hk, T, D) * 0.5
+    do = rng.randn(B, H, T, D)
+    m = None
+    if mask != "none":
+        m = (rng.rand(B, T) > 0.3).astype(np.float64)
+        if mask == "full_row":          # batch 1 sees no key at all
+            m[1] = 0.0
+    return q, k, v, do, m
+
+
+def _jax_vjp(q, k, v, m, do, causal, window, dlse=None):
+    jm = None if m is None else jnp.asarray(m)
+    if dlse is None:
+        def f(q, k, v):
+            return jfa.flash_attention(q, k, v, jm, causal, None, BLK, BLK,
+                                       window)
+        out, vjp = jax.vjp(f, *map(jnp.asarray, (q, k, v)))
+        return out, None, vjp(jnp.asarray(do))
+
+    def g(q, k, v):
+        return jfa.flash_attention_lse(q, k, v, jm, causal, None, BLK, BLK,
+                                       window)
+    (out, lse), vjp = jax.vjp(g, *map(jnp.asarray, (q, k, v)))
+    return out, lse, vjp((jnp.asarray(do), jnp.asarray(dlse)))
+
+
+def _torch_vjp(q, k, v, m, do, causal, window, dlse=None, bwd=None):
+    tq, tk, tv = (torch.tensor(a, requires_grad=True) for a in (q, k, v))
+    tm = None if m is None else torch.from_numpy(m)
+    out, lse = tfa.flash_attention_lse(tq, tk, tv, tm, causal, None, window,
+                                       bwd)
+    outs, cots = [out], [torch.from_numpy(do)]
+    if dlse is not None:
+        outs.append(lse)
+        cots.append(torch.from_numpy(dlse))
+    grads = torch.autograd.grad(outs, (tq, tk, tv), cots)
+    return out.detach(), lse.detach(), grads
+
+
+CASES = {
+    "causal": dict(causal=True),
+    "noncausal": dict(causal=False),
+    "causal-window5": dict(causal=True, window=5),
+    "noncausal-window3-mask": dict(causal=False, window=3, mask="random"),
+    "causal-mask": dict(causal=True, mask="random"),
+    "fully-masked-row": dict(causal=True, mask="full_row"),
+    "T16-tile-multiple": dict(causal=True, T=16),
+}
+
+
+@pytest.mark.parametrize("name", sorted(CASES))
+def test_plain_forward_backward_match_jax_kernels(name):
+    kw = dict(CASES[name])
+    causal, window = kw.pop("causal"), kw.pop("window", 0)
+    q, k, v, do, m = _data(mask=kw.pop("mask", "none"), **kw)
+    jout, _, jg = _jax_vjp(q, k, v, m, do, causal, window)
+    tout, _, tg = _torch_vjp(q, k, v, m, do, causal, window)
+    np.testing.assert_allclose(tout.numpy(), np.asarray(jout), atol=ATOL,
+                               rtol=0)
+    for a, b in zip(tg, jg):
+        np.testing.assert_allclose(a.numpy(), np.asarray(b), atol=ATOL,
+                                   rtol=0)
+    ref = jfa.flash_attention_reference(
+        *map(jnp.asarray, (q, k, v)), None if m is None else jnp.asarray(m),
+        causal, None, window)
+    np.testing.assert_allclose(tout.numpy(), np.asarray(ref), atol=ATOL,
+                               rtol=0)
+    if name == "fully-masked-row":
+        assert np.all(tout.numpy()[1] == 0)
+        for g in tg:
+            assert np.all(g.numpy()[1] == 0)
+
+
+def test_lse_variant_with_dlse_matches_jax():
+    q, k, v, do, m = _data(mask="random", seed=3)
+    dlse = np.random.RandomState(4).randn(2, 4, 21)
+    jout, jlse, jg = _jax_vjp(q, k, v, m, do, True, 0, dlse)
+    tout, tlse, tg = _torch_vjp(q, k, v, m, do, True, 0, dlse)
+    np.testing.assert_allclose(tlse.numpy(), np.asarray(jlse), atol=ATOL,
+                               rtol=0)
+    for a, b in zip(tg, jg):
+        np.testing.assert_allclose(a.numpy(), np.asarray(b), atol=ATOL,
+                                   rtol=0)
+
+
+@pytest.mark.parametrize("hk", [1, 2])
+def test_gqa_forward_matches_jax(hk):
+    q, k, v, _, m = _data(Hk=hk, seed=5, mask="random")
+    jm = jnp.asarray(m)
+    ref = jfa.flash_attention(*map(jnp.asarray, (q, k, v)), jm, True, None,
+                              BLK, BLK)
+    out = tfa.flash_attention(*map(torch.from_numpy, (q, k, v)),
+                              torch.from_numpy(m), True)
+    np.testing.assert_allclose(out.numpy(), np.asarray(ref), atol=ATOL,
+                               rtol=0)
+    dense = tfa.flash_attention_reference(*map(torch.from_numpy, (q, k, v)),
+                                          torch.from_numpy(m), True)
+    np.testing.assert_allclose(out.numpy(), dense.numpy(), atol=ATOL, rtol=0)
+
+
+def test_gqa_backward_raises():
+    q, k, v, do, _ = _data(Hk=2)
+    with pytest.raises(NotImplementedError, match="grouped"):
+        _torch_vjp(q, k, v, None, do, True, 0)
+    with pytest.raises(NotImplementedError, match="grouped"):
+        tfa.flash_bwd_plain(*map(torch.from_numpy, (q, k, v)), None,
+                            torch.zeros(2, 4, 21, 8), torch.zeros(2, 4, 21),
+                            torch.from_numpy(do))
+
+
+@pytest.mark.parametrize("window,mask", [(0, "none"), (4, "random")])
+def test_fused_equals_two_pass(window, mask):
+    q, k, v, do, m = _data(seed=7, mask=mask)
+    _, _, a = _torch_vjp(q, k, v, m, do, True, window, bwd="fused")
+    _, _, b = _torch_vjp(q, k, v, m, do, True, window, bwd="two_pass")
+    for x, y in zip(a, b):
+        assert torch.equal(x, y)
+
+
+def test_configure_env_knob_and_dq_partials():
+    prev = tfa.configure(bwd="two_pass")
+    try:
+        assert prev[0] in tfa.BWD_MODES and prev[1] == "acc"
+        assert tfa._resolve_bwd(None) == "two_pass"
+        assert tfa.configure() == ("two_pass", "acc")
+        with pytest.raises(ValueError):
+            tfa.configure(bwd="three_pass")
+        with pytest.raises(NotImplementedError, match="dq_partials"):
+            tfa.configure(dq_partials="io")
+        q, k, v, _, _ = _data()
+        with pytest.raises(NotImplementedError, match="dq_partials"):
+            tfa.flash_attention(*map(torch.from_numpy, (q, k, v)),
+                                dq_partials="io")
+    finally:
+        tfa.configure(bwd=prev[0])
+
+
+def test_env_knob_sets_default(monkeypatch):
+    import importlib
+    monkeypatch.setenv("DL4J_TPU_FLASH_BWD", "two_pass")
+    mod = importlib.reload(tfa)
+    try:
+        assert mod._resolve_bwd(None) == "two_pass"
+    finally:
+        monkeypatch.delenv("DL4J_TPU_FLASH_BWD")
+        importlib.reload(tfa)
+    assert tfa._resolve_bwd(None) == "fused"
+
+
+def test_seam_routes_by_device():
+    """CPU tensors take the plain versions; the CUDA wrappers are what is
+    registered, and they refuse CPU tensors rather than fall back."""
+    x = torch.zeros(1)
+    assert helpers.helper_for("flash_attention_fwd", tfa.flash_fwd_plain,
+                              x) is tfa.flash_fwd_plain
+    reg = helpers.registered_helpers()
+    assert reg["flash_attention_fwd"] is tfa.flash_attention_fwd_cuda
+    assert reg["flash_attention_bwd"] is tfa.flash_attention_bwd_cuda
+    q, k, v, do, _ = _data()
+    tq, tk, tv = map(torch.from_numpy, (q, k, v))
+    with pytest.raises(ValueError, match="CUDA"):
+        tfa.flash_attention_fwd_cuda(tq, tk, tv)
+    with pytest.raises(ValueError, match="CUDA"):
+        tfa.flash_attention_bwd_cuda(tq, tk, tv, None, tq, tq[..., 0],
+                                     torch.from_numpy(do))

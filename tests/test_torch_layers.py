@@ -165,11 +165,47 @@ def test_xavier_init_shapes_and_scale():
 
 
 def test_long_context_branch_raises():
-    layer = TorchAttn(n_in=4, n_out=8, n_heads=4, causal=True, block_size=4)
-    p = layer.init_params(torch.Generator().manual_seed(0), None)
-    with pytest.raises(NotImplementedError, match="K3"):
-        layer.forward(p, {}, torch.zeros(1, 4, 5))
-    layer.forward(p, {}, torch.zeros(1, 4, 4))        # T <= block_size: dense
+    """At T > block_size the layer takes the flash-attention branch and
+    matches the JAX layer's (Pallas kernels in interpret mode), GQA, window
+    and key mask included; T <= block_size still takes the dense path. What
+    the branch raises on is the grouped-k/v backward, which the layer never
+    reaches because it repeats k/v to full heads first."""
+    import deeplearning4j_tpu.ops.flash_attention  # noqa: F401
+    from deeplearning4j_tpu.ops.helpers import helpers_enabled_ctx
+    from deeplearning4j_tpu_torch.ops import flash_attention as tfa
+    layer = SelfAttentionLayer(n_in=6, n_out=8, n_heads=4, n_kv_heads=2,
+                               causal=True, block_size=4, attention_window=3,
+                               activation=Activation.TANH)
+    params = layer.init_params(jax.random.PRNGKey(1), None, jnp.float64)
+    tlayer = BaseLayerConf.from_dict(layer.to_dict())
+    tp = params_from_jax([params], device="cpu")[0]
+    rng = np.random.RandomState(8)
+    x = rng.randn(2, 6, 11)
+    mask = (rng.rand(2, 11) > 0.3).astype(np.float64)
+    with helpers_enabled_ctx(True):
+        ref, _, _ = layer.forward(params, {}, jnp.asarray(x), train=False,
+                                  mask=jnp.asarray(mask))
+    calls = []
+    real = tfa.flash_fwd_plain
+
+    def spy(*a, **k):
+        calls.append(a[0].shape)
+        return real(*a, **k)
+    tfa.flash_fwd_plain = spy
+    try:
+        out, _, _ = tlayer.forward(tp, {}, torch.from_numpy(x),
+                                   mask=torch.from_numpy(mask))
+        assert calls == [(2, 4, 11, 2)]           # flash branch, full heads
+        tlayer.forward(tp, {}, torch.from_numpy(x[:, :, :4]))
+        assert len(calls) == 1                    # T <= block_size: dense
+    finally:
+        tfa.flash_fwd_plain = real
+    np.testing.assert_allclose(out.numpy(), np.asarray(ref), atol=ATOL,
+                               rtol=0)
+    q = torch.zeros(1, 4, 5, 2, requires_grad=True)
+    kv = torch.zeros(1, 2, 5, 2, requires_grad=True)
+    with pytest.raises(NotImplementedError, match="grouped"):
+        tfa.flash_attention(q, kv, kv, None, True).sum().backward()
 
 
 def test_unported_layer_and_preprocessor_raise():
