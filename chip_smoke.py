@@ -8,7 +8,37 @@ Phases, each printing one JSON line; any failure exits non-zero:
 1. device   - CUDA present with compute capability (9, 0).
 2. build    - compile every CUDA kernel of the paths from the checkout's
               sources (one nvcc per source, all started together).
-3. kernel_flash - K3 (flash-attention forward) against flash_fwd_plain:
+3. kernel_lstm_scan - K7 (the Graves-LSTM scan, forward and backward)
+              against its plain versions: fp32 and bf16, H 32/64/256/512,
+              B 1/3/65/8192, T 1/7/100, zero and non-zero state and
+              peepholes, a non-zero cs cotangent in every other case; per
+              time step relative errors with a floor, and in bf16 each
+              chain against the fp64 plain chain within twice the bf16
+              plain chain's own error. Then the char-RNN layer (T 100, B
+              8192, H 256, bf16) timed beside the plain versions and
+              torch.nn.LSTM (cuDNN, a yardstick only).
+4. kernel_lstm_gates - K8 (peephole cell) and K9 (plain cell), forward
+              and backward, against their plain versions; then timed at
+              (B 8192, H 256, bf16).
+5. train_lstm - the zoo TextGenerationLSTM at the bench's width
+              (bench.py bench_graves_lstm: GravesLSTM(256) x 2 +
+              RnnOutputLayer(47), tBPTT 50, RmsProp(0.01), l2 1e-3,
+              batch 8192, T 100, bf16 compute over fp32 params, seed 42,
+              the bench's data): fit_on_device(steps=5, sync=False) after
+              a warm step (tokens/s, ms/step, peak memory; exactly 2 K7
+              forward + 2 backward launches a step), two tBPTT fit(x, y)
+              calls (2 segments each), a masked fit_batch (K8 on every
+              step) and the same stack with LSTM layers, masked (K9).
+6. lstm_oracle - gradient_and_score of the stack through the kernels
+              against the plain versions in fp32 and fp64 (every gradient
+              within twice the fp32 plain path's own error against fp64,
+              loss 1e-5), then in bf16 compute unmasked (K7) and masked
+              (K8).
+7. generate - rnn_time_step on the bf16 stack, batch 32: a 50-character
+              prime, then 100 greedy single-character steps (2 K7
+              launches a call); in fp32 the stream at steps 1, 50 and 150
+              against output() of the prefix within 1e-4.
+8. kernel_flash - K3 (flash-attention forward) against flash_fwd_plain:
               fp32 and bf16, head dims 32/64/128, T 1/63/64/65/200/1000,
               causal on/off, window 0/17/256, no key mask or a random one
               with a fully masked batch row, kv heads 4 and 2 (GQA) of 4;
@@ -17,12 +47,12 @@ Phases, each printing one JSON line; any failure exits non-zero:
               scaled_dot_product_attention (a yardstick only). Each case
               holds the max abs error and, per 64-row tile along T, the
               error relative to the tile's own reference.
-4. kernel_flash_bwd - K4 (fused backward) and K5 (two-pass backward)
+9. kernel_flash_bwd - K4 (fused backward) and K5 (two-pass backward)
               against flash_bwd_plain over the same sweep, K4 against K5,
               with a non-zero lse cotangent in every other case; then the
               training shape, timed beside the plain version and the
               backward of scaled_dot_product_attention.
-5. train    - the bench's long-context stack (bench.py
+10. train   - the bench's long-context stack (bench.py
               bench_attention_longcontext: 2 causal SelfAttentionLayer(256,
               4 heads, block 512) + RnnOutputLayer(64), bf16 compute over
               fp32 params, Sgd(1e-3), XAVIER, seed 42; batch 4, T 8192, the
@@ -32,7 +62,7 @@ Phases, each printing one JSON line; any failure exits non-zero:
               step), two fit(x, y) steps, two steps under
               configure(bwd="two_pass") (K5 launches, K4 none), and one
               output(); every loss finite, peak memory under 2 GiB.
-6. train_oracle - the same stack in fp32: one gradient_and_score through
+11. train_oracle - the same stack in fp32: one gradient_and_score through
               the kernels, held against the dense plain versions on the
               card in fp64 (the fp32 dense path is reported beside it);
               loss and every gradient within 1e-4 relative. Then in bf16
@@ -40,7 +70,7 @@ Phases, each printing one JSON line; any failure exits non-zero:
               dense plain versions on the same inputs, each against fp64;
               losses within 1e-4 of each other, every gradient of the
               kernel path within twice the dense path's own error.
-7. kernel   - each kernel against its plain PyTorch version on the card,
+12. kernel  - each kernel against its plain PyTorch version on the card,
               then timed at the served shape (device time by CUDA-graph
               replay, kernel alone and with the merge; the eager call; the
               plain version):
@@ -58,7 +88,7 @@ Phases, each printing one JSON line; any failure exits non-zero:
               8), head dims 64 and 128 (the shared-memory cap); timed beside
               torch's scaled_dot_product_attention with a boolean mask
               (a yardstick only, never the route).
-8. serve    - the bench_decode_serving model at full width (2 causal GQA
+13. serve   - the bench_decode_serving model at full width (2 causal GQA
               attention layers, d_model 256, 4 heads, 2 kv heads, vocab 64,
               bf16, max_seqs 8, max_len 1024, KV block 16; random XAVIER
               weights from seed 42) served by ServingEngine: a warmup
@@ -67,25 +97,25 @@ Phases, each printing one JSON line; any failure exits non-zero:
               launch counts are zeroed just before and read just after; a
               new request then decodes 4 engine steps under
               torch.cuda.set_sync_debug_mode("error").
-9. oracle   - the same model in fp32 with capture_logprobs: every captured
+14. oracle  - the same model in fp32 with capture_logprobs: every captured
               row matches the full-recompute MultiLayerNetwork.output at its
               position within atol 2e-3.
-10. decode_attention - the public contiguous-cache entry point
+15. decode_attention - the public contiguous-cache entry point
               serving.decode_attention (K6) driven over 64 growing cache
               lengths per layer at the served shape, counts zeroed before.
-11. spec_serve - the same bf16 model with spec_decode=True, spec_draft=4,
+16. spec_serve - the same bf16 model with spec_decode=True, spec_draft=4,
               greedy: 8 requests of 512 prompt tokens, each a seeded 6-token
               motif tiled to length, 256 new tokens each; then the same
               prompts with spec off at K=1 and at the default chunking. K2
               must have launched and K1 not at all in the spec run; a new
               request then takes 4 spec steps, drafts verified, under
               torch.cuda.set_sync_debug_mode("error").
-12. spec_oracle - the fp32 model with spec_decode=True and
+17. spec_oracle - the fp32 model with spec_decode=True and
               capture_logprobs: every captured row within atol 2e-3 of the
               full recompute, and the greedy stream equal to spec off
               (where they differ, the top-2 logprob gap there must be below
               1e-5, a tie).
-13. int8_serve - kv_quant=True, quant_weights=True on the serve phase's
+18. int8_serve - kv_quant=True, quant_weights=True on the serve phase's
               model and traffic, and once more with spec_decode=True: tokens
               per second, KV bytes per token against the float pool, K1/K2
               launches, greedy agreement with the float serve; and on the
@@ -94,7 +124,7 @@ Phases, each printing one JSON line; any failure exits non-zero:
               non-finite row only (int8 exactness is held by the kernel
               phase and the CPU tests).
 
-Then the kernels line (K1-K6), the card's name and power limit as
+Then the kernels line (K1-K9), the card's name and power limit as
 nvidia-smi gives them, and finally {"ok": true, "device": {...}}. Exits
 non-zero without a result when CUDA is not available or the package is not
 beside this file.
@@ -1476,6 +1506,654 @@ def phase_train_oracle(torch, np):
     return res
 
 
+# ------------------------------------------------------------- LSTM slice
+# The char-RNN of bench.py bench_graves_lstm (zoo TextGenerationLSTM:
+# GravesLSTM(256) x 2 + RnnOutputLayer(47), tBPTT 50, RmsProp(0.01), l2
+# 1e-3, XAVIER) at batch 8192, T 100, bf16 compute over fp32 params.
+LSTM_VOCAB, LSTM_B, LSTM_T, LSTM_H = 47, 8192, 100, 256
+GEN_B, GEN_PRIME, GEN_STEPS = 32, 50, 100
+# K7 sweep limits: per time step, ||kernel - plain|| / max(||plain||,
+# floor * sqrt(n)) (the whole tensor for dRW and the peephole gradients);
+# the floor keeps steps whose reference is rounding noise (a zero state
+# and zero cotangent give exact zeros) from dividing by ~0. bf16 rounding
+# flips of h and c propagate through the recurrence, so bf16 is also held
+# against the fp64 plain version: the kernel's error there within
+# LSTM_FP64_FACTOR times the bf16 plain version's own (or the floor).
+LSTM_REL_TOL = {"float32": 1e-4, "bfloat16": 5e-2}
+LSTM_REF_FLOOR = {"float32": 1e-3, "bfloat16": 1e-2}
+LSTM_FP64_FACTOR = 2.0
+# K8/K9: one rounding to the storage dtype; fp32 transcendentals may
+# differ in the last bits, bf16 by one ulp (2**-8 relative).
+GATES_REL_TOL = {"float32": 1e-5, "bfloat16": 1e-2}
+# lstm_oracle: loss within 1e-5 relative of the fp64 plain path (fp32) or
+# of the plain path in the same compute dtype (bf16: BF16_ORACLE_LOSS_TOL),
+# every gradient within LSTM_FP64_FACTOR times the plain path's own error
+# against fp64 (max |diff| / max |ref|), or the floor where that error is
+# smaller; the fp32 floor sits below every fp32 plain error (~3e-7).
+LSTM_ORACLE_LOSS_TOL = 1e-5
+ORACLE_GRAD_FLOOR = {"fp32": 1e-7, "bf16": BF16_ORACLE_FLOOR}
+# K8/K9 operations per (row, column): forward 5 transcendentals + 12
+# flops, backward 5 + 30, each counted as one fp32 operation.
+GATES_OPS = {"fwd": 17, "bwd": 35}
+SCAN_NAMES = ("ys", "cs")
+SCAN_GRADS = ("dxw", "drw", "dpi", "dpf", "dpo", "dh0", "dc0")
+
+
+def rel_err(torch, a, ref, floor: float) -> float:
+    """||a - ref|| / max(||ref||, floor * sqrt(n)) in float64."""
+    if not ref.numel():
+        return 0.0
+    e = (a.double() - ref.double()).norm().item()
+    r = ref.double().norm().item()
+    return e / max(r, floor * math.sqrt(ref.numel()))
+
+
+def step_rel_err(torch, a, ref, floor: float) -> float:
+    """The largest rel_err over the time steps (dim 0) of (T, ...)
+    tensors."""
+    if not ref.numel():
+        return 0.0
+    d = (a.double() - ref.double()).flatten(1)
+    r = ref.double().flatten(1)
+    n = r.shape[1]
+    e2, r2 = d.pow(2).sum(1), r.pow(2).sum(1)
+    return (e2 / torch.clamp(r2, min=floor ** 2 * n)).sqrt().max().item()
+
+
+def scan_case(torch, T, B, H, dtype, state, dcs_on, seed):
+    """Random K7 inputs and cotangents on the card in `dtype` (drawn in
+    fp32 by a CUDA generator): xw ~ 0.5 N(0, 1), rw ~ N(0, 1/H),
+    peepholes ~ 0.1 N(0, 1) and h0/c0 ~ 0.5 N(0, 1) when `state`, else
+    zeros; dys ~ N(0, 1), dcs likewise when `dcs_on`, else zeros."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+
+    def r(*shape, scale=1.0):
+        return (scale * torch.randn(*shape, generator=g, device="cuda")).to(
+            dtype)
+
+    def z(*shape):
+        return torch.zeros(*shape, dtype=dtype, device="cuda")
+    ins = [r(T, B, 4 * H, scale=0.5), r(H, 4 * H, scale=H ** -0.5)]
+    ins += [r(H, scale=0.1) if state else z(H) for _ in range(3)]
+    ins += [r(B, H, scale=0.5) if state else z(B, H) for _ in range(2)]
+    cots = [r(T, B, H), r(T, B, H) if dcs_on else z(T, B, H)]
+    return ins, cots
+
+
+def scan_sweep():
+    """(dtype, H, B, T, state, dcs) of the K7 sweep."""
+    n = 0
+    for dt in ("float32", "bfloat16"):
+        for H in (32, 64, 256, 512):
+            for B in (1, 3, 65, 8192):
+                for T in (1, 7, 100):
+                    for state in (False, True):
+                        yield dt, H, B, T, state, n % 2 == 1
+                        n += 1
+
+
+def scan_run(torch, ts, ins, cots, kernel, dtype=None):
+    """K7 forward then backward on the inputs (cast to `dtype` if given),
+    through the kernels or the plain versions: {output name: tensor}."""
+    a = [t if dtype is None else t.to(dtype) for t in ins]
+    dys, dcs = (t if dtype is None else t.to(dtype) for t in cots)
+    fwd = ts.graves_lstm_scan_fwd_cuda if kernel else \
+        ts.graves_lstm_scan_plain
+    bwd = ts.graves_lstm_scan_bwd_cuda if kernel else \
+        ts.graves_lstm_scan_bwd_plain
+    ys, cs = fwd(*a)
+    grads = bwd(*a, ys, cs, dys, dcs)
+    return dict(zip(SCAN_NAMES + SCAN_GRADS, (ys, cs) + tuple(grads)))
+
+
+def step_err(torch, name, a, ref, floor):
+    """Per time step for the (T, ...) outputs ys, cs and dxw, else over
+    the whole tensor."""
+    fn = step_rel_err if name in ("ys", "cs", "dxw") else rel_err
+    return fn(torch, a, ref, floor)
+
+
+def compare_scan(torch, kern, plain, dt):
+    """{name: (relative err, max abs err)} of kernel against plain."""
+    return {n: (step_err(torch, n, kern[n], plain[n], LSTM_REF_FLOOR[dt]),
+                max_err(kern[n], plain[n]))
+            for n in SCAN_NAMES + SCAN_GRADS}
+
+
+def scan_bound(T, B, H, elt, kind):
+    """(bytes, ops, ms, bound_by) of one K7 call: each input read once,
+    each output written once; the forward's gate product, and in the
+    backward the gate recompute, dh_prev and dRW products, at the bf16
+    tensor-core rate (fp32 CUDA-core rate for fp32)."""
+    n_h, n_g = T * B * H, T * B * 4 * H
+    small = elt * (4 * H * H + 3 * H)                 # rw, peepholes
+    if kind == "fwd":
+        nbytes = elt * (n_g + 2 * n_h + 2 * B * H) + small
+        prods = 1
+    else:                  # xw, ys, cs, dys, dcs, h0, c0 in; dxw, dh0, dc0,
+        nbytes = elt * (2 * n_g + 4 * n_h + 4 * B * H) + small \
+            + 4 * (4 * H * H + 3 * H)                 # fp32 dRW, dp out
+        prods = 3
+    ops = 2 * prods * T * B * H * 4 * H
+    rate = BF16_OPS_PER_S if elt == 2 else FP32_OPS_PER_S
+    t_b, t_o = nbytes / HBM_BYTES_PER_S, ops / rate
+    return nbytes, ops, max(t_b, t_o) * 1e3, \
+        ("bytes" if t_b >= t_o else "operations")
+
+
+def phase_kernel_lstm_scan(torch):
+    """K7 (forward and backward) against its plain versions over the sweep
+    (fp32/bf16, H 32/64/256/512, B 1/3/65/8192, T 1/7/100, zero and
+    non-zero state and peepholes, a non-zero dcs in every other case);
+    bf16 also against the fp64 plain chain. Then the char-RNN layer
+    shape (T 100, B 8192, H 256, bf16) timed with CUDA events beside the
+    plain versions and torch.nn.LSTM (cuDNN) forward and backward, a
+    yardstick only (it adds the input projection and has no peepholes)."""
+    from deeplearning4j_tpu_torch.ops import lstm_scan_fused as ts
+    worst = {dt: {} for dt in LSTM_REL_TOL}
+    worst_abs = {dt: {} for dt in LSTM_REL_TOL}
+    fp64_ratio = {}
+    n_cases = 0
+    for dt, H, B, T, state, dcs_on in scan_sweep():
+        dtype = getattr(torch, dt)
+        ins, cots = scan_case(torch, T, B, H, dtype, state, dcs_on,
+                              seed=n_cases)
+        kern = scan_run(torch, ts, ins, cots, True)
+        # the plain backward on the kernel's ys/cs, so it checks the
+        # backward alone
+        pys, pcs = ts.graves_lstm_scan_plain(*ins)
+        plain = dict(zip(SCAN_GRADS, ts.graves_lstm_scan_bwd_plain(
+            *ins, kern["ys"], kern["cs"], *cots)), ys=pys, cs=pcs)
+        errs = compare_scan(torch, kern, plain, dt)
+        del plain, pys, pcs
+        torch.cuda.synchronize()
+        case = f"{dt} H={H} B={B} T={T} state={state} dcs={dcs_on}"
+        for name, (rel, ab) in errs.items():
+            if not (math.isfinite(rel) and rel <= LSTM_REL_TOL[dt]):
+                fail(f"kernel_lstm_scan {case}: {name} rel err {rel} > "
+                     f"{LSTM_REL_TOL[dt]} (max abs {ab})")
+            worst[dt][name] = max(worst[dt].get(name, 0.0), rel)
+            worst_abs[dt][name] = max(worst_abs[dt].get(name, 0.0), ab)
+        if dt == "bfloat16":
+            # each chain end to end (its own forward feeds its backward)
+            # against the fp64 plain chain on the same bf16 inputs
+            floor = LSTM_REF_FLOOR[dt]
+            ref = scan_run(torch, ts, ins, cots, False, torch.float64)
+            ek = {n: step_err(torch, n, kern[n], ref[n], floor)
+                  for n in ref}
+            del kern
+            pb = scan_run(torch, ts, ins, cots, False)
+            ep = {n: step_err(torch, n, pb[n], ref[n], floor) for n in ref}
+            del pb, ref
+            for name in ek:
+                if not ek[name] <= LSTM_FP64_FACTOR * max(ep[name], floor):
+                    fail(f"kernel_lstm_scan {case}: {name} err vs fp64 "
+                         f"{ek[name]} > {LSTM_FP64_FACTOR} x bf16 plain's "
+                         f"{ep[name]}")
+                fp64_ratio[name] = max(fp64_ratio.get(name, 0.0),
+                                       ek[name] / max(ep[name], floor))
+        del ins, cots
+        n_cases += 1
+    # the layer shape of the char-RNN
+    a, (dys, dcs) = scan_case(torch, LSTM_T, LSTM_B, LSTM_H,
+                              torch.bfloat16, True, True, seed=4242)
+    ys, cs = ts.graves_lstm_scan_fwd_cuda(*a)
+    ms = {"fwd": event_ms(torch, lambda: ts.graves_lstm_scan_fwd_cuda(*a)),
+          "bwd": event_ms(torch, lambda: ts.graves_lstm_scan_bwd_cuda(
+              *a, ys, cs, dys, dcs))}
+    plain_ms = {"fwd": event_ms(torch, lambda: ts.graves_lstm_scan_plain(*a),
+                                iters=2),
+                "bwd": event_ms(torch, lambda: ts.graves_lstm_scan_bwd_plain(
+                    *a, ys, cs, dys, dcs), iters=2)}
+    lstm = torch.nn.LSTM(LSTM_H, LSTM_H).to("cuda", torch.bfloat16)
+    xin = torch.randn(LSTM_T, LSTM_B, LSTM_H, device="cuda",
+                      dtype=torch.bfloat16, requires_grad=True)
+
+    def cudnn_fwd():
+        return lstm(xin)[0]
+
+    def cudnn_fwd_bwd():
+        cudnn_fwd().backward(dys)
+    library_fwd = event_ms(torch, cudnn_fwd)
+    library_fwd_bwd = event_ms(torch, cudnn_fwd_bwd)
+    bounds = {k: scan_bound(LSTM_T, LSTM_B, LSTM_H, 2, k)
+              for k in ("fwd", "bwd")}
+    res = {"phase": "kernel_lstm_scan", "cases": n_cases,
+           "rel_err": worst, "max_abs_err": worst_abs,
+           "tolerance": LSTM_REL_TOL, "floor": LSTM_REF_FLOOR,
+           "bf16_vs_fp64_ratio": fp64_ratio, "factor": LSTM_FP64_FACTOR,
+           "shape": {"T": LSTM_T, "B": LSTM_B, "H": LSTM_H,
+                     "dtype": "bfloat16"},
+           "ms": ms, "plain_ms": plain_ms,
+           "library_ms": {"fwd": library_fwd,
+                          "bwd": library_fwd_bwd - library_fwd,
+                          "fwd_bwd": library_fwd_bwd},
+           "library": "torch.nn.LSTM (cuDNN), input size 256, no peepholes",
+           "bound_ms": {k: b[2] for k, b in bounds.items()},
+           "bound_by": {k: b[3] for k, b in bounds.items()},
+           "bytes": {k: b[0] for k, b in bounds.items()},
+           "ops": {k: b[1] for k, b in bounds.items()},
+           "tflops": {k: bounds[k][1] / ms[k] / 1e9 for k in ms}}
+    emit(res)
+    return res
+
+
+def gates_case(torch, B, H, dtype, seed):
+    g = torch.Generator().manual_seed(seed)
+    r = lambda *s, scale=1.0: (scale * torch.randn(
+        *s, generator=g)).to("cuda", dtype)
+    return (r(B, 4 * H), r(B, H, scale=0.5), r(H, scale=0.3),
+            r(H, scale=0.3), r(H, scale=0.3), r(B, H), r(B, H))
+
+
+def gates_calls(tg, peep, args):
+    """(kernel forward, kernel backward, plain forward, plain backward)
+    outputs of K8 (peep) or K9 on `args`."""
+    gates, c, pi, pf, po, dc, dh = args
+    if peep:
+        return (tg.graves_gates_cuda(gates, c, pi, pf, po),
+                tg.graves_gates_bwd_cuda(gates, c, pi, pf, po, dc, dh),
+                tg.graves_gates_plain(gates, c, pi, pf, po),
+                tg.graves_gates_bwd_plain(gates, c, pi, pf, po, dc, dh))
+    return (tg.lstm_gates_cuda(gates, c),
+            tg.lstm_gates_bwd_cuda(gates, c, dc, dh),
+            tg.lstm_gates_plain(gates, c),
+            tg.lstm_gates_bwd_plain(gates, c, dc, dh))
+
+
+def gates_bound(B, H, elt, kind, peep):
+    n = B * H
+    if kind == "fwd":
+        nbytes = elt * (4 * n + n + 2 * n) + (3 * elt * H if peep else 0)
+    else:
+        nbytes = elt * (4 * n + 3 * n + 4 * n + n) + \
+            ((3 * elt + 3 * 4) * H if peep else 0)
+    ops = GATES_OPS[kind] * n
+    t_b, t_o = nbytes / HBM_BYTES_PER_S, ops / FP32_OPS_PER_S
+    return nbytes, ops, max(t_b, t_o) * 1e3, \
+        ("bytes" if t_b >= t_o else "operations")
+
+
+def phase_kernel_lstm_gates(torch):
+    """K8 and K9 (forward and backward) against their plain versions: fp32
+    and bf16, H 32/64/256/512, B 1/3/65/8192; then the char-RNN step
+    shape (B 8192, H 256, bf16), device time by CUDA-graph replay beside
+    the plain versions. No single library call computes the peephole
+    cell: library_ms is null."""
+    from deeplearning4j_tpu_torch.ops import lstm_gates as tg
+    worst = {}
+    worst_abs = {}
+    n_cases = 0
+    for dt in ("float32", "bfloat16"):
+        dtype = getattr(torch, dt)
+        for H in (32, 64, 256, 512):
+            for B in (1, 3, 65, 8192):
+                args = gates_case(torch, B, H, dtype, seed=n_cases)
+                for peep, name in ((True, "graves_gates"),
+                                   (False, "lstm_gates")):
+                    kf, kb, pf_, pb = gates_calls(tg, peep, args)
+                    torch.cuda.synchronize()
+                    for i, (k, p) in enumerate(zip(kf + kb, pf_ + pb)):
+                        e = rel_err(torch, k, p, 1e-3)
+                        key = f"{name}_{dt}"
+                        if not (math.isfinite(e) and e <= GATES_REL_TOL[dt]):
+                            fail(f"kernel_lstm_gates {name} {dt} H={H} "
+                                 f"B={B} output {i}: rel err {e} > "
+                                 f"{GATES_REL_TOL[dt]}")
+                        worst[key] = max(worst.get(key, 0.0), e)
+                        worst_abs[key] = max(worst_abs.get(key, 0.0),
+                                             max_err(k, p))
+                n_cases += 1
+    args = gates_case(torch, LSTM_B, LSTM_H, torch.bfloat16, seed=777)
+    gates, c, pi, pf, po, dc, dh = args
+    ms, plain_ms, bounds = {}, {}, {}
+    for name, peep, fwd, bwd, pfwd, pbwd in (
+            ("graves_gates", True,
+             lambda: tg.graves_gates_cuda(gates, c, pi, pf, po),
+             lambda: tg.graves_gates_bwd_cuda(gates, c, pi, pf, po, dc, dh),
+             lambda: tg.graves_gates_plain(gates, c, pi, pf, po),
+             lambda: tg.graves_gates_bwd_plain(gates, c, pi, pf, po, dc,
+                                               dh)),
+            ("lstm_gates", False,
+             lambda: tg.lstm_gates_cuda(gates, c),
+             lambda: tg.lstm_gates_bwd_cuda(gates, c, dc, dh),
+             lambda: tg.lstm_gates_plain(gates, c),
+             lambda: tg.lstm_gates_bwd_plain(gates, c, dc, dh))):
+        ms[name] = {"fwd": graph_ms(torch, fwd), "bwd": graph_ms(torch, bwd)}
+        plain_ms[name] = {"fwd": graph_ms(torch, pfwd),
+                          "bwd": graph_ms(torch, pbwd)}
+        bounds[name] = {k: gates_bound(LSTM_B, LSTM_H, 2, k, peep)
+                        for k in ("fwd", "bwd")}
+    res = {"phase": "kernel_lstm_gates", "cases": n_cases,
+           "rel_err": worst, "max_abs_err": worst_abs,
+           "tolerance": GATES_REL_TOL,
+           "shape": {"B": LSTM_B, "H": LSTM_H, "dtype": "bfloat16"},
+           "ms": ms, "plain_ms": plain_ms,
+           "bound_ms": {n: {k: b[2] for k, b in v.items()}
+                        for n, v in bounds.items()},
+           "bound_by": {n: {k: b[3] for k, b in v.items()}
+                        for n, v in bounds.items()},
+           "bytes": {n: {k: b[0] for k, b in v.items()}
+                     for n, v in bounds.items()},
+           "library_ms": None}
+    emit(res)
+    return res
+
+
+def lstm_launches(ts, tg) -> dict:
+    return {"K7_fwd": ts.graves_lstm_scan_fwd_cuda.launches,
+            "K7_bwd": ts.graves_lstm_scan_bwd_cuda.launches,
+            "K8_fwd": tg.graves_gates_cuda.launches,
+            "K8_bwd": tg.graves_gates_bwd_cuda.launches,
+            "K9_fwd": tg.lstm_gates_cuda.launches,
+            "K9_bwd": tg.lstm_gates_bwd_cuda.launches}
+
+
+def reset_lstm_launches(ts, tg) -> None:
+    for fn in (ts.graves_lstm_scan_fwd_cuda, ts.graves_lstm_scan_bwd_cuda,
+               tg.graves_gates_cuda, tg.graves_gates_bwd_cuda,
+               tg.lstm_gates_cuda, tg.lstm_gates_bwd_cuda):
+        fn.launches = 0
+
+
+def char_rnn(torch, compute_dtype, layer="GravesLSTM", dtype="float32"):
+    """The zoo TextGenerationLSTM at full width, seed 42, on the card; with
+    `layer` "LSTM" the same stack with plain LSTM layers."""
+    from deeplearning4j_tpu_torch import MultiLayerNetwork
+    from deeplearning4j_tpu_torch.models import TextGenerationLSTM
+    from deeplearning4j_tpu_torch.nn.conf.configuration import \
+        MultiLayerConfiguration
+    conf = TextGenerationLSTM(total_unique_characters=LSTM_VOCAB, seed=42,
+                              dtype=dtype,
+                              compute_dtype=compute_dtype).conf()
+    if layer != "GravesLSTM":
+        d = json.loads(conf.to_json())
+        for ld in d["layers"][:2]:
+            ld["@class"], ld["peephole"] = layer, False
+        conf = MultiLayerConfiguration.from_dict(d)
+    return MultiLayerNetwork(conf, device="cuda").init()
+
+
+def char_data(np, batch=None, T=None, seed=0):
+    """bench.py bench_graves_lstm's data: one-hot characters from
+    RandomState(seed), x (batch, 47, T), y the next character (default
+    batch LSTM_B, T LSTM_T)."""
+    batch, T = batch or LSTM_B, T or LSTM_T
+    rng = np.random.RandomState(seed)
+    idx = rng.randint(0, LSTM_VOCAB, (batch, T))
+    eye = np.eye(LSTM_VOCAB, dtype=np.float32)
+    return (eye[idx].transpose(0, 2, 1).copy(),
+            eye[np.roll(idx, -1, axis=1)].transpose(0, 2, 1).copy())
+
+
+def char_mask(np, seed=1):
+    """(LSTM_B, LSTM_T) float mask: example b keeps its first L_b steps,
+    L_b drawn from RandomState(seed) in [1, LSTM_T]."""
+    batch, T = LSTM_B, LSTM_T
+    lengths = np.random.RandomState(seed).randint(1, T + 1, batch)
+    return (np.arange(T)[None, :] < lengths[:, None]).astype(np.float32)
+
+
+def phase_train_lstm(torch, np):
+    """The char-RNN trained as bench.py trains it: a warm step, then
+    fit_on_device(steps=5, sync=False) (tokens/s, ms/step, peak memory,
+    K7 2 forward + 2 backward launches a step, K8/K9 none); two fit(x, y)
+    calls under tBPTT 50 (2 segments, 2 optimizer steps and 4 + 4 K7
+    launches each); one masked fit_batch (K8 on every step of each layer,
+    forward and backward, K7 none); and the stack with LSTM layers, masked
+    (K9 likewise). Every loss finite."""
+    from deeplearning4j_tpu_torch.ops import lstm_gates as tg
+    from deeplearning4j_tpu_torch.ops import lstm_scan_fused as ts
+    net = char_rnn(torch, "bfloat16")
+    x_np, y_np = char_data(np)
+    x = torch.from_numpy(x_np).cuda()
+    y = torch.from_numpy(y_np).cuda()
+    steps = 5
+    warm = net.fit_on_device(x, y, steps=1)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    reset_lstm_launches(ts, tg)                        # main path starts
+    t0 = time.perf_counter()
+    losses = net.fit_on_device(x, y, steps=steps, sync=False)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = lstm_launches(ts, tg)                   # main path ends
+    peak = torch.cuda.max_memory_allocated()
+    losses = losses.cpu().numpy().tolist()
+    diverged = net._diverged_at
+    expect = {"K7_fwd": 2 * steps, "K7_bwd": 2 * steps, "K8_fwd": 0,
+              "K8_bwd": 0, "K9_fwd": 0, "K9_bwd": 0}
+    if launches != expect:
+        fail(f"train_lstm fit_on_device launches {launches}, expected "
+             f"{expect}")
+    profile = profile_train(torch, net, x, y)
+    fit_losses, fit_launches = [], []
+    t0 = time.perf_counter()
+    for _ in range(2):
+        reset_lstm_launches(ts, tg)
+        step0 = net._step
+        net.fit(x, y)
+        fit_losses.append(net.score())
+        fit_launches.append(lstm_launches(ts, tg))
+        if net._step - step0 != 2:
+            fail(f"train_lstm fit: {net._step - step0} optimizer steps, "
+                 "expected 2 tBPTT segments")
+    torch.cuda.synchronize()
+    fit_wall = time.perf_counter() - t0
+    seg = {"K7_fwd": 4, "K7_bwd": 4, "K8_fwd": 0, "K8_bwd": 0, "K9_fwd": 0,
+           "K9_bwd": 0}
+    if any(f != seg for f in fit_launches):
+        fail(f"train_lstm fit launches {fit_launches}, expected {seg}")
+    m = torch.from_numpy(char_mask(np)).cuda()
+    masked = {}
+    for layer, key in (("GravesLSTM", "K8"), ("LSTM", "K9")):
+        mnet = net if layer == "GravesLSTM" else char_rnn(
+            torch, "bfloat16", layer)
+        reset_lstm_launches(ts, tg)
+        t0 = time.perf_counter()
+        mnet.fit_batch(x, y, m, m)
+        loss = mnet.score()
+        torch.cuda.synchronize()
+        got = lstm_launches(ts, tg)
+        want = {k: 0 for k in got}
+        want.update({f"{key}_fwd": 2 * LSTM_T, f"{key}_bwd": 2 * LSTM_T})
+        if got != want:
+            fail(f"train_lstm masked {layer}: launches {got}, expected "
+                 f"{want}")
+        masked[layer] = {"loss": loss, "launches": got,
+                         "ms": (time.perf_counter() - t0) * 1e3}
+        del mnet
+    all_losses = list(warm) + losses + fit_losses + [
+        v["loss"] for v in masked.values()]
+    if not all(math.isfinite(v) for v in all_losses) or diverged is not None:
+        fail(f"train_lstm: non-finite loss {all_losses}")
+    tokens = LSTM_B * LSTM_T
+    res = {"phase": "train_lstm", "config": {
+               "model": "TextGenerationLSTM: 2 x GravesLSTM(256) + "
+                        "RnnOutputLayer(47, MCXENT softmax), tBPTT 50/50",
+               "batch": LSTM_B, "T": LSTM_T, "compute_dtype": "bfloat16",
+               "params_dtype": "float32", "updater": "RmsProp(0.01), l2 1e-3",
+               "num_params": net.num_params()},
+           "steps": steps, "wall_s": wall, "ms_per_step": wall / steps * 1e3,
+           "tokens_per_s": tokens * steps / wall, "peak_bytes": peak,
+           "peak_bytes_above_start": peak - base, "launches": launches,
+           "launches_per_step": {k: v / steps for k, v in launches.items()},
+           "losses": losses, "profile": profile,
+           "fit": {"losses": fit_losses, "launches": fit_launches,
+                   "ms_per_step": fit_wall / 4 * 1e3},
+           "masked": masked}
+    emit(res)
+    return res
+
+
+@contextlib.contextmanager
+def plain_lstm(ts, tg, helpers):
+    """Register the plain versions in the LSTM kernels' place for the
+    calls inside the block."""
+    names = {"graves_lstm_scan_fwd": (ts.graves_lstm_scan_plain,
+                                      ts.graves_lstm_scan_fwd_cuda),
+             "graves_lstm_scan_bwd": (ts.graves_lstm_scan_bwd_plain,
+                                      ts.graves_lstm_scan_bwd_cuda),
+             "graves_gates_fwd": (tg.graves_gates_plain,
+                                  tg.graves_gates_cuda),
+             "graves_gates_bwd": (tg.graves_gates_bwd_plain,
+                                  tg.graves_gates_bwd_cuda),
+             "lstm_gates_fwd": (tg.lstm_gates_plain, tg.lstm_gates_cuda),
+             "lstm_gates_bwd": (tg.lstm_gates_bwd_plain,
+                                tg.lstm_gates_bwd_cuda)}
+    for name, (plain, _) in names.items():
+        helpers.register_helper(name)(plain)
+    try:
+        yield
+    finally:
+        for name, (_, kernel) in names.items():
+            helpers.register_helper(name)(kernel)
+
+
+def phase_lstm_oracle(torch, np):
+    """The zoo stack in fp32 at full width: one gradient_and_score through
+    the kernels and through the plain versions (registered in the kernels'
+    place) in fp32 and in fp64 on the same params and data. Every
+    gradient of the kernel path within LSTM_FP64_FACTOR times the fp32
+    plain path's own error against fp64 (max |diff| / max |ref| per
+    parameter, ORACLE_GRAD_FLOOR below it), the loss within 1e-5 relative
+    of fp64. Then the same in bf16 compute, unmasked (K7) and masked (K8):
+    kernel and plain paths in bf16 against fp64, losses within
+    BF16_ORACLE_LOSS_TOL of each other."""
+    from deeplearning4j_tpu_torch import MultiLayerNetwork
+    from deeplearning4j_tpu_torch.nn.conf.configuration import \
+        MultiLayerConfiguration
+    from deeplearning4j_tpu_torch.ops import helpers
+    from deeplearning4j_tpu_torch.ops import lstm_gates as tg
+    from deeplearning4j_tpu_torch.ops import lstm_scan_fused as ts
+    from deeplearning4j_tpu_torch.util.flat_params import unflatten_params
+    net = char_rnn(torch, None)
+    d = json.loads(net.conf.to_json())
+    d["global_conf"]["dtype"] = "float64"
+    net64 = MultiLayerNetwork(MultiLayerConfiguration.from_dict(d),
+                              device="cuda").init(params=net.params_tree)
+    x_np, y_np = char_data(np)
+    x = torch.from_numpy(x_np).cuda()
+    y = torch.from_numpy(y_np).cuda()
+    m = torch.from_numpy(char_mask(np)).cuda()
+
+    def rel_errs(g, g_ref):
+        out = {}
+        for i, (gg, gr) in enumerate(zip(
+                unflatten_params(net64.params_tree, g.double()),
+                unflatten_params(net64.params_tree, g_ref))):
+            for name in sorted(gr):
+                out[f"{i}.{name}"] = max_err(gg[name], gr[name]) / max(
+                    gr[name].abs().max().item(), 1e-300)
+        return out
+
+    def check(label, knet, mask, loss_ref_plain):
+        fm = lm = mask
+        floor = ORACLE_GRAD_FLOOR["bf16" if loss_ref_plain else "fp32"]
+        reset_lstm_launches(ts, tg)
+        g_k, s_k = knet.gradient_and_score(x, y, fm, lm)
+        launches = lstm_launches(ts, tg)
+        with plain_lstm(ts, tg, helpers):
+            g_ref, s_ref = net64.gradient_and_score(
+                x.double(), y.double(), None if mask is None
+                else mask.double(), None if mask is None else mask.double())
+            g_p, s_p = knet.gradient_and_score(x, y, fm, lm)
+        torch.cuda.synchronize()
+        if lstm_launches(ts, tg) != launches:
+            fail(f"lstm_oracle {label}: a plain pass launched a kernel")
+        want = {k: 0 for k in launches}
+        n = 2 if mask is None else 2 * LSTM_T
+        key = "K7" if mask is None else "K8"
+        want.update({f"{key}_fwd": n, f"{key}_bwd": n})
+        if launches != want:
+            fail(f"lstm_oracle {label}: launches {launches}, expected "
+                 f"{want}")
+        rel_k, rel_p = rel_errs(g_k, g_ref), rel_errs(g_p, g_ref)
+        bad = {n: (rel_k[n], rel_p[n]) for n in rel_k
+               if not rel_k[n] <= LSTM_FP64_FACTOR * max(rel_p[n], floor)}
+        if loss_ref_plain:
+            loss_rel = abs(s_k - s_p) / max(abs(s_p), 1e-300)
+            tol = BF16_ORACLE_LOSS_TOL
+        else:
+            loss_rel = abs(s_k - s_ref) / max(abs(s_ref), 1e-300)
+            tol = LSTM_ORACLE_LOSS_TOL
+        if not (math.isfinite(s_k) and loss_rel <= tol) or bad:
+            fail(f"lstm_oracle {label}: loss rel {loss_rel} (limit {tol}), "
+                 f"gradients (kernel rel err, plain rel err) past the "
+                 f"limit: {bad}")
+        return {"loss_kernels": s_k, "loss_plain": s_p, "loss_fp64": s_ref,
+                "loss_rel_err": loss_rel, "loss_tolerance": tol,
+                "grad_rel_err_kernels": rel_k, "grad_rel_err_plain": rel_p,
+                "max_ratio": max(rel_k[n] / max(rel_p[n], floor)
+                                 for n in rel_k),
+                "floor": floor, "launches": launches}
+
+    res = {"phase": "lstm_oracle", "factor": LSTM_FP64_FACTOR,
+           "fp32": check("fp32", net, None, False)}
+    net_b = char_rnn(torch, "bfloat16")
+    if not torch.equal(net_b.params(), net.params()):
+        fail("lstm_oracle: the bf16 stack was built with other params")
+    res["bf16"] = check("bf16", net_b, None, True)
+    res["bf16_masked"] = check("bf16 masked", net_b, m, True)
+    emit(res)
+    return res
+
+
+def phase_generate(torch, np):
+    """rnn_time_step on the bf16 char-RNN, batch 32: prime on 50
+    characters, then 100 greedy single-character steps (K7 launches 2 a
+    call); then in fp32, the streamed output at steps 1, 50 and 150
+    against output() of the whole prefix, within 1e-4."""
+    from deeplearning4j_tpu_torch.ops import lstm_gates as tg
+    from deeplearning4j_tpu_torch.ops import lstm_scan_fused as ts
+    x_np, _ = char_data(np, batch=GEN_B, T=GEN_PRIME + GEN_STEPS, seed=5)
+    prime = torch.from_numpy(x_np[:, :, :GEN_PRIME]).cuda()
+    eye = torch.eye(LSTM_VOCAB, device="cuda")
+
+    def stream(net, steps):
+        """(outputs of every call, launches): the prime call, then greedy
+        steps feeding back the argmax."""
+        reset_lstm_launches(ts, tg)
+        out = net.rnn_time_step(prime)
+        outs = [out]
+        nxt = eye[out[:, :, -1].argmax(1)]
+        for _ in range(steps):
+            o = net.rnn_time_step(nxt)
+            outs.append(o)
+            nxt = eye[o.argmax(1)]
+        torch.cuda.synchronize()
+        return outs, lstm_launches(ts, tg)
+
+    net = char_rnn(torch, "bfloat16")
+    t0 = time.perf_counter()
+    outs, launches = stream(net, GEN_STEPS)
+    wall = time.perf_counter() - t0
+    calls = 1 + GEN_STEPS
+    if launches["K7_fwd"] != 2 * calls or launches["K7_bwd"] != 0:
+        fail(f"generate: launches {launches}, expected 2 K7 per call")
+    if not all(bool(torch.isfinite(o).all()) for o in outs):
+        fail("generate: non-finite output")
+    # fp32: one character a call from the first, against output() of the
+    # prefix fed so far
+    net32 = char_rnn(torch, None)
+    seq = torch.from_numpy(x_np).cuda()
+    errs = {}
+    for t in range(GEN_PRIME + GEN_STEPS):
+        o = net32.rnn_time_step(seq[:, :, t])
+        if t + 1 in (1, 50, 150):
+            ref = net32.output(seq[:, :, :t + 1])[:, :, -1]
+            errs[t + 1] = max_err(o, ref)
+    if not all(e <= 1e-4 for e in errs.values()):
+        fail(f"generate: streamed vs output() max abs err {errs} > 1e-4")
+    res = {"phase": "generate", "batch": GEN_B, "prime": GEN_PRIME,
+           "steps": GEN_STEPS, "wall_s": wall,
+           "ms_per_step": wall / calls * 1e3, "launches": launches,
+           "fp32_stream_vs_output_max_abs_err": errs, "tolerance": 1e-4}
+    emit(res)
+    return res
+
+
 def main() -> int:
     try:
         import numpy as np
@@ -1503,18 +2181,30 @@ def main() -> int:
 
     from deeplearning4j_tpu_torch.ops import build, decode_attention as da
     from deeplearning4j_tpu_torch.ops import flash_attention as fa
+    from deeplearning4j_tpu_torch.ops import lstm_gates as tg
+    from deeplearning4j_tpu_torch.ops import lstm_scan_fused as ts
     t0 = time.perf_counter()
     # K1, K2 and K6 are one source (the Q-query kernel, K6 on its view);
-    # K3, K4 and K5 another. One nvcc each, started together.
-    built = build.build(sorted({da.SOURCE, fa.SOURCE}))
+    # K3, K4 and K5 another; K7 a third, K8 and K9 a fourth. One nvcc
+    # each, started together.
+    built = build.build(sorted({da.SOURCE, fa.SOURCE, ts.SOURCE,
+                                tg.SOURCE}))
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
           "kernels": list(KERNEL_WRAPPERS) + [
-              "flash_attention_fwd_cuda", "flash_attention_bwd_cuda"],
+              "flash_attention_fwd_cuda", "flash_attention_bwd_cuda",
+              "graves_lstm_scan_fwd_cuda", "graves_lstm_scan_bwd_cuda",
+              "graves_gates_cuda", "graves_gates_bwd_cuda",
+              "lstm_gates_cuda", "lstm_gates_bwd_cuda"],
           "sources": {s: {"seconds": b["seconds"],
                           "ptxas": [ln.strip() for ln in b["log"].splitlines()
                                     if "registers" in ln or "smem" in ln]}
                       for s, b in built.items()}})
 
+    klstm = phase_kernel_lstm_scan(torch)
+    kgates = phase_kernel_lstm_gates(torch)
+    train_lstm = phase_train_lstm(torch, np)
+    lstm_oracle = phase_lstm_oracle(torch, np)
+    gen = phase_generate(torch, np)
     kflash = phase_kernel_flash(torch)
     kflash_bwd = phase_kernel_flash_bwd(torch)
     train = phase_train(torch, np)
@@ -1530,6 +2220,8 @@ def main() -> int:
     phase_int8_serve(torch, np, serve)
     src = "deeplearning4j_tpu_torch/ops/csrc/flash_decode_paged.cu"
     fsrc = "deeplearning4j_tpu_torch/ops/csrc/flash_attention.cu"
+    lsrc = "deeplearning4j_tpu_torch/ops/csrc/lstm_scan.cu"
+    gsrc = "deeplearning4j_tpu_torch/ops/csrc/lstm_gates.cu"
     emit({"kernels": [{
         "name": "flash_decode_attention_paged", "route": "cuda",
         "source": src,
@@ -1583,7 +2275,40 @@ def main() -> int:
         "bound_by": kflash_bwd["bound_by"][mode],
         "library_ms": kflash_bwd["library_ms"]} for mode, replaces in (
             ("fused", "deeplearning4j_tpu/ops/flash_attention.py:349"),
-            ("two_pass", "deeplearning4j_tpu/ops/flash_attention.py:262"))]})
+            ("two_pass", "deeplearning4j_tpu/ops/flash_attention.py:262"))]
+        + [{
+        "name": f"graves_lstm_scan_{d}", "route": "cuda", "source": lsrc,
+        "replaces": f"deeplearning4j_tpu/ops/lstm_scan_fused.py:{line}",
+        "launches": train_lstm["launches"][f"K7_{d}"],
+        "max_abs_err": max(max(v.values())
+                           for v in klstm["max_abs_err"].values()),
+        "ms": klstm["ms"][d], "plain_ms": klstm["plain_ms"][d],
+        "bound_ms": klstm["bound_ms"][d], "bound_by": klstm["bound_by"][d],
+        "library_ms": klstm["library_ms"][d],
+        "max_rel_err": {dt: max(v.values())
+                        for dt, v in klstm["rel_err"].items()},
+        "generate_launches": gen["launches"][f"K7_{d}"],
+        "oracle_max_grad_ratio": lstm_oracle["fp32"]["max_ratio"]}
+        for d, line in (("fwd", 411), ("bwd", 492))] + [{
+        "name": name, "route": "cuda", "source": gsrc,
+        "replaces": f"deeplearning4j_tpu/ops/pallas_kernels.py:{line}",
+        "launches": sum(train_lstm["masked"][layer]["launches"][f"{k}_{d}"]
+                        for d in ("fwd", "bwd")),
+        "launches_fwd_bwd": [train_lstm["masked"][layer]["launches"][
+            f"{k}_{d}"] for d in ("fwd", "bwd")],
+        "max_abs_err": max(v for n, v in kgates["max_abs_err"].items()
+                           if n.startswith(name)),
+        "ms": kgates["ms"][name]["fwd"] + kgates["ms"][name]["bwd"],
+        "plain_ms": kgates["plain_ms"][name]["fwd"]
+        + kgates["plain_ms"][name]["bwd"],
+        "bound_ms": kgates["bound_ms"][name]["fwd"]
+        + kgates["bound_ms"][name]["bwd"],
+        "bound_by": kgates["bound_by"][name]["bwd"],
+        "library_ms": None, "ms_fwd_bwd": [kgates["ms"][name]["fwd"],
+                                           kgates["ms"][name]["bwd"]]}
+        for name, k, layer, line in (
+            ("graves_gates", "K8", "GravesLSTM", 226),
+            ("lstm_gates", "K9", "LSTM", 93))]})
     for line in smi:
         print(line, flush=True)
     print(json.dumps({"ok": True, "device": {

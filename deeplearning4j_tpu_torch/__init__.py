@@ -22,12 +22,15 @@ from deeplearning4j_tpu_torch.nn.conf.layers.attention import \
     SelfAttentionLayer
 from deeplearning4j_tpu_torch.nn.conf.layers.feedforward import (
     ActivationLayer, DropoutLayer, LossLayer)
-from deeplearning4j_tpu_torch.nn.conf.layers.recurrent import RnnOutputLayer
+from deeplearning4j_tpu_torch.nn.conf.layers.recurrent import (
+    LSTM, Bidirectional, GravesBidirectionalLSTM, GravesLSTM, LastTimeStep,
+    RnnOutputLayer, SimpleRnn)
 from deeplearning4j_tpu_torch.nn.multilayer import MultiLayerNetwork
 
 __all__ = [
     "Activation", "LossFunction", "WeightInit", "MultiLayerConfiguration",
     "NeuralNetConfiguration", "InputType", "SelfAttentionLayer",
     "ActivationLayer", "DropoutLayer", "LossLayer", "RnnOutputLayer",
-    "MultiLayerNetwork",
+    "LSTM", "GravesLSTM", "GravesBidirectionalLSTM", "SimpleRnn",
+    "Bidirectional", "LastTimeStep", "MultiLayerNetwork",
 ]

@@ -4,10 +4,13 @@
   from the JAX package's JSON (same schema, same layer names and fields).
 - `params_from_jax(net.params_tree)`: the port's parameter list from the
   JAX network's (a list of dicts of arrays). Names stay `w_q`, `w_k`,
-  `w_v`, `w_o`, `b`, `W`, and so does the JAX (n_in, n_out) layout: the
-  port applies weights as `x @ W`, so nothing is transposed anywhere.
+  `w_v`, `w_o`, `b`, `W`, the recurrent `RW` and peepholes `pi`/`pf`/`po`
+  (with `_f`/`_b` suffixes in bidirectional layers), and so does the JAX
+  (n_in, n_out) layout with the gate order [i|f|o|g]: the port applies
+  weights as `x @ W`, so nothing is transposed anywhere.
 - `opt_state_from_jax(net._opt_state)`: the updater state (Adam's m/v,
-  ...) in the same nest of lists and dicts, so a port network resumes
+  RmsProp's running mean of squares, ...) in the same nest of lists and
+  dicts, so a port network resumes
   training where the JAX one stopped (`net._opt_state = ...`).
 
 Only numpy crosses between the packages: this module imports neither JAX

@@ -22,7 +22,9 @@ _ACTIVATIONS: dict = {
     Activation.LEAKYRELU: lambda x: F.leaky_relu(x, negative_slope=0.01),
     Activation.TANH: torch.tanh,
     Activation.SIGMOID: torch.sigmoid,
-    Activation.HARDSIGMOID: F.hardsigmoid,
+    # relu6(x + 3) / 6 as jax.nn.hard_sigmoid: F.hardsigmoid's backward
+    # scales by a float32 1/6, off by ~1e-8 relative in float64
+    Activation.HARDSIGMOID: lambda x: torch.clamp(x + 3.0, 0.0, 6.0) / 6.0,
     Activation.HARDTANH: lambda x: torch.clamp(x, -1.0, 1.0),
     Activation.SOFTMAX: lambda x: torch.softmax(x, dim=-1),
     Activation.SOFTPLUS: F.softplus,

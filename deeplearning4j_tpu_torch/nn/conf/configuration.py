@@ -27,7 +27,9 @@ from deeplearning4j_tpu_torch.nn.updater.updaters import (BaseUpdater, Sgd,
 
 # Which input kind each ported layer family expects (None: accepts anything
 # as-is). A stack whose input kinds disagree would need a preprocessor.
-_EXPECTED_KIND = {"RnnOutputLayer": "rnn"}
+_EXPECTED_KIND = {name: "rnn" for name in (
+    "LSTM", "GravesLSTM", "GravesBidirectionalLSTM", "RnnOutputLayer",
+    "SimpleRnn", "Bidirectional", "LastTimeStep")}
 
 
 @dataclass
@@ -191,6 +193,10 @@ class NeuralNetConfiguration:
             self._layer_defaults["bias_init"] = float(b)
             return self
 
+        def l2(self, v: float):
+            self._layer_defaults["l2"] = float(v)
+            return self
+
         def gradient_normalization(self, g: GradientNormalization):
             self._layer_defaults["gradient_normalization"] = g
             return self
@@ -215,6 +221,9 @@ class ListBuilder:
         self._parent = parent
         self._layers: Dict[int, BaseLayerConf] = {}
         self._input_type: Optional[InputType] = None
+        self._backprop_type = BackpropType.Standard
+        self._tbptt_fwd = 20
+        self._tbptt_back = 20
 
     def layer(self, index_or_layer, layer: Optional[BaseLayerConf] = None):
         if layer is None:
@@ -228,6 +237,21 @@ class ListBuilder:
         self._input_type = it
         return self
     setInputType = set_input_type
+
+    def backprop_type(self, t: BackpropType):
+        self._backprop_type = t
+        return self
+    backpropType = backprop_type
+
+    def t_bptt_forward_length(self, n: int):
+        self._tbptt_fwd = int(n)
+        return self
+    tBPTTForwardLength = t_bptt_forward_length
+
+    def t_bptt_backward_length(self, n: int):
+        self._tbptt_back = int(n)
+        return self
+    tBPTTBackwardLength = t_bptt_backward_length
 
     def build(self) -> MultiLayerConfiguration:
         layers = []
@@ -248,4 +272,6 @@ class ListBuilder:
                 cur = layer.get_output_type(cur)
         return MultiLayerConfiguration(
             layers=layers, global_conf=copy.deepcopy(self._parent._global),
-            input_type=self._input_type)
+            input_type=self._input_type, backprop_type=self._backprop_type,
+            tbptt_fwd_length=self._tbptt_fwd,
+            tbptt_back_length=self._tbptt_back)

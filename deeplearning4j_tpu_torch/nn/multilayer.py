@@ -16,8 +16,16 @@ that keeps everything on the card: per-step losses stay tensors, the
 divergence sentinel is a device scalar, and `sync=True` reads both back
 once at the end.
 
-Not ported, and raising NotImplementedError: truncated BPTT and
-`rnn_time_step` (the LSTM slice, K7-K9), `set_gradients_accumulator`
+Recurrent state, as in the JAX package: `fit_batch` runs every LSTM layer
+from the states in `rnn_init_states` (zeros where None) and returns each
+one's final (h, c), None for a bidirectional layer; truncated BPTT
+(`fit` on a TruncatedBPTT configuration with 3-D features) splits the
+time axis into tbptt_fwd_length segments and carries those states,
+detached, from one segment to the next. `fit_batch` and `fit_on_device`
+themselves train such a configuration on the whole sequence.
+`rnn_time_step` streams inference with the states kept between calls.
+
+Not ported, and raising NotImplementedError: `set_gradients_accumulator`
 (K11), `configure_health` (telemetry/health.py), `pretrain` /
 `pretrain_layer`.
 """
@@ -38,6 +46,8 @@ from deeplearning4j_tpu_torch.device import DeviceLike, resolve_device
 from deeplearning4j_tpu_torch.nn.conf.configuration import \
     MultiLayerConfiguration
 from deeplearning4j_tpu_torch.nn.conf.layers.base import apply_dropout
+from deeplearning4j_tpu_torch.nn.conf.layers.recurrent import (
+    LSTM, GravesBidirectionalLSTM)
 from deeplearning4j_tpu_torch.nn.divergence import DivergenceSentinelMixin
 from deeplearning4j_tpu_torch.nn.updater.updaters import BaseUpdater, NoOp
 from deeplearning4j_tpu_torch.util.dtypes import cast_floats
@@ -128,6 +138,7 @@ class MultiLayerNetwork(DivergenceSentinelMixin):
         self._generator: Optional[torch.Generator] = None
         self._initialized = False
         self._last_etl_ms = 0.0
+        self._rnn_state: Optional[List[Any]] = None
         gc = conf.global_conf
         self.dtype = torch_dtype(gc.dtype)
         self.compute_dtype = torch_dtype(gc.compute_dtype) \
@@ -177,6 +188,7 @@ class MultiLayerNetwork(DivergenceSentinelMixin):
         self._generator = torch.Generator(device=self.device).manual_seed(
             seed + 1)
         self._step = 0
+        self._rnn_state = None
         self._initialized = True
         return self
 
@@ -184,10 +196,10 @@ class MultiLayerNetwork(DivergenceSentinelMixin):
         if not self._initialized:
             raise RuntimeError("Call net.init() first")
 
-    def _check_trainable(self):
-        if self.conf.backprop_type == BackpropType.TruncatedBPTT:
-            _not_ported("BackpropType.TruncatedBPTT",
-                        "the LSTM slice (K7-K9)")
+    def _n_rnn(self) -> int:
+        """LSTM layers (bidirectional ones included): the length of a
+        recurrent-state list."""
+        return sum(1 for layer in self.layers if isinstance(layer, LSTM))
 
     def _tensor(self, a, dtype=None):
         """`a` (array or tensor; None stays None) on the network's device,
@@ -218,19 +230,39 @@ class MultiLayerNetwork(DivergenceSentinelMixin):
                                            self._tensor(flat))
 
     # ------------------------------------------------------------- forward
-    def _forward(self, x, collect: bool):
+    def _forward(self, x, collect: bool, rnn_init_states=None):
+        """(output in the storage dtype, activations, final (h, c) per
+        LSTM layer). With `rnn_init_states` (one entry per LSTM layer, None
+        for zeros) every LSTM layer starts from its state; a bidirectional
+        LSTM layer has no streamable state and raises."""
         cd = self.compute_dtype
         params = self.params_tree if cd == self.dtype else cast_floats(
             self.params_tree, cd)
+        if rnn_init_states is not None and cd != self.dtype:
+            rnn_init_states = cast_floats(rnn_init_states, cd)
         cur = x.to(cd)
         acts = [x]
         mask = None
+        final_rnn = []
         for i, layer in enumerate(self.layers):
-            cur, _, mask = layer.forward(params[i], self.state_tree[i], cur,
-                                         train=False, mask=mask)
+            if isinstance(layer, LSTM) and rnn_init_states is not None:
+                if isinstance(layer, GravesBidirectionalLSTM):
+                    raise ValueError(
+                        f"layer {i} ({type(layer).__name__}) is "
+                        "bidirectional: it has no state to carry from one "
+                        "call to the next, so it cannot stream")
+                init = rnn_init_states[len(final_rnn)]
+                cur, hc = layer._scan(params[i], cur, mask,
+                                      *(init if init is not None else ()))
+                final_rnn.append(hc)
+            else:
+                if isinstance(layer, LSTM):
+                    final_rnn.append(None)
+                cur, _, mask = layer.forward(params[i], self.state_tree[i],
+                                             cur, train=False, mask=mask)
             if collect:
                 acts.append(cur)
-        return cur.to(self.dtype), acts
+        return cur.to(self.dtype), acts, final_rnn
 
     @torch.no_grad()
     def output(self, x) -> torch.Tensor:
@@ -246,12 +278,17 @@ class MultiLayerNetwork(DivergenceSentinelMixin):
 
     # ------------------------------------------------------------------ loss
     def _loss_fn(self, params_tree, x, y, fmask, lmask, generator,
-                 train: bool = True, per_example: bool = False):
-        """(loss, new_states). Mixed precision as in the JAX package: the
-        params and every layer input are cast to `compute_dtype`, the
-        output layer and its loss run in the storage dtype on the uncast
-        params, and so does the regularization. Dropout draws from
-        `generator` only when training with a generator."""
+                 train: bool = True, per_example: bool = False,
+                 rnn_init_states=None):
+        """(loss, new_states, final_rnn). Mixed precision as in the JAX
+        package: the params, every layer input and the carried recurrent
+        states are cast to `compute_dtype`, the output layer and its loss
+        run in the storage dtype on the uncast params, and so does the
+        regularization. Dropout draws from `generator` only when training
+        with a generator. With `rnn_init_states` (one entry per LSTM
+        layer) every non-bidirectional LSTM layer runs from its state
+        (zeros where None) and final_rnn holds its final (h, c), in the
+        compute dtype; bidirectional LSTM layers hold None."""
         out_layer = self.layers[-1]
         if not out_layer.is_output_layer():
             raise ValueError("Last layer must be an output/loss layer for "
@@ -261,13 +298,26 @@ class MultiLayerNetwork(DivergenceSentinelMixin):
         params_full = params_tree
         if mixed:
             params_tree = cast_floats(params_tree, cd)
+            if rnn_init_states is not None:
+                rnn_init_states = cast_floats(rnn_init_states, cd)
         mask, cur = fmask, x
-        new_states = []
+        new_states, final_rnn = [], []
         for i, layer in enumerate(self.layers[:-1]):
             if mixed:
                 cur = cur.to(cd)
             if train and layer.dropout > 0 and generator is not None:
                 cur = apply_dropout(cur, layer.dropout, generator)
+            if isinstance(layer, LSTM) and rnn_init_states is not None:
+                if isinstance(layer, GravesBidirectionalLSTM):
+                    final_rnn.append(None)     # no streamable state
+                else:
+                    init = rnn_init_states[len(final_rnn)]
+                    cur, hc = layer._scan(params_tree[i], cur, mask,
+                                          *(init if init is not None
+                                            else ()))
+                    final_rnn.append(hc)
+                    new_states.append(self.state_tree[i])
+                    continue
 
             def fwd(p, s, c, m, _layer=layer):
                 return _layer.forward(p, s, c, train=train, mask=m)
@@ -292,7 +342,7 @@ class MultiLayerNetwork(DivergenceSentinelMixin):
             new_states = cast_floats(new_states, self.dtype)
         if per_example:
             return out_layer.compute_score_per_example(
-                params_full[-1], cur, y, score_mask), new_states
+                params_full[-1], cur, y, score_mask), new_states, final_rnn
         loss = out_layer.compute_score(params_full[-1], cur, y, score_mask)
         new_states.append(self.state_tree[-1])
         reg = sum((layer.regularization_score(p)
@@ -303,37 +353,45 @@ class MultiLayerNetwork(DivergenceSentinelMixin):
         aux = sum((ns["__aux_loss__"].sum() for ns in new_states
                    if isinstance(ns, dict) and "__aux_loss__" in ns),
                   torch.zeros((), dtype=torch.float32))
-        return loss + reg + aux, new_states
+        return loss + reg + aux, new_states, final_rnn
 
-    def _value_and_grad(self, params_tree, x, y, fmask, lmask, generator):
-        """(loss, new_states, grads): one forward and backward, the grads
-        in the params' structure (zeros where the loss does not depend on
-        a param)."""
+    def _value_and_grad(self, params_tree, x, y, fmask, lmask, generator,
+                        rnn_init_states=None):
+        """(loss, new_states, grads, final_rnn): one forward and backward,
+        the grads in the params' structure (zeros where the loss does not
+        depend on a param), the final recurrent states detached."""
         leaves = [{k: v.detach().requires_grad_(True) for k, v in p.items()}
                   for p in params_tree]
         flat = [(i, k) for i, p in enumerate(leaves) for k in p]
         with torch.enable_grad():
-            loss, ns = self._loss_fn(leaves, x, y, fmask, lmask, generator,
-                                     True)
+            loss, ns, final_rnn = self._loss_fn(
+                leaves, x, y, fmask, lmask, generator, True,
+                rnn_init_states=rnn_init_states)
             gs = torch.autograd.grad(loss, [leaves[i][k] for i, k in flat],
                                      allow_unused=True) if flat else []
         grads = [{} for _ in leaves]
         for (i, k), g in zip(flat, gs):
             grads[i][k] = torch.zeros_like(leaves[i][k]) if g is None \
                 else g
-        ns = tree_map(lambda a: a.detach() if isinstance(a, torch.Tensor)
-                      else a, ns)
-        return loss.detach(), ns, grads
+        ns, final_rnn = tree_map(
+            lambda a: a.detach() if isinstance(a, torch.Tensor) else a,
+            (ns, final_rnn))
+        return loss.detach(), ns, grads, final_rnn
 
     # -------------------------------------------------------------- training
-    def fit_batch(self, x, y, fmask=None, lmask=None):
-        """One optimization step on one minibatch."""
+    def fit_batch(self, x, y, fmask=None, lmask=None, rnn_init_states=None):
+        """One optimization step on one minibatch, every LSTM layer
+        starting from its entry of `rnn_init_states` (zeros where None or
+        when the list is None). Returns the final (h, c) of each LSTM layer
+        (None for a bidirectional one), detached, in the compute dtype."""
         self._check_init()
-        self._check_trainable()
         x, y = self._tensor(x), self._tensor(y)
         fmask, lmask = self._tensor(fmask), self._tensor(lmask)
-        loss, ns, grads = self._value_and_grad(self.params_tree, x, y, fmask,
-                                               lmask, self._generator)
+        if rnn_init_states is None:
+            rnn_init_states = [None] * self._n_rnn()
+        loss, ns, grads, final_rnn = self._value_and_grad(
+            self.params_tree, x, y, fmask, lmask, self._generator,
+            rnn_init_states)
         with torch.no_grad():
             self.params_tree, self._opt_state = _apply_updates(
                 self.layers, self._updaters, grads, self._opt_state,
@@ -343,7 +401,7 @@ class MultiLayerNetwork(DivergenceSentinelMixin):
         self._score = loss          # device scalar; read back by score()
         for lst in self._listeners:
             lst.iteration_done(self, self._step)
-        return []
+        return final_rnn
 
     def fit_on_device(self, x, y, steps: Optional[int] = None, fmask=None,
                       lmask=None, sync: bool = True,
@@ -362,7 +420,6 @@ class MultiLayerNetwork(DivergenceSentinelMixin):
         mode only) rolls the batch by the step index each step, as the JAX
         package does to keep steps from being loop-invariant."""
         self._check_init()
-        self._check_trainable()
         per_step_data = steps is None
         if vary_batch and per_step_data:
             raise ValueError("vary_batch applies to the same-batch "
@@ -387,8 +444,8 @@ class MultiLayerNetwork(DivergenceSentinelMixin):
                 bx, by, bfm, blm = roll(x), roll(y), roll(fmask), roll(lmask)
             else:
                 bx, by, bfm, blm = x, y, fmask, lmask
-            loss, ns, grads = self._value_and_grad(params, bx, by, bfm, blm,
-                                                   self._generator)
+            loss, ns, grads, _ = self._value_and_grad(
+                params, bx, by, bfm, blm, self._generator)
             with torch.no_grad():
                 newp, newo = _apply_updates(self.layers, self._updaters,
                                             grads, opt, params, step_c)
@@ -442,15 +499,46 @@ class MultiLayerNetwork(DivergenceSentinelMixin):
                     lst.on_epoch_start(self)
             if hasattr(data, "reset"):
                 data.reset()
-            self._fit_epoch_grouped(data)
+            if self.conf.backprop_type == BackpropType.TruncatedBPTT:
+                # the segment loop carries state on the host: per batch
+                t0 = time.time()
+                for ds in data:
+                    self._last_etl_ms = (time.time() - t0) * 1e3
+                    self._fit_one(ds)
+                    t0 = time.time()
+            else:
+                self._fit_epoch_grouped(data)
             for lst in self._listeners:
                 if hasattr(lst, "on_epoch_end"):
                     lst.on_epoch_end(self)
         return self
 
     def _fit_one(self, ds: DataSet):
-        self.fit_batch(ds.features, ds.labels, ds.features_mask,
-                       ds.labels_mask)
+        if self.conf.backprop_type == BackpropType.TruncatedBPTT \
+                and np.ndim(ds.features) == 3:
+            self._fit_tbptt(ds)
+        else:
+            self.fit_batch(ds.features, ds.labels, ds.features_mask,
+                           ds.labels_mask)
+
+    def _fit_tbptt(self, ds: DataSet):
+        """Truncated BPTT: split the time axis into tbptt_fwd_length
+        segments, one optimization step each, the LSTM states carried
+        (detached) from one segment to the next."""
+        T = ds.features.shape[2]
+        L = self.conf.tbptt_fwd_length
+        carry = [None] * self._n_rnn()
+        for start in range(0, T, L):
+            end = min(start + L, T)
+
+            def seg(a, time_axis):
+                return None if a is None else (
+                    a[..., start:end] if np.ndim(a) == time_axis + 1
+                    else a)
+            carry = self.fit_batch(seg(ds.features, 2), seg(ds.labels, 2),
+                                   seg(ds.features_mask, 1),
+                                   seg(ds.labels_mask, 1),
+                                   rnn_init_states=carry)
 
     def _fit_epoch_grouped(self, it):
         """Consecutive same-shape minibatches run as one `fit_on_device`
@@ -515,7 +603,7 @@ class MultiLayerNetwork(DivergenceSentinelMixin):
         if ds is None:
             return float(self._score)
         with torch.no_grad():
-            loss, _ = self._loss_fn(
+            loss, _, _ = self._loss_fn(
                 self.params_tree, self._tensor(ds.features),
                 self._tensor(ds.labels), self._tensor(ds.features_mask),
                 self._tensor(ds.labels_mask), None, training)
@@ -527,7 +615,7 @@ class MultiLayerNetwork(DivergenceSentinelMixin):
         L1/L2 penalty on every entry with `add_regularization`."""
         self._check_init()
         with torch.no_grad():
-            per, _ = self._loss_fn(
+            per, _, _ = self._loss_fn(
                 self.params_tree, self._tensor(ds.features),
                 self._tensor(ds.labels), self._tensor(ds.features_mask),
                 self._tensor(ds.labels_mask), None, False, per_example=True)
@@ -542,7 +630,7 @@ class MultiLayerNetwork(DivergenceSentinelMixin):
     def gradient_and_score(self, x, y, fmask=None, lmask=None):
         """(flat gradient in the JAX package's order, score); no dropout."""
         self._check_init()
-        loss, _, grads = self._value_and_grad(
+        loss, _, grads, _ = self._value_and_grad(
             self.params_tree, self._tensor(x), self._tensor(y),
             self._tensor(fmask), self._tensor(lmask), None)
         return flatten_params(grads), float(loss)
@@ -567,12 +655,28 @@ class MultiLayerNetwork(DivergenceSentinelMixin):
     def last_etl_ms(self):
         return self._last_etl_ms
 
-    # ------------------------------------------------------- not ported yet
-    def rnn_time_step(self, x):
-        _not_ported("rnn_time_step", "the LSTM slice (K7-K9)")
+    # ------------------------------------------------------------- rnn API
+    @torch.no_grad()
+    def rnn_time_step(self, x) -> torch.Tensor:
+        """Streaming inference: the stack's output for x (batch, size,
+        time), or (batch, size) for one step, every LSTM layer starting
+        from the state the previous call left (zeros after `init` or
+        `rnn_clear_previous_state`)."""
+        self._check_init()
+        x = self._tensor(x)
+        squeeze = x.ndim == 2
+        if squeeze:
+            x = x[:, :, None]
+        if self._rnn_state is None:
+            self._rnn_state = [None] * self._n_rnn()
+        out, _, self._rnn_state = self._forward(
+            x, False, rnn_init_states=self._rnn_state)
+        return out[:, :, 0] if squeeze else out
 
     def rnn_clear_previous_state(self):
-        _not_ported("rnn_clear_previous_state", "the LSTM slice (K7-K9)")
+        self._rnn_state = None
+
+    # ------------------------------------------------------- not ported yet
 
     def set_gradients_accumulator(self, acc):
         _not_ported("set_gradients_accumulator",

@@ -1,0 +1,202 @@
+"""The port's LSTM kernels' plain versions against the JAX package's Pallas
+kernels (in interpret mode, as tests/test_lstm_scan_fused.py runs them)
+and their lax/jnp references, in float64 on the CPU.
+
+- K7: `graves_lstm_scan_plain` / `graves_lstm_scan_bwd_plain` (and the
+  autograd function that dispatches to them on the CPU) against
+  `graves_lstm_scan_pallas` and `graves_lstm_scan_xla`: ys, cs and all
+  seven gradients, with a non-zero cotangent on cs.
+- K8 / K9: the gate cells' plain forward and backward against
+  `graves_gates_pallas` / `lstm_gates_pallas` and their `_xla` versions.
+
+Inputs are numpy draws handed to both packages. Tolerance 1e-10.
+"""
+import numpy as np
+import pytest
+
+import jax
+import jax.numpy as jnp
+import torch
+
+from deeplearning4j_tpu.ops.lstm_scan_fused import (graves_lstm_scan_pallas,
+                                                    graves_lstm_scan_xla)
+from deeplearning4j_tpu.ops.pallas_kernels import (graves_gates_pallas,
+                                                   graves_gates_xla,
+                                                   lstm_gates_pallas,
+                                                   lstm_gates_xla)
+from deeplearning4j_tpu_torch.ops import lstm_gates as tg
+from deeplearning4j_tpu_torch.ops import lstm_scan_fused as ts
+
+TOL = 1e-10
+H = 8
+
+
+def _scan_args(T, B, seed, zero_state=False):
+    rng = np.random.RandomState(seed)
+    a = [rng.randn(T, B, 4 * H) * 0.5, rng.randn(H, 4 * H) * 0.3]
+    a += [rng.randn(H) * 0.2 for _ in range(3)]
+    a += [np.zeros((B, H)) if zero_state else rng.randn(B, H) * 0.3
+          for _ in range(2)]
+    cot = [rng.randn(T, B, H), rng.randn(T, B, H)]
+    return a, cot
+
+
+def _t(a):
+    return torch.from_numpy(np.asarray(a))
+
+
+def _close(port, ref, what):
+    np.testing.assert_allclose(np.asarray(port), np.asarray(ref), atol=TOL,
+                               rtol=0, err_msg=what)
+
+
+NAMES = ("dxw", "drw", "dpi", "dpf", "dpo", "dh0", "dc0")
+
+
+@pytest.mark.parametrize("T", [1, 7])
+@pytest.mark.parametrize("B", [9, 12, 20])
+def test_scan_plain_matches_pallas_and_xla(B, T):
+    args, (dys, dcs) = _scan_args(T, B, seed=B + T)
+    ja = [jnp.asarray(a) for a in args]
+    ys, cs = ts.graves_lstm_scan_plain(*map(_t, args))
+    for ref_fn in (graves_lstm_scan_pallas, graves_lstm_scan_xla):
+        (rys, rcs), vjp = jax.vjp(ref_fn, *ja)
+        _close(ys, rys, f"ys vs {ref_fn.__name__}")
+        _close(cs, rcs, f"cs vs {ref_fn.__name__}")
+        ref_grads = vjp((jnp.asarray(dys), jnp.asarray(dcs)))
+        grads = ts.graves_lstm_scan_bwd_plain(*map(_t, args), ys, cs,
+                                              _t(dys), _t(dcs))
+        for name, g, r in zip(NAMES, grads, ref_grads):
+            _close(g, r, f"{name} vs {ref_fn.__name__}")
+
+
+@pytest.mark.parametrize("zero_state", [False, True])
+def test_scan_autograd_matches_pallas(zero_state):
+    """The differentiable entry point on CPU tensors: values and the seven
+    gradients through torch.autograd, a cotangent on both outputs."""
+    args, (dys, dcs) = _scan_args(5, 9, seed=3, zero_state=zero_state)
+    ts_in = [_t(a).requires_grad_(True) for a in args]
+    ys, cs = ts.graves_lstm_scan(*ts_in)
+    grads = torch.autograd.grad((ys * _t(dys)).sum() + (cs * _t(dcs)).sum(),
+                                ts_in)
+    (rys, rcs), vjp = jax.vjp(graves_lstm_scan_pallas,
+                              *[jnp.asarray(a) for a in args])
+    _close(ys.detach(), rys, "ys")
+    _close(cs.detach(), rcs, "cs")
+    for name, g, r in zip(NAMES, grads,
+                          vjp((jnp.asarray(dys), jnp.asarray(dcs)))):
+        _close(g, r, name)
+    assert ts.graves_lstm_scan_fwd_cuda.launches == 0
+    assert ts.graves_lstm_scan_bwd_cuda.launches == 0
+
+
+def test_scan_plain_keeps_the_storage_rounding():
+    """In float32 storage the plain forward rounds h and c every step:
+    it equals a float64 loop that rounds h and c to float32 after each
+    step, and so stays apart from the unrounded float64 recurrence."""
+    args, _ = _scan_args(6, 4, seed=11)
+    a32 = [_t(a).float() for a in args]
+    ys, cs = ts.graves_lstm_scan_plain(*a32)
+    xw, rw, pi, pf, po, h, c = [a.double() for a in a32]
+    for t in range(xw.shape[0]):
+        g = xw[t] + h @ rw
+        i = torch.sigmoid(g[:, :H] + c * pi)
+        f = torch.sigmoid(g[:, H:2 * H] + c * pf)
+        c_new = f * c + i * torch.tanh(g[:, 3 * H:])
+        o = torch.sigmoid(g[:, 2 * H:3 * H] + c_new * po)
+        h = (o * torch.tanh(c_new)).float().double()
+        c = c_new.float().double()
+        np.testing.assert_allclose(ys[t].double(), h, atol=2e-6, rtol=0)
+        np.testing.assert_allclose(cs[t].double(), c, atol=2e-6, rtol=0)
+    assert ys.dtype == cs.dtype == torch.float32
+
+
+def _gate_args(B, seed):
+    rng = np.random.RandomState(seed)
+    return (rng.randn(B, 4 * H), rng.randn(B, H) * 0.5,
+            *(rng.randn(H) * 0.3 for _ in range(3)),
+            rng.randn(B, H), rng.randn(B, H))
+
+
+@pytest.mark.parametrize("B", [1, 9, 20])
+def test_graves_gates_plain_matches_pallas(B):
+    gates, c, pi, pf, po, dc, dh = _gate_args(B, seed=B)
+    fwd = tg.graves_gates_plain(*map(_t, (gates, c, pi, pf, po)))
+    bwd = tg.graves_gates_bwd_plain(*map(_t, (gates, c, pi, pf, po, dc,
+                                              dh)))
+    for ref_fn in (graves_gates_pallas, graves_gates_xla):
+        out, vjp = jax.vjp(ref_fn, *map(jnp.asarray, (gates, c, pi, pf,
+                                                      po)))
+        for p, r in zip(fwd, out):
+            _close(p, r, f"forward vs {ref_fn.__name__}")
+        for p, r in zip(bwd, vjp((jnp.asarray(dc), jnp.asarray(dh)))):
+            _close(p, r, f"backward vs {ref_fn.__name__}")
+
+
+@pytest.mark.parametrize("B", [1, 9, 20])
+def test_lstm_gates_plain_matches_pallas(B):
+    gates, c, _, _, _, dc, dh = _gate_args(B, seed=40 + B)
+    fwd = tg.lstm_gates_plain(_t(gates), _t(c))
+    bwd = tg.lstm_gates_bwd_plain(*map(_t, (gates, c, dc, dh)))
+    for ref_fn in (lstm_gates_pallas, lstm_gates_xla):
+        out, vjp = jax.vjp(ref_fn, jnp.asarray(gates), jnp.asarray(c))
+        for p, r in zip(fwd, out):
+            _close(p, r, f"forward vs {ref_fn.__name__}")
+        for p, r in zip(bwd, vjp((jnp.asarray(dc), jnp.asarray(dh)))):
+            _close(p, r, f"backward vs {ref_fn.__name__}")
+
+
+@pytest.mark.parametrize("peep", [False, True])
+def test_gate_cells_autograd_on_cpu(peep):
+    """The differentiable cells take the plain versions on CPU tensors (no
+    launch counted) and give the JAX Pallas cell's gradients."""
+    gates, c, pi, pf, po, dc, dh = _gate_args(6, seed=77)
+    ins = [_t(a).requires_grad_(True)
+           for a in ((gates, c, pi, pf, po) if peep else (gates, c))]
+    out = (tg.graves_gates if peep else tg.lstm_gates)(*ins)
+    grads = torch.autograd.grad(
+        (out[0] * _t(dc)).sum() + (out[1] * _t(dh)).sum(), ins)
+    ref_fn = graves_gates_pallas if peep else lstm_gates_pallas
+    _, vjp = jax.vjp(ref_fn, *[jnp.asarray(a.detach().numpy())
+                               for a in ins])
+    for g, r in zip(grads, vjp((jnp.asarray(dc), jnp.asarray(dh)))):
+        _close(g, r, "gradient")
+    for fn in (tg.lstm_gates_cuda, tg.lstm_gates_bwd_cuda,
+               tg.graves_gates_cuda, tg.graves_gates_bwd_cuda):
+        assert fn.launches == 0
+
+
+@pytest.mark.parametrize("kw,match", [
+    (dict(gate_math="native"), "ROADMAP"),
+    (dict(grid="tm"), "no counterpart"),
+    (dict(k_steps=2), "no counterpart")])
+def test_scan_configure_raises_for_tpu_knobs(kw, match):
+    with pytest.raises(NotImplementedError, match=match):
+        ts.configure(**kw)
+    assert ts.configure(gate_math="fp32") == {"gate_math": "fp32"}
+
+
+def _cpu_calls():
+    z = torch.zeros
+    s = (z(3, 2, 64), z(16, 64), z(16), z(16), z(16), z(2, 16), z(2, 16))
+    ys = z(3, 2, 16)
+    g = (z(2, 64), z(2, 16))
+    p = (z(16), z(16), z(16))
+    return {
+        "graves_lstm_scan_fwd": lambda: ts.graves_lstm_scan_fwd_cuda(*s),
+        "graves_lstm_scan_bwd": lambda: ts.graves_lstm_scan_bwd_cuda(
+            *s, ys, ys, ys, ys),
+        "lstm_gates": lambda: tg.lstm_gates_cuda(*g),
+        "lstm_gates_bwd": lambda: tg.lstm_gates_bwd_cuda(*g, g[1], g[1]),
+        "graves_gates": lambda: tg.graves_gates_cuda(*g, *p),
+        "graves_gates_bwd": lambda: tg.graves_gates_bwd_cuda(*g, *p, g[1],
+                                                             g[1]),
+    }
+
+
+@pytest.mark.parametrize("name", sorted(_cpu_calls()))
+def test_cuda_wrappers_refuse_cpu_tensors(name):
+    """A kernel wrapper launches on CUDA tensors or raises; it never runs
+    the plain version itself."""
+    with pytest.raises(ValueError, match="CUDA tensors only"):
+        _cpu_calls()[name]()

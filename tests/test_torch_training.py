@@ -452,16 +452,16 @@ def test_dropout_statistics_and_determinism():
     assert a.score(TDataSet(x, y)) == a.score(TDataSet(x, y))
 
 
-def _tbptt(net):
-    from deeplearning4j_tpu_torch.common.enums import BackpropType
-    net.conf.backprop_type = BackpropType.TruncatedBPTT
-    x, y, _ = _data()
-    net.fit(x, y)
+def _lstm_configure(**kw):
+    return lambda n: __import__(
+        "deeplearning4j_tpu_torch.ops.lstm_scan_fused",
+        fromlist=["configure"]).configure(**kw)
 
 
 UNPORTED = {
-    "truncated_bptt": (_tbptt, "TruncatedBPTT"),
-    "rnn_time_step": (lambda n: n.rnn_time_step(np.zeros((B, V))), "LSTM"),
+    "lstm_gate_math_native": (_lstm_configure(gate_math="native"),
+                              "gate_math"),
+    "lstm_grid": (_lstm_configure(grid="tm"), "no counterpart"),
     "gradients_accumulator": (lambda n: n.set_gradients_accumulator(None),
                               "K11"),
     "configure_health": (lambda n: n.configure_health(None), "health"),
