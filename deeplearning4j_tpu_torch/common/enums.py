@@ -1,7 +1,7 @@
 """Core enums, copied from deeplearning4j_tpu/common/enums.py.
 
-Only the enums the serving slice's configurations carry are kept. Their
-string values are the JAX package's, so a configuration JSON written by
+Only the enums the ported configurations carry are kept. Their string
+values are the JAX package's, so a configuration JSON written by
 either package parses in the other.
 """
 from __future__ import annotations
@@ -81,6 +81,19 @@ class OptimizationAlgorithm(str, enum.Enum):
 class BackpropType(str, enum.Enum):
     Standard = "standard"
     TruncatedBPTT = "truncated_bptt"
+
+
+class ConvolutionMode(str, enum.Enum):
+    Strict = "strict"
+    Truncate = "truncate"
+    Same = "same"
+
+
+class PoolingType(str, enum.Enum):
+    MAX = "max"
+    AVG = "avg"
+    SUM = "sum"
+    PNORM = "pnorm"
 
 
 class GradientNormalization(str, enum.Enum):

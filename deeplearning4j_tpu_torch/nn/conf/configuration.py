@@ -5,8 +5,9 @@ Configurations are pure data with the JAX package's JSON schema, so
 `MultiLayerConfiguration.from_json(jax_conf.to_json())` builds the same
 layer stack here. The global updater is kept as its serialized dict
 (`get_updater()` builds the updater object from it, as the JAX package
-does). Input preprocessors are not ported yet and raise instead of being
-dropped: no layer of the ported slices needs one.
+does). `ListBuilder.build` and `GraphBuilder.build` run the JAX package's
+two configuration passes: n_in inference from the running InputType and
+automatic preprocessors between layer families (`make_preprocessor`).
 """
 from __future__ import annotations
 
@@ -17,19 +18,64 @@ from dataclasses import dataclass
 from typing import Any, Dict, List, Optional
 
 from deeplearning4j_tpu_torch.common.enums import (Activation, BackpropType,
+                                                   ConvolutionMode,
                                                    GradientNormalization,
                                                    OptimizationAlgorithm,
                                                    WeightInit)
 from deeplearning4j_tpu_torch.nn.conf.input_type import InputType
 from deeplearning4j_tpu_torch.nn.conf.layers.base import BaseLayerConf
+from deeplearning4j_tpu_torch.nn.conf.preprocessors import (
+    CnnToFeedForwardPreProcessor, CnnToRnnPreProcessor,
+    FeedForwardToCnnPreProcessor, FeedForwardToRnnPreProcessor,
+    InputPreProcessor, RnnToFeedForwardPreProcessor)
 from deeplearning4j_tpu_torch.nn.updater.updaters import (BaseUpdater, Sgd,
                                                           updater_from_name)
 
-# Which input kind each ported layer family expects (None: accepts anything
-# as-is). A stack whose input kinds disagree would need a preprocessor.
-_EXPECTED_KIND = {name: "rnn" for name in (
-    "LSTM", "GravesLSTM", "GravesBidirectionalLSTM", "RnnOutputLayer",
-    "SimpleRnn", "Bidirectional", "LastTimeStep")}
+# Which input kind each layer family expects (None: accepts anything
+# as-is), the JAX package's table.
+_EXPECTED_KIND = {
+    "DenseLayer": "ff", "OutputLayer": "ff", "EmbeddingLayer": "ff",
+    "AutoEncoder": "ff", "CenterLossOutputLayer": "ff",
+    "VariationalAutoencoder": "ff", "RBM": "ff",
+    "ConvolutionLayer": "cnn", "SubsamplingLayer": "cnn",
+    "ZeroPaddingLayer": "cnn", "LocalResponseNormalization": "cnn",
+    "SpaceToDepthLayer": "cnn", "Upsampling2D": "cnn",
+    "DepthwiseConvolutionLayer": "cnn", "SeparableConvolution2D": "cnn",
+    "Deconvolution2D": "cnn", "Cropping2D": "cnn",
+    "LSTM": "rnn", "GravesLSTM": "rnn", "GravesBidirectionalLSTM": "rnn",
+    "RnnOutputLayer": "rnn", "Convolution1DLayer": "rnn",
+    "Subsampling1DLayer": "rnn", "SimpleRnn": "rnn", "Bidirectional": "rnn",
+    "LastTimeStep": "rnn",
+}
+
+
+def make_preprocessor(from_type: InputType,
+                      to_kind: str) -> Optional[InputPreProcessor]:
+    """The preprocessor between an input of `from_type` and a layer that
+    expects `to_kind`, or None when none is needed."""
+    fk = from_type.kind
+    if fk == to_kind or (fk == "cnn_flat" and to_kind == "ff"):
+        return None
+    if fk == "cnn" and to_kind == "ff":
+        return CnnToFeedForwardPreProcessor(from_type.height, from_type.width,
+                                            from_type.channels)
+    if fk == "ff" and to_kind == "cnn":
+        raise ValueError("Cannot infer CNN dims from FF input; set an "
+                         "explicit FeedForwardToCnnPreProcessor")
+    if fk == "cnn_flat" and to_kind == "cnn":
+        return FeedForwardToCnnPreProcessor(from_type.height, from_type.width,
+                                            from_type.channels)
+    if fk == "rnn" and to_kind == "ff":
+        return RnnToFeedForwardPreProcessor()
+    if fk == "ff" and to_kind == "rnn":
+        return FeedForwardToRnnPreProcessor()
+    if fk == "cnn" and to_kind == "rnn":
+        return CnnToRnnPreProcessor(from_type.height, from_type.width,
+                                    from_type.channels)
+    if fk == "rnn" and to_kind == "cnn":
+        raise ValueError("rnn->cnn requires explicit RnnToCnnPreProcessor "
+                         "dims")
+    return None
 
 
 @dataclass
@@ -67,9 +113,11 @@ class MultiLayerConfiguration:
                  input_type: Optional[InputType] = None,
                  backprop_type: BackpropType = BackpropType.Standard,
                  tbptt_fwd_length: int = 20, tbptt_back_length: int = 20,
-                 pretrain: bool = False, backprop: bool = True):
+                 pretrain: bool = False, backprop: bool = True,
+                 preprocessors: Optional[Dict[int, InputPreProcessor]] = None):
         self.layers = layers
-        self.preprocessors: Dict[int, Any] = {}
+        self.preprocessors: Dict[int, InputPreProcessor] = \
+            dict(preprocessors or {})
         self.global_conf = global_conf
         self.input_type = input_type
         self.backprop_type = backprop_type
@@ -81,7 +129,8 @@ class MultiLayerConfiguration:
     def to_dict(self) -> dict:
         return {
             "layers": [l.to_dict() for l in self.layers],
-            "preprocessors": {},
+            "preprocessors": {str(k): v.to_dict()
+                              for k, v in self.preprocessors.items()},
             "global_conf": self.global_conf.to_dict(),
             "input_type": self.input_type.to_dict() if self.input_type
             else None,
@@ -97,10 +146,6 @@ class MultiLayerConfiguration:
 
     @staticmethod
     def from_dict(d: dict) -> "MultiLayerConfiguration":
-        if d.get("preprocessors"):
-            raise NotImplementedError(
-                "input preprocessors are not ported yet; the configuration "
-                f"has {sorted(d['preprocessors'])}")
         return MultiLayerConfiguration(
             layers=[BaseLayerConf.from_dict(x) for x in d["layers"]],
             global_conf=GlobalConf.from_dict(d["global_conf"]),
@@ -110,7 +155,9 @@ class MultiLayerConfiguration:
             tbptt_fwd_length=d.get("tbptt_fwd_length", 20),
             tbptt_back_length=d.get("tbptt_back_length", 20),
             pretrain=d.get("pretrain", False),
-            backprop=d.get("backprop", True))
+            backprop=d.get("backprop", True),
+            preprocessors={int(k): InputPreProcessor.from_dict(v) for k, v
+                           in (d.get("preprocessors") or {}).items()})
 
     @staticmethod
     def from_json(s: str) -> "MultiLayerConfiguration":
@@ -123,12 +170,14 @@ class MultiLayerConfiguration:
         return BaseUpdater.from_dict(self.global_conf.updater)
 
     def input_types_per_layer(self) -> List[InputType]:
-        """InputType *into* each layer."""
+        """InputType *into* each layer (after its preprocessor)."""
         if self.input_type is None:
             raise ValueError("Configuration has no input type set")
         cur = self.input_type
         result = []
-        for layer in self.layers:
+        for i, layer in enumerate(self.layers):
+            if i in self.preprocessors:
+                cur = self.preprocessors[i].get_output_type(cur)
             result.append(cur)
             cur = layer.get_output_type(cur)
         return result
@@ -193,9 +242,19 @@ class NeuralNetConfiguration:
             self._layer_defaults["bias_init"] = float(b)
             return self
 
+        def l1(self, v: float):
+            self._layer_defaults["l1"] = float(v)
+            return self
+
         def l2(self, v: float):
             self._layer_defaults["l2"] = float(v)
             return self
+
+        def convolution_mode(self, m):
+            self._layer_defaults["convolution_mode"] = \
+                ConvolutionMode(m) if isinstance(m, str) else m
+            return self
+        convolutionMode = convolution_mode
 
         def gradient_normalization(self, g: GradientNormalization):
             self._layer_defaults["gradient_normalization"] = g
@@ -203,6 +262,12 @@ class NeuralNetConfiguration:
 
         def list(self) -> "ListBuilder":
             return ListBuilder(self)
+
+        def graph_builder(self):
+            from deeplearning4j_tpu_torch.nn.conf.graph_configuration import \
+                GraphBuilder
+            return GraphBuilder(self)
+        graphBuilder = graph_builder
 
         def _apply_defaults(self, layer: BaseLayerConf) -> BaseLayerConf:
             layer = copy.deepcopy(layer)
@@ -220,6 +285,7 @@ class ListBuilder:
     def __init__(self, parent: NeuralNetConfiguration.Builder):
         self._parent = parent
         self._layers: Dict[int, BaseLayerConf] = {}
+        self._preprocessors: Dict[int, InputPreProcessor] = {}
         self._input_type: Optional[InputType] = None
         self._backprop_type = BackpropType.Standard
         self._tbptt_fwd = 20
@@ -232,6 +298,11 @@ class ListBuilder:
             index = int(index_or_layer)
         self._layers[index] = layer
         return self
+
+    def input_pre_processor(self, index: int, pp: InputPreProcessor):
+        self._preprocessors[int(index)] = pp
+        return self
+    inputPreProcessor = input_pre_processor
 
     def set_input_type(self, it: InputType):
         self._input_type = it
@@ -259,19 +330,27 @@ class ListBuilder:
             if i not in self._layers:
                 raise ValueError(f"Missing layer index {i}")
             layers.append(self._parent._apply_defaults(self._layers[i]))
+        pps = dict(self._preprocessors)
         if self._input_type is not None:
             cur = self._input_type
+            if cur.kind == "cnn_flat" and layers \
+                    and _EXPECTED_KIND.get(type(layers[0]).__name__) == "cnn" \
+                    and 0 not in pps:
+                # flat CNN input reshapes to NCHW at layer 0
+                pps[0] = FeedForwardToCnnPreProcessor(cur.height, cur.width,
+                                                      cur.channels)
             for i, layer in enumerate(layers):
                 expected = _EXPECTED_KIND.get(type(layer).__name__)
-                if expected is not None and cur.kind != expected:
-                    raise NotImplementedError(
-                        f"layer {i} ({type(layer).__name__}) expects "
-                        f"{expected!r} input but receives {cur.kind!r}: "
-                        "input preprocessors are not ported yet")
+                if i not in pps and expected is not None:
+                    pp = make_preprocessor(cur, expected)
+                    if pp is not None:
+                        pps[i] = pp
+                if i in pps:
+                    cur = pps[i].get_output_type(cur)
                 layer.set_n_in(cur, override=False)
                 cur = layer.get_output_type(cur)
         return MultiLayerConfiguration(
             layers=layers, global_conf=copy.deepcopy(self._parent._global),
             input_type=self._input_type, backprop_type=self._backprop_type,
             tbptt_fwd_length=self._tbptt_fwd,
-            tbptt_back_length=self._tbptt_back)
+            tbptt_back_length=self._tbptt_back, preprocessors=pps)

@@ -96,7 +96,8 @@ class BaseLayerConf:
                     ) -> Dict[str, torch.Tensor]:
         return {}
 
-    def init_state(self, input_type: InputType) -> Dict[str, Any]:
+    def init_state(self, input_type: InputType, dtype=torch.float32,
+                   device="cpu") -> Dict[str, Any]:
         return {}
 
     # ---------------- compute ----------------

@@ -16,8 +16,10 @@ How an LSTM layer reaches the kernels (the JAX `LSTM._scan` dispatch):
   `ops.lstm_gates.graves_gates` (K8) for peephole layers and
   `ops.lstm_gates.lstm_gates` (K9) for plain LSTM;
 - other activations run the per-step loop with the cell written inline.
-Unlike the JAX package there is no fallback on the VMEM budget: K7 takes
-every H it supports and raises beyond.
+As the JAX package falls back when `fits_vmem` fails, an unmasked layer
+whose H is too wide for K7's shared-memory tile on the card
+(`lstm_scan_fused.scan_fits`, a shape rule read before the call) takes
+the per-step loop through K8/K9.
 """
 from __future__ import annotations
 
@@ -34,7 +36,8 @@ from deeplearning4j_tpu_torch.nn.conf.layers.base import (
 from deeplearning4j_tpu_torch.nn.losses import (compute_loss,
                                                 compute_loss_per_example)
 from deeplearning4j_tpu_torch.ops.lstm_gates import graves_gates, lstm_gates
-from deeplearning4j_tpu_torch.ops.lstm_scan_fused import graves_lstm_scan
+from deeplearning4j_tpu_torch.ops.lstm_scan_fused import (graves_lstm_scan,
+                                                          scan_fits)
 
 
 def _directions(params):
@@ -136,7 +139,8 @@ class LSTM(FeedForwardLayerConf):
         c = torch.zeros((B, n), dtype=dtype, device=x.device) \
             if c0 is None else c0
         xw = _time_major(x) @ params["W"] + params["b"]
-        if mask is None and self._standard():
+        if mask is None and self._standard() \
+                and scan_fits(n, dtype, x.device):
             zero = torch.zeros((n,), dtype=dtype, device=x.device)
             xw_k = xw.flip(0) if reverse else xw
             ys, cs = graves_lstm_scan(

@@ -25,6 +25,12 @@ detached, from one segment to the next. `fit_batch` and `fit_on_device`
 themselves train such a configuration on the whole sequence.
 `rnn_time_step` streams inference with the states kept between calls.
 
+Input preprocessors run before their layer, as in the JAX package, and
+every layer input is cast to the compute dtype except an EmbeddingLayer's
+indices. `NetworkBase` holds what `ComputationGraph` shares with this
+class: initialization, the flat views, listeners, the gradient step
+(`value_and_grad`) and the guarded `fit_on_device` update.
+
 Not ported, and raising NotImplementedError: `set_gradients_accumulator`
 (K11), `configure_health` (telemetry/health.py), `pretrain` /
 `pretrain_layer`.
@@ -46,8 +52,10 @@ from deeplearning4j_tpu_torch.device import DeviceLike, resolve_device
 from deeplearning4j_tpu_torch.nn.conf.configuration import \
     MultiLayerConfiguration
 from deeplearning4j_tpu_torch.nn.conf.layers.base import apply_dropout
+from deeplearning4j_tpu_torch.nn.conf.layers.feedforward import EmbeddingLayer
 from deeplearning4j_tpu_torch.nn.conf.layers.recurrent import (
     LSTM, GravesBidirectionalLSTM)
+from deeplearning4j_tpu_torch.nn.conf.preprocessors import apply_preprocessor
 from deeplearning4j_tpu_torch.nn.divergence import DivergenceSentinelMixin
 from deeplearning4j_tpu_torch.nn.updater.updaters import BaseUpdater, NoOp
 from deeplearning4j_tpu_torch.util.dtypes import cast_floats
@@ -116,18 +124,58 @@ def _apply_updates(layers, updaters, grads, opt_state, params_tree, step):
             for pt, ut in zip(params_tree, upds)], new_opt
 
 
+def _guarded_update(layers, updaters, grads, opt, params, states,
+                    new_states, loss, div, step):
+    """One step of a `fit_on_device` loop: (params, opt, states, div)
+    after the update, except that params, updater state and layer state
+    stay as they were once this step's or an earlier step's loss is
+    non-finite (a select per buffer on the device); `div` records the
+    first bad step (-1 while clean)."""
+    newp, newo = _apply_updates(layers, updaters, grads, opt, params, step)
+    finite = torch.isfinite(loss)
+    bad = ~finite | (div >= 0)
+
+    def keep(new, old):
+        return tree_map(lambda a, b: torch.where(bad, b, a)
+                        if isinstance(a, torch.Tensor) else a, new, old)
+    div = torch.where((div < 0) & ~finite, torch.full_like(div, step), div)
+    return keep(newp, params), keep(newo, opt), keep(new_states, states), div
+
+
+def value_and_grad(loss_fn, params_tree):
+    """(loss, aux, grads) of `loss_fn(params) -> (loss, aux)`: one forward
+    and backward, the grads in the params' structure (zeros where the loss
+    does not depend on a param), loss and aux detached."""
+    leaves = [{k: v.detach().requires_grad_(True) for k, v in p.items()}
+              for p in params_tree]
+    flat = [(i, k) for i, p in enumerate(leaves) for k in p]
+    with torch.enable_grad():
+        loss, aux = loss_fn(leaves)
+        gs = torch.autograd.grad(loss, [leaves[i][k] for i, k in flat],
+                                 allow_unused=True) if flat else []
+    grads = [{} for _ in leaves]
+    for (i, k), g in zip(flat, gs):
+        grads[i][k] = torch.zeros_like(leaves[i][k]) if g is None else g
+    aux = tree_map(lambda a: a.detach() if isinstance(a, torch.Tensor)
+                   else a, aux)
+    return loss.detach(), aux, grads
+
+
 def _not_ported(what: str, waits_for: str):
     raise NotImplementedError(f"{what} is not ported to deeplearning4j_tpu_"
                               f"torch yet: it waits for {waits_for} "
                               "(ROADMAP.md)")
 
 
-class MultiLayerNetwork(DivergenceSentinelMixin):
-    def __init__(self, conf: MultiLayerConfiguration,
-                 device: DeviceLike = "cuda"):
+class NetworkBase(DivergenceSentinelMixin):
+    """What MultiLayerNetwork and ComputationGraph share. A subclass sets
+    `conf`, `device`, `layers` (in flat-view order) and implements
+    `_layer_input_types()`."""
+
+    def __init__(self, conf, device: DeviceLike, layers):
         self.conf = conf
         self.device = resolve_device(device)
-        self.layers = conf.layers
+        self.layers = layers
         self.params_tree: List[Dict[str, torch.Tensor]] = []
         self.state_tree: List[Dict[str, Any]] = []
         self._updaters: List[BaseUpdater] = []
@@ -138,16 +186,17 @@ class MultiLayerNetwork(DivergenceSentinelMixin):
         self._generator: Optional[torch.Generator] = None
         self._initialized = False
         self._last_etl_ms = 0.0
-        self._rnn_state: Optional[List[Any]] = None
         gc = conf.global_conf
         self.dtype = torch_dtype(gc.dtype)
         self.compute_dtype = torch_dtype(gc.compute_dtype) \
             if gc.compute_dtype else self.dtype
 
+    def _layer_input_types(self):
+        raise NotImplementedError
+
     # ------------------------------------------------------------------ init
     def init(self, params: Optional[Sequence[Dict[str, Any]]] = None,
-             generator: Optional[torch.Generator] = None
-             ) -> "MultiLayerNetwork":
+             generator: Optional[torch.Generator] = None):
         """Initialize parameters and updater state: copies of `params`
         (tensors or arrays, one dict per layer) when given, else fresh draws
         from `generator` (default: a CPU generator seeded with the
@@ -157,7 +206,7 @@ class MultiLayerNetwork(DivergenceSentinelMixin):
         seed = self.conf.global_conf.seed
         if generator is None:
             generator = torch.Generator().manual_seed(seed)
-        input_types = self.conf.input_types_per_layer()
+        input_types = self._layer_input_types()
         self.params_tree, self.state_tree = [], []
         for i, layer in enumerate(self.layers):
             if params is not None:
@@ -171,7 +220,8 @@ class MultiLayerNetwork(DivergenceSentinelMixin):
             else:
                 p = {}
             self.params_tree.append(p)
-            self.state_tree.append(layer.init_state(input_types[i]))
+            self.state_tree.append(layer.init_state(
+                input_types[i], self.dtype, self.device))
         global_updater = self.conf.get_updater()
         self._updaters = []
         for layer in self.layers:
@@ -188,18 +238,12 @@ class MultiLayerNetwork(DivergenceSentinelMixin):
         self._generator = torch.Generator(device=self.device).manual_seed(
             seed + 1)
         self._step = 0
-        self._rnn_state = None
         self._initialized = True
         return self
 
     def _check_init(self):
         if not self._initialized:
             raise RuntimeError("Call net.init() first")
-
-    def _n_rnn(self) -> int:
-        """LSTM layers (bidirectional ones included): the length of a
-        recurrent-state list."""
-        return sum(1 for layer in self.layers if isinstance(layer, LSTM))
 
     def _tensor(self, a, dtype=None):
         """`a` (array or tensor; None stays None) on the network's device,
@@ -229,6 +273,71 @@ class MultiLayerNetwork(DivergenceSentinelMixin):
         self._opt_state = unflatten_params(self._opt_state,
                                            self._tensor(flat))
 
+    def _finish_device_loop(self, losses, steps: int, div, sync: bool):
+        """Book-keeping after a `fit_on_device` loop of `steps` steps:
+        the per-step losses as a device tensor (sync=False) or a numpy
+        array read back once with the divergence sentinel (sync=True)."""
+        self._step += int(steps)
+        losses_t = torch.stack(losses) if losses else torch.zeros(
+            (0,), dtype=self.dtype, device=self.device)
+        self._stash_pending_div(div)
+        if not sync:
+            if losses:
+                self._score = losses_t[-1]
+            return losses_t
+        # one readback: the losses and the sentinel together
+        both = torch.cat([losses_t.double(),
+                          self._pending_div.double()[None]]).cpu().numpy()
+        out = both[:-1].astype(np.float64 if losses_t.dtype == torch.float64
+                               else np.float32)
+        if losses:
+            self._score = float(out[-1])
+        self._resolve_divergence(int(both[-1]))
+        return out
+
+    # ----------------------------------------------------------- listeners
+    def set_listeners(self, *listeners):
+        self._listeners = list(listeners)
+    setListeners = set_listeners
+
+    def get_listeners(self):
+        return self._listeners
+
+    @property
+    def last_etl_ms(self):
+        return self._last_etl_ms
+
+    # ------------------------------------------------------- not ported yet
+    def set_gradients_accumulator(self, acc):
+        _not_ported("set_gradients_accumulator",
+                    "parallel/accumulation.py and its kernel K11")
+
+    def configure_health(self, *args, **kwargs):
+        _not_ported("configure_health (the training-health monitor)",
+                    "telemetry/health.py")
+
+
+class MultiLayerNetwork(NetworkBase):
+    def __init__(self, conf: MultiLayerConfiguration,
+                 device: DeviceLike = "cuda"):
+        super().__init__(conf, device, conf.layers)
+        self._rnn_state: Optional[List[Any]] = None
+
+    def _layer_input_types(self):
+        return self.conf.input_types_per_layer()
+
+    def init(self, params: Optional[Sequence[Dict[str, Any]]] = None,
+             generator: Optional[torch.Generator] = None
+             ) -> "MultiLayerNetwork":
+        super().init(params, generator)
+        self._rnn_state = None
+        return self
+
+    def _n_rnn(self) -> int:
+        """LSTM layers (bidirectional ones included): the length of a
+        recurrent-state list."""
+        return sum(1 for layer in self.layers if isinstance(layer, LSTM))
+
     # ------------------------------------------------------------- forward
     def _forward(self, x, collect: bool, rnn_init_states=None):
         """(output in the storage dtype, activations, final (h, c) per
@@ -240,11 +349,16 @@ class MultiLayerNetwork(DivergenceSentinelMixin):
             self.params_tree, cd)
         if rnn_init_states is not None and cd != self.dtype:
             rnn_init_states = cast_floats(rnn_init_states, cd)
-        cur = x.to(cd)
+        cur = x
         acts = [x]
         mask = None
         final_rnn = []
         for i, layer in enumerate(self.layers):
+            if not isinstance(layer, EmbeddingLayer):
+                cur = cur.to(cd)
+            if i in self.conf.preprocessors:
+                cur, mask = apply_preprocessor(self.conf.preprocessors[i],
+                                               cur, mask, x.shape[0])
             if isinstance(layer, LSTM) and rnn_init_states is not None:
                 if isinstance(layer, GravesBidirectionalLSTM):
                     raise ValueError(
@@ -302,9 +416,12 @@ class MultiLayerNetwork(DivergenceSentinelMixin):
                 rnn_init_states = cast_floats(rnn_init_states, cd)
         mask, cur = fmask, x
         new_states, final_rnn = [], []
+        pps = self.conf.preprocessors
         for i, layer in enumerate(self.layers[:-1]):
-            if mixed:
+            if mixed and not isinstance(layer, EmbeddingLayer):
                 cur = cur.to(cd)
+            if i in pps:
+                cur, mask = apply_preprocessor(pps[i], cur, mask, x.shape[0])
             if train and layer.dropout > 0 and generator is not None:
                 cur = apply_dropout(cur, layer.dropout, generator)
             if isinstance(layer, LSTM) and rnn_init_states is not None:
@@ -332,6 +449,9 @@ class MultiLayerNetwork(DivergenceSentinelMixin):
                 cur, ns, mask = fwd(params_tree[i], self.state_tree[i], cur,
                                     mask)
             new_states.append(ns)
+        li = len(self.layers) - 1
+        if li in pps:
+            cur, mask = apply_preprocessor(pps[li], cur, mask, x.shape[0])
         if train and out_layer.dropout > 0 and generator is not None:
             cur = apply_dropout(cur, out_layer.dropout, generator)
         score_mask = lmask if lmask is not None else (
@@ -360,23 +480,13 @@ class MultiLayerNetwork(DivergenceSentinelMixin):
         """(loss, new_states, grads, final_rnn): one forward and backward,
         the grads in the params' structure (zeros where the loss does not
         depend on a param), the final recurrent states detached."""
-        leaves = [{k: v.detach().requires_grad_(True) for k, v in p.items()}
-                  for p in params_tree]
-        flat = [(i, k) for i, p in enumerate(leaves) for k in p]
-        with torch.enable_grad():
+        def fn(p):
             loss, ns, final_rnn = self._loss_fn(
-                leaves, x, y, fmask, lmask, generator, True,
+                p, x, y, fmask, lmask, generator, True,
                 rnn_init_states=rnn_init_states)
-            gs = torch.autograd.grad(loss, [leaves[i][k] for i, k in flat],
-                                     allow_unused=True) if flat else []
-        grads = [{} for _ in leaves]
-        for (i, k), g in zip(flat, gs):
-            grads[i][k] = torch.zeros_like(leaves[i][k]) if g is None \
-                else g
-        ns, final_rnn = tree_map(
-            lambda a: a.detach() if isinstance(a, torch.Tensor) else a,
-            (ns, final_rnn))
-        return loss.detach(), ns, grads, final_rnn
+            return loss, (ns, final_rnn)
+        loss, (ns, final_rnn), grads = value_and_grad(fn, params_tree)
+        return loss, ns, grads, final_rnn
 
     # -------------------------------------------------------------- training
     def fit_batch(self, x, y, fmask=None, lmask=None, rnn_init_states=None):
@@ -444,43 +554,18 @@ class MultiLayerNetwork(DivergenceSentinelMixin):
                 bx, by, bfm, blm = roll(x), roll(y), roll(fmask), roll(lmask)
             else:
                 bx, by, bfm, blm = x, y, fmask, lmask
+            self.state_tree = states       # the layers read the carried state
             loss, ns, grads, _ = self._value_and_grad(
                 params, bx, by, bfm, blm, self._generator)
             with torch.no_grad():
-                newp, newo = _apply_updates(self.layers, self._updaters,
-                                            grads, opt, params, step_c)
-                finite = torch.isfinite(loss)
-                bad = ~finite | (div >= 0)
-
-                def keep(new, old):
-                    return tree_map(lambda a, b: torch.where(bad, b, a)
-                                    if isinstance(a, torch.Tensor) else a,
-                                    new, old)
-                params, opt = keep(newp, params), keep(newo, opt)
-                states = keep(ns, states)
-                div = torch.where((div < 0) & ~finite,
-                                  torch.full_like(div, step_c), div)
+                params, opt, states, div = _guarded_update(
+                    self.layers, self._updaters, grads, opt, params, states,
+                    ns, loss, div, step_c)
             losses.append(loss)
             step_c += 1
         self.params_tree, self._opt_state, self.state_tree = params, opt, \
             states
-        self._step += int(steps)
-        losses_t = torch.stack(losses) if losses else torch.zeros(
-            (0,), dtype=self.dtype, device=self.device)
-        self._stash_pending_div(div)
-        if not sync:
-            if losses:
-                self._score = losses_t[-1]
-            return losses_t
-        # one readback: the losses and the sentinel together
-        both = torch.cat([losses_t.double(),
-                          self._pending_div.double()[None]]).cpu().numpy()
-        out = both[:-1].astype(np.float64 if losses_t.dtype == torch.float64
-                               else np.float32)
-        if losses:
-            self._score = float(out[-1])
-        self._resolve_divergence(int(both[-1]))
-        return out
+        return self._finish_device_loop(losses, steps, div, sync)
 
     def fit(self, data, labels=None, epochs: int = 1):
         """fit(x, y) | fit(DataSet) | fit(iterable of DataSets[, epochs])."""
@@ -635,14 +720,6 @@ class MultiLayerNetwork(DivergenceSentinelMixin):
             self._tensor(fmask), self._tensor(lmask), None)
         return flatten_params(grads), float(loss)
 
-    # ----------------------------------------------------------- listeners
-    def set_listeners(self, *listeners):
-        self._listeners = list(listeners)
-    setListeners = set_listeners
-
-    def get_listeners(self):
-        return self._listeners
-
     def clone(self) -> "MultiLayerNetwork":
         other = MultiLayerNetwork(
             MultiLayerConfiguration.from_json(self.conf.to_json()),
@@ -650,10 +727,6 @@ class MultiLayerNetwork(DivergenceSentinelMixin):
         other.init(params=self.params_tree)
         other.set_updater_state_view(self.get_updater_state_view())
         return other
-
-    @property
-    def last_etl_ms(self):
-        return self._last_etl_ms
 
     # ------------------------------------------------------------- rnn API
     @torch.no_grad()
@@ -677,15 +750,6 @@ class MultiLayerNetwork(DivergenceSentinelMixin):
         self._rnn_state = None
 
     # ------------------------------------------------------- not ported yet
-
-    def set_gradients_accumulator(self, acc):
-        _not_ported("set_gradients_accumulator",
-                    "parallel/accumulation.py and its kernel K11")
-
-    def configure_health(self, *args, **kwargs):
-        _not_ported("configure_health (the training-health monitor)",
-                    "telemetry/health.py")
-
     def pretrain(self, data, epochs: int = 1):
         _not_ported("pretrain", "the pretrainable layers (AutoEncoder, "
                     "VAE, RBM)")

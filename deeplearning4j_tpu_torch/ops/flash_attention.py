@@ -38,6 +38,11 @@ One `torch.autograd.Function` takes each direction through
 plain version. D_i = rowsum(dO * o) - dlse is a torch reduction outside
 the kernels, as it is an XLA reduction in the JAX package.
 
+Head dims: the kernels are built for D in HEAD_DIMS; the wrappers zero-pad
+any smaller D to the next of them (`padded_fwd`, `padded_bwd`) and cut the
+outputs back, with the scale of the true D. Padded columns add 0 to every
+score and every output, so the result is exact. D > 128 raises.
+
 Left out of the port: the TPU tile arguments `bq`/`bk` (the CUDA kernels
 pick 64-row tiles), the (B*H, nk, T, D) dq-partials buffer and its byte
 cap, and `dq_partials="io"`, which raises. DL4J_TPU_FLASH_DQ_PARTIALS and
@@ -293,14 +298,50 @@ def _check_cuda(what, q, k, v, mask, *more):
                         "(float32, bfloat16)")
     if k.dtype != q.dtype or v.dtype != q.dtype:
         raise TypeError(f"{what}: q, k, v dtypes differ")
-    if q.shape[3] not in HEAD_DIMS:
-        raise ValueError(f"{what}: head dim {q.shape[3]} not in {HEAD_DIMS}")
     tensors = [q, k, v] + [t for t in (mask,) + more if t is not None]
     if any(t.device != q.device for t in tensors):
         raise ValueError(f"{what}: all inputs must lie on one CUDA device")
     if mask is not None and tuple(mask.shape) != (q.shape[0], q.shape[2]):
         raise ValueError(f"{what}: mask must be (B, T) = "
                          f"{(q.shape[0], q.shape[2])}, got {tuple(mask.shape)}")
+
+
+def _kernel_head_dim(D: int) -> int:
+    """The smallest head dim of HEAD_DIMS that holds D; raises beyond."""
+    for d in HEAD_DIMS:
+        if D <= d:
+            return d
+    raise ValueError(f"head dim {D} > {HEAD_DIMS[-1]}: the flash-attention "
+                     "kernels hold at most 128 (ROADMAP queue 3)")
+
+
+def _pad_d(t: torch.Tensor, Dp: int) -> torch.Tensor:
+    return t if t.shape[-1] == Dp else torch.nn.functional.pad(
+        t, (0, Dp - t.shape[-1]))
+
+
+def padded_fwd(fwd, q, k, v, mask=None, causal=False, scale=None,
+               window=0):
+    """`fwd` (K3 or its plain version) with the head dim zero-padded to
+    the kernels' next one, at the scale of the true D; returns (o, lse)
+    at the true D."""
+    D = q.shape[3]
+    Dp = _kernel_head_dim(D)
+    o, lse = fwd(_pad_d(q, Dp), _pad_d(k, Dp), _pad_d(v, Dp), mask, causal,
+                 _scale(scale, D), window)
+    return o[..., :D], lse
+
+
+def padded_bwd(bwd, q, k, v, mask, o, lse, do, dlse=None, causal=False,
+               scale=None, window=0, mode=None):
+    """`bwd` (K4/K5 or their plain version) with the head dim zero-padded
+    as in `padded_fwd`; returns (dq, dk, dv) at the true D."""
+    D = q.shape[3]
+    Dp = _kernel_head_dim(D)
+    dq, dk, dv = bwd(*(_pad_d(t, Dp) for t in (q, k, v)), mask,
+                     _pad_d(o, Dp), lse, _pad_d(do, Dp), dlse, causal,
+                     _scale(scale, D), window, mode)
+    return dq[..., :D], dk[..., :D], dv[..., :D]
 
 
 def _aligned(t: torch.Tensor) -> torch.Tensor:
@@ -322,9 +363,14 @@ def _raise_on(lib, err, what):
 
 def flash_attention_fwd_cuda(q, k, v, mask=None, causal: bool = False,
                              scale=None, window: int = 0):
-    """K3 on CUDA tensors; same contract as `flash_fwd_plain`. Launches on
-    the current stream without a sync; counted in `.launches`."""
+    """K3 on CUDA tensors; same contract as `flash_fwd_plain`, any head
+    dim up to 128. Launches on the current stream without a sync; counted
+    in `.launches`."""
     _check_cuda("flash_attention_fwd", q, k, v, mask)
+    return padded_fwd(_fwd_launch, q, k, v, mask, causal, scale, window)
+
+
+def _fwd_launch(q, k, v, mask, causal, scale, window):
     B, H, T, D = q.shape
     Hk = k.shape[1]
     q, k, v = _aligned(q), _aligned(k), _aligned(v)
@@ -352,11 +398,18 @@ def flash_attention_bwd_cuda(q, k, v, mask, o, lse, do, dlse=None,
     """K4 (bwd "fused": one kernel, dq through fp32 atomics, counted in
     `flash_attention_bwd_cuda.fused_launches`) or K5 (bwd "two_pass": the
     dq kernel and the dk/dv kernel, counted in `.two_pass_launches`, two
-    per call) on CUDA tensors; same contract as `flash_bwd_plain`. D_i is
-    a torch reduction here, before the launch."""
+    per call) on CUDA tensors; same contract as `flash_bwd_plain`, any
+    head dim up to 128. D_i is a torch reduction here, before the
+    launch."""
     bwd = _resolve_bwd(bwd)
     _check_cuda("flash_attention_bwd", q, k, v, mask, o, lse, do)
     _no_grouped_backward(q, k)
+    return padded_bwd(_bwd_launch, q, k, v, mask, o, lse, do, dlse, causal,
+                      scale, window, bwd)
+
+
+def _bwd_launch(q, k, v, mask, o, lse, do, dlse, causal, scale, window,
+                bwd):
     B, H, T, D = q.shape
     q, k, v = _aligned(q), _aligned(k), _aligned(v)
     do = _aligned(do.to(q.dtype))

@@ -23,7 +23,11 @@ package's `graves_lstm_scan_xla` and in bf16 they are the kernel's own
 reference.
 
 Kernels (`csrc/lstm_scan.cu`, CUDA C++ for sm_90a, fp32 and bf16, H a
-multiple of 16 up to what a 16-row tile's shared memory holds):
+multiple of 16 up to what a 16-row tile's shared memory holds; the
+wrappers zero-pad any other H to the next multiple of 16, per gate, and
+cut the outputs back: a padded unit has zero weights, so its gates are
+0.5, 0.5, 0.5 and tanh(0) = 0 and its h and c stay 0, and it adds
+nothing to any gradient):
 `graves_lstm_scan_fwd_cuda` replaces the forward of
 `graves_lstm_scan_pallas` (:379, call :411), `graves_lstm_scan_bwd_cuda`
 its backward (call :492): the reverse sweep, then a second kernel for dRW.
@@ -34,8 +38,11 @@ in `.launches`.
 math) raises NotImplementedError (ROADMAP queue 2). `grid` and `k_steps`
 choose the TPU kernel's grid layout and time-step blocking and have no
 counterpart on the card: they raise. No DL4J_TPU_LSTM_* variable is read.
-Unlike the JAX package there is no VMEM fallback to a per-step loop: the
-CUDA kernels take every H they support and raise with the reason beyond.
+`scan_fits(H, dtype, device)` is the shape rule the layers read before
+they call the scan, the counterpart of the JAX package's `fits_vmem`:
+where even a 16-row tile of the padded H does not fit in shared memory,
+the layer steps through the gate kernels (K8/K9) instead. The kernels
+themselves never fall back: they raise on a shape they do not take.
 """
 from __future__ import annotations
 
@@ -189,6 +196,73 @@ def _library():
     return lib
 
 
+def _padded(H: int) -> int:
+    return -(-H // 16) * 16
+
+
+def scan_fits(H: int, dtype: torch.dtype, device) -> bool:
+    """Whether `graves_lstm_scan` runs a layer of H units in `dtype` on
+    `device` in one piece: always on the CPU (the plain version), and on
+    the card where the forward and backward tiles of the padded H fit in
+    shared memory (builds the library on first use)."""
+    if torch.device(device).type != "cuda" or dtype not in _DTYPE_CODE:
+        return True
+    lib = _library()
+    Hp, code = _padded(H), _DTYPE_CODE[dtype]
+    return bool(lib.dl4j_lstm_scan_tile(Hp, code, 0)
+                and lib.dl4j_lstm_scan_tile(Hp, code, 1))
+
+
+def _pad_gates(t: torch.Tensor, H: int, Hp: int) -> torch.Tensor:
+    """The last axis 4H -> 4Hp, each gate block [i|f|o|g] zero-padded."""
+    if Hp == H:
+        return t
+    return torch.nn.functional.pad(t.unflatten(-1, (4, H)),
+                                   (0, Hp - H)).flatten(-2)
+
+
+def _cut_gates(t: torch.Tensor, H: int) -> torch.Tensor:
+    Hp = t.shape[-1] // 4
+    return t if Hp == H else t.unflatten(-1, (4, Hp))[..., :H].flatten(-2)
+
+
+def _pad_last(t: torch.Tensor, Hp: int) -> torch.Tensor:
+    return torch.nn.functional.pad(t, (0, Hp - t.shape[-1]))
+
+
+def _pad_rw(rw: torch.Tensor, H: int, Hp: int) -> torch.Tensor:
+    """rw (H, 4H) -> (Hp, 4Hp): zero rows for the padded units' h, zero
+    columns for their gates."""
+    return _pad_gates(torch.nn.functional.pad(rw, (0, 0, 0, Hp - H)), H, Hp)
+
+
+def padded_scan_fwd(fwd, xw, rw, pi, pf, po, h0, c0):
+    """`fwd` (K7's forward or its plain version) at H padded to a multiple
+    of 16; returns (ys, cs) at the true H."""
+    H = rw.shape[0]
+    Hp = _padded(H)
+    if Hp == H:
+        return fwd(xw, rw, pi, pf, po, h0, c0)
+    ys, cs = fwd(_pad_gates(xw, H, Hp), _pad_rw(rw, H, Hp),
+                 *(_pad_last(t, Hp) for t in (pi, pf, po, h0, c0)))
+    return ys[..., :H], cs[..., :H]
+
+
+def padded_scan_bwd(bwd, xw, rw, pi, pf, po, h0, c0, ys, cs, dys, dcs):
+    """`bwd` (K7's backward or its plain version) at H padded to a
+    multiple of 16; returns the seven gradients at the true H."""
+    H = rw.shape[0]
+    Hp = _padded(H)
+    if Hp == H:
+        return bwd(xw, rw, pi, pf, po, h0, c0, ys, cs, dys, dcs)
+    dxw, drw, dpi, dpf, dpo, dh0, dc0 = bwd(
+        _pad_gates(xw, H, Hp), _pad_rw(rw, H, Hp),
+        *(_pad_last(t, Hp) for t in (pi, pf, po, h0, c0, ys, cs, dys,
+                                     dcs)))
+    return (_cut_gates(dxw, H), _cut_gates(drw[:H], H), dpi[:H], dpf[:H],
+            dpo[:H], dh0[:, :H], dc0[:, :H])
+
+
 def _aligned(t: torch.Tensor) -> torch.Tensor:
     """`t` contiguous with a 32-byte-aligned start (wmma loads rw
     fragments straight from global memory)."""
@@ -232,8 +306,13 @@ def _launch(lib, fn, what, *args):
 
 def graves_lstm_scan_fwd_cuda(xw, rw, pi, pf, po, h0, c0):
     """K7 forward on CUDA tensors; same contract as
-    `graves_lstm_scan_plain` (h0/c0 are taken in xw's dtype)."""
-    h0, c0 = h0.to(xw.dtype), c0.to(xw.dtype)
+    `graves_lstm_scan_plain` (h0/c0 are taken in xw's dtype), any H whose
+    padded tile fits."""
+    return padded_scan_fwd(_scan_fwd_launch, xw, rw, pi, pf, po,
+                           h0.to(xw.dtype), c0.to(xw.dtype))
+
+
+def _scan_fwd_launch(xw, rw, pi, pf, po, h0, c0):
     T, B, H, lib = _check("graves_lstm_scan_fwd", False, xw, rw, pi, pf,
                           po, h0, c0)
     xw, rw = _aligned(xw), _aligned(rw)
@@ -251,9 +330,16 @@ def graves_lstm_scan_fwd_cuda(xw, rw, pi, pf, po, h0, c0):
 
 def graves_lstm_scan_bwd_cuda(xw, rw, pi, pf, po, h0, c0, ys, cs, dys, dcs):
     """K7 backward on CUDA tensors (the reverse sweep and the dRW kernel);
-    same contract as `graves_lstm_scan_bwd_plain`."""
+    same contract as `graves_lstm_scan_bwd_plain`, any H whose padded tile
+    fits."""
     dt = xw.dtype
-    h0, c0, dys, dcs = (t.to(dt) for t in (h0, c0, dys, dcs))
+    return padded_scan_bwd(_scan_bwd_launch, xw, rw, pi, pf, po,
+                           *(t.to(dt) for t in (h0, c0)), ys, cs,
+                           *(t.to(dt) for t in (dys, dcs)))
+
+
+def _scan_bwd_launch(xw, rw, pi, pf, po, h0, c0, ys, cs, dys, dcs):
+    dt = xw.dtype
     T, B, H, lib = _check("graves_lstm_scan_bwd", True, xw, rw, pi, pf, po,
                           h0, c0, ys, cs, dys, dcs)
     # h0, ys and dxw are read 16 bytes at a time by the dRW kernel

@@ -193,3 +193,28 @@ def test_seam_routes_by_device():
     with pytest.raises(ValueError, match="CUDA"):
         tfa.flash_attention_bwd_cuda(tq, tk, tv, None, tq, tq[..., 0],
                                      torch.from_numpy(do))
+
+
+@pytest.mark.parametrize("D,Dp", [(8, 16), (20, 32), (48, 64)])
+def test_head_dim_padding_is_exact(D, Dp):
+    """The CUDA wrappers' head-dim padding around the plain versions
+    equals the plain versions at the true D (scale 1/sqrt of the true D),
+    forward and backward."""
+    assert tfa._kernel_head_dim(D) == Dp
+    q, k, v, do, m = _data(D=D, seed=4, mask="random")
+    q, k, v, do, m = (torch.from_numpy(a) for a in (q, k, v, do, m))
+    o, lse = tfa.flash_fwd_plain(q, k, v, m, True, None, 5)
+    po, plse = tfa.padded_fwd(tfa.flash_fwd_plain, q, k, v, m, True, None,
+                              5)
+    assert po.shape == o.shape
+    torch.testing.assert_close(po, o, rtol=0, atol=ATOL)
+    torch.testing.assert_close(plse, lse, rtol=0, atol=ATOL)
+    dlse = torch.ones_like(lse) * 0.1
+    ref = tfa.flash_bwd_plain(q, k, v, m, o, lse, do, dlse, True, None, 5)
+    got = tfa.padded_bwd(tfa.flash_bwd_plain, q, k, v, m, o, lse, do, dlse,
+                         True, None, 5)
+    for g, r in zip(got, ref):
+        assert g.shape == r.shape
+        torch.testing.assert_close(g, r, rtol=0, atol=ATOL)
+    with pytest.raises(ValueError, match="> 128"):
+        tfa._kernel_head_dim(160)

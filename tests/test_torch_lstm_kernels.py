@@ -200,3 +200,33 @@ def test_cuda_wrappers_refuse_cpu_tensors(name):
     the plain version itself."""
     with pytest.raises(ValueError, match="CUDA tensors only"):
         _cpu_calls()[name]()
+
+
+@pytest.mark.parametrize("H_true", [8, 13])
+def test_scan_padding_is_exact(H_true):
+    """The CUDA wrappers' H padding (to a multiple of 16) around the plain
+    versions equals the plain versions at the true H, forward and
+    backward."""
+    rng = np.random.RandomState(11)
+    T, B = 5, 3
+    args = [_t(rng.randn(T, B, 4 * H_true) * 0.5),
+            _t(rng.randn(H_true, 4 * H_true) * 0.3)]
+    args += [_t(rng.randn(H_true) * 0.2) for _ in range(3)]
+    args += [_t(rng.randn(B, H_true) * 0.3) for _ in range(2)]
+    ys, cs = ts.graves_lstm_scan_plain(*args)
+    pys, pcs = ts.padded_scan_fwd(ts.graves_lstm_scan_plain, *args)
+    assert pys.shape == ys.shape
+    torch.testing.assert_close(pys, ys, rtol=0, atol=TOL)
+    torch.testing.assert_close(pcs, cs, rtol=0, atol=TOL)
+    dys, dcs = _t(rng.randn(T, B, H_true)), _t(rng.randn(T, B, H_true))
+    ref = ts.graves_lstm_scan_bwd_plain(*args, ys, cs, dys, dcs)
+    got = ts.padded_scan_bwd(ts.graves_lstm_scan_bwd_plain, *args, ys, cs,
+                             dys, dcs)
+    for g, r in zip(got, ref):
+        assert g.shape == r.shape
+        torch.testing.assert_close(g, r, rtol=0, atol=TOL)
+
+
+def test_scan_fits_on_the_cpu_for_any_h():
+    assert ts.scan_fits(1536, torch.bfloat16, "cpu")
+    assert ts.scan_fits(200, torch.float64, "cpu")
