@@ -37,6 +37,38 @@ Phases, each printing one JSON line; any failure exits non-zero:
               unfused route's in the same dtype (at this init a 2^-24
               perturbation of the input moves single fp64 gradients by
               per cents, reported beside them).
+2d. kernel_threshold - K11 (threshold encoding with a residual) against
+              its plain version, bit for bit (NaN by its bit pattern):
+              fp32, bf16 and fp64, n 1/127/128/1000/4097/2^20+3 and
+              25,583,592 (the flat ResNet50 gradient), t 1e-3/1e-5/0.37,
+              residual zero and non-zero, and per dtype a case with
+              entries at +-t, one ulp either side, NaN, +-inf and -0.0;
+              every message in {-t, 0, t}; n 0 launches nothing. Then fp32
+              timed by CUDA events: the flat gradient, and the per-step
+              sum over ResNet50's 214 parameter tensors (also by CUDA-graph
+              replay), beside the plain version and the bound.
+2e. train_parallel_resnet50 - the JAX bench's config 5 (bench.py
+              bench_parallel_wrapper): the ResNet50 of 2b through
+              ParallelWrapper on make_mesh(1) in SHARED_GRADIENTS with
+              threshold 1e-3: fit_on_device(steps=5, sync=False) after a
+              warm step (images/s, ms/step and its ratio to 2b's, peak
+              memory, the share of elements sent in a captured step;
+              exactly one K11 launch per parameter tensor and 36 K10
+              launches a step; a profile of two steps); two fit(x, y)
+              steps in AVERAGING (no K11), two in CUSTOM with
+              EncodedGradientsAccumulator(1e-3) and two
+              ComputationGraph.fit steps with set_gradients_accumulator
+              (one K11 launch a step over 25,583,592 elements each); every
+              loss finite.
+2f. parallel_oracle - K11 on the captured step's per-tensor updates and
+              residuals bitwise against the plain version; then an fp64 MLP
+              and an fp64 graph with a BatchNormalization at workers 2 and
+              4 on the card repeated in the mesh: replicas bitwise
+              identical after every SHARED_GRADIENTS and CUSTOM step and
+              every AVERAGING window, K11 launches = replicas x parameter
+              tensors a SHARED_GRADIENTS step (replicas a CUSTOM step), and
+              on the MLP CUSTOM with a BasicGradientsAccumulator and
+              Sgd(0.1) within 1e-10 of one fit_batch of the whole batch.
 3. kernel_lstm_scan - K7 (the Graves-LSTM scan, forward and backward)
               against its plain versions: fp32 and bf16, H 32/64/256/512
               (and 200, zero-padded to 208 in the wrappers),
@@ -159,7 +191,7 @@ Phases, each printing one JSON line; any failure exits non-zero:
               non-finite row only (int8 exactness is held by the kernel
               phase and the CPU tests).
 
-Then the kernels line (K1-K10), the card's name and power limit as
+Then the kernels line (K1-K11), the card's name and power limit as
 nvidia-smi gives them, and finally {"ok": true, "device": {...}}. Exits
 non-zero without a result when CUDA is not available or the package is not
 beside this file.
@@ -2662,6 +2694,409 @@ def phase_resnet_oracle(torch, np):
     return res
 
 
+# ------------------------------------------------------ gradient sharing
+# The JAX bench's config 5 (bench.py bench_parallel_wrapper): the
+# ResNet50 above (b256, bf16 over fp32) through ParallelWrapper in
+# SHARED_GRADIENTS with threshold 1e-3 on make_mesh(1). K11 encodes each
+# parameter tensor's update once per replica per step.
+PW_THRESHOLD = 1e-3
+THRESH_NS = (1, 127, 128, 1000, 4097, 2 ** 20 + 3, 25_583_592)
+THRESH_TS = (1e-3, 1e-5, 0.37)
+_BITS = {2: "int16", 4: "int32", 8: "int64"}
+
+
+def bits_equal(torch, a, b) -> bool:
+    """a and b equal bit for bit (NaN by its bit pattern)."""
+    it = getattr(torch, _BITS[a.element_size()])
+    return a.dtype == b.dtype and a.shape == b.shape \
+        and torch.equal(a.view(it), b.view(it))
+
+
+def threshold_case(torch, n, dtype, t, residual, g):
+    """(update, residual) on the card: N(0, (1.5 t)^2) updates, residuals
+    N(0, (0.5 t)^2) or zero."""
+    u = (torch.randn(n, generator=g, device="cuda") * (1.5 * t)).to(dtype)
+    r = (torch.randn(n, generator=g, device="cuda") * (0.5 * t)).to(dtype) \
+        if residual else torch.zeros(n, dtype=dtype, device="cuda")
+    return u, r
+
+
+def threshold_edges(torch, dtype, t, n, g):
+    """A case of n elements whose first entries are +-t (t in the dtype),
+    one ulp either side of +-t, NaN, +-inf and -0.0, over a residual of
+    -0.0 (so acc is the entry itself); the rest as threshold_case."""
+    from deeplearning4j_tpu_torch.ops.threshold_encode import threshold_in
+    tv = threshold_in(t, dtype)
+    tt = torch.tensor([tv], dtype=dtype)
+    up = torch.nextafter(tt, torch.tensor([math.inf], dtype=dtype)).item()
+    down = torch.nextafter(tt, torch.tensor([0.0], dtype=dtype)).item()
+    edges = torch.tensor([tv, -tv, up, -up, down, -down, math.nan, math.inf,
+                          -math.inf, -0.0], dtype=torch.float64).to(dtype)
+    u, r = threshold_case(torch, n, dtype, t, True, g)
+    u[:len(edges)] = edges.cuda()
+    r[:len(edges)] = -0.0
+    return u, r
+
+
+def resnet_leaf_shapes(net):
+    """The shapes of ResNet50's parameter tensors, in the flat order."""
+    from deeplearning4j_tpu_torch.util.flat_params import tree_leaves
+    return [tuple(t.shape) for t in tree_leaves(net.params_tree)]
+
+
+def phase_kernel_threshold(torch):
+    """K11 against threshold_encode_plain on the card, bitwise: fp32, bf16
+    and fp64, n in THRESH_NS, t in THRESH_TS, residual zero and non-zero,
+    and per dtype an edge case (+-t, one ulp either side, NaN, +-inf,
+    -0.0); every message in {-t, 0, t}; n 0 launches nothing. Then timed
+    by CUDA events in fp32: the flat ResNet50 gradient (25,583,592
+    elements) and the per-step sum over ResNet50's 214 parameter tensors
+    (host loop, and its device time by CUDA-graph replay), beside the
+    plain version and the bound."""
+    from deeplearning4j_tpu_torch.ops import threshold_encode as te
+    g = torch.Generator(device="cuda").manual_seed(0)
+    cases, bad = 0, []
+    sent = {}
+    for dt in ("float32", "bfloat16", "float64"):
+        dtype = getattr(torch, dt)
+        todo = [(n, t, res, False) for n in THRESH_NS for t in THRESH_TS
+                for res in (False, True)] + [(4097, 1e-3, True, True)]
+        for n, t, res, edge in todo:
+            u, r = threshold_edges(torch, dtype, t, n, g) if edge else \
+                threshold_case(torch, n, dtype, t, res, g)
+            m, nr = te.threshold_encode_cuda(u, r, t)
+            pm, pr = te.threshold_encode_plain(u, r, t)
+            tv = te.threshold_in(t, dtype)
+            torch.cuda.synchronize()
+            ok = bits_equal(torch, m, pm) and bits_equal(torch, nr, pr) \
+                and bool(((m == tv) | (m == -tv) | (m == 0)).all())
+            if edge:
+                want = [tv, -tv, tv, -tv, 0.0, 0.0, 0.0, tv, -tv, 0.0]
+                ok = ok and m[:10].double().cpu().tolist() == want \
+                    and bool(torch.isnan(nr[6])) \
+                    and nr[7].item() == math.inf \
+                    and bool(torch.signbit(nr[9])) \
+                    and not bool(torch.signbit(m[9]))
+            if not ok:
+                bad.append(f"{dt} n={n} t={t} residual={res} edge={edge}")
+            if n == THRESH_NS[-1] and res and not edge:
+                sent[f"{dt}_t{t}"] = (m != 0).sum().item() / n
+            cases += 1
+            del u, r, m, nr, pm, pr
+    before = te.threshold_encode_cuda.launches
+    e = torch.zeros(0, device="cuda")
+    empty = te.threshold_encode_cuda(e, e, 1e-3)
+    if te.threshold_encode_cuda.launches != before or empty[0].numel():
+        bad.append("n = 0 launched or returned elements")
+    if bad:
+        fail(f"kernel_threshold: K11 differs from its plain version: {bad}")
+    # timing, fp32: the flat gradient, then the per-leaf step
+    from deeplearning4j_tpu_torch.models import ResNet50
+    shapes = resnet_leaf_shapes(ResNet50(num_labels=RESNET_CLASSES).init(
+        device="cpu"))
+    n = sum(math.prod(s) for s in shapes)
+    if n != THRESH_NS[-1]:
+        fail(f"kernel_threshold: ResNet50 has {n} params, expected "
+             f"{THRESH_NS[-1]}")
+    u, r = threshold_case(torch, n, torch.float32, PW_THRESHOLD, True, g)
+    flat_ms = event_ms(torch, lambda: te.threshold_encode_cuda(
+        u, r, PW_THRESHOLD), iters=50)
+    flat_plain_ms = event_ms(torch, lambda: te.threshold_encode_plain(
+        u, r, PW_THRESHOLD), iters=10)
+    us = list(torch.split(u, [math.prod(s) for s in shapes]))
+    rs = list(torch.split(r, [math.prod(s) for s in shapes]))
+    us = [a.view(s) for a, s in zip(us, shapes)]
+    rs = [a.view(s) for a, s in zip(rs, shapes)]
+
+    def leaves(fn):
+        return lambda: [fn(a.reshape(-1), b.reshape(-1), PW_THRESHOLD)
+                        for a, b in zip(us, rs)]
+    step_ms = event_ms(torch, leaves(te.threshold_encode_cuda), iters=20)
+    step_graph_ms = graph_ms(torch, leaves(te.threshold_encode_cuda),
+                             reps=2, iters=10)
+    step_plain_ms = event_ms(torch, leaves(te.threshold_encode_plain),
+                             iters=5)
+    # bytes bound it: update and residual read, message and residual
+    # written; a few operations an element, far below the card's rate
+    bound_ms = 4 * n * 4 / HBM_BYTES_PER_S * 1e3
+    del u, r, us, rs
+    res = {"phase": "kernel_threshold", "cases": cases,
+           "comparison": "bitwise (NaN by bit pattern)",
+           "sent_share_at_25583592": sent, "leaves": len(shapes),
+           "elements": n, "flat_ms": flat_ms, "flat_plain_ms": flat_plain_ms,
+           "ms": step_ms, "graph_ms": step_graph_ms,
+           "plain_ms": step_plain_ms, "bound_ms": bound_ms,
+           "bound_by": "bytes",
+           "per": f"one ResNet50 step: {len(shapes)} fp32 parameter "
+                  f"tensors, threshold {PW_THRESHOLD} (flat_*: one call on "
+                  "the flat gradient)"}
+    emit(res)
+    return res
+
+
+def resnet_wrapper(net, mode, acc=None):
+    """bench_parallel_wrapper's wrapper: `mode` on make_mesh(1), threshold
+    PW_THRESHOLD, `acc` the accumulator of CUSTOM."""
+    from deeplearning4j_tpu_torch.parallel import ParallelWrapper, make_mesh
+    b = (ParallelWrapper.Builder(net).mesh(make_mesh(1)).training_mode(mode)
+         .gradients_threshold(PW_THRESHOLD))
+    return (b.gradients_accumulator(acc) if acc is not None else b).build()
+
+
+def capture_shared_step(torch, pw, x, y):
+    """One SHARED_GRADIENTS step's per-tensor updates and residuals of
+    replica 0, as the wrapper's next step would encode them (no step
+    taken)."""
+    from deeplearning4j_tpu_torch.nn.multilayer import _compute_updates
+    from deeplearning4j_tpu_torch.util.flat_params import tree_leaves
+    net = pw.model
+    _, _, grads = pw._replica_grads(0, pw._prepare(x, y, None, None))
+    with torch.no_grad():
+        upds, _ = _compute_updates(net.layers, net._updaters, grads,
+                                   pw._opt[0], pw._params[0], pw._host_step)
+    return tree_leaves(upds), tree_leaves(pw._residual[0])
+
+
+def phase_train_parallel_resnet50(torch, np, train_resnet):
+    """bench_parallel_wrapper at full width: ResNet50 (as train_resnet50)
+    through ParallelWrapper on make_mesh(1) in SHARED_GRADIENTS, threshold
+    1e-3. fit_on_device(steps=5, sync=False) after a warm step: images/s,
+    ms/step and its ratio to train_resnet50's, peak memory, exactly one
+    K11 launch per parameter tensor and 36 K10 launches a step, the share
+    of elements sent (from one captured step), a profile of two steps
+    (top kernels, idle share). Then two fit(x, y) steps in
+    AVERAGING (no K11), two in CUSTOM with EncodedGradientsAccumulator(1e-3)
+    (one K11 launch a step over the 25,583,592-element flat gradient), and
+    two ComputationGraph.fit steps with the accumulator set (one each).
+    Every loss finite. Returns the captured step for parallel_oracle."""
+    from deeplearning4j_tpu_torch.ops import conv_fused as cf
+    from deeplearning4j_tpu_torch.ops import threshold_encode as te
+    from deeplearning4j_tpu_torch.parallel import (
+        EncodedGradientsAccumulator, TrainingMode)
+    k10, k11 = cf.conv1x1_stats_cuda, te.threshold_encode_cuda
+    net = resnet_net("bfloat16")
+    x, y = resnet_data(torch, np, RESNET_B)
+    leaves = len(resnet_leaf_shapes(net))
+    n_params = net.num_params()
+    pw = resnet_wrapper(net, TrainingMode.SHARED_GRADIENTS)
+    steps = 5
+    warm = pw.fit_on_device(x, y, steps=1).tolist()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    k10.launches = k11.launches = 0                    # main path starts
+    t0 = time.perf_counter()
+    losses = pw.fit_on_device(x, y, steps=steps, sync=False)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {"K10": k10.launches, "K11": k11.launches}  # main path ends
+    peak = torch.cuda.max_memory_allocated()
+    losses = losses.cpu().numpy().tolist()
+    upds, resid = capture_shared_step(torch, pw, x, y)
+    with torch.no_grad():
+        sent = sum(int((te.threshold_encode_plain(u, r, PW_THRESHOLD)[0]
+                        != 0).sum()) for u, r in zip(upds, resid))
+    profile = profile_train(torch, pw, x, y)
+    del pw
+    short = {}
+    for mode, acc in ((TrainingMode.AVERAGING, None),
+                      (TrainingMode.CUSTOM,
+                       EncodedGradientsAccumulator(threshold=PW_THRESHOLD))):
+        w = resnet_wrapper(net, mode, acc)
+        k10.launches = k11.launches = 0
+        ls = []
+        for _ in range(2):
+            w.fit(x, y)
+            ls.append(w.score())
+        short[mode] = {"losses": ls, "K10": k10.launches,
+                       "K11": k11.launches}
+        if acc is not None:
+            short[mode]["residual_elements"] = acc._residuals[0].numel()
+        del w
+    acc = EncodedGradientsAccumulator(threshold=PW_THRESHOLD)
+    net.set_gradients_accumulator(acc)
+    k10.launches = k11.launches = 0
+    ls = []
+    for _ in range(2):
+        net.fit(x, y)
+        ls.append(net.score())
+    net.set_gradients_accumulator(None)
+    short["graph_accumulator"] = {"losses": ls, "K10": k10.launches,
+                                  "K11": k11.launches,
+                                  "residual_elements":
+                                      acc._residuals[0].numel()}
+    all_losses = warm + losses + [v for s in short.values()
+                                  for v in s["losses"]]
+    if not all(math.isfinite(v) for v in all_losses):
+        fail(f"train_parallel_resnet50: non-finite loss {all_losses}")
+    if launches != {"K10": RESNET_PAIRS * steps, "K11": leaves * steps}:
+        fail(f"train_parallel_resnet50: launches {launches} in {steps} "
+             f"steps, expected {RESNET_PAIRS} K10 and {leaves} K11 a step")
+    want = {TrainingMode.AVERAGING: (2 * RESNET_PAIRS, 0, None),
+            TrainingMode.CUSTOM: (2 * RESNET_PAIRS, 2, n_params),
+            "graph_accumulator": (2 * RESNET_PAIRS, 2, n_params)}
+    for k, (w10, w11, elems) in want.items():
+        s = short[k]
+        if (s["K10"], s["K11"], s.get("residual_elements")) != \
+                (w10, w11, elems):
+            fail(f"train_parallel_resnet50 {k}: {s}, expected K10 {w10}, "
+                 f"K11 {w11}, residual of {elems}")
+    if not peak < 80e9:
+        fail(f"train_parallel_resnet50: peak memory {peak} B")
+    ms_step = wall / steps * 1e3
+    res = {"phase": "train_parallel_resnet50", "config": {
+               "model": "zoo ResNet50 (ComputationGraph)",
+               "batch": RESNET_B, "compute_dtype": "bfloat16",
+               "params_dtype": "float32", "wrapper": "ParallelWrapper",
+               "mode": "shared_gradients", "threshold": PW_THRESHOLD,
+               "mesh": "make_mesh(1)", "num_params": n_params,
+               "param_tensors": leaves},
+           "steps": steps, "wall_s": wall, "ms_per_step": ms_step,
+           "images_per_s": RESNET_B * steps / wall,
+           "plain_ms_per_step": train_resnet["ms_per_step"],
+           "wrapper_over_plain": ms_step / train_resnet["ms_per_step"],
+           "peak_bytes": peak, "peak_bytes_above_start": peak - base,
+           "launches": launches,
+           "launches_per_step": {k: v / steps for k, v in launches.items()},
+           "sent_share_per_step": sent / n_params,
+           "losses": losses, "warm_loss": warm, "short_runs": short,
+           "profile": profile}
+    emit(res)
+    return res, (upds, resid)
+
+
+def small_nets(torch):
+    """(name, builder) of the oracle's fp64 nets on the card: an MLP
+    (Dense(8, tanh) + softmax Output(3)) and a graph with a
+    BatchNormalization (Dense(8) -> BN -> Output(3)), Adam(0.05)."""
+    from deeplearning4j_tpu_torch import (Activation, ComputationGraph,
+                                          BatchNormalization, DenseLayer,
+                                          InputType, MultiLayerNetwork,
+                                          NeuralNetConfiguration,
+                                          OutputLayer, WeightInit)
+    from deeplearning4j_tpu_torch.nn.updater.updaters import Adam
+
+    def builder():
+        return (NeuralNetConfiguration.Builder().seed(3)
+                .weight_init(WeightInit.XAVIER).activation(Activation.TANH)
+                .updater(Adam(learning_rate=0.05)).dtype("float64"))
+
+    def mlp():
+        conf = (builder().list().layer(DenseLayer(n_out=8))
+                .layer(OutputLayer(n_out=3, activation=Activation.SOFTMAX))
+                .set_input_type(InputType.feed_forward(5)).build())
+        return MultiLayerNetwork(conf, device="cuda").init()
+
+    def graph():
+        g = builder().graph_builder()
+        (g.add_inputs("in").add_layer("d1", DenseLayer(n_out=8), "in")
+          .add_layer("bn", BatchNormalization(), "d1")
+          .add_layer("out", OutputLayer(n_out=3,
+                                        activation=Activation.SOFTMAX), "bn")
+          .set_outputs("out").set_input_types(InputType.feed_forward(5)))
+        return ComputationGraph(g.build(), device="cuda").init()
+    return (("mlp", mlp), ("graph", graph))
+
+
+def replicas_identical(torch, pw, opt: bool) -> bool:
+    from deeplearning4j_tpu_torch.util.flat_params import flatten_params
+    trees = [pw._params] + ([pw._opt] if opt else [])
+    return all(bits_equal(torch, flatten_params(t[r]), flatten_params(t[0]))
+               for t in trees for r in range(1, pw.workers))
+
+
+def phase_parallel_oracle(torch, np, capture):
+    """K11 on the captured full-width step's per-tensor updates and
+    residuals, bitwise against the plain version. Then the fp64 MLP and
+    graph of small_nets at workers 2 and 4 on the card repeated in the
+    mesh: replicas bitwise identical after every SHARED_GRADIENTS and
+    CUSTOM step and after every AVERAGING window; K11 launches = replicas x
+    parameter tensors a SHARED_GRADIENTS step and replicas a CUSTOM step;
+    on the MLP, CUSTOM with a BasicGradientsAccumulator and Sgd(0.1)
+    within 1e-10 of one fit_batch of the whole batch."""
+    from deeplearning4j_tpu_torch.nn.updater.updaters import Sgd
+    from deeplearning4j_tpu_torch.ops import threshold_encode as te
+    from deeplearning4j_tpu_torch.parallel import (
+        BasicGradientsAccumulator, EncodedGradientsAccumulator, Mesh,
+        ParallelWrapper, TrainingMode)
+    from deeplearning4j_tpu_torch.util.flat_params import tree_leaves
+    upds, resid = capture
+    bad = []
+    with torch.no_grad():
+        for i, (u, r) in enumerate(zip(upds, resid)):
+            m, nr = te.threshold_encode_cuda(u, r, PW_THRESHOLD)
+            pm, pr = te.threshold_encode_plain(u, r, PW_THRESHOLD)
+            if not (bits_equal(torch, m, pm) and bits_equal(torch, nr, pr)):
+                bad.append(f"captured tensor {i} {tuple(u.shape)}")
+    captured = len(upds)
+    del upds, resid, capture
+    rng = np.random.RandomState(0)
+    x = torch.from_numpy(rng.randn(16, 5)).cuda()
+    y = torch.from_numpy(np.eye(3)[rng.randint(0, 3, 16)]).cuda()
+    k11 = te.threshold_encode_cuda
+    runs = {}
+    for name, make in small_nets(torch):
+        for R in (2, 4):
+            mesh = Mesh((torch.device("cuda", 0),) * R)
+            for mode, steps in ((TrainingMode.SHARED_GRADIENTS, 3),
+                                (TrainingMode.CUSTOM, 2),
+                                (TrainingMode.AVERAGING, 4)):
+                net = make()
+                n_leaves = len(tree_leaves(net.params_tree))
+                acc = EncodedGradientsAccumulator(parties=R) \
+                    if mode == TrainingMode.CUSTOM else None
+                pw = ParallelWrapper(net, mesh=mesh, training_mode=mode,
+                                     accumulator=acc, averaging_frequency=2)
+                per_step, same, losses = [], [], []
+                for s in range(steps):
+                    k11.launches = 0
+                    pw.fit(x, y)
+                    per_step.append(k11.launches)
+                    losses.append(pw.score())
+                    if mode != TrainingMode.AVERAGING or (s + 1) % 2 == 0:
+                        same.append(replicas_identical(
+                            torch, pw, mode != TrainingMode.SHARED_GRADIENTS))
+                want = {TrainingMode.SHARED_GRADIENTS: R * n_leaves,
+                        TrainingMode.CUSTOM: R,
+                        TrainingMode.AVERAGING: 0}[mode]
+                key = f"{name}_R{R}_{mode}"
+                runs[key] = {"k11_per_step": per_step, "identical": same,
+                             "losses": losses}
+                if not all(same) or any(p != want for p in per_step) \
+                        or not all(math.isfinite(v) for v in losses):
+                    bad.append(f"{key}: {runs[key]}, expected {want} K11 "
+                               "a step")
+    # CUSTOM + BasicGradientsAccumulator + plain SGD == one whole-batch
+    # step, on the MLP: the graph's BatchNormalization normalizes each
+    # shard by its own statistics, so its shards' mean gradient differs
+    sgd_err = {}
+    for name, make in small_nets(torch)[:1]:
+        a, b = make(), make()
+        for n in (a, b):
+            n._updaters = [Sgd(learning_rate=0.1) for _ in n.layers]
+            n._opt_state = [u.init(p) for u, p in zip(n._updaters,
+                                                      n.params_tree)]
+        pw = ParallelWrapper(a, mesh=Mesh((torch.device("cuda", 0),) * 4),
+                             training_mode=TrainingMode.CUSTOM,
+                             accumulator=BasicGradientsAccumulator())
+        err = 0.0
+        for _ in range(2):
+            pw.fit(x, y)
+            b.fit_batch(x, y)
+            err = max(err, (a.params() - b.params()).abs().max().item())
+        sgd_err[name] = err
+        if not err <= 1e-10:
+            bad.append(f"{name} CUSTOM + Basic + Sgd vs fit_batch: {err}")
+    res = {"phase": "parallel_oracle", "captured_tensors": captured,
+           "captured_bitwise": not any(b.startswith("captured") for b in bad),
+           "runs": runs, "custom_sgd_max_abs_err": sgd_err,
+           "tolerance": {"captured": "bitwise", "custom_sgd": 1e-10}}
+    emit(res)
+    if bad:
+        fail(f"parallel_oracle: {bad}")
+    return res
+
+
 def main() -> int:
     try:
         import numpy as np
@@ -2693,18 +3128,19 @@ def main() -> int:
     from deeplearning4j_tpu_torch.ops import lstm_gates as tg
     from deeplearning4j_tpu_torch.ops import lstm_scan_fused as ts
     t0 = time.perf_counter()
+    from deeplearning4j_tpu_torch.ops import threshold_encode as te
     # K1, K2 and K6 are one source (the Q-query kernel, K6 on its view);
-    # K3, K4 and K5 another; K7 a third, K8 and K9 a fourth, K10 a fifth.
-    # One nvcc each, started together.
+    # K3, K4 and K5 another; K7 a third, K8 and K9 a fourth, K10 a fifth,
+    # K11 a sixth. One nvcc each, started together.
     built = build.build(sorted({da.SOURCE, fa.SOURCE, ts.SOURCE,
-                                tg.SOURCE, cf.SOURCE}))
+                                tg.SOURCE, cf.SOURCE, te.SOURCE}))
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
           "kernels": list(KERNEL_WRAPPERS) + [
               "flash_attention_fwd_cuda", "flash_attention_bwd_cuda",
               "graves_lstm_scan_fwd_cuda", "graves_lstm_scan_bwd_cuda",
               "graves_gates_cuda", "graves_gates_bwd_cuda",
               "lstm_gates_cuda", "lstm_gates_bwd_cuda",
-              "conv1x1_stats_cuda"],
+              "conv1x1_stats_cuda", "threshold_encode_cuda"],
           "sources": {s: {"seconds": b["seconds"],
                           "ptxas": [ln.strip() for ln in b["log"].splitlines()
                                     if "registers" in ln or "smem" in ln]}
@@ -2713,6 +3149,10 @@ def main() -> int:
     kconv = phase_kernel_conv1x1(torch)
     train_resnet = phase_train_resnet50(torch, np)
     resnet_oracle = phase_resnet_oracle(torch, np)
+    kthresh = phase_kernel_threshold(torch)
+    train_pw, capture = phase_train_parallel_resnet50(torch, np, train_resnet)
+    pw_oracle = phase_parallel_oracle(torch, np, capture)
+    del capture
     klstm = phase_kernel_lstm_scan(torch)
     kgates = phase_kernel_lstm_gates(torch)
     train_lstm = phase_train_lstm(torch, np)
@@ -2837,7 +3277,19 @@ def main() -> int:
         "library": kconv["library"],
         "per": "one ResNet50 b256 bf16 training step: the 36 calls",
         "oracle_grad_norm_err": {k: v["norm"] for k, v in
-                                 resnet_oracle["grad_err"].items()}}]})
+                                 resnet_oracle["grad_err"].items()}}, {
+        "name": "threshold_encode", "route": "cuda",
+        "source": "deeplearning4j_tpu_torch/ops/csrc/threshold_encode.cu",
+        "replaces": "deeplearning4j_tpu/ops/pallas_kernels.py:325",
+        "launches": train_pw["launches"]["K11"],
+        "launches_per_step": train_pw["launches_per_step"]["K11"],
+        "max_abs_err": 0.0, "comparison": kthresh["comparison"],
+        "ms": kthresh["ms"], "plain_ms": kthresh["plain_ms"],
+        "bound_ms": kthresh["bound_ms"], "bound_by": kthresh["bound_by"],
+        "library_ms": None, "graph_ms": kthresh["graph_ms"],
+        "flat_ms": kthresh["flat_ms"],
+        "flat_plain_ms": kthresh["flat_plain_ms"], "per": kthresh["per"],
+        "oracle_captured_bitwise": pw_oracle["captured_bitwise"]}]})
     for line in smi:
         print(line, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -7,10 +7,11 @@ on tensors, an explicit ``device`` argument and an explicit
 ``torch.Generator`` for every random draw.
 
 Entry points (``MultiLayerNetwork``, ``ComputationGraph``, ``StackDecoder``,
-``ServingEngine``)
-default to ``device="cuda"`` and raise when CUDA is absent; they never drop
-to the CPU on their own. Pass ``device="cpu"`` to run the plain PyTorch
-versions of every kernel (the CPU tests do).
+``ServingEngine``, ``parallel.make_mesh``) default to ``device="cuda"`` and
+raise when CUDA is absent; they never drop to the CPU on their own, and a
+``ParallelWrapper``'s replicas sit where its mesh puts them (by default on
+the wrapped network's device type). Pass ``device="cpu"`` to run the plain
+PyTorch versions of every kernel (the CPU tests do).
 
 This package imports nothing of JAX and nothing of ``deeplearning4j_tpu``.
 """
@@ -39,6 +40,10 @@ from deeplearning4j_tpu_torch.nn.graph.computation_graph import \
     ComputationGraph
 from deeplearning4j_tpu_torch.nn.graph.vertices import ElementWiseVertex
 from deeplearning4j_tpu_torch.nn.multilayer import MultiLayerNetwork
+from deeplearning4j_tpu_torch.datasets.dataset import DataSet, MultiDataSet
+from deeplearning4j_tpu_torch.parallel import (BasicGradientsAccumulator,
+                                               EncodedGradientsAccumulator,
+                                               ParallelWrapper, TrainingMode)
 
 __all__ = [
     "Activation", "ConvolutionMode", "LossFunction", "PoolingType",
@@ -49,5 +54,7 @@ __all__ = [
     "ZeroPaddingLayer", "GlobalPoolingLayer", "BatchNormalization",
     "ElementWiseVertex", "RnnOutputLayer", "LSTM", "GravesLSTM",
     "GravesBidirectionalLSTM", "SimpleRnn", "Bidirectional", "LastTimeStep",
-    "MultiLayerNetwork", "ComputationGraph",
+    "MultiLayerNetwork", "ComputationGraph", "DataSet", "MultiDataSet",
+    "ParallelWrapper", "TrainingMode", "BasicGradientsAccumulator",
+    "EncodedGradientsAccumulator",
 ]

@@ -7,7 +7,9 @@ layer nodes in that order, so the flat views match the JAX package's.
 Training is the MultiLayerNetwork machinery (`NetworkBase`): the loss
 (every output layer's score in the storage dtype, plus regularization and
 auxiliary losses), `value_and_grad`, gradient normalization, the updaters
-and, in `fit_on_device`, the divergence sentinel.
+and, in `fit_on_device`, the divergence sentinel. With a gradients
+accumulator set (`set_gradients_accumulator`), `fit_batch` steps on the
+aggregate it hands back, as `MultiLayerNetwork.fit_batch` does.
 
 The fused route: in training, every 1x1 ConvolutionLayer ->
 BatchNormalization pair that `_conv_bn_fusable` accepts runs as one
@@ -17,9 +19,9 @@ its helpers on (DL4J_TPU_HELPERS=1), so the port's numbers are the JAX
 package's with helpers on. Inference normalizes with the running
 statistics and never fuses.
 
-Not ported, and raising NotImplementedError: `set_gradients_accumulator`
-(K11), `configure_health`, truncated BPTT (`fit_tbptt`, `fit_batch`'s
-`rnn_init_states`, a TruncatedBPTT configuration), `rnn_time_step` /
+Not ported, and raising NotImplementedError: `configure_health`,
+truncated BPTT (`fit_tbptt`, `fit_batch`'s `rnn_init_states`, a
+TruncatedBPTT configuration), `rnn_time_step` /
 `rnn_clear_previous_state`, and `evaluate` (eval/ is not ported).
 """
 from __future__ import annotations
@@ -139,7 +141,8 @@ class ComputationGraph(NetworkBase):
             label_map = dict(zip(self.conf.outputs, labels))
             lmask_map = dict(zip(self.conf.outputs,
                                  lmasks or [None] * len(labels)))
-            total = torch.zeros((), dtype=self.dtype, device=self.device)
+            total = torch.zeros((), dtype=self.dtype,
+                                device=labels[0].device)
         fusable = self._conv_bn_fusable() if train else {}
         pending: Dict[str, tuple] = {}            # conv name -> (x, idx, conf)
         for name in self.conf.topo_order:
@@ -272,6 +275,8 @@ class ComputationGraph(NetworkBase):
             self.params_tree, self.state_tree, x, y, fmask, lmask,
             self._generator)
         with torch.no_grad():
+            if self._accumulator is not None:
+                grads = self._accumulated(grads)
             self.params_tree, self._opt_state = _apply_updates(
                 self.layers, self._updaters, grads, self._opt_state,
                 self.params_tree, self._step)

@@ -29,11 +29,18 @@ Input preprocessors run before their layer, as in the JAX package, and
 every layer input is cast to the compute dtype except an EmbeddingLayer's
 indices. `NetworkBase` holds what `ComputationGraph` shares with this
 class: initialization, the flat views, listeners, the gradient step
-(`value_and_grad`) and the guarded `fit_on_device` update.
+(`value_and_grad`), the guarded `fit_on_device` update and the
+gradient-sharing hook.
 
-Not ported, and raising NotImplementedError: `set_gradients_accumulator`
-(K11), `configure_health` (telemetry/health.py), `pretrain` /
-`pretrain_layer`.
+Gradient sharing: with an accumulator set (`set_gradients_accumulator`,
+parallel/accumulation.py), `fit_batch` stores the flat gradient (JAX leaf
+order) with it, takes back the aggregate and steps the updater on that, as
+the JAX package's `_fit_batch_accumulated` does. `fit_on_device`, and so
+`fit` over groups of same-shape minibatches, does not read the
+accumulator, as in the JAX package.
+
+Not ported, and raising NotImplementedError: `configure_health`
+(telemetry/health.py), `pretrain` / `pretrain_layer`.
 """
 from __future__ import annotations
 
@@ -184,6 +191,7 @@ class NetworkBase(DivergenceSentinelMixin):
         self._score: Any = float("nan")
         self._listeners: List[Any] = []
         self._generator: Optional[torch.Generator] = None
+        self._accumulator = None
         self._initialized = False
         self._last_etl_ms = 0.0
         gc = conf.global_conf
@@ -307,11 +315,21 @@ class NetworkBase(DivergenceSentinelMixin):
     def last_etl_ms(self):
         return self._last_etl_ms
 
-    # ------------------------------------------------------- not ported yet
+    # ---------------------------------------------------- gradient sharing
     def set_gradients_accumulator(self, acc):
-        _not_ported("set_gradients_accumulator",
-                    "parallel/accumulation.py and its kernel K11")
+        """Route `fit_batch` through a GradientsAccumulator (None
+        removes it)."""
+        self._accumulator = acc
 
+    def _accumulated(self, grads):
+        """The gradient-sharing step of the JAX package's
+        `_fit_batch_accumulated`: the flat gradient stored with the
+        accumulator, and the aggregate it hands back, in the grads'
+        structure."""
+        self._accumulator.store_update(flatten_params(grads))
+        return unflatten_params(grads, self._accumulator.get_update())
+
+    # ------------------------------------------------------- not ported yet
     def configure_health(self, *args, **kwargs):
         _not_ported("configure_health (the training-health monitor)",
                     "telemetry/health.py")
@@ -393,7 +411,7 @@ class MultiLayerNetwork(NetworkBase):
     # ------------------------------------------------------------------ loss
     def _loss_fn(self, params_tree, x, y, fmask, lmask, generator,
                  train: bool = True, per_example: bool = False,
-                 rnn_init_states=None):
+                 rnn_init_states=None, state_tree=None):
         """(loss, new_states, final_rnn). Mixed precision as in the JAX
         package: the params, every layer input and the carried recurrent
         states are cast to `compute_dtype`, the output layer and its loss
@@ -402,7 +420,9 @@ class MultiLayerNetwork(NetworkBase):
         with a generator. With `rnn_init_states` (one entry per LSTM
         layer) every non-bidirectional LSTM layer runs from its state
         (zeros where None) and final_rnn holds its final (h, c), in the
-        compute dtype; bidirectional LSTM layers hold None."""
+        compute dtype; bidirectional LSTM layers hold None. The layers read
+        `state_tree` (default: the network's)."""
+        states = self.state_tree if state_tree is None else state_tree
         out_layer = self.layers[-1]
         if not out_layer.is_output_layer():
             raise ValueError("Last layer must be an output/loss layer for "
@@ -433,7 +453,7 @@ class MultiLayerNetwork(NetworkBase):
                                           *(init if init is not None
                                             else ()))
                     final_rnn.append(hc)
-                    new_states.append(self.state_tree[i])
+                    new_states.append(states[i])
                     continue
 
             def fwd(p, s, c, m, _layer=layer):
@@ -442,12 +462,10 @@ class MultiLayerNetwork(NetworkBase):
             if self.conf.global_conf.remat and torch.is_grad_enabled():
                 # gradient checkpointing: this layer's activations are
                 # recomputed in the backward pass (memory for FLOPs)
-                cur, ns, mask = checkpoint(fwd, params_tree[i],
-                                           self.state_tree[i], cur, mask,
-                                           use_reentrant=False)
+                cur, ns, mask = checkpoint(fwd, params_tree[i], states[i],
+                                           cur, mask, use_reentrant=False)
             else:
-                cur, ns, mask = fwd(params_tree[i], self.state_tree[i], cur,
-                                    mask)
+                cur, ns, mask = fwd(params_tree[i], states[i], cur, mask)
             new_states.append(ns)
         li = len(self.layers) - 1
         if li in pps:
@@ -464,7 +482,7 @@ class MultiLayerNetwork(NetworkBase):
             return out_layer.compute_score_per_example(
                 params_full[-1], cur, y, score_mask), new_states, final_rnn
         loss = out_layer.compute_score(params_full[-1], cur, y, score_mask)
-        new_states.append(self.state_tree[-1])
+        new_states.append(states[-1])
         reg = sum((layer.regularization_score(p)
                    for layer, p in zip(self.layers, params_full)),
                   torch.zeros((), dtype=torch.float32))
@@ -476,14 +494,15 @@ class MultiLayerNetwork(NetworkBase):
         return loss + reg + aux, new_states, final_rnn
 
     def _value_and_grad(self, params_tree, x, y, fmask, lmask, generator,
-                        rnn_init_states=None):
-        """(loss, new_states, grads, final_rnn): one forward and backward,
-        the grads in the params' structure (zeros where the loss does not
-        depend on a param), the final recurrent states detached."""
+                        rnn_init_states=None, state_tree=None):
+        """(loss, new_states, grads, final_rnn): one forward and backward
+        from `state_tree` (default: the network's), the grads in the
+        params' structure (zeros where the loss does not depend on a
+        param), the final recurrent states detached."""
         def fn(p):
             loss, ns, final_rnn = self._loss_fn(
                 p, x, y, fmask, lmask, generator, True,
-                rnn_init_states=rnn_init_states)
+                rnn_init_states=rnn_init_states, state_tree=state_tree)
             return loss, (ns, final_rnn)
         loss, (ns, final_rnn), grads = value_and_grad(fn, params_tree)
         return loss, ns, grads, final_rnn
@@ -503,6 +522,8 @@ class MultiLayerNetwork(NetworkBase):
             self.params_tree, x, y, fmask, lmask, self._generator,
             rnn_init_states)
         with torch.no_grad():
+            if self._accumulator is not None:
+                grads = self._accumulated(grads)
             self.params_tree, self._opt_state = _apply_updates(
                 self.layers, self._updaters, grads, self._opt_state,
                 self.params_tree, self._step)
@@ -554,9 +575,8 @@ class MultiLayerNetwork(NetworkBase):
                 bx, by, bfm, blm = roll(x), roll(y), roll(fmask), roll(lmask)
             else:
                 bx, by, bfm, blm = x, y, fmask, lmask
-            self.state_tree = states       # the layers read the carried state
             loss, ns, grads, _ = self._value_and_grad(
-                params, bx, by, bfm, blm, self._generator)
+                params, bx, by, bfm, blm, self._generator, state_tree=states)
             with torch.no_grad():
                 params, opt, states, div = _guarded_update(
                     self.layers, self._updaters, grads, opt, params, states,

@@ -22,6 +22,8 @@ from typing import Optional
 
 import torch
 
+from deeplearning4j_tpu_torch.device import DeviceLike, resolve_device
+
 NEG_INF = -1e30
 _MIX = 0x9E3779B97F4A7C15
 _MASK = (1 << 63) - 1
@@ -98,13 +100,16 @@ class Sampler:
     the next n positions without advancing; `advance(n)` commits n;
     `next_key()` == peek_keys(1)[0] + advance(1)."""
 
-    def __init__(self, seed: int = 0, top_k: int = 0, device="cpu"):
+    def __init__(self, seed: int = 0, top_k: int = 0,
+                 device: DeviceLike = "cuda"):
+        """`device` holds the noise generator: the card unless the caller
+        asks for the CPU."""
         if top_k < 0:
             raise ValueError(f"top_k must be >= 0, got {top_k}")
         self.seed = int(seed)
         self.top_k = int(top_k)
         self._pos = 0
-        self._gen = torch.Generator(device=device)
+        self._gen = torch.Generator(device=resolve_device(device))
 
     def next_key(self) -> int:
         pos = self._pos

@@ -316,7 +316,6 @@ def test_graph_methods_not_ported_raise():
     x, y = _batch()
     for call in (lambda: tnet.fit_tbptt(x, y), lambda: tnet.rnn_time_step(x),
                  lambda: tnet.evaluate([]),
-                 lambda: tnet.set_gradients_accumulator(None),
                  lambda: tnet.configure_health(),
                  lambda: tnet.fit_batch(x, y, rnn_init_states=[None])):
         with pytest.raises(NotImplementedError, match="not ported"):

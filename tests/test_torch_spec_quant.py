@@ -441,7 +441,7 @@ def test_spec_accept_greedy_matches_jax():
     draft_len = np.asarray([4, 4, 3, 0], np.int32)
     temps = np.zeros((S,), np.float32)
     t_toks, t_acc, t_com = spec_accept_tokens(
-        Sampler(0), list(range(Q)), torch.from_numpy(lp),
+        Sampler(0, device="cpu"), list(range(Q)), torch.from_numpy(lp),
         torch.from_numpy(draft), torch.from_numpy(draft_len),
         torch.from_numpy(temps), any_sampled=False)
     from deeplearning4j_tpu.serving.sampler import Sampler as JaxSampler
@@ -452,6 +452,15 @@ def test_spec_accept_greedy_matches_jax():
     np.testing.assert_array_equal(t_acc.numpy(), np.asarray(j_acc))
     np.testing.assert_array_equal(t_com.numpy(), np.asarray(j_com))
     assert t_acc.tolist() == [4, 2, 0, 0]
+
+
+def test_sampler_defaults_to_the_card(monkeypatch):
+    """Built alone, a Sampler keeps its generator on the card unless the
+    caller asks for the CPU: without CUDA the default raises."""
+    assert Sampler(0, device="cpu").generator(3).device.type == "cpu"
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        Sampler(0)
 
 
 # ------------------------------------------------------------ engine parity

@@ -462,8 +462,6 @@ UNPORTED = {
     "lstm_gate_math_native": (_lstm_configure(gate_math="native"),
                               "gate_math"),
     "lstm_grid": (_lstm_configure(grid="tm"), "no counterpart"),
-    "gradients_accumulator": (lambda n: n.set_gradients_accumulator(None),
-                              "K11"),
     "configure_health": (lambda n: n.configure_health(None), "health"),
     "pretrain": (lambda n: n.pretrain(None), "pretrain"),
     "pretrain_layer": (lambda n: n.pretrain_layer(0, None), "pretrain"),
