@@ -7,7 +7,14 @@ Phases, each printing one JSON line; any failure exits non-zero:
 
 1. device   - CUDA present with compute capability (9, 0).
 2. build    - compile every CUDA kernel of the paths from the checkout's
-              sources (one nvcc per source, all started together).
+              sources (one nvcc per source, all started together). For
+              each wgmma kernel of flash_attention_sm90.cu (K3, K5's dq
+              and dk/dv passes at head dims 16/32/64/128): registers,
+              spill bytes and static shared memory from the -Xptxas -v
+              log, its dynamic shared memory, and the HGMMA, UTMALDG and
+              atomic instructions in the SASS (cuobjdump -sass); fails if
+              a kernel has no HGMMA or no UTMALDG, has an atomic, or
+              spills at D 64.
 2a. kernel_conv1x1 - K10 (the 1x1 conv with per-channel sums) against its
               plain version: fp32 and bf16, B 1/3/256, channels drawn from
               {8, 64, 256, 1024, 2048}, P 1/16/49/196/200/784, one case
@@ -103,7 +110,9 @@ Phases, each printing one JSON line; any failure exits non-zero:
               prime, then 100 greedy single-character steps (2 K7
               launches a call); in fp32 the stream at steps 1, 50 and 150
               against output() of the prefix within 1e-4.
-8. kernel_flash - K3 (flash-attention forward) against flash_fwd_plain:
+8. kernel_flash - K3 (flash-attention forward; bf16 on the wgmma kernel of
+              flash_attention_sm90.cu, fp32 on flash_attention.cu) against
+              flash_fwd_plain:
               fp32 and bf16, head dims 32/64/128, T 1/63/64/65/200/1000
               (and head dims 8 and 48 at T 1024, zero-padded to 16 and 64
               in the wrappers),
@@ -111,14 +120,18 @@ Phases, each printing one JSON line; any failure exits non-zero:
               with a fully masked batch row, kv heads 4 and 2 (GQA) of 4;
               then the training shape (B 4, H 4, T 8192, D 64, bf16,
               causal), timed (CUDA events) beside the plain version and
-              scaled_dot_product_attention (a yardstick only). Each case
-              holds the max abs error and, per 64-row tile along T, the
-              error relative to the tile's own reference.
-9. kernel_flash_bwd - K4 (fused backward) and K5 (two-pass backward)
-              against flash_bwd_plain over the same sweep, K4 against K5,
-              with a non-zero lse cotangent in every other case; then the
-              training shape, timed beside the plain version and the
-              backward of scaled_dot_product_attention.
+              scaled_dot_product_attention (a yardstick only), with its
+              TFLOP/s and share of the bound; two calls there must give
+              bitwise-equal o and L. Each case holds the max abs error
+              and, per 64-row tile along T, the error relative to the
+              tile's own reference.
+9. kernel_flash_bwd - K4 (fused backward) and K5 (two-pass backward; bf16
+              on the wgmma kernels) against flash_bwd_plain over the same
+              sweep, K4 against K5, with a non-zero lse cotangent in every
+              other case; then the training shape, timed beside the plain
+              version and the backward of scaled_dot_product_attention,
+              with TFLOP/s and bound shares; two K5 calls there must give
+              bitwise-equal dq, dk and dv.
 10. train   - the bench's long-context stack (bench.py
               bench_attention_longcontext: 2 causal SelfAttentionLayer(256,
               4 heads, block 512) + RnnOutputLayer(64), bf16 compute over
@@ -126,9 +139,10 @@ Phases, each printing one JSON line; any failure exits non-zero:
               bench's own data) trained through MultiLayerNetwork:
               fit_on_device(steps=5, sync=False) after a warm step (tokens
               per second, ms per step, peak memory, K3/K4 launches per
-              step), two fit(x, y) steps, two steps under
-              configure(bwd="two_pass") (K5 launches, K4 none), and one
-              output(); every loss finite, peak memory under 2 GiB.
+              step), two fit(x, y) steps, fit_on_device(steps=5) under
+              configure(bwd="two_pass") timed the same way (K5 launches,
+              K4 none), and one output(); every loss finite, peak memory
+              under 2 GiB.
 11. train_oracle - the same stack in fp32: one gradient_and_score through
               the kernels, held against the dense plain versions on the
               card in fp64 (the fp32 dense path is reported beside it);
@@ -202,6 +216,7 @@ import contextlib
 import json
 import math
 import os
+import re
 import subprocess
 import sys
 import time
@@ -1158,6 +1173,134 @@ def train_shape_case(torch, seed):
                       seed)
 
 
+
+# ------------------------------------------------ the wgmma kernels' build
+SM90_KERNELS = ("flash_fwd_sm90_kernel", "flash_dq_sm90_kernel",
+                "flash_dkv_sm90_kernel")
+SM90_KINDS = {"flash_fwd_sm90_kernel": 0, "flash_dq_sm90_kernel": 1,
+              "flash_dkv_sm90_kernel": 2}
+ATOMIC_OPS = ("ATOM", "ATOMS", "ATOMG", "RED")
+
+
+def sm90_kernel_key(name: str):
+    """(kernel, D) of a mangled sm90 flash kernel name, else None."""
+    m = re.search(r"(flash_(?:fwd|dq|dkv)_sm90_kernel)ILi(\d+)EE", name)
+    return (m.group(1), int(m.group(2))) if m else None
+
+
+def ptxas_kernels(log: str) -> dict:
+    """Registers, spill bytes and static shared memory of each sm90 kernel
+    from nvcc's -Xptxas -v log, with the warnings ptxas gave for it."""
+    out, cur, notes = {}, None, []
+    for ln in log.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", ln)
+        if m:
+            key = sm90_kernel_key(m.group(1))
+            cur = None if key is None else f"{key[0]}<{key[1]}>"
+            if cur:
+                out[cur] = {"warnings": []}
+            continue
+        if "Performance" in ln or "setmaxnreg" in ln:
+            notes.append(ln)        # ptxas names the function it concerns
+            continue
+        if cur is None:
+            continue
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                      r"(\d+) bytes spill loads", ln)
+        if m:
+            out[cur]["stack_frame"] = int(m.group(1))
+            out[cur]["spill_stores"] = int(m.group(2))
+            out[cur]["spill_loads"] = int(m.group(3))
+        m = re.search(r"Used (\d+) registers", ln)
+        if m:
+            out[cur]["registers"] = int(m.group(1))
+            sm = re.search(r"(\d+) bytes smem", ln)
+            out[cur]["static_smem"] = int(sm.group(1)) if sm else 0
+    for ln in notes:
+        key = sm90_kernel_key(ln)
+        if key and f"{key[0]}<{key[1]}>" in out:
+            out[f"{key[0]}<{key[1]}>"]["warnings"].append(
+                re.sub(r"'\S+'", "", ln).strip()[:160])
+    return out
+
+
+def cuobjdump() -> str:
+    """The toolkit's cuobjdump, or the copy the triton package ships."""
+    import shutil
+    path = shutil.which("cuobjdump")
+    if path is None and os.path.exists("/usr/local/cuda/bin/cuobjdump"):
+        path = "/usr/local/cuda/bin/cuobjdump"
+    if path is None:
+        try:
+            import triton
+            cand = os.path.join(os.path.dirname(triton.__file__), "backends",
+                                "nvidia", "bin", "cuobjdump")
+            path = cand if os.path.exists(cand) else None
+        except ImportError:
+            path = None
+    if path is None:
+        fail("no cuobjdump (CUDA toolkit or triton) to read the SASS")
+    return path
+
+
+def sass_counts(lib_path: str) -> dict:
+    """HGMMA, UTMALDG and atomic instructions of each sm90 kernel in the
+    SASS of the built library."""
+    sass = subprocess.run([cuobjdump(), "-sass", lib_path],
+                          capture_output=True, text=True, timeout=300)
+    if sass.returncode != 0:
+        fail(f"cuobjdump -sass failed: {sass.stderr[-2000:]}")
+    out, cur = {}, None
+    for ln in sass.stdout.splitlines():
+        m = re.search(r"Function : (\S+)", ln)
+        if m:
+            key = sm90_kernel_key(m.group(1))
+            cur = None if key is None else f"{key[0]}<{key[1]}>"
+            if cur:
+                out[cur] = {"HGMMA": 0, "UTMALDG": 0, "atomic": 0}
+            continue
+        if cur is None:
+            continue
+        m = re.match(r"\s*/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\w+\s+)?([A-Z][\w.]*)",
+                     ln)
+        if not m:
+            continue
+        op = m.group(1).split(".")[0]
+        if op in ("HGMMA", "UTMALDG"):
+            out[cur][op] += 1
+        elif op in ATOMIC_OPS:
+            out[cur]["atomic"] += 1
+    return out
+
+
+def sm90_build_report(built: dict) -> dict:
+    """Per sm90 kernel: registers, spills, shared memory (static from
+    ptxas, dynamic from the library) and the SASS counts. Fails when a
+    kernel has no HGMMA or no UTMALDG, holds an atomic, or spills at D 64."""
+    from deeplearning4j_tpu_torch.ops import flash_attention as fa
+    b = built[fa.SM90_SOURCE]
+    lib = fa._library(fa.SM90_SOURCE)
+    regs, sass = ptxas_kernels(b["log"]), sass_counts(b["path"])
+    report = {}
+    for kern in SM90_KERNELS:
+        for D in fa.HEAD_DIMS:
+            key = f"{kern}<{D}>"
+            if key not in sass or key not in regs:
+                fail(f"{key}: not in the built library (ptxas "
+                     f"{sorted(regs)}, sass {sorted(sass)})")
+            r = dict(regs[key], **sass[key])
+            r["dynamic_smem"] = lib.dl4j_flash_sm90_smem(SM90_KINDS[kern], D)
+            report[key] = r
+            if not (r["HGMMA"] > 0 and r["UTMALDG"] > 0):
+                fail(f"{key}: {r['HGMMA']} HGMMA and {r['UTMALDG']} UTMALDG "
+                     "instructions in its SASS")
+            if r["atomic"]:
+                fail(f"{key}: {r['atomic']} atomic instructions in its SASS")
+            if D == 64 and r.get("spill_stores", 1) != 0:
+                fail(f"{key}: {r.get('spill_stores')} bytes of spill stores")
+    return report
+
+
 def phase_kernel_flash(torch):
     """K3 against flash_fwd_plain over the sweep (GQA Hk 4 and 2 of H 4),
     then at the training shape, timed beside the plain version and
@@ -1193,6 +1336,10 @@ def phase_kernel_flash(torch):
             and train_rel <= FLASH_REL_TOL["bfloat16"]):
         fail(f"K3 vs plain at the training shape: max abs err {train_err}, "
              f"tile rel err {train_rel}")
+    o2, l2 = fa.flash_attention_fwd_cuda(q, k, v, None, True)
+    if not (torch.equal(o, o2) and torch.equal(l, l2)):
+        fail("K3: two calls on the same inputs differ")
+    del o2, l2
     ms = event_ms(torch, lambda: fa.flash_attention_fwd_cuda(q, k, v, None,
                                                              True))
     plain_ms = event_ms(torch, lambda: fa.flash_fwd_plain(q, k, v, None,
@@ -1213,7 +1360,8 @@ def phase_kernel_flash(torch):
            "ms": ms, "plain_ms": plain_ms,
            "library_ms": library_ms, "bound_ms": bound_ms,
            "bound_by": bound_by, "bytes": nbytes, "ops": ops,
-           "tflops": ops / ms / 1e9}
+           "tflops": ops / ms / 1e9, "bound_share": bound_ms / ms,
+           "bitwise_repeat": True}
     emit(res)
     return res
 
@@ -1260,9 +1408,10 @@ def phase_kernel_flash_bwd(torch):
     o, l = fa.flash_attention_fwd_cuda(q, k, v, None, True)
     ref = fa.flash_bwd_plain(q, k, v, None, o, l, do, None, True)
     train_err, train_rel = {}, {}
+    got = {}
     for mode in fa.BWD_MODES:
-        g = fa.flash_attention_bwd_cuda(q, k, v, None, o, l, do, None, True,
-                                        None, 0, mode)
+        g = got[mode] = fa.flash_attention_bwd_cuda(
+            q, k, v, None, o, l, do, None, True, None, 0, mode)
         train_err[mode] = max(max_err(a, b) for a, b in zip(g, ref))
         train_rel[mode] = {
             n: tile_rel_err(torch, a, b, FLASH_REF_FLOOR["bfloat16"])
@@ -1272,7 +1421,11 @@ def phase_kernel_flash_bwd(torch):
                 <= FLASH_REL_TOL["bfloat16"]):
             fail(f"{mode} backward at the training shape: max abs err "
                  f"{train_err[mode]}, tile rel err {train_rel[mode]}")
-    del ref, g
+    g2 = fa.flash_attention_bwd_cuda(q, k, v, None, o, l, do, None, True,
+                                     None, 0, "two_pass")
+    if not all(torch.equal(a, b) for a, b in zip(got["two_pass"], g2)):
+        fail("K5: two calls on the same inputs give other dq, dk or dv")
+    del ref, g, g2, got
     ms = {mode: event_ms(torch, lambda mode=mode: fa.flash_attention_bwd_cuda(
         q, k, v, None, o, l, do, None, True, None, 0, mode))
         for mode in fa.BWD_MODES}
@@ -1300,7 +1453,9 @@ def phase_kernel_flash_bwd(torch):
            "ops": {m: b[1] for m, b in bounds.items()},
            "design_ops": {m: b[1] * FLASH_BWD_DESIGN_PRODUCTS[m] // 5
                           for m, b in bounds.items()},
-           "tflops": {m: bounds[m][1] / ms[m] / 1e9 for m in ms}}
+           "tflops": {m: bounds[m][1] / ms[m] / 1e9 for m in ms},
+           "bound_share": {m: bounds[m][2] / ms[m] for m in ms},
+           "bitwise_repeat": {"two_pass": True}}
     emit(res)
     return res
 
@@ -1353,7 +1508,8 @@ def reset_flash_launches(fa) -> None:
 
 def phase_train(torch, np):
     """fit_on_device(x, y, steps=5, sync=False) after one warm step, then
-    two fit(x, y) steps, two more under configure(bwd="two_pass"), and one
+    two fit(x, y) steps, the same timed fit_on_device under
+    configure(bwd="two_pass") after a warm step of its own, and one
     output() at T > block_size; launch counts zeroed just before each run
     and read just after. Every loss must be finite."""
     from deeplearning4j_tpu_torch.ops import flash_attention as fa
@@ -1385,11 +1541,15 @@ def phase_train(torch, np):
     fit_launches = flash_launches(fa)
     prev = fa.configure(bwd="two_pass")
     try:
+        net.fit_on_device(x, y, steps=1)               # warm step
+        torch.cuda.synchronize()
         reset_flash_launches(fa)
         t0 = time.perf_counter()
-        tp_losses = net.fit_on_device(x, y, steps=2).tolist()
+        tp_losses = net.fit_on_device(x, y, steps=steps, sync=False)
+        torch.cuda.synchronize()
         tp_wall = time.perf_counter() - t0
         tp_launches = flash_launches(fa)
+        tp_losses = tp_losses.cpu().numpy().tolist()
     finally:
         fa.configure(bwd=prev[0])
     reset_flash_launches(fa)
@@ -1404,7 +1564,7 @@ def phase_train(torch, np):
              "step")
     if fit_launches != {"K3": 4, "K4": 4, "K5": 0}:
         fail(f"fit launches {fit_launches}")
-    if tp_launches != {"K3": 4, "K4": 0, "K5": 8}:
+    if tp_launches != {"K3": 2 * steps, "K4": 0, "K5": 4 * steps}:
         fail(f"two_pass launches {tp_launches}, expected 2 K3 + 2 + 2 K5 "
              "per step")
     if out_launches["K3"] != 2 or not bool(torch.isfinite(out).all()):
@@ -1426,7 +1586,9 @@ def phase_train(torch, np):
            "losses": losses, "fit_losses": fit_losses,
            "fit_ms_per_step": fit_wall / 2 * 1e3,
            "two_pass": {"losses": tp_losses, "launches": tp_launches,
-                        "ms_per_step": tp_wall / 2 * 1e3},
+                        "steps": steps, "wall_s": tp_wall,
+                        "ms_per_step": tp_wall / steps * 1e3,
+                        "tokens_per_s": tokens * steps / tp_wall},
            "output_launches": out_launches}
     res["profile"] = profile_train(torch, net, x, y)
     emit(res)
@@ -3130,11 +3292,14 @@ def main() -> int:
     t0 = time.perf_counter()
     from deeplearning4j_tpu_torch.ops import threshold_encode as te
     # K1, K2 and K6 are one source (the Q-query kernel, K6 on its view);
-    # K3, K4 and K5 another; K7 a third, K8 and K9 a fourth, K10 a fifth,
-    # K11 a sixth. One nvcc each, started together.
-    built = build.build(sorted({da.SOURCE, fa.SOURCE, ts.SOURCE,
+    # fp32 K3/K5 and K4 another, bf16 K3 and K5 (wgmma) a third; K7 a
+    # fourth, K8 and K9 a fifth, K10 a sixth, K11 a seventh. One nvcc
+    # each, started together.
+    built = build.build(sorted({da.SOURCE, *fa.SOURCES, ts.SOURCE,
                                 tg.SOURCE, cf.SOURCE, te.SOURCE}))
+    sm90 = sm90_build_report(built)
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
+          "sm90_kernels": sm90,
           "kernels": list(KERNEL_WRAPPERS) + [
               "flash_attention_fwd_cuda", "flash_attention_bwd_cuda",
               "graves_lstm_scan_fwd_cuda", "graves_lstm_scan_bwd_cuda",
@@ -3173,6 +3338,7 @@ def main() -> int:
     phase_int8_serve(torch, np, serve)
     src = "deeplearning4j_tpu_torch/ops/csrc/flash_decode_paged.cu"
     fsrc = "deeplearning4j_tpu_torch/ops/csrc/flash_attention.cu"
+    f90 = "deeplearning4j_tpu_torch/ops/csrc/flash_attention_sm90.cu"
     lsrc = "deeplearning4j_tpu_torch/ops/csrc/lstm_scan.cu"
     gsrc = "deeplearning4j_tpu_torch/ops/csrc/lstm_gates.cu"
     csrc = "deeplearning4j_tpu_torch/ops/csrc/conv1x1_stats.cu"
@@ -3207,17 +3373,20 @@ def main() -> int:
         "bound_ms": kcont["bound_ms"], "bound_by": kcont["bound_by"],
         "library_ms": kcont["library_ms"],
         "kernel_only_ms": kcont["kernel_only_ms"]}, {
-        "name": "flash_attention_fwd", "route": "cuda", "source": fsrc,
+        "name": "flash_attention_fwd", "route": "cuda", "source": f90,
+        "fp32_source": fsrc,
         "replaces": "deeplearning4j_tpu/ops/flash_attention.py:448",
         "launches": train["launches"]["K3"],
         "max_abs_err": max(max(kflash["max_abs_err"].values()),
                            kflash["train_max_abs_err"]),
         "ms": kflash["ms"], "plain_ms": kflash["plain_ms"],
         "bound_ms": kflash["bound_ms"], "bound_by": kflash["bound_by"],
-        "library_ms": kflash["library_ms"],
+        "library_ms": kflash["library_ms"], "tflops": kflash["tflops"],
+        "bound_share": kflash["bound_share"],
         "oracle_max_grad_rel_err": train_oracle["max_grad_rel_err"]}] + [{
         "name": f"flash_attention_bwd_{mode}", "route": "cuda",
-        "source": fsrc, "replaces": replaces,
+        "source": fsrc if mode == "fused" else f90,
+        "replaces": replaces,
         "launches": (train["launches"]["K4"] if mode == "fused"
                      else train["two_pass"]["launches"]["K5"]),
         "max_abs_err": max(
@@ -3227,7 +3396,10 @@ def main() -> int:
         "ms": kflash_bwd["ms"][mode], "plain_ms": kflash_bwd["plain_ms"],
         "bound_ms": kflash_bwd["bound_ms"][mode],
         "bound_by": kflash_bwd["bound_by"][mode],
-        "library_ms": kflash_bwd["library_ms"]} for mode, replaces in (
+        "library_ms": kflash_bwd["library_ms"],
+        "tflops": kflash_bwd["tflops"][mode],
+        "bound_share": kflash_bwd["bound_share"][mode]}
+        for mode, replaces in (
             ("fused", "deeplearning4j_tpu/ops/flash_attention.py:349"),
             ("two_pass", "deeplearning4j_tpu/ops/flash_attention.py:262"))]
         + [{

@@ -3,8 +3,8 @@
 Each `ops/csrc/*.cu` file is compiled by `nvcc` into a shared library with a
 plain C interface under `deeplearning4j_tpu_torch/_build/` (listed in
 .gitignore) and loaded with ctypes. The library name carries a hash of the
-source and the flags, so an edited source rebuilds and an unchanged one is
-reused. Several sources build in parallel (`build`: one nvcc per source,
+source, of every `csrc/*.cuh` header and of the flags, so an edited source
+or header rebuilds and an unchanged one is reused. Several sources build in parallel (`build`: one nvcc per source,
 all started together). A failed build raises with the compiler's output.
 
 Only the machine with the card has nvcc; nothing here runs on import.
@@ -41,16 +41,21 @@ def nvcc() -> str:
 
 
 def library_path(source: str) -> Path:
-    """Where the library built from `source` (a file name in csrc/) lives."""
+    """Where the library built from `source` (a file name in csrc/) lives:
+    named by a hash of the source, the headers beside it and the flags."""
     src = CSRC / source
-    digest = hashlib.sha1(src.read_bytes() + " ".join(NVCC_FLAGS).encode())
+    digest = hashlib.sha1(src.read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        digest.update(header.name.encode() + b"\0" + header.read_bytes())
+    digest.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"{src.stem}-{digest.hexdigest()[:12]}.so"
 
 
 def build(sources: Sequence[str]) -> Dict[str, dict]:
     """Compile every source not yet built, one nvcc process each, all
-    started together. Returns {source: {"path", "seconds", "log"}}; raises
-    RuntimeError when any compile fails."""
+    started together. Returns {source: {"path", "seconds", "log"}} (the
+    compiler's output, kept beside the library); raises RuntimeError when
+    any compile fails."""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     procs: List[tuple] = []
     out: Dict[str, dict] = {}
@@ -58,7 +63,9 @@ def build(sources: Sequence[str]) -> Dict[str, dict]:
     for source in sources:
         lib = library_path(source)
         if lib.exists():
-            out[source] = {"path": str(lib), "seconds": 0.0, "log": ""}
+            log = lib.with_suffix(".log")
+            out[source] = {"path": str(lib), "seconds": 0.0,
+                           "log": log.read_text() if log.exists() else ""}
             continue
         tmp = lib.with_suffix(f".{os.getpid()}.tmp")
         cmd = [nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / source)]
@@ -71,6 +78,7 @@ def build(sources: Sequence[str]) -> Dict[str, dict]:
         if proc.returncode != 0:
             failed.append(f"{source}:\n{log}")
             continue
+        lib.with_suffix(".log").write_text(log)
         os.replace(tmp, lib)
         out[source] = {"path": str(lib),
                        "seconds": time.perf_counter() - t0, "log": log}

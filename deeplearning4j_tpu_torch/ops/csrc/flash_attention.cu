@@ -1,8 +1,10 @@
-// Flash attention for Hopper (sm_90a): forward (K3), fused backward (K4)
-// and two-pass backward (K5). bf16 inputs run the products of each tile on
-// the tensor cores (nvcuda::wmma bf16 fragments, fp32 accumulators); fp32
-// inputs run them in fp32 on the CUDA cores (wmma has no fp32 product short
-// of TF32, whose ~3 decimal digits would miss the fp32 tolerance).
+// Flash attention for Hopper (sm_90a): the fp32 forward (K3), the fused
+// backward (K4) in fp32 and bf16, and the fp32 two-pass backward (K5). bf16
+// K4 runs the products of each tile on the tensor cores (nvcuda::wmma bf16
+// fragments, fp32 accumulators); fp32 inputs run them in fp32 on the CUDA
+// cores (wmma and wgmma have no fp32 product short of TF32, whose ~3
+// decimal digits would miss the fp32 tolerance). The bf16 forward and the
+// bf16 two-pass backward are flash_attention_sm90.cu's (wgmma, TMA).
 //
 // Replaces the Pallas kernels of deeplearning4j_tpu/ops/flash_attention.py:
 //   - K3 `_call_fwd` (:448, body `_fwd_kernel` :123): online-softmax
@@ -55,16 +57,15 @@
 // memory (above 48 KB it takes cudaFuncSetAttribute).
 //
 // What bounds it on the H100, at the training shape (B*H = 16, T = 8192,
-// D = 64, causal, 33,558,528 visible pairs per head): operations. K3 does
-// 4 * pairs * D * 16 = 137.5 GFLOP, 0.139 ms at 989 TFLOP/s of bf16 tensor
-// cores, while its 67.6 MB of q/k/v/o/L take 0.020 ms at 3.35 TB/s. K4
-// does 5 products (343.6 GFLOP, 0.347 ms); K5 3 + 4 (481 GFLOP, 0.486 ms).
-// What the design does about it: every score tile stays out of device
-// memory (only q, k, v, o, L, dO, D_i and the outputs move), invisible
-// tiles are skipped, and the bf16 products run on the tensor cores. It is
-// still far from the bound: the softmax and the p/ds passes go through
-// shared memory between the products, the tiles are loaded without a
-// pipeline, and wmma is not wgmma. Those, and TMA, are later work.
+// D = 64, causal, 33,558,528 visible pairs per head): operations. K4 does
+// 5 products (343.6 GFLOP, 0.347 ms at 989 TFLOP/s of bf16 tensor cores),
+// while its q/k/v/dO/dq/dk/dv/L/D_i take 0.035 ms at 3.35 TB/s. What the
+// design does about it: every score tile stays out of device memory,
+// invisible tiles are skipped, and the bf16 products run on the tensor
+// cores. bf16 K4 is still far from the bound: its softmax and p/ds passes
+// go through shared memory between the products, the tiles are loaded
+// without a pipeline, and wmma is not wgmma; its redesign reuses the
+// dk/dv kernel of flash_attention_sm90.cu.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <mma.h>
@@ -72,7 +73,7 @@
 
 #include <type_traits>
 
-#define DL4J_NEG_INF (-1e30f)
+#include "flash_common.cuh"
 
 namespace {
 
@@ -101,60 +102,6 @@ __device__ __forceinline__ float row_sum(float x) {
 #pragma unroll
   for (int o = 8; o > 0; o >>= 1) x += __shfl_xor_sync(0xffffffffu, x, o);
   return x;
-}
-
-struct Geometry {
-  int T, causal, window;
-};
-
-// Does this (q tile, key tile) pair hold any pair that is not visible?
-// Only such tiles evaluate validity per element.
-__device__ __forceinline__ bool tile_masked(const Geometry& g, int q_lo,
-                                            int k_lo, bool has_km) {
-  const int q_hi = q_lo + BM - 1, k_hi = k_lo + BN - 1;
-  if (has_km || k_hi >= g.T || q_hi >= g.T) return true;
-  if (g.causal && k_hi > q_lo) return true;
-  if (g.window > 0) {
-    if (q_hi - k_lo >= g.window) return true;
-    if (!g.causal && k_hi - q_lo >= g.window) return true;
-  }
-  return false;
-}
-
-// visibility of (qi, kj); key_ok = kj < T and the key mask allows kj
-__device__ __forceinline__ bool visible(const Geometry& g, int qi, int kj,
-                                        bool key_ok) {
-  if (!key_ok || qi >= g.T) return false;
-  if (g.causal && kj > qi) return false;
-  if (g.window > 0) {
-    if (qi - kj >= g.window) return false;
-    if (!g.causal && kj - qi >= g.window) return false;
-  }
-  return true;
-}
-
-// key tiles [j0, j1) that q tile i can see
-__device__ __forceinline__ void key_tiles(const Geometry& g, int q_lo,
-                                          int* j0, int* j1) {
-  const int q_hi = min(q_lo + BM, g.T) - 1;
-  const int k_begin = g.window > 0 ? max(0, q_lo - g.window + 1) : 0;
-  int k_end = g.T;
-  if (g.causal) k_end = min(k_end, q_hi + 1);
-  else if (g.window > 0) k_end = min(k_end, q_hi + g.window);
-  *j0 = k_begin / BN;
-  *j1 = k_end > k_begin ? (k_end + BN - 1) / BN : *j0;
-}
-
-// q tiles [i0, i1) that can see key tile starting at k_lo
-__device__ __forceinline__ void query_tiles(const Geometry& g, int k_lo,
-                                            int* i0, int* i1) {
-  const int k_hi = min(k_lo + BN, g.T) - 1;
-  int q_begin = 0, q_end = g.T;
-  if (g.causal) q_begin = k_lo;
-  else if (g.window > 0) q_begin = max(0, k_lo - g.window + 1);
-  if (g.window > 0) q_end = min(q_end, k_hi + g.window);
-  *i0 = q_begin / BM;
-  *i1 = q_end > q_begin ? (q_end + BM - 1) / BM : *i0;
 }
 
 // Stage a (BN, D) key-side tile transposed: dst[d * KP + c]; rows past T
@@ -223,7 +170,7 @@ flash_fwd_kernel(const TI* __restrict__ q, const TI* __restrict__ k,
     for (int c = 0; c < DC; ++c) acc[a][c] = 0.f;
   }
   int j0, j1;
-  key_tiles(g, q_lo, &j0, &j1);
+  key_tiles<BM, BN>(g, q_lo, &j0, &j1);
   for (int j = j0; j < j1; ++j) {
     const int k_lo = j * BN;
     __syncthreads();                    // the last tile's readers are done
@@ -231,7 +178,7 @@ flash_fwd_kernel(const TI* __restrict__ q, const TI* __restrict__ k,
     stage_kv_t<TI, D>(Vt, vb, k_lo, T);
     stage_key_ok(kms, km, b, k_lo, T);
     __syncthreads();
-    const bool masked = tile_masked(g, q_lo, k_lo, km != nullptr);
+    const bool masked = tile_masked<BM, BN>(g, q_lo, k_lo, km != nullptr);
 
     float s[4][4];
 #pragma unroll
@@ -425,7 +372,7 @@ flash_bwd_kv_kernel(const TI* __restrict__ q, const TI* __restrict__ k,
     for (int e = 0; e < DC; ++e) dk_acc[a][e] = dv_acc[a][e] = 0.f;
 
   int i0, i1;
-  query_tiles(g, k_lo, &i0, &i1);
+  query_tiles<BM, BN>(g, k_lo, &i0, &i1);
   for (int i = i0; i < i1; ++i) {
     const int q_lo = i * BM;
     __syncthreads();
@@ -434,7 +381,7 @@ flash_bwd_kv_kernel(const TI* __restrict__ q, const TI* __restrict__ k,
     stage_rows(Ls, Dis, lse, di, (long)bh * T, q_lo, T);
     __syncthreads();
     bwd_scores<D>(Qs, dOs, Kt, Vt, Ls, Dis, kms, Ps, dSs, g, q_lo, k_lo,
-                  tile_masked(g, q_lo, k_lo, km != nullptr), scale);
+                  tile_masked<BM, BN>(g, q_lo, k_lo, km != nullptr), scale);
     __syncthreads();
     // dv += p^T dO, dk += ds^T q (scale applied at the end), this q tile's
     // terms summed on their own first, as in the forward
@@ -552,7 +499,7 @@ flash_bwd_q_kernel(const TI* __restrict__ q, const TI* __restrict__ k,
     for (int e = 0; e < DC; ++e) dq_acc[a][e] = 0.f;
 
   int j0, j1;
-  key_tiles(g, q_lo, &j0, &j1);
+  key_tiles<BM, BN>(g, q_lo, &j0, &j1);
   for (int j = j0; j < j1; ++j) {
     const int k_lo = j * BN;
     __syncthreads();
@@ -561,7 +508,7 @@ flash_bwd_q_kernel(const TI* __restrict__ q, const TI* __restrict__ k,
     stage_key_ok(kms, km, b, k_lo, T);
     __syncthreads();
     bwd_scores<D>(Qs, dOs, Kt, Vt, Ls, Dis, kms, Ps, dSs, g, q_lo, k_lo,
-                  tile_masked(g, q_lo, k_lo, km != nullptr), scale);
+                  tile_masked<BM, BN>(g, q_lo, k_lo, km != nullptr), scale);
     __syncthreads();
     float dq_t[4][DC];                  // this key tile's terms first
 #pragma unroll
@@ -597,14 +544,14 @@ flash_bwd_q_kernel(const TI* __restrict__ q, const TI* __restrict__ k,
 
 
 // ======================================================================
-// bf16 inputs: the same three kernels with the products of each tile on
-// the tensor cores (nvcuda::wmma 16x16x16 bf16 fragments, fp32
-// accumulators). 4 warps per CTA; in a (64 q, 64 key) tile warp w owns
-// query rows 16w..16w+15 for S = q k^T and dP = dO v^T, and (backward)
-// key rows 16w..16w+15 for dv and dk. The fp32 scores go through shared
-// memory, where two lanes per row apply the mask, the online softmax or
-// p and ds, and write p / ds back as bf16 for the next products (the
-// JAX kernels round p and ds to the input dtype there too, :153, :331).
+// bf16 inputs: K4 with the products of each tile on the tensor cores
+// (nvcuda::wmma 16x16x16 bf16 fragments, fp32 accumulators). 4 warps per
+// CTA; in a (64 q, 64 key) tile warp w owns query rows 16w..16w+15 for
+// S = q k^T, dP = dO v^T and dq, and key rows 16w..16w+15 for dv and dk.
+// The fp32 scores go through shared memory, where two lanes per row apply
+// the mask and form p and ds, and write them back as bf16 for the next
+// products (the JAX kernels round p and ds to the input dtype there too,
+// :331).
 // ======================================================================
 namespace wm = nvcuda::wmma;
 using bf16 = __nv_bfloat16;
@@ -661,110 +608,6 @@ __device__ __forceinline__ void tile_products(float* dst, const bf16* A,
   }
 }
 
-// ------------------------------------------------------------- K3, bf16
-template <int D>
-__global__ void __launch_bounds__(WT)
-flash_fwd_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                    const bf16* __restrict__ v, const int* __restrict__ km,
-                    bf16* __restrict__ o, float* __restrict__ lse, int H,
-                    int Hk, Geometry g, float scale) {
-  using L = TcLayout<D>;
-  const int nq = gridDim.x;
-  const int i = nq - 1 - blockIdx.x;     // the longest causal rows first
-  const int bh = blockIdx.y, b = bh / H, h = bh - b * H;
-  const int kvrow = b * Hk + h / (H / Hk);
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int T = g.T, q_lo = i * BM;
-
-  extern __shared__ __align__(128) unsigned char tc_smem[];
-  bf16* Qs = reinterpret_cast<bf16*>(tc_smem);        // BM x LDB
-  bf16* Ks = Qs + BM * L::LDB;                        // BN x LDB
-  bf16* Vs = Ks + BN * L::LDB;                        // BN x LDB
-  float* Ss = reinterpret_cast<float*>(Vs + BN * L::LDB);   // BM x LDS
-  bf16* Ps = reinterpret_cast<bf16*>(Ss + BM * L::LDS);     // BM x LDP
-  float* Os = reinterpret_cast<float*>(Ps + BM * L::LDP);   // BM x LDO
-  int* kms = reinterpret_cast<int*>(Os + BM * L::LDO);      // BN
-
-  stage_tile<D>(Qs, q + (long)bh * T * D, q_lo, T);
-  for (int e = threadIdx.x; e < BM * L::LDO; e += blockDim.x) Os[e] = 0.f;
-  __syncthreads();
-  const long kvbase = (long)kvrow * T * D;
-  // two lanes per score row: row r = lane / 2, columns 32 * (lane & 1) + c
-  const int row = 16 * warp + (lane >> 1), half = lane & 1;
-  const int qi = q_lo + row;
-  float m = DL4J_NEG_INF, l = 0.f;
-  int j0, j1;
-  key_tiles(g, q_lo, &j0, &j1);
-  for (int j = j0; j < j1; ++j) {
-    const int k_lo = j * BN;
-    __syncthreads();
-    stage_tile<D>(Ks, k + kvbase, k_lo, T);
-    stage_tile<D>(Vs, v + kvbase, k_lo, T);
-    stage_key_ok(kms, km, b, k_lo, T);
-    __syncthreads();
-    tile_products<D>(Ss, Qs, Ks, warp);
-    __syncwarp();
-    const bool masked = tile_masked(g, q_lo, k_lo, km != nullptr);
-    float* srow = Ss + row * L::LDS + 32 * half;
-    unsigned ok = 0xffffffffu;
-    float mx = DL4J_NEG_INF;
-#pragma unroll 8
-    for (int c = 0; c < 32; ++c) {
-      const int col = 32 * half + c;
-      if (masked && !visible(g, qi, k_lo + col, kms[col] != 0))
-        ok &= ~(1u << c);
-      const float sv = ((ok >> c) & 1u) ? srow[c] * scale : DL4J_NEG_INF;
-      srow[c] = sv;
-      mx = fmaxf(mx, sv);
-    }
-    const float m_new = fmaxf(m, fmaxf(mx, __shfl_xor_sync(0xffffffffu,
-                                                           mx, 1)));
-    bf16* prow = Ps + row * L::LDP + 32 * half;
-    float rs = 0.f;
-#pragma unroll 8
-    for (int c = 0; c < 32; ++c) {
-      const float p = ((ok >> c) & 1u) ? expf(srow[c] - m_new) : 0.f;
-      prow[c] = __float2bfloat16(p);
-      rs += p;
-    }
-    rs += __shfl_xor_sync(0xffffffffu, rs, 1);
-    const float alpha = expf(m - m_new);
-    l = l * alpha + rs;
-    m = m_new;
-    float* orow = Os + row * L::LDO + (D / 2) * half;
-#pragma unroll 8
-    for (int d = 0; d < D / 2; ++d) orow[d] *= alpha;
-    __syncwarp();
-    // O (this warp's rows) += P V
-#pragma unroll
-    for (int n = 0; n < L::NK; ++n) {
-      FragC acc;
-      wm::load_matrix_sync(acc, Os + 16 * warp * L::LDO + 16 * n, L::LDO,
-                           wm::mem_row_major);
-#pragma unroll
-      for (int kk = 0; kk < 4; ++kk) {
-        FragA a;
-        FragB bv;
-        wm::load_matrix_sync(a, Ps + 16 * warp * L::LDP + 16 * kk, L::LDP);
-        wm::load_matrix_sync(bv, Vs + 16 * kk * L::LDB + 16 * n, L::LDB);
-        wm::mma_sync(acc, a, bv, acc);
-      }
-      wm::store_matrix_sync(Os + 16 * warp * L::LDO + 16 * n, acc, L::LDO,
-                            wm::mem_row_major);
-    }
-    __syncwarp();
-  }
-  if (qi < T) {
-    const float inv = 1.f / fmaxf(l, 1e-30f);
-    const float* orow = Os + row * L::LDO + (D / 2) * half;
-    bf16* og = o + ((long)bh * T + qi) * D + (D / 2) * half;
-    for (int d = 0; d < D / 2; ++d) og[d] = __float2bfloat16(orow[d] * inv);
-    if (half == 0)
-      lse[(long)bh * T + qi] =
-          l > 0.f ? m + logf(fmaxf(l, 1e-30f)) : DL4J_NEG_INF;
-  }
-}
-
 // p and ds of this lane's half row from the fp32 S and dP tiles, as bf16
 // (p only where Pb is given).
 template <int D>
@@ -810,7 +653,7 @@ __device__ __forceinline__ void tc_write_rows(TO* out, const FragC* acc,
   __syncwarp();
 }
 
-// ------------------------------------- K4, and K5's dk/dv pass, bf16
+// --------------------------------------------------------- K4, bf16
 template <int D, bool WITH_DQ>
 __global__ void __launch_bounds__(WT)
 flash_bwd_kv_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
@@ -851,7 +694,7 @@ flash_bwd_kv_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     wm::fill_fragment(dv_acc[n], 0.f);
   }
   int i0, i1;
-  query_tiles(g, k_lo, &i0, &i1);
+  query_tiles<BM, BN>(g, k_lo, &i0, &i1);
   for (int i = i0; i < i1; ++i) {
     const int q_lo = i * BM;
     __syncthreads();
@@ -863,7 +706,7 @@ flash_bwd_kv_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     tile_products<D>(dPs, dOs, Vs, warp);
     __syncwarp();
     tc_p_ds<D>(Ss, dPs, Ls, Dis, kms, Pb, dSb, g, q_lo, k_lo,
-               tile_masked(g, q_lo, k_lo, km != nullptr), scale);
+               tile_masked<BM, BN>(g, q_lo, k_lo, km != nullptr), scale);
     __syncthreads();                    // every row of p and ds is written
     // dv += p^T dO, dk += ds^T q over this q tile (key rows 16w..)
 #pragma unroll
@@ -911,79 +754,6 @@ flash_bwd_kv_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   tc_write_rows<bf16, D>(dv + base, dv_acc, 1.f, St, k_lo, T);
 }
 
-// ---------------------------------------------------- K5's dq pass, bf16
-template <int D>
-__global__ void __launch_bounds__(WT)
-flash_bwd_q_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                      const bf16* __restrict__ v, const int* __restrict__ km,
-                      const bf16* __restrict__ dout,
-                      const float* __restrict__ lse,
-                      const float* __restrict__ di, float* __restrict__ dq,
-                      int H, Geometry g, float scale) {
-  using L = TcLayout<D>;
-  const int nq = gridDim.x;
-  const int i = nq - 1 - blockIdx.x;
-  const int bh = blockIdx.y, b = bh / H;
-  const int warp = threadIdx.x >> 5;
-  const int T = g.T, q_lo = i * BM;
-
-  extern __shared__ __align__(128) unsigned char tc_smem[];
-  bf16* Ks = reinterpret_cast<bf16*>(tc_smem);
-  bf16* Vs = Ks + BN * L::LDB;
-  bf16* Qs = Vs + BN * L::LDB;
-  bf16* dOs = Qs + BM * L::LDB;
-  float* Ss = reinterpret_cast<float*>(dOs + BM * L::LDB);
-  float* dPs = Ss + BM * L::LDS;
-  bf16* Pb = reinterpret_cast<bf16*>(dPs + BM * L::LDS);
-  bf16* dSb = Pb + BM * L::LDP;
-  float* Ls = reinterpret_cast<float*>(dSb + BM * L::LDP);
-  float* Dis = Ls + BM;
-  int* kms = reinterpret_cast<int*>(Dis + BM);
-
-  const long base = (long)bh * T * D;
-  stage_tile<D>(Qs, q + base, q_lo, T);
-  stage_tile<D>(dOs, dout + base, q_lo, T);
-  stage_rows(Ls, Dis, lse, di, (long)bh * T, q_lo, T);
-  FragC dq_acc[L::NK];                  // q rows 16w.., all of D
-#pragma unroll
-  for (int n = 0; n < L::NK; ++n) wm::fill_fragment(dq_acc[n], 0.f);
-  int j0, j1;
-  key_tiles(g, q_lo, &j0, &j1);
-  for (int j = j0; j < j1; ++j) {
-    const int k_lo = j * BN;
-    __syncthreads();
-    stage_tile<D>(Ks, k + base, k_lo, T);
-    stage_tile<D>(Vs, v + base, k_lo, T);
-    stage_key_ok(kms, km, b, k_lo, T);
-    __syncthreads();
-    tile_products<D>(Ss, Qs, Ks, warp);
-    tile_products<D>(dPs, dOs, Vs, warp);
-    __syncwarp();
-    tc_p_ds<D>(Ss, dPs, Ls, Dis, kms, nullptr, dSb, g, q_lo, k_lo,
-               tile_masked(g, q_lo, k_lo, km != nullptr), scale);
-    __syncwarp();                       // this warp's ds rows are written
-#pragma unroll
-    for (int n = 0; n < L::NK; ++n)
-#pragma unroll
-      for (int kk = 0; kk < 4; ++kk) {
-        FragA sa;
-        FragB kb;
-        wm::load_matrix_sync(sa, dSb + 16 * warp * L::LDP + 16 * kk, L::LDP);
-        wm::load_matrix_sync(kb, Ks + 16 * kk * L::LDB + 16 * n, L::LDB);
-        wm::mma_sync(dq_acc[n], sa, kb, dq_acc[n]);
-      }
-  }
-  __syncthreads();
-  tc_write_rows<float, D>(dq + base, dq_acc, scale, Ss, q_lo, T);
-}
-
-template <int D>
-constexpr size_t fwd_tc_smem() {
-  using L = TcLayout<D>;
-  return 2 * (BM + 2 * BN) * L::LDB + 4 * BM * L::LDS + 2 * BM * L::LDP +
-         4 * BM * L::LDO + 4 * BN;
-}
-
 template <int D>
 constexpr size_t bwd_tc_smem() {
   using L = TcLayout<D>;
@@ -1014,29 +784,26 @@ constexpr size_t bwd_smem() {
          sizeof(int) * BN;
 }
 
-// The kernels for TI: the tensor-core ones for bf16, the CUDA-core ones
-// for fp32 (wmma has no fp32 product short of TF32, which would miss the
-// fp32 tolerance).
+// fp32 inputs only: the bf16 forward is flash_attention_sm90.cu's.
 template <typename TI, int D>
 int launch_fwd(const void* q, const void* k, const void* v, const int* km,
                void* o, float* lse, int B, int H, int Hk, Geometry g,
                float scale, cudaStream_t st) {
-  constexpr bool tc = std::is_same<TI, bf16>::value;
-  constexpr size_t smem = tc ? fwd_tc_smem<D>() : fwd_smem<D>();
-  auto kern = [] {
-    if constexpr (tc) return flash_fwd_tc_kernel<D>;
-    else return flash_fwd_kernel<TI, D>;
-  }();
+  constexpr size_t smem = fwd_smem<D>();
+  auto kern = flash_fwd_kernel<TI, D>;
   int err = prepare(kern, smem);
   if (err) return err;
   dim3 grid((g.T + BM - 1) / BM, B * H);
-  kern<<<grid, tc ? WT : NT, smem, st>>>(
+  kern<<<grid, NT, smem, st>>>(
       static_cast<const TI*>(q), static_cast<const TI*>(k),
       static_cast<const TI*>(v), km, static_cast<TI*>(o), lse, H, Hk, g,
       scale);
   return (int)cudaGetLastError();
 }
 
+// The backward kernels for TI: for fp32 the CUDA-core K4 and K5 (wmma has
+// no fp32 product short of TF32, which would miss the fp32 tolerance); for
+// bf16 the tensor-core K4 only (bf16 K5 is flash_attention_sm90.cu's).
 template <typename TI, int D>
 int launch_bwd(const void* q, const void* k, const void* v, const int* km,
                const void* dout, const float* lse, const float* di,
@@ -1053,51 +820,46 @@ int launch_bwd(const void* q, const void* k, const void* v, const int* km,
   TI* dv_ = static_cast<TI*>(dv);
   dim3 grid_k((g.T + BN - 1) / BN, B * H);
   dim3 grid_q((g.T + BM - 1) / BM, B * H);
-  auto kv = [](auto with_dq) {
-    if constexpr (tc) return flash_bwd_kv_tc_kernel<D, decltype(with_dq)::value>;
-    else return flash_bwd_kv_kernel<TI, D, decltype(with_dq)::value>;
-  };
   int err;
   if (!two_pass) {
-    auto kern = kv(std::true_type{});
+    auto kern = [] {
+      if constexpr (tc) return flash_bwd_kv_tc_kernel<D, true>;
+      else return flash_bwd_kv_kernel<TI, D, true>;
+    }();
     if ((err = prepare(kern, smem))) return err;
     kern<<<grid_k, threads, smem, st>>>(q_, k_, v_, km, do_, lse, di, dq,
                                         dk_, dv_, H, g, scale);
     return (int)cudaGetLastError();
   }
-  auto kq = [] {
-    if constexpr (tc) return flash_bwd_q_tc_kernel<D>;
-    else return flash_bwd_q_kernel<TI, D>;
-  }();
-  if ((err = prepare(kq, smem))) return err;
-  kq<<<grid_q, threads, smem, st>>>(q_, k_, v_, km, do_, lse, di, dq, H, g,
-                                    scale);
-  if ((err = (int)cudaGetLastError())) return err;
-  auto kkv = kv(std::false_type{});
-  if ((err = prepare(kkv, smem))) return err;
-  kkv<<<grid_k, threads, smem, st>>>(q_, k_, v_, km, do_, lse, di, nullptr,
-                                     dk_, dv_, H, g, scale);
-  return (int)cudaGetLastError();
+  if constexpr (tc) {
+    return (int)cudaErrorInvalidValue;
+  } else {
+    auto kq = flash_bwd_q_kernel<TI, D>;
+    if ((err = prepare(kq, smem))) return err;
+    kq<<<grid_q, threads, smem, st>>>(q_, k_, v_, km, do_, lse, di, dq, H,
+                                      g, scale);
+    if ((err = (int)cudaGetLastError())) return err;
+    auto kkv = flash_bwd_kv_kernel<TI, D, false>;
+    if ((err = prepare(kkv, smem))) return err;
+    kkv<<<grid_k, threads, smem, st>>>(q_, k_, v_, km, do_, lse, di,
+                                       nullptr, dk_, dv_, H, g, scale);
+    return (int)cudaGetLastError();
+  }
 }
 
 }  // namespace
 
-// dtype codes: 0 float32, 2 bfloat16. Head dims 16, 32, 64, 128. Return a
-// cudaError_t code (0 on success). They allocate nothing and do not
-// synchronize: the kernels launch on `stream`.
-#define DL4J_DISPATCH(FN, ...)                                     \
+// dtype codes: 0 float32, 2 bfloat16 (the forward and two_pass take
+// float32 only here; their bf16 kernels are flash_attention_sm90.cu's).
+// Head dims 16, 32, 64, 128. Return a cudaError_t code (0 on success).
+// They allocate nothing and do not synchronize: the kernels launch on
+// `stream`.
+#define DL4J_DISPATCH_D(FN, TI, ...)                               \
   {                                                                \
-    if (dtype == 0) {                                              \
-      if (D == 16) return FN<float, 16>(__VA_ARGS__);              \
-      if (D == 32) return FN<float, 32>(__VA_ARGS__);              \
-      if (D == 64) return FN<float, 64>(__VA_ARGS__);              \
-      if (D == 128) return FN<float, 128>(__VA_ARGS__);            \
-    } else if (dtype == 2) {                                       \
-      if (D == 16) return FN<__nv_bfloat16, 16>(__VA_ARGS__);      \
-      if (D == 32) return FN<__nv_bfloat16, 32>(__VA_ARGS__);      \
-      if (D == 64) return FN<__nv_bfloat16, 64>(__VA_ARGS__);      \
-      if (D == 128) return FN<__nv_bfloat16, 128>(__VA_ARGS__);    \
-    }                                                              \
+    if (D == 16) return FN<TI, 16>(__VA_ARGS__);                   \
+    if (D == 32) return FN<TI, 32>(__VA_ARGS__);                   \
+    if (D == 64) return FN<TI, 64>(__VA_ARGS__);                   \
+    if (D == 128) return FN<TI, 128>(__VA_ARGS__);                 \
     return (int)cudaErrorInvalidValue;                             \
   }
 
@@ -1108,10 +870,12 @@ extern "C" int dl4j_flash_fwd(const void* q, const void* k, const void* v,
                               void* stream) {
   if (T <= 0 || B <= 0 || H <= 0) return 0;
   if (Hk <= 0 || H % Hk != 0) return (int)cudaErrorInvalidValue;
+  if (dtype != 0) return (int)cudaErrorInvalidValue;
   const Geometry g{T, causal, window};
-  DL4J_DISPATCH(launch_fwd, q, k, v, static_cast<const int*>(key_mask), o,
-                static_cast<float*>(lse), B, H, Hk, g, scale,
-                static_cast<cudaStream_t>(stream));
+  DL4J_DISPATCH_D(launch_fwd, float, q, k, v,
+                  static_cast<const int*>(key_mask), o,
+                  static_cast<float*>(lse), B, H, Hk, g, scale,
+                  static_cast<cudaStream_t>(stream));
 }
 
 extern "C" int dl4j_flash_bwd(const void* q, const void* k, const void* v,
@@ -1122,10 +886,21 @@ extern "C" int dl4j_flash_bwd(const void* q, const void* k, const void* v,
                               float scale, void* stream) {
   if (T <= 0 || B <= 0 || H <= 0) return 0;
   const Geometry g{T, causal, window};
-  DL4J_DISPATCH(launch_bwd, q, k, v, static_cast<const int*>(key_mask), dout,
-                static_cast<const float*>(lse), static_cast<const float*>(di),
-                static_cast<float*>(dq), dk, dv, B, H, g, two_pass, scale,
-                static_cast<cudaStream_t>(stream));
+  if (dtype == 0)
+    DL4J_DISPATCH_D(launch_bwd, float, q, k, v,
+                    static_cast<const int*>(key_mask), dout,
+                    static_cast<const float*>(lse),
+                    static_cast<const float*>(di), static_cast<float*>(dq),
+                    dk, dv, B, H, g, two_pass, scale,
+                    static_cast<cudaStream_t>(stream));
+  if (dtype == 2 && !two_pass)
+    DL4J_DISPATCH_D(launch_bwd, __nv_bfloat16, q, k, v,
+                    static_cast<const int*>(key_mask), dout,
+                    static_cast<const float*>(lse),
+                    static_cast<const float*>(di), static_cast<float*>(dq),
+                    dk, dv, B, H, g, two_pass, scale,
+                    static_cast<cudaStream_t>(stream));
+  return (int)cudaErrorInvalidValue;
 }
 
 extern "C" const char* dl4j_flash_error_string(int code) {

@@ -1,0 +1,1273 @@
+// Flash attention on Hopper's wgmma and TMA (sm_90a) for bf16 inputs: the
+// forward (K3) and both passes of the two-pass backward (K5). fp32 inputs,
+// and the fused backward K4, stay with flash_attention.cu.
+//
+// Replaces the Pallas kernels of deeplearning4j_tpu/ops/flash_attention.py:
+//   - flash_fwd_sm90_kernel: K3, `_call_fwd` (:448) with body `_fwd_kernel`
+//     (:123): the online-softmax forward, o and the row log-sum-exp L;
+//   - flash_dq_sm90_kernel: K5's dq pass, `_dq_kernel` (:262);
+//   - flash_dkv_sm90_kernel: K5's dk/dv pass, `_dkv_kernel` (:301).
+// Layout: q (B*H, T, D), k/v (B*Hk, T, D) bf16 row-major; L and D_i
+// (B*H, T) fp32; key mask (B, T) int32 or null; dq (B*H, T, D) fp32, dk/dv
+// bf16. Query head h reads kv row b*Hk + h / (H/Hk) (GQA, forward only).
+// They compute what the wmma kernels they replace computed, under the same
+// masks and at the same rounding points: scores in fp32 scaled after the
+// dot, p masked before the exp, p rounded to bf16 for P V and dv, dS =
+// p (dP - D_i) rounded to bf16 for dq and dk (:153, :331), every sum in
+// fp32, o = acc / l and dk = scale dS^T q rounded to bf16 once at the end.
+// Rows with no visible key give o = 0 and L = NEG_INF (:161-169). The
+// exponentials are taken base 2 with the scale folded in, exp(scale s -
+// m) = 2^(s scale log2(e) - m log2(e)), on the MUFU unit (ex2.approx).
+//
+// What bounds them on the H100: operations. At the training shape (B*H
+// 16, T 8192, D 64, causal, 33,558,528 visible pairs per head) the forward
+// does 2 products over the visible pairs, 137.5 GFLOP: 0.139 ms at 989
+// TFLOP/s of bf16 tensor cores, against 0.020 ms for its bytes at 3.35
+// TB/s. The backward's function is 5 products (0.347 ms); the two-pass
+// design recomputes S and dP in its second pass, 7 (0.486 ms). Beside the
+// tensor cores, the exponentials: one per visible pair and pass, at 16 a
+// clock per SM, take as long as the forward's two products at D 64.
+//
+// What the design does about it: every product is a warpgroup wgmma with
+// fp32 accumulators in registers, and nothing else goes through shared
+// memory. Each CTA has two consumer warpgroups of 64 rows and a producer
+// warpgroup, of which one warp works; setmaxnreg moves registers from the
+// producer (40) to the consumers (232). The producer streams the tiles of
+// the inner loop by TMA into a three-stage ring of swizzled shared-memory
+// tiles (a "full" and an "empty" mbarrier per stage), so the next tile
+// loads while this one is multiplied; the fixed operand of the CTA is
+// loaded once. The consumers run two shapes of product only:
+//   - "SS": both operands in shared memory, both K-major (the head dim
+//     contiguous): S = Q K^T, dP = dO V^T, and transposed S^T = K Q^T,
+//     dP^T = V dO^T;
+//   - "RS": A from registers, B from shared memory with N = D contiguous
+//     (wgmma's transpose bit, no transpose pass): O += P V, dq += dS K,
+//     dv += P^T dO, dk += dS^T Q.
+// An fp32 accumulator of m64nN wgmma holds, in thread t of the warpgroup
+// (warp w, lane l), rows 16w + l/4 (+8) and columns 8i + 2(l%4) + {0, 1};
+// for 16-bit types that is the A-fragment layout of the next product, k16
+// slice by k16 slice, so softmax, P and dS stay in registers: the row max
+// and sum are taken over the lane quad with two shuffles, the per-element
+// `visible` test runs only on tiles where `tile_masked` is true (the
+// others take a copy of the pass without it), and the online-softmax
+// rescale of O happens in registers. The dk/dv pass is written in
+// transposed form (rows = keys) so that P^T and dS^T come out of the
+// accumulators in the A layout as well; it reads L and D_i by column from
+// a per-stage copy in shared memory. The two consumer warpgroups take
+// turns at the tensor cores (two named barriers), so that one's register
+// pass (exponentials) runs while the other's products do. In the forward
+// a warpgroup's register pass of tile t also runs while its own P V of
+// tile t - 1 is in flight: p is written over the scores in place and
+// packed into A fragments once P V is done. The backward passes do not:
+// the dq pass then spills at D 64 (S, dP, dS and dq live at once), and
+// the dk/dv pass measured slower. No atomics: dq, dk and dv are each
+// summed in one CTA and written once, so every output is bitwise the
+// same from run to run.
+//
+// Tiles: the forward takes 128 q rows per CTA and key tiles of 128 (D <=
+// 64) or 64 (D 128) keys; the dq pass 128 q rows and key tiles of the same
+// sizes; the dk/dv pass 128 keys per CTA and q tiles of 64 (32 at D 128,
+// to keep dk, dv, S^T and dP^T in registers). TMA maps are 3-D (D, T,
+// rows), so a box that runs past T is zero-filled instead of reading the
+// next head; D 16/32/64 rows are one box with 32/64/128-byte swizzle, D
+// 128 is two 64-column boxes.
+#include <cuda.h>
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+#include "flash_common.cuh"
+
+namespace {
+
+using bf16 = __nv_bfloat16;
+
+constexpr int NCWG = 2;                  // consumer warpgroups per CTA
+constexpr int NC = 128 * NCWG;           // consumer threads
+constexpr int NT = NC + 128;             // and a producer warpgroup
+constexpr int PRODUCER_REGS = 40;        // setmaxnreg: the producer gives
+constexpr int CONSUMER_REGS = 232;       // registers to the consumers
+constexpr int STAGES = 3;                // depth of the TMA ring
+constexpr int ROWS = 64 * NCWG;          // CTA rows: q (K3, dq), keys (dk/dv)
+
+// errors of the tensor-map encoder, beside the cudaError_t codes
+constexpr int kNoEncoder = 1001;
+constexpr int kBadMap = 1002;
+
+// ------------------------------------------------------------- PTX helpers
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ unsigned char* align1024(unsigned char* p) {
+  return p + ((1024u - (smem_u32(p) & 1023u)) & 1023u);
+}
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(
+                   smem_u32(bar)),
+               "r"(count)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_fence_init() {
+  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+}
+
+// arrive once and add `bytes` to the transaction count the phase waits for
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar,
+                                               uint32_t bytes) {
+  asm volatile(
+      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
+          smem_u32(bar)),
+      "r"(bytes)
+      : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(
+                   smem_u32(bar))
+               : "memory");
+}
+
+// wait until the phase of parity `parity` has completed
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+  const uint32_t a = smem_u32(bar);
+  uint32_t done;
+  do {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(a), "r"(parity)
+        : "memory");
+  } while (!done);
+}
+
+// one TMA box of a 3-D map, {c0, c1, c2} = (column, row, head row)
+__device__ __forceinline__ void tma_load(void* dst, const CUtensorMap* map,
+                                         uint64_t* bar, int c0, int c1,
+                                         int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0),
+      "r"(c1), "r"(c2)
+      : "memory");
+}
+
+// Registers per thread of this warpgroup from here on (all its warps).
+template <int N>
+__device__ __forceinline__ void regs_dec() {
+  asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(N));
+}
+template <int N>
+__device__ __forceinline__ void regs_inc() {
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(N));
+}
+
+// The two consumer warpgroups take turns at the tensor cores: warpgroup wg
+// starts its products between turn_wait (named barrier 1 + wg) and
+// turn_pass (barrier 2 - wg, the other's), so that one's register pass
+// runs while the other's products do.
+__device__ __forceinline__ void turn_wait(int wg) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(1 + wg), "n"(NC) : "memory");
+}
+__device__ __forceinline__ void turn_pass(int wg) {
+  asm volatile("bar.arrive %0, %1;\n" ::"r"(2 - wg), "n"(NC) : "memory");
+}
+
+__device__ __forceinline__ void wg_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wg_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+// wait until at most N committed groups of products are in flight
+template <int N>
+__device__ __forceinline__ void wg_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+
+// keep the compiler from moving accumulator registers across the
+// asynchronous products
+template <int N>
+__device__ __forceinline__ void fence_regs(float (&d)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+template <int N>
+__device__ __forceinline__ void zero(float (&d)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) d[i] = 0.f;
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+// an m64 x N fp32 accumulator as the bf16 A fragments of the next product
+template <int N>
+__device__ __forceinline__ void pack_a(const float (&x)[N / 2],
+                                       uint32_t (&a)[N / 4]) {
+#pragma unroll
+  for (int e = 0; e < N / 2; e += 2) a[e / 2] = pack_bf16(x[e], x[e + 1]);
+}
+
+__device__ __forceinline__ float quad_max(float x) {
+  x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 1));
+  return fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 2));
+}
+__device__ __forceinline__ float quad_sum(float x) {
+  x += __shfl_xor_sync(0xffffffffu, x, 1);
+  return x + __shfl_xor_sync(0xffffffffu, x, 2);
+}
+
+// 2^x on the MUFU unit (ex2.approx, denormals flushed): 2^-1e30 = +0
+__device__ __forceinline__ float exp2_fast(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+constexpr float LOG2E = 1.4426950408889634f;
+constexpr float LN2 = 0.6931471805599453f;
+
+// ------------------------------------------------ wgmma and its operands
+// Shared-memory tiles are TMA boxes of COLS columns: a (rows, D) tile is
+// NBOX boxes of (rows, COLS), each with rows of RB bytes, swizzled at RB.
+template <int D>
+struct Box {
+  static constexpr int COLS = D < 64 ? D : 64;
+  static constexpr int RB = 2 * COLS;          // 32, 64 or 128 bytes
+  static constexpr int NBOX = D / COLS;        // 1, or 2 at D 128
+  static constexpr int SPB = RB / 32;          // k16 slices in a box row
+  // wgmma descriptor layout: 1 = 128-byte, 2 = 64-byte, 3 = 32-byte swizzle
+  static constexpr uint64_t LAYOUT = RB == 128 ? 1 : RB == 64 ? 2 : 3;
+};
+
+__device__ __forceinline__ uint64_t gmma_desc(uint32_t addr, uint32_t lbo,
+                                              uint32_t sbo, uint64_t layout) {
+  return (uint64_t)((addr & 0x3FFFFu) >> 4) |
+         ((uint64_t)((lbo >> 4) & 0x3FFFu) << 16) |
+         ((uint64_t)((sbo >> 4) & 0x3FFFu) << 32) | (layout << 62);
+}
+
+// K-major operand: rows [row0, row0 + 64) (A) or all rows (B) of an R-row
+// tile at `tile`, k16 slice kk of the head dim. The 8-row groups are 8 RB
+// bytes apart (SBO); a k16 slice is 32 bytes along the swizzled row.
+template <int D, int R>
+__device__ __forceinline__ uint64_t desc_k(uint32_t tile, int row0, int kk) {
+  using X = Box<D>;
+  return gmma_desc(tile + (kk / X::SPB) * R * X::RB + row0 * X::RB +
+                       (kk % X::SPB) * 32,
+                   16, 8 * X::RB, X::LAYOUT);
+}
+
+// B operand with N = D contiguous (transposed), K = the tile's rows, k16
+// slice kk = rows 16 kk..16 kk + 15 of an R-row tile: 8-row groups 8 RB
+// bytes apart (SBO), 64-column boxes R RB bytes apart (LBO).
+template <int D, int R>
+__device__ __forceinline__ uint64_t desc_mn(uint32_t tile, int kk) {
+  using X = Box<D>;
+  return gmma_desc(tile + kk * 16 * X::RB, R * X::RB, 8 * X::RB, X::LAYOUT);
+}
+
+// d (m64 x N, fp32) += A B over one k16 slice: "SS" with A and B K-major
+// in shared memory (acc = 0 overwrites d), "RS" with A as four bf16x2
+// registers and B transposed in shared memory.
+template <int N>
+__device__ __forceinline__ void wgmma_ss(float (&d)[N / 2], uint64_t a,
+                                         uint64_t b, int acc);
+template <int N>
+__device__ __forceinline__ void wgmma_rs(float (&d)[N / 2], const uint32_t* a,
+                                         uint64_t b, int acc);
+
+template <>
+__device__ __forceinline__ void wgmma_rs<16>(float (&d)[8],
+                                             const uint32_t* a, uint64_t b,
+                                             int acc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %13, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7"
+      "}, {%8, %9, %10, %11}, %12, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(acc));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_ss<32>(float (&d)[16], uint64_t a,
+                                             uint64_t b, int acc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7,"
+      "%8, %9, %10, %11, %12, %13, %14, %15"
+      "}, %16, %17, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "l"(a), "l"(b), "r"(acc));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_rs<32>(float (&d)[16],
+                                             const uint32_t* a, uint64_t b,
+                                             int acc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7,"
+      "%8, %9, %10, %11, %12, %13, %14, %15"
+      "}, {%16, %17, %18, %19}, %20, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(acc));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_ss<64>(float (&d)[32], uint64_t a,
+                                             uint64_t b, int acc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7,"
+      "%8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23,"
+      "%24, %25, %26, %27, %28, %29, %30, %31"
+      "}, %32, %33, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(a), "l"(b), "r"(acc));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_rs<64>(float (&d)[32],
+                                             const uint32_t* a, uint64_t b,
+                                             int acc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7,"
+      "%8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23,"
+      "%24, %25, %26, %27, %28, %29, %30, %31"
+      "}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(acc));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_ss<128>(float (&d)[64], uint64_t a,
+                                             uint64_t b, int acc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7,"
+      "%8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23,"
+      "%24, %25, %26, %27, %28, %29, %30, %31,"
+      "%32, %33, %34, %35, %36, %37, %38, %39,"
+      "%40, %41, %42, %43, %44, %45, %46, %47,"
+      "%48, %49, %50, %51, %52, %53, %54, %55,"
+      "%56, %57, %58, %59, %60, %61, %62, %63"
+      "}, %64, %65, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(a), "l"(b), "r"(acc));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_rs<128>(float (&d)[64],
+                                             const uint32_t* a, uint64_t b,
+                                             int acc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7,"
+      "%8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23,"
+      "%24, %25, %26, %27, %28, %29, %30, %31,"
+      "%32, %33, %34, %35, %36, %37, %38, %39,"
+      "%40, %41, %42, %43, %44, %45, %46, %47,"
+      "%48, %49, %50, %51, %52, %53, %54, %55,"
+      "%56, %57, %58, %59, %60, %61, %62, %63"
+      "}, {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(acc));
+}
+
+
+// The two shapes every product of the three kernels takes, over the whole
+// k extent: d = A B^T with A rows [a_row0, a_row0 + 64) of an R-row tile
+// and B the N-row tile, both K-major, K = D ("SS"); d += A B with A the
+// m64 x K bf16 fragments in registers and B a K-row tile, N = D ("RS").
+template <int D, int R, int N>
+__device__ __forceinline__ void ss_product(float (&d)[N / 2], uint32_t a,
+                                           int a_row0, uint32_t b) {
+#pragma unroll
+  for (int kk = 0; kk < D / 16; ++kk)
+    wgmma_ss<N>(d, desc_k<D, R>(a, a_row0, kk), desc_k<D, N>(b, 0, kk),
+                kk > 0);
+}
+
+template <int D, int K>
+__device__ __forceinline__ void rs_product(float (&d)[D / 2],
+                                           const uint32_t (&a)[K / 4],
+                                           uint32_t b) {
+#pragma unroll
+  for (int kk = 0; kk < K / 16; ++kk)
+    wgmma_rs<D>(d, a + 4 * kk, desc_mn<D, K>(b, kk), 1);
+}
+
+// ------------------------------------------ the per-tile register passes
+// Every exponent is taken base 2 with the scale folded in: c = scale
+// log2(e), so exp(scale s - m) = 2^(c s - m log2 e), one FMUL or FFMA and a
+// MUFU.EX2 per score. A masked score gets the exponent NEG_INF, whose 2^x
+// is exactly 0: p is masked before the exp, with no branch. MASKED tiles
+// (edges, key mask) test `visible` per element; the others do not.
+
+// Online softmax of an m64 x BN score tile held as the accumulator of this
+// thread (rows qi0 and qi0 + 8, columns 8 e / 4 + cq + {0, 1}), in log2
+// units: scores scaled, masked, the row max over the lane quad; p = 2^(s -
+// m) written over the scores; the running max m and sum l updated, and
+// al = 2^(m_old - m_new) returned for the rows' accumulators.
+template <bool MASKED, int BN>
+__device__ __forceinline__ void online_softmax(
+    float (&sc)[BN / 2], float (&m)[2], float (&l)[2], float (&al)[2],
+    float c, const Geometry& g, int qi0, int k_lo, const int* kmk, int cq) {
+  float mx[2] = {DL4J_NEG_INF, DL4J_NEG_INF};
+#pragma unroll
+  for (int e = 0; e < BN / 2; ++e) {
+    const int r = (e >> 1) & 1;
+    float x = sc[e] * c;
+    if (MASKED) {
+      const int col = 8 * (e >> 2) + cq + (e & 1);
+      if (!visible(g, qi0 + 8 * r, k_lo + col, kmk[col] != 0))
+        x = DL4J_NEG_INF;
+    }
+    sc[e] = x;
+    mx[r] = fmaxf(mx[r], x);
+  }
+  float mu[2], rs[2] = {0.f, 0.f};
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const float mn = fmaxf(m[r], quad_max(mx[r]));
+    // a row with no visible key yet keeps m = NEG_INF; its exponents are
+    // taken from 0, so that its masked scores give 2^NEG_INF = 0
+    mu[r] = (MASKED && mn == DL4J_NEG_INF) ? 0.f : mn;
+    al[r] = exp2_fast(m[r] - mu[r]);
+    m[r] = mn;
+  }
+#pragma unroll
+  for (int e = 0; e < BN / 2; e += 2) {
+    const int r = (e >> 1) & 1;
+    sc[e] = exp2_fast(sc[e] - mu[r]);
+    sc[e + 1] = exp2_fast(sc[e + 1] - mu[r]);
+    rs[r] += sc[e] + sc[e + 1];
+  }
+#pragma unroll
+  for (int r = 0; r < 2; ++r) l[r] = l[r] * al[r] + quad_sum(rs[r]);
+}
+
+// dS = p (dP - D_i) of an m64 x BN tile of the dq pass as bf16 A
+// fragments, p = 2^(c s - L log2 e); rows qi0 and qi0 + 8 with L2 = L
+// log2(e) and D_i in registers.
+template <bool MASKED, int BN>
+__device__ __forceinline__ void dq_ds(const float (&sc)[BN / 2],
+                                      const float (&dp)[BN / 2],
+                                      uint32_t (&da)[BN / 4], float c,
+                                      const float (&L2)[2],
+                                      const float (&Dr)[2],
+                                      const Geometry& g, int qi0, int k_lo,
+                                      const int* kmk, int cq) {
+#pragma unroll
+  for (int e = 0; e < BN / 2; e += 2) {
+    const int r = (e >> 1) & 1, col = 8 * (e >> 2) + cq;
+    float ds[2];
+#pragma unroll
+    for (int u = 0; u < 2; ++u) {
+      float x = fmaf(sc[e + u], c, -L2[r]);
+      if (MASKED && !visible(g, qi0 + 8 * r, k_lo + col + u,
+                             kmk[col + u] != 0))
+        x = DL4J_NEG_INF;
+      ds[u] = exp2_fast(x) * (dp[e + u] - Dr[r]);
+    }
+    da[e / 2] = pack_bf16(ds[0], ds[1]);
+  }
+}
+
+// P^T and dS^T of an m64 (keys) x BQ (queries) tile of the dk/dv pass as
+// bf16 A fragments; L2 = L log2(e) and D_i by column from shared memory;
+// rows (keys) kj0 and kj0 + 8 with their key-ok flags ko.
+template <bool MASKED, int BQ>
+__device__ __forceinline__ void dkv_p_ds(const float (&st)[BQ / 2],
+                                         const float (&dpt)[BQ / 2],
+                                         uint32_t (&pa)[BQ / 4],
+                                         uint32_t (&da)[BQ / 4], float c,
+                                         const float* L2q, const float* Dq,
+                                         const Geometry& g, int q_lo,
+                                         int kj0, const bool (&ko)[2],
+                                         int cq) {
+#pragma unroll
+  for (int e = 0; e < BQ / 2; e += 2) {
+    const int r = (e >> 1) & 1, col = 8 * (e >> 2) + cq;
+    const float2 L2 = *reinterpret_cast<const float2*>(L2q + col);
+    const float2 Di = *reinterpret_cast<const float2*>(Dq + col);
+    float p[2], ds[2];
+#pragma unroll
+    for (int u = 0; u < 2; ++u) {
+      float x = fmaf(st[e + u], c, -(u ? L2.y : L2.x));
+      if (MASKED && !visible(g, q_lo + col + u, kj0 + 8 * r, ko[r]))
+        x = DL4J_NEG_INF;
+      p[u] = exp2_fast(x);
+      ds[u] = p[u] * (dpt[e + u] - (u ? Di.y : Di.x));
+    }
+    pa[e / 2] = pack_bf16(p[0], p[1]);
+    da[e / 2] = pack_bf16(ds[0], ds[1]);
+  }
+}
+
+// ------------------------------------------------------------------ K3
+template <int D>
+struct FwdTiles {
+  static constexpr int BM = ROWS;                 // q rows per CTA
+  static constexpr int BN = D <= 64 ? 128 : 64;   // keys per tile
+  static constexpr int QBYTES = BM * D * 2;
+  static constexpr int KBYTES = BN * D * 2;
+  static constexpr int K_OFF = QBYTES;
+  static constexpr int V_OFF = K_OFF + STAGES * KBYTES;
+  static constexpr int KM_OFF = V_OFF + STAGES * KBYTES;
+  static constexpr int BAR_OFF = KM_OFF + STAGES * BN * 4;
+  static constexpr int SMEM = BAR_OFF + 8 * (1 + 2 * STAGES) + 1024;
+};
+
+template <int D>
+__global__ void __launch_bounds__(NT, 1)
+flash_fwd_sm90_kernel(const __grid_constant__ CUtensorMap tq,
+                      const __grid_constant__ CUtensorMap tk,
+                      const __grid_constant__ CUtensorMap tv,
+                      const int* __restrict__ km, bf16* __restrict__ o,
+                      float* __restrict__ lse, int H, int Hk, Geometry g,
+                      float scale) {
+  using C = FwdTiles<D>;
+  using X = Box<D>;
+  constexpr int BM = C::BM, BN = C::BN;
+  const int i = gridDim.x - 1 - blockIdx.x;   // the longest causal rows first
+  const int bh = blockIdx.y, b = bh / H, h = bh - b * H;
+  const int kvrow = b * Hk + h / (H / Hk);
+  const int T = g.T, q_lo = i * BM;
+
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* sm = align1024(smem_raw);
+  bf16* Qs = reinterpret_cast<bf16*>(sm);
+  bf16* Ks = reinterpret_cast<bf16*>(sm + C::K_OFF);
+  bf16* Vs = reinterpret_cast<bf16*>(sm + C::V_OFF);
+  int* kms = reinterpret_cast<int*>(sm + C::KM_OFF);
+  uint64_t* qbar = reinterpret_cast<uint64_t*>(sm + C::BAR_OFF);
+  uint64_t* full = qbar + 1;
+  uint64_t* empty = full + STAGES;
+  if (threadIdx.x == 0) {
+    mbar_init(qbar, 1);
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], NC);
+    }
+    mbar_fence_init();
+  }
+  __syncthreads();
+  int j0, j1;
+  key_tiles<BM, BN>(g, q_lo, &j0, &j1);
+  const int nt = j1 - j0;
+
+  if (threadIdx.x >= NC) {
+    // producer warpgroup (its first warp): Q once, then K, V and the
+    // key-ok flags of each tile
+    regs_dec<PRODUCER_REGS>();
+    if (threadIdx.x >= NC + 32) return;
+    const int lane = threadIdx.x & 31;
+    if (lane == 0) {
+      mbar_expect_tx(qbar, C::QBYTES);
+      for (int c = 0; c < X::NBOX; ++c)
+        tma_load(Qs + c * BM * X::COLS, &tq, qbar, c * X::COLS, q_lo, bh);
+    }
+    for (int n = 0; n < nt; ++n) {
+      const int s = n % STAGES, k_lo = (j0 + n) * BN;
+      mbar_wait(&empty[s], ((n / STAGES) & 1) ^ 1);
+      for (int c = lane; c < BN; c += 32) {
+        const int kj = k_lo + c;
+        kms[s * BN + c] =
+            kj < T && (km == nullptr || km[(long)b * T + kj] != 0);
+      }
+      __syncwarp();
+      if (lane == 0) {
+        mbar_expect_tx(&full[s], 2 * C::KBYTES);
+        for (int c = 0; c < X::NBOX; ++c) {
+          tma_load(Ks + s * BN * D + c * BN * X::COLS, &tk, &full[s],
+                   c * X::COLS, k_lo, kvrow);
+          tma_load(Vs + s * BN * D + c * BN * X::COLS, &tv, &full[s],
+                   c * X::COLS, k_lo, kvrow);
+        }
+      }
+    }
+  } else {
+    regs_inc<CONSUMER_REGS>();
+    // consumer warpgroup wg: q rows q_lo + 64 wg ..; this thread's rows
+    // qi0 and qi0 + 8, columns 8 e + cq + {0, 1} of every accumulator
+    const int wg = threadIdx.x >> 7, tw = threadIdx.x & 127;
+    const int lane = tw & 31, cq = 2 * (lane & 3);
+    const int q_wg = q_lo + 64 * wg;
+    const int qi0 = q_wg + 16 * (tw >> 5) + (lane >> 2);
+    const uint32_t qs = smem_u32(Qs);
+    const float c = scale * LOG2E;
+    float acc[D / 2];
+    zero(acc);
+    float m[2] = {DL4J_NEG_INF, DL4J_NEG_INF}, l[2] = {0.f, 0.f};
+    mbar_wait(qbar, 0);
+    // Turn 0 starts S = Q K^T of key tile 0; turn t in [1, nt) S of tile t
+    // and O += P V of tile t - 1; turn nt the last P V. The register pass
+    // of tile t runs while P V of tile t - 1 does: it turns S into p in
+    // place, and only once P V is done are O rescaled and p packed into
+    // the A fragments. nt >= 1: key_tiles is never empty. The loop is
+    // peeled so that no product is started under a condition (ptxas would
+    // serialize the products).
+    float sc[BN / 2];
+    uint32_t pa[BN / 4];
+    float al[2];
+    auto register_pass = [&](int n) {
+      const int k_lo = (j0 + n) * BN;
+      const int* kmk = kms + (n % STAGES) * BN;
+      if (tile_masked<64, BN>(g, q_wg, k_lo, km != nullptr))
+        online_softmax<true, BN>(sc, m, l, al, c, g, qi0, k_lo, kmk, cq);
+      else
+        online_softmax<false, BN>(sc, m, l, al, c, g, qi0, k_lo, kmk, cq);
+    };
+    const uint32_t ks = smem_u32(Ks), vs = smem_u32(Vs);
+    constexpr int TILE = BN * D * 2;            // bytes of a K or V stage
+    if (wg == 1) turn_pass(wg);                 // warpgroup 0 goes first
+    turn_wait(wg);
+    wg_fence();
+    mbar_wait(&full[0], 0);
+    ss_product<D, BM, BN>(sc, qs, 64 * wg, ks);
+    wg_commit();
+    turn_pass(wg);
+    wg_wait<0>();
+    fence_regs(sc);
+    register_pass(0);
+    pack_a<BN>(sc, pa);
+    for (int t = 1; t < nt; ++t) {
+      turn_wait(wg);
+      wg_fence();
+      mbar_wait(&full[t % STAGES], (t / STAGES) & 1);
+      ss_product<D, BM, BN>(sc, qs, 64 * wg, ks + (t % STAGES) * TILE);
+      wg_commit();
+      rs_product<D, BN>(acc, pa, vs + ((t - 1) % STAGES) * TILE);
+      wg_commit();
+      turn_pass(wg);
+      wg_wait<1>();
+      fence_regs(sc);
+      register_pass(t);
+      wg_wait<0>();
+      fence_regs(acc);
+      mbar_arrive(&empty[(t - 1) % STAGES]);
+#pragma unroll
+      for (int e = 0; e < D / 2; ++e) acc[e] *= al[(e >> 1) & 1];
+      pack_a<BN>(sc, pa);
+    }
+    turn_wait(wg);
+    wg_fence();
+    rs_product<D, BN>(acc, pa, vs + ((nt - 1) % STAGES) * TILE);
+    wg_commit();
+    if (wg == 0) turn_pass(wg);
+    wg_wait<0>();
+    fence_regs(acc);
+    bf16* ob = o + (long)bh * T * D;
+#pragma unroll
+    for (int e = 0; e < D / 2; e += 2) {
+      const int r = (e >> 1) & 1, qi = qi0 + 8 * r;
+      const float inv = 1.f / fmaxf(l[r], 1e-30f);
+      if (qi < T)
+        *reinterpret_cast<__nv_bfloat162*>(ob + (long)qi * D + 8 * (e >> 2) +
+                                           cq) =
+            __floats2bfloat162_rn(acc[e] * inv, acc[e + 1] * inv);
+    }
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      // L = m + log l, with m back from log2 units
+      if ((lane & 3) == 0 && qi0 + 8 * r < T)
+        lse[(long)bh * T + qi0 + 8 * r] =
+            l[r] > 0.f ? m[r] * LN2 + logf(fmaxf(l[r], 1e-30f))
+                       : DL4J_NEG_INF;
+    }
+  }
+}
+
+// ------------------------------------------------------ K5's dq pass
+template <int D>
+struct DqTiles {
+  static constexpr int BM = ROWS;                 // q rows per CTA
+  static constexpr int BN = D <= 64 ? 128 : 64;   // keys per tile
+  static constexpr int QBYTES = BM * D * 2;
+  static constexpr int KBYTES = BN * D * 2;
+  static constexpr int DO_OFF = QBYTES;
+  static constexpr int K_OFF = 2 * QBYTES;
+  static constexpr int V_OFF = K_OFF + STAGES * KBYTES;
+  static constexpr int KM_OFF = V_OFF + STAGES * KBYTES;
+  static constexpr int BAR_OFF = KM_OFF + STAGES * BN * 4;
+  static constexpr int SMEM = BAR_OFF + 8 * (1 + 2 * STAGES) + 1024;
+};
+
+template <int D>
+__global__ void __launch_bounds__(NT, 1)
+flash_dq_sm90_kernel(const __grid_constant__ CUtensorMap tq,
+                     const __grid_constant__ CUtensorMap tk,
+                     const __grid_constant__ CUtensorMap tv,
+                     const __grid_constant__ CUtensorMap tdo,
+                     const int* __restrict__ km,
+                     const float* __restrict__ lse,
+                     const float* __restrict__ di, float* __restrict__ dq,
+                     int H, Geometry g, float scale) {
+  using C = DqTiles<D>;
+  using X = Box<D>;
+  constexpr int BM = C::BM, BN = C::BN;
+  const int i = gridDim.x - 1 - blockIdx.x;
+  const int bh = blockIdx.y, b = bh / H;
+  const int T = g.T, q_lo = i * BM;
+
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* sm = align1024(smem_raw);
+  bf16* Qs = reinterpret_cast<bf16*>(sm);
+  bf16* dOs = reinterpret_cast<bf16*>(sm + C::DO_OFF);
+  bf16* Ks = reinterpret_cast<bf16*>(sm + C::K_OFF);
+  bf16* Vs = reinterpret_cast<bf16*>(sm + C::V_OFF);
+  int* kms = reinterpret_cast<int*>(sm + C::KM_OFF);
+  uint64_t* qbar = reinterpret_cast<uint64_t*>(sm + C::BAR_OFF);
+  uint64_t* full = qbar + 1;
+  uint64_t* empty = full + STAGES;
+  if (threadIdx.x == 0) {
+    mbar_init(qbar, 1);
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], NC);
+    }
+    mbar_fence_init();
+  }
+  __syncthreads();
+  int j0, j1;
+  key_tiles<BM, BN>(g, q_lo, &j0, &j1);
+  const int nt = j1 - j0;
+
+  if (threadIdx.x >= NC) {
+    // producer warpgroup (its first warp): Q and dO once, then K, V and
+    // the key-ok flags of each tile
+    regs_dec<PRODUCER_REGS>();
+    if (threadIdx.x >= NC + 32) return;
+    const int lane = threadIdx.x & 31;
+    if (lane == 0) {
+      mbar_expect_tx(qbar, 2 * C::QBYTES);
+      for (int c = 0; c < X::NBOX; ++c) {
+        tma_load(Qs + c * BM * X::COLS, &tq, qbar, c * X::COLS, q_lo, bh);
+        tma_load(dOs + c * BM * X::COLS, &tdo, qbar, c * X::COLS, q_lo, bh);
+      }
+    }
+    for (int n = 0; n < nt; ++n) {
+      const int s = n % STAGES, k_lo = (j0 + n) * BN;
+      mbar_wait(&empty[s], ((n / STAGES) & 1) ^ 1);
+      for (int c = lane; c < BN; c += 32) {
+        const int kj = k_lo + c;
+        kms[s * BN + c] =
+            kj < T && (km == nullptr || km[(long)b * T + kj] != 0);
+      }
+      __syncwarp();
+      if (lane == 0) {
+        mbar_expect_tx(&full[s], 2 * C::KBYTES);
+        for (int c = 0; c < X::NBOX; ++c) {
+          tma_load(Ks + s * BN * D + c * BN * X::COLS, &tk, &full[s],
+                   c * X::COLS, k_lo, bh);
+          tma_load(Vs + s * BN * D + c * BN * X::COLS, &tv, &full[s],
+                   c * X::COLS, k_lo, bh);
+        }
+      }
+    }
+  } else {
+    regs_inc<CONSUMER_REGS>();
+    const int wg = threadIdx.x >> 7, tw = threadIdx.x & 127;
+    const int lane = tw & 31, cq = 2 * (lane & 3);
+    const int q_wg = q_lo + 64 * wg;
+    const int qi0 = q_wg + 16 * (tw >> 5) + (lane >> 2);
+    // L log2(e) and D_i of this thread's rows (rows past T: 0; they are
+    // masked)
+    float L2[2], Dr[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int qi = qi0 + 8 * r;
+      L2[r] = qi < T ? lse[(long)bh * T + qi] * LOG2E : 0.f;
+      Dr[r] = qi < T ? di[(long)bh * T + qi] : 0.f;
+    }
+    const uint32_t qs = smem_u32(Qs), dos = smem_u32(dOs);
+    const float c = scale * LOG2E;
+    float acc[D / 2];
+    zero(acc);
+    mbar_wait(qbar, 0);
+    // Turn 0 starts S = Q K^T and dP = dO V^T of key tile 0; turn t in [1,
+    // nt) dq += dS K of tile t - 1 and S, dP of tile t; turn nt the last
+    // dS K. Between turns the register pass forms dS of tile t - 1.
+    float sc[BN / 2], dp[BN / 2];
+    uint32_t da[BN / 4];
+    auto register_pass = [&](int n) {
+      const int k_lo = (j0 + n) * BN;
+      const int* kmk = kms + (n % STAGES) * BN;
+      if (tile_masked<64, BN>(g, q_wg, k_lo, km != nullptr))
+        dq_ds<true, BN>(sc, dp, da, c, L2, Dr, g, qi0, k_lo, kmk, cq);
+      else
+        dq_ds<false, BN>(sc, dp, da, c, L2, Dr, g, qi0, k_lo, kmk, cq);
+    };
+    const uint32_t ks = smem_u32(Ks), vs = smem_u32(Vs);
+    constexpr int TILE = BN * D * 2;
+    if (wg == 1) turn_pass(wg);
+    turn_wait(wg);
+    wg_fence();
+    mbar_wait(&full[0], 0);
+    ss_product<D, BM, BN>(sc, qs, 64 * wg, ks);
+    ss_product<D, BM, BN>(dp, dos, 64 * wg, vs);
+    wg_commit();
+    turn_pass(wg);
+    wg_wait<0>();
+    fence_regs(sc);
+    fence_regs(dp);
+    for (int t = 1; t < nt; ++t) {
+      register_pass(t - 1);
+      turn_wait(wg);
+      wg_fence();
+      rs_product<D, BN>(acc, da, ks + ((t - 1) % STAGES) * TILE);
+      mbar_wait(&full[t % STAGES], (t / STAGES) & 1);
+      ss_product<D, BM, BN>(sc, qs, 64 * wg, ks + (t % STAGES) * TILE);
+      ss_product<D, BM, BN>(dp, dos, 64 * wg, vs + (t % STAGES) * TILE);
+      wg_commit();
+      turn_pass(wg);
+      wg_wait<0>();
+      fence_regs(sc);
+      fence_regs(dp);
+      fence_regs(acc);
+      mbar_arrive(&empty[(t - 1) % STAGES]);
+    }
+    register_pass(nt - 1);
+    turn_wait(wg);
+    wg_fence();
+    rs_product<D, BN>(acc, da, ks + ((nt - 1) % STAGES) * TILE);
+    wg_commit();
+    if (wg == 0) turn_pass(wg);
+    wg_wait<0>();
+    fence_regs(acc);
+    float* dqb = dq + (long)bh * T * D;
+#pragma unroll
+    for (int e = 0; e < D / 2; e += 2) {
+      const int qi = qi0 + 8 * ((e >> 1) & 1);
+      if (qi < T)
+        *reinterpret_cast<float2*>(dqb + (long)qi * D + 8 * (e >> 2) + cq) =
+            make_float2(scale * acc[e], scale * acc[e + 1]);
+    }
+  }
+}
+
+// ------------------------------------------------- K5's dk/dv pass
+template <int D>
+struct DkvTiles {
+  static constexpr int BK = ROWS;                 // keys per CTA
+  static constexpr int BQ = D <= 64 ? 64 : 32;    // q rows per tile
+  static constexpr int KBYTES = BK * D * 2;
+  static constexpr int QBYTES = BQ * D * 2;
+  static constexpr int V_OFF = KBYTES;
+  static constexpr int Q_OFF = 2 * KBYTES;
+  static constexpr int DO_OFF = Q_OFF + STAGES * QBYTES;
+  static constexpr int L_OFF = DO_OFF + STAGES * QBYTES;
+  static constexpr int DI_OFF = L_OFF + STAGES * BQ * 4;
+  static constexpr int BAR_OFF = DI_OFF + STAGES * BQ * 4;
+  static constexpr int SMEM = BAR_OFF + 8 * (1 + 2 * STAGES) + 1024;
+};
+
+template <int D>
+__global__ void __launch_bounds__(NT, 1)
+flash_dkv_sm90_kernel(const __grid_constant__ CUtensorMap tq,
+                      const __grid_constant__ CUtensorMap tk,
+                      const __grid_constant__ CUtensorMap tv,
+                      const __grid_constant__ CUtensorMap tdo,
+                      const int* __restrict__ km,
+                      const float* __restrict__ lse,
+                      const float* __restrict__ di, bf16* __restrict__ dk,
+                      bf16* __restrict__ dv, int H, Geometry g, float scale) {
+  using C = DkvTiles<D>;
+  using X = Box<D>;
+  constexpr int BK = C::BK, BQ = C::BQ;
+  const int j = blockIdx.x;         // the most-visited key tiles first
+  const int bh = blockIdx.y, b = bh / H;
+  const int T = g.T, k_lo = j * BK;
+
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* sm = align1024(smem_raw);
+  bf16* Ks = reinterpret_cast<bf16*>(sm);
+  bf16* Vs = reinterpret_cast<bf16*>(sm + C::V_OFF);
+  bf16* Qs = reinterpret_cast<bf16*>(sm + C::Q_OFF);
+  bf16* dOs = reinterpret_cast<bf16*>(sm + C::DO_OFF);
+  float* Ls = reinterpret_cast<float*>(sm + C::L_OFF);   // L log2(e)
+  float* Dis = reinterpret_cast<float*>(sm + C::DI_OFF);
+  uint64_t* kvbar = reinterpret_cast<uint64_t*>(sm + C::BAR_OFF);
+  uint64_t* full = kvbar + 1;
+  uint64_t* empty = full + STAGES;
+  if (threadIdx.x == 0) {
+    mbar_init(kvbar, 1);
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], NC);
+    }
+    mbar_fence_init();
+  }
+  __syncthreads();
+  int i0, i1;
+  query_tiles<BQ, BK>(g, k_lo, &i0, &i1);
+  const int nt = i1 - i0;
+
+  if (threadIdx.x >= NC) {
+    // producer warpgroup (its first warp): K and V once, then Q, dO, L
+    // and D_i of each q tile
+    regs_dec<PRODUCER_REGS>();
+    if (threadIdx.x >= NC + 32) return;
+    const int lane = threadIdx.x & 31;
+    if (lane == 0) {
+      mbar_expect_tx(kvbar, 2 * C::KBYTES);
+      for (int c = 0; c < X::NBOX; ++c) {
+        tma_load(Ks + c * BK * X::COLS, &tk, kvbar, c * X::COLS, k_lo, bh);
+        tma_load(Vs + c * BK * X::COLS, &tv, kvbar, c * X::COLS, k_lo, bh);
+      }
+    }
+    for (int n = 0; n < nt; ++n) {
+      const int s = n % STAGES, q_lo = (i0 + n) * BQ;
+      mbar_wait(&empty[s], ((n / STAGES) & 1) ^ 1);
+      for (int r = lane; r < BQ; r += 32) {
+        const int qi = q_lo + r;   // rows past T: 0 (their pairs are masked)
+        Ls[s * BQ + r] = qi < T ? lse[(long)bh * T + qi] * LOG2E : 0.f;
+        Dis[s * BQ + r] = qi < T ? di[(long)bh * T + qi] : 0.f;
+      }
+      __syncwarp();
+      if (lane == 0) {
+        mbar_expect_tx(&full[s], 2 * C::QBYTES);
+        for (int c = 0; c < X::NBOX; ++c) {
+          tma_load(Qs + s * BQ * D + c * BQ * X::COLS, &tq, &full[s],
+                   c * X::COLS, q_lo, bh);
+          tma_load(dOs + s * BQ * D + c * BQ * X::COLS, &tdo, &full[s],
+                   c * X::COLS, q_lo, bh);
+        }
+      }
+    }
+  } else {
+    regs_inc<CONSUMER_REGS>();
+    // consumer warpgroup wg: keys k_lo + 64 wg ..; this thread's keys kj0
+    // and kj0 + 8 (rows), q columns 8 e + cq + {0, 1} of each tile
+    const int wg = threadIdx.x >> 7, tw = threadIdx.x & 127;
+    const int lane = tw & 31, cq = 2 * (lane & 3);
+    const int k_wg = k_lo + 64 * wg;
+    const int kj0 = k_wg + 16 * (tw >> 5) + (lane >> 2);
+    bool ko[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int kj = kj0 + 8 * r;
+      ko[r] = kj < T && (km == nullptr || km[(long)b * T + kj] != 0);
+    }
+    const uint32_t ks = smem_u32(Ks), vs = smem_u32(Vs);
+    const float c = scale * LOG2E;
+    float dka[D / 2], dva[D / 2];
+    zero(dka);
+    zero(dva);
+    mbar_wait(kvbar, 0);
+    // Turn 0 starts S^T = K Q^T and dP^T = V dO^T of q tile 0; turn t in
+    // [1, nt) dv += P^T dO, dk += dS^T Q of tile t - 1 and S^T, dP^T of
+    // tile t; turn nt the last dv, dk. Between turns the register pass
+    // forms P^T and dS^T of tile t - 1.
+    float st[BQ / 2], dpt[BQ / 2];
+    uint32_t pa[BQ / 4], da[BQ / 4];
+    auto register_pass = [&](int n) {
+      const int s = n % STAGES, q_lo = (i0 + n) * BQ;
+      if (tile_masked<BQ, 64>(g, q_lo, k_wg, km != nullptr))
+        dkv_p_ds<true, BQ>(st, dpt, pa, da, c, Ls + s * BQ, Dis + s * BQ,
+                           g, q_lo, kj0, ko, cq);
+      else
+        dkv_p_ds<false, BQ>(st, dpt, pa, da, c, Ls + s * BQ, Dis + s * BQ,
+                            g, q_lo, kj0, ko, cq);
+    };
+    const uint32_t qs = smem_u32(Qs), dos = smem_u32(dOs);
+    constexpr int TILE = BQ * D * 2;            // bytes of a Q or dO stage
+    if (wg == 1) turn_pass(wg);
+    turn_wait(wg);
+    wg_fence();
+    mbar_wait(&full[0], 0);
+    ss_product<D, BK, BQ>(st, ks, 64 * wg, qs);
+    ss_product<D, BK, BQ>(dpt, vs, 64 * wg, dos);
+    wg_commit();
+    turn_pass(wg);
+    wg_wait<0>();
+    fence_regs(st);
+    fence_regs(dpt);
+    for (int t = 1; t < nt; ++t) {
+      const int sp = (t - 1) % STAGES, sn = t % STAGES;
+      register_pass(t - 1);
+      turn_wait(wg);
+      wg_fence();
+      rs_product<D, BQ>(dva, pa, dos + sp * TILE);
+      rs_product<D, BQ>(dka, da, qs + sp * TILE);
+      mbar_wait(&full[sn], (t / STAGES) & 1);
+      ss_product<D, BK, BQ>(st, ks, 64 * wg, qs + sn * TILE);
+      ss_product<D, BK, BQ>(dpt, vs, 64 * wg, dos + sn * TILE);
+      wg_commit();
+      turn_pass(wg);
+      wg_wait<0>();
+      fence_regs(st);
+      fence_regs(dpt);
+      fence_regs(dva);
+      fence_regs(dka);
+      mbar_arrive(&empty[sp]);
+    }
+    register_pass(nt - 1);
+    turn_wait(wg);
+    wg_fence();
+    rs_product<D, BQ>(dva, pa, dos + ((nt - 1) % STAGES) * TILE);
+    rs_product<D, BQ>(dka, da, qs + ((nt - 1) % STAGES) * TILE);
+    wg_commit();
+    if (wg == 0) turn_pass(wg);
+    wg_wait<0>();
+    fence_regs(dva);
+    fence_regs(dka);
+    const long base = (long)bh * T * D;
+#pragma unroll
+    for (int e = 0; e < D / 2; e += 2) {
+      const int kj = kj0 + 8 * ((e >> 1) & 1);
+      if (kj < T) {
+        const long off = base + (long)kj * D + 8 * (e >> 2) + cq;
+        *reinterpret_cast<__nv_bfloat162*>(dk + off) =
+            __floats2bfloat162_rn(scale * dka[e], scale * dka[e + 1]);
+        *reinterpret_cast<__nv_bfloat162*>(dv + off) =
+            __floats2bfloat162_rn(dva[e], dva[e + 1]);
+      }
+    }
+  }
+}
+
+// ------------------------------------------------------------- host side
+typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
+                                void*, const cuuint64_t*, const cuuint64_t*,
+                                const cuuint32_t*, const cuuint32_t*,
+                                CUtensorMapInterleave, CUtensorMapSwizzle,
+                                CUtensorMapL2promotion,
+                                CUtensorMapFloatOOBfill);
+
+// cuTensorMapEncodeTiled from libcuda, through the runtime (no -lcuda)
+EncodeTiled encoder() {
+  static const EncodeTiled fn = []() -> EncodeTiled {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult res;
+#if CUDART_VERSION >= 12050
+    const cudaError_t e = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &res);
+#else
+    const cudaError_t e = cudaGetDriverEntryPoint(
+        "cuTensorMapEncodeTiled", &p, cudaEnableDefault, &res);
+#endif
+    if (e != cudaSuccess || res != cudaDriverEntryPointSuccess) return nullptr;
+    return reinterpret_cast<EncodeTiled>(p);
+  }();
+  return fn;
+}
+
+// A 3-D map (D, T, rows) of a bf16 (rows, T, D) tensor, boxes of
+// (COLS, box_rows, 1) swizzled at the box's row width; boxes past T are
+// zero-filled.
+template <int D>
+int make_map(CUtensorMap* map, const void* ptr, int T, int rows,
+             int box_rows) {
+  const EncodeTiled enc = encoder();
+  if (enc == nullptr) return kNoEncoder;
+  using X = Box<D>;
+  const cuuint64_t dims[3] = {(cuuint64_t)D, (cuuint64_t)T, (cuuint64_t)rows};
+  const cuuint64_t strides[2] = {(cuuint64_t)D * 2, (cuuint64_t)T * D * 2};
+  const cuuint32_t box[3] = {(cuuint32_t)X::COLS, (cuuint32_t)box_rows, 1};
+  const cuuint32_t estr[3] = {1, 1, 1};
+  const CUtensorMapSwizzle swz = X::RB == 128  ? CU_TENSOR_MAP_SWIZZLE_128B
+                                 : X::RB == 64 ? CU_TENSOR_MAP_SWIZZLE_64B
+                                               : CU_TENSOR_MAP_SWIZZLE_32B;
+  const CUresult r = enc(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3,
+                         const_cast<void*>(ptr), dims, strides, box, estr,
+                         CU_TENSOR_MAP_INTERLEAVE_NONE, swz,
+                         CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                         CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? 0 : kBadMap;
+}
+
+template <typename K>
+int prepare(K kern, int smem) {
+  return (int)cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+}
+
+template <int D>
+int launch_fwd(const void* q, const void* k, const void* v, const int* km,
+               void* o, float* lse, int B, int H, int Hk, Geometry g,
+               float scale, cudaStream_t st) {
+  using C = FwdTiles<D>;
+  CUtensorMap mq, mk, mv;
+  int err;
+  if ((err = make_map<D>(&mq, q, g.T, B * H, C::BM))) return err;
+  if ((err = make_map<D>(&mk, k, g.T, B * Hk, C::BN))) return err;
+  if ((err = make_map<D>(&mv, v, g.T, B * Hk, C::BN))) return err;
+  auto kern = flash_fwd_sm90_kernel<D>;
+  if ((err = prepare(kern, C::SMEM))) return err;
+  dim3 grid((g.T + C::BM - 1) / C::BM, B * H);
+  kern<<<grid, NT, C::SMEM, st>>>(mq, mk, mv, km, static_cast<bf16*>(o), lse,
+                                  H, Hk, g, scale);
+  return (int)cudaGetLastError();
+}
+
+template <int D>
+int launch_bwd(const void* q, const void* k, const void* v, const int* km,
+               const void* dout, const float* lse, const float* di,
+               float* dq, void* dk, void* dv, int B, int H, Geometry g,
+               float scale, cudaStream_t st) {
+  using Q = DqTiles<D>;
+  using K = DkvTiles<D>;
+  CUtensorMap mq, mk, mv, mdo;
+  int err;
+  if ((err = make_map<D>(&mq, q, g.T, B * H, Q::BM))) return err;
+  if ((err = make_map<D>(&mdo, dout, g.T, B * H, Q::BM))) return err;
+  if ((err = make_map<D>(&mk, k, g.T, B * H, Q::BN))) return err;
+  if ((err = make_map<D>(&mv, v, g.T, B * H, Q::BN))) return err;
+  auto kq = flash_dq_sm90_kernel<D>;
+  if ((err = prepare(kq, Q::SMEM))) return err;
+  kq<<<dim3((g.T + Q::BM - 1) / Q::BM, B * H), NT, Q::SMEM, st>>>(
+      mq, mk, mv, mdo, km, lse, di, dq, H, g, scale);
+  if ((err = (int)cudaGetLastError())) return err;
+  if ((err = make_map<D>(&mq, q, g.T, B * H, K::BQ))) return err;
+  if ((err = make_map<D>(&mdo, dout, g.T, B * H, K::BQ))) return err;
+  if ((err = make_map<D>(&mk, k, g.T, B * H, K::BK))) return err;
+  if ((err = make_map<D>(&mv, v, g.T, B * H, K::BK))) return err;
+  auto kkv = flash_dkv_sm90_kernel<D>;
+  if ((err = prepare(kkv, K::SMEM))) return err;
+  kkv<<<dim3((g.T + K::BK - 1) / K::BK, B * H), NT, K::SMEM, st>>>(
+      mq, mk, mv, mdo, km, lse, di, static_cast<bf16*>(dk),
+      static_cast<bf16*>(dv), H, g, scale);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+// bf16 only; head dims 16, 32, 64, 128. q, k, v, dout 16-byte aligned and
+// contiguous. Return a cudaError_t code, or kNoEncoder / kBadMap (0 on
+// success). They allocate nothing and do not synchronize: the kernels
+// launch on `stream`.
+#define DL4J_SM90_DISPATCH(FN, ...)                                \
+  {                                                                \
+    if (D == 16) return FN<16>(__VA_ARGS__);                       \
+    if (D == 32) return FN<32>(__VA_ARGS__);                       \
+    if (D == 64) return FN<64>(__VA_ARGS__);                       \
+    if (D == 128) return FN<128>(__VA_ARGS__);                     \
+    return (int)cudaErrorInvalidValue;                             \
+  }
+
+extern "C" int dl4j_flash_sm90_fwd(const void* q, const void* k,
+                                   const void* v, const void* key_mask,
+                                   void* o, void* lse, int B, int H, int Hk,
+                                   int T, int D, int causal, int window,
+                                   float scale, void* stream) {
+  if (T <= 0 || B <= 0 || H <= 0) return 0;
+  if (Hk <= 0 || H % Hk != 0) return (int)cudaErrorInvalidValue;
+  const Geometry g{T, causal, window};
+  DL4J_SM90_DISPATCH(launch_fwd, q, k, v, static_cast<const int*>(key_mask),
+                     o, static_cast<float*>(lse), B, H, Hk, g, scale,
+                     static_cast<cudaStream_t>(stream));
+}
+
+// K5: the dq pass, then the dk/dv pass (two launches).
+extern "C" int dl4j_flash_sm90_bwd(const void* q, const void* k,
+                                   const void* v, const void* key_mask,
+                                   const void* dout, const void* lse,
+                                   const void* di, void* dq, void* dk,
+                                   void* dv, int B, int H, int T, int D,
+                                   int causal, int window, float scale,
+                                   void* stream) {
+  if (T <= 0 || B <= 0 || H <= 0) return 0;
+  const Geometry g{T, causal, window};
+  DL4J_SM90_DISPATCH(launch_bwd, q, k, v, static_cast<const int*>(key_mask),
+                     dout, static_cast<const float*>(lse),
+                     static_cast<const float*>(di), static_cast<float*>(dq),
+                     dk, dv, B, H, g, scale,
+                     static_cast<cudaStream_t>(stream));
+}
+
+// Dynamic shared memory of a kernel: kind 0 the forward, 1 the dq pass, 2
+// the dk/dv pass; -1 for a head dim without kernels.
+extern "C" int dl4j_flash_sm90_smem(int kind, int D) {
+#define DL4J_SM90_SMEM(DD)                                           \
+  if (D == DD)                                                       \
+    return kind == 0 ? FwdTiles<DD>::SMEM                            \
+                     : kind == 1 ? DqTiles<DD>::SMEM : DkvTiles<DD>::SMEM;
+  DL4J_SM90_SMEM(16)
+  DL4J_SM90_SMEM(32)
+  DL4J_SM90_SMEM(64)
+  DL4J_SM90_SMEM(128)
+#undef DL4J_SM90_SMEM
+  return -1;
+}
+
+extern "C" const char* dl4j_flash_sm90_error_string(int code) {
+  if (code == kNoEncoder)
+    return "cuTensorMapEncodeTiled is not available from libcuda";
+  if (code == kBadMap) return "cuTensorMapEncodeTiled refused a tensor map";
+  return cudaGetErrorString(static_cast<cudaError_t>(code));
+}

@@ -22,14 +22,17 @@ H heads in the forward (query head h reads kv head h // (H / Hk)); the
 grouped backward raises, as in the JAX package: the layer repeats k/v to
 full heads before the call, so training never reaches it.
 
-Kernels (`csrc/flash_attention.cu`, CUDA C++ for sm_90a, one source; bf16
-inputs take tensor-core versions of each, fp32 inputs CUDA-core ones):
-- K3 `flash_attention_fwd_cuda` replaces `_call_fwd` / `_fwd_kernel`;
+Kernels (CUDA C++ for sm_90a in two sources, chosen by dtype in `_route`):
+- K3 `flash_attention_fwd_cuda` replaces `_call_fwd` / `_fwd_kernel`: bf16
+  inputs take `csrc/flash_attention_sm90.cu` (wgmma, TMA), fp32 inputs the
+  CUDA-core kernel of `csrc/flash_attention.cu`;
 - K4 `flash_attention_bwd_cuda(..., bwd="fused")` replaces
-  `_fused_bwd_kernel`; dq accumulates through fp32 atomics into one
-  zeroed (B*H, T, D) buffer (no per-k-block partials);
+  `_fused_bwd_kernel`, `flash_attention.cu` in both dtypes (wmma for
+  bf16); dq accumulates through fp32 atomics into one zeroed (B*H, T, D)
+  buffer (no per-k-block partials);
 - K5 `flash_attention_bwd_cuda(..., bwd="two_pass")` replaces `_dq_kernel`
-  and `_dkv_kernel`.
+  and `_dkv_kernel`: bf16 in `flash_attention_sm90.cu`, fp32 in
+  `flash_attention.cu`.
 Each has a plain PyTorch version with the kernel's own signature,
 `flash_fwd_plain` and `flash_bwd_plain` (dense, fp32 scores, fp64 for
 fp64 inputs); the backward recomputes p from the lse, as the kernels do.
@@ -61,7 +64,9 @@ from deeplearning4j_tpu_torch.ops import build
 from deeplearning4j_tpu_torch.ops.helpers import helper_for, register_helper
 
 NEG_INF = -1e30
-SOURCE = "flash_attention.cu"
+SOURCE = "flash_attention.cu"            # fp32 K3 and K5, K4 in both dtypes
+SM90_SOURCE = "flash_attention_sm90.cu"  # bf16 K3 and K5 (wgmma, TMA)
+SOURCES = (SOURCE, SM90_SOURCE)
 BWD_MODES = ("fused", "two_pass")
 HEAD_DIMS = (16, 32, 64, 128)         # head dims the kernels are built for
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 2}
@@ -273,8 +278,35 @@ def flash_attention(q, k, v, mask=None, causal: bool = False,
 
 
 # ------------------------------------------------------------------ kernels
-def _library():
-    lib = build.load(SOURCE)
+def _route(dtype: torch.dtype, kind: str) -> str:
+    """The source whose kernel takes a launch: `kind` "fwd" (K3), "fused"
+    (K4) or "two_pass" (K5). bf16 K3 and K5 run on the wgmma kernels of
+    SM90_SOURCE; fp32, and K4 in both dtypes, on SOURCE."""
+    if kind not in ("fwd",) + BWD_MODES:
+        raise ValueError(f"unknown flash kernel kind {kind!r}")
+    if dtype == torch.bfloat16 and kind != "fused":
+        return SM90_SOURCE
+    return SOURCE
+
+
+def _library(source: str):
+    lib = build.load(source)
+    if source == SM90_SOURCE:
+        if lib.dl4j_flash_sm90_fwd.argtypes is None:
+            # fwd: q, k, v, km, o, lse, 7 ints, scale, stream
+            lib.dl4j_flash_sm90_fwd.argtypes = [ctypes.c_void_p] * 6 + [
+                ctypes.c_int] * 7 + [ctypes.c_float, ctypes.c_void_p]
+            # bwd: q, k, v, km, do, lse, di, dq, dk, dv, 6 ints, scale,
+            # stream
+            lib.dl4j_flash_sm90_bwd.argtypes = [ctypes.c_void_p] * 10 + [
+                ctypes.c_int] * 6 + [ctypes.c_float, ctypes.c_void_p]
+            lib.dl4j_flash_sm90_fwd.restype = ctypes.c_int
+            lib.dl4j_flash_sm90_bwd.restype = ctypes.c_int
+            lib.dl4j_flash_sm90_smem.argtypes = [ctypes.c_int] * 2
+            lib.dl4j_flash_sm90_smem.restype = ctypes.c_int
+            lib.dl4j_flash_sm90_error_string.argtypes = [ctypes.c_int]
+            lib.dl4j_flash_sm90_error_string.restype = ctypes.c_char_p
+        return lib
     if lib.dl4j_flash_fwd.argtypes is None:
         # fwd: q, k, v, km, o, lse, 8 ints, scale, stream
         lib.dl4j_flash_fwd.argtypes = [ctypes.c_void_p] * 6 + [
@@ -346,7 +378,7 @@ def padded_bwd(bwd, q, k, v, mask, o, lse, do, dlse=None, causal=False,
 
 def _aligned(t: torch.Tensor) -> torch.Tensor:
     """`t` contiguous with a 16-byte-aligned start (the bf16 kernels copy
-    rows 16 bytes at a time)."""
+    rows 16 bytes at a time, and TMA takes 16-byte-aligned tensors)."""
     t = t.contiguous()
     return t if t.data_ptr() % 16 == 0 else t.clone()
 
@@ -355,10 +387,10 @@ def _key_mask(mask):
     return None if mask is None else (mask > 0).to(torch.int32).contiguous()
 
 
-def _raise_on(lib, err, what):
+def _raise_on(error_string, err, what):
     if err != 0:
         raise RuntimeError(f"{what} launch failed: "
-                           f"{lib.dl4j_flash_error_string(err).decode()}")
+                           f"{error_string(err).decode()}")
 
 
 def flash_attention_fwd_cuda(q, k, v, mask=None, causal: bool = False,
@@ -377,13 +409,20 @@ def _fwd_launch(q, k, v, mask, causal, scale, window):
     km = _key_mask(mask)
     o = torch.empty_like(q)
     lse = torch.empty((B, H, T), dtype=torch.float32, device=q.device)
-    lib = _library()
-    err = lib.dl4j_flash_fwd(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(),
-        None if km is None else km.data_ptr(), o.data_ptr(), lse.data_ptr(),
-        B, H, Hk, T, D, int(bool(causal)), int(window), _DTYPE_CODE[q.dtype],
-        _scale(scale, D), torch.cuda.current_stream(q.device).cuda_stream)
-    _raise_on(lib, err, "flash_attention_fwd")
+    source = _route(q.dtype, "fwd")
+    lib = _library(source)
+    args = (q.data_ptr(), k.data_ptr(), v.data_ptr(),
+            None if km is None else km.data_ptr(), o.data_ptr(),
+            lse.data_ptr(), B, H, Hk, T, D, int(bool(causal)), int(window))
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    if source == SM90_SOURCE:
+        err = lib.dl4j_flash_sm90_fwd(*args, _scale(scale, D), stream)
+        _raise_on(lib.dl4j_flash_sm90_error_string, err,
+                  "flash_attention_fwd")
+    else:
+        err = lib.dl4j_flash_fwd(*args, _DTYPE_CODE[q.dtype],
+                                 _scale(scale, D), stream)
+        _raise_on(lib.dl4j_flash_error_string, err, "flash_attention_fwd")
     flash_attention_fwd_cuda.launches += 1
     return o, lse
 
@@ -418,16 +457,23 @@ def _bwd_launch(q, k, v, mask, o, lse, do, dlse, causal, scale, window,
     km = _key_mask(mask)
     dq = torch.zeros((B, H, T, D), dtype=torch.float32, device=q.device)
     dk, dv = torch.empty_like(k), torch.empty_like(v)
-    lib = _library()
+    source = _route(q.dtype, bwd)
+    lib = _library(source)
     mode = 0 if bwd == "fused" else 1
-    err = lib.dl4j_flash_bwd(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(),
-        None if km is None else km.data_ptr(), do.data_ptr(), lse.data_ptr(),
-        di.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-        B, H, T, D, int(bool(causal)), int(window), _DTYPE_CODE[q.dtype],
-        mode, _scale(scale, D),
-        torch.cuda.current_stream(q.device).cuda_stream)
-    _raise_on(lib, err, f"flash_attention_bwd ({bwd})")
+    args = (q.data_ptr(), k.data_ptr(), v.data_ptr(),
+            None if km is None else km.data_ptr(), do.data_ptr(),
+            lse.data_ptr(), di.data_ptr(), dq.data_ptr(), dk.data_ptr(),
+            dv.data_ptr(), B, H, T, D, int(bool(causal)), int(window))
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    if source == SM90_SOURCE:
+        err = lib.dl4j_flash_sm90_bwd(*args, _scale(scale, D), stream)
+        _raise_on(lib.dl4j_flash_sm90_error_string, err,
+                  f"flash_attention_bwd ({bwd})")
+    else:
+        err = lib.dl4j_flash_bwd(*args, _DTYPE_CODE[q.dtype], mode,
+                                 _scale(scale, D), stream)
+        _raise_on(lib.dl4j_flash_error_string, err,
+                  f"flash_attention_bwd ({bwd})")
     if mode == 0:
         flash_attention_bwd_cuda.fused_launches += 1
     else:

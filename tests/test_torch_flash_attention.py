@@ -7,7 +7,9 @@ JAX side runs its Pallas kernels in interpret mode with explicit small
 tiles (bq = bk = 8, so T = 21 leaves a ragged tail tile), and its dense
 oracle. Values and gradients for one numpy cotangent agree within 1e-10.
 The CUDA kernels themselves are held against the same plain versions on
-the card by chip_smoke.py.
+the card by chip_smoke.py; here, the route to them (which of the two
+kernel libraries a launch takes, by dtype and backward mode, and the
+arguments it passes) runs against a recording stand-in library.
 """
 import numpy as np
 import pytest
@@ -218,3 +220,125 @@ def test_head_dim_padding_is_exact(D, Dp):
         torch.testing.assert_close(g, r, rtol=0, atol=ATOL)
     with pytest.raises(ValueError, match="> 128"):
         tfa._kernel_head_dim(160)
+
+
+# ------------------------------------------------ the route to the kernels
+@pytest.mark.parametrize("dtype,kind,source", [
+    (torch.bfloat16, "fwd", tfa.SM90_SOURCE),
+    (torch.bfloat16, "two_pass", tfa.SM90_SOURCE),
+    (torch.bfloat16, "fused", tfa.SOURCE),
+    (torch.float32, "fwd", tfa.SOURCE),
+    (torch.float32, "two_pass", tfa.SOURCE),
+    (torch.float32, "fused", tfa.SOURCE),
+])
+def test_route_by_dtype_and_mode(dtype, kind, source):
+    """bf16 K3 and K5 take the wgmma kernels; fp32, and K4, the others."""
+    assert tfa._route(dtype, kind) == source
+    assert source in tfa.SOURCES
+    with pytest.raises(ValueError):
+        tfa._route(dtype, "three_pass")
+
+
+class _FakeFn:
+    def __init__(self, name, log, err):
+        self.name, self.log, self.err = name, log, err
+        self.argtypes = self.restype = None
+
+    def __call__(self, *args):
+        if self.name.endswith("error_string"):
+            return f"error {args[0]} from {self.name}".encode()
+        self.log.append((self.name, args))
+        return self.err
+
+
+class _FakeLib:
+    """Stands for both kernel libraries: records each launch."""
+    NAMES = ("dl4j_flash_fwd", "dl4j_flash_bwd", "dl4j_flash_error_string",
+             "dl4j_flash_sm90_fwd", "dl4j_flash_sm90_bwd",
+             "dl4j_flash_sm90_smem", "dl4j_flash_sm90_error_string")
+
+    def __init__(self, err=0):
+        self.log = []
+        for n in self.NAMES:
+            setattr(self, n, _FakeFn(n, self.log, err))
+
+
+@pytest.fixture
+def fake_lib(monkeypatch):
+    """The real `_library` set-up on a fake library, and a fake stream, so
+    that the launch code runs on CPU tensors."""
+    from types import SimpleNamespace
+    libs = {}
+
+    def load(source):
+        return libs.setdefault(source, _FakeLib())
+    monkeypatch.setattr(tfa.build, "load", load)
+    monkeypatch.setattr(torch.cuda, "current_stream",
+                        lambda device=None: SimpleNamespace(cuda_stream=77))
+    return libs
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_forward_launch_reaches_its_kernel(fake_lib, dtype):
+    q, k, v, _, m = (torch.from_numpy(a).to(dtype) for a in
+                     _data(B=2, H=4, Hk=2, T=21, D=16, mask="random"))
+    before = tfa.flash_attention_fwd_cuda.launches
+    o, lse = tfa._fwd_launch(q, k, v, m, True, 0.25, 5)
+    assert tfa.flash_attention_fwd_cuda.launches == before + 1
+    assert o.shape == q.shape and o.dtype == dtype
+    assert lse.shape == (2, 4, 21) and lse.dtype == torch.float32
+    source = tfa._route(dtype, "fwd")
+    lib = fake_lib[source]
+    ((name, args),) = lib.log
+    fn = getattr(lib, name)
+    assert len(args) == len(fn.argtypes)
+    assert args[:6] == (q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                        args[3], o.data_ptr(), lse.data_ptr())
+    assert args[6:13] == (2, 4, 2, 21, 16, 1, 5)
+    assert args[-1] == 77 and args[-2] == 0.25
+    if dtype == torch.bfloat16:
+        assert name == "dl4j_flash_sm90_fwd"
+    else:
+        assert name == "dl4j_flash_fwd" and args[13] == 0
+
+
+@pytest.mark.parametrize("dtype,mode", [(torch.bfloat16, "two_pass"),
+                                        (torch.bfloat16, "fused"),
+                                        (torch.float32, "two_pass")])
+def test_backward_launch_reaches_its_kernel(fake_lib, dtype, mode):
+    q, k, v, do, m = (torch.from_numpy(a).to(dtype) for a in
+                      _data(T=21, D=16, mask="random"))
+    o = torch.zeros_like(q)
+    lse = torch.zeros(2, 4, 21)
+    counts = (tfa.flash_attention_bwd_cuda.fused_launches,
+              tfa.flash_attention_bwd_cuda.two_pass_launches)
+    dq, dk, dv = tfa._bwd_launch(q, k, v, m, o, lse, do, None, False, 0.5,
+                                 0, mode)
+    assert dq.dtype == dk.dtype == dv.dtype == dtype
+    two = mode == "two_pass"
+    assert (tfa.flash_attention_bwd_cuda.fused_launches,
+            tfa.flash_attention_bwd_cuda.two_pass_launches) == (
+        counts[0] + (not two), counts[1] + 2 * two)
+    lib = fake_lib[tfa._route(dtype, mode)]
+    ((name, args),) = lib.log
+    assert len(args) == len(getattr(lib, name).argtypes)
+    assert args[10:16] == (2, 4, 21, 16, 0, 0)
+    assert args[-1] == 77 and args[-2] == 0.5
+    if tfa._route(dtype, mode) == tfa.SM90_SOURCE:
+        assert name == "dl4j_flash_sm90_bwd"
+    else:
+        assert name == "dl4j_flash_bwd"
+        assert args[16:18] == (tfa._DTYPE_CODE[dtype], int(two))
+
+
+def test_failed_launch_raises_with_its_library_error(monkeypatch):
+    from types import SimpleNamespace
+    lib = _FakeLib(err=1002)
+    monkeypatch.setattr(tfa.build, "load", lambda source: lib)
+    monkeypatch.setattr(torch.cuda, "current_stream",
+                        lambda device=None: SimpleNamespace(cuda_stream=0))
+    q, k, v = (torch.from_numpy(a).to(torch.bfloat16)
+               for a in _data(D=16)[:3])
+    with pytest.raises(RuntimeError,
+                       match="error 1002 from dl4j_flash_sm90_error_string"):
+        tfa._fwd_launch(q, k, v, None, True, None, 0)
