@@ -9,12 +9,14 @@ Phases, each printing one JSON line; any failure exits non-zero:
 2. build    - compile every CUDA kernel of the paths from the checkout's
               sources (one nvcc per source, all started together). For
               each wgmma kernel of flash_attention_sm90.cu (K3, K5's dq
-              and dk/dv passes at head dims 16/32/64/128): registers,
+              and dk/dv passes, K4, at head dims 16/32/64/128): registers,
               spill bytes and static shared memory from the -Xptxas -v
-              log, its dynamic shared memory, and the HGMMA, UTMALDG and
-              atomic instructions in the SASS (cuobjdump -sass); fails if
-              a kernel has no HGMMA or no UTMALDG, has an atomic, or
-              spills at D 64.
+              log, its dynamic shared memory, and the HGMMA, UTMALDG,
+              atomic and reduction (RED*, UBLKRED, UTMAREDG) instructions
+              in the SASS (cuobjdump -sass); fails if a kernel has no
+              HGMMA or no UTMALDG, has an atomic, has a reduction (K3, K5)
+              or none (K4, whose dq reductions are the only ones allowed),
+              or spills at D 64.
 2a. kernel_conv1x1 - K10 (the 1x1 conv with per-channel sums) against its
               plain version: fp32 and bf16, B 1/3/256, channels drawn from
               {8, 64, 256, 1024, 2048}, P 1/16/49/196/200/784, one case
@@ -126,12 +128,15 @@ Phases, each printing one JSON line; any failure exits non-zero:
               and, per 64-row tile along T, the error relative to the
               tile's own reference.
 9. kernel_flash_bwd - K4 (fused backward) and K5 (two-pass backward; bf16
-              on the wgmma kernels) against flash_bwd_plain over the same
+              on the wgmma kernels of flash_attention_sm90.cu, fp32 on
+              flash_attention.cu) against flash_bwd_plain over the same
               sweep, K4 against K5, with a non-zero lse cotangent in every
               other case; then the training shape, timed beside the plain
               version and the backward of scaled_dot_product_attention,
               with TFLOP/s and bound shares; two K5 calls there must give
-              bitwise-equal dq, dk and dv.
+              bitwise-equal dq, dk and dv, two K4 calls bitwise-equal dk
+              and dv (K4's dq is summed by reductions in L2, in no fixed
+              order).
 10. train   - the bench's long-context stack (bench.py
               bench_attention_longcontext: 2 causal SelfAttentionLayer(256,
               4 heads, block 512) + RnnOutputLayer(64), bf16 compute over
@@ -142,7 +147,8 @@ Phases, each printing one JSON line; any failure exits non-zero:
               step), two fit(x, y) steps, fit_on_device(steps=5) under
               configure(bwd="two_pass") timed the same way (K5 launches,
               K4 none), and one output(); every loss finite, peak memory
-              under 2 GiB.
+              under 2 GiB; a profile of two fused steps, in which the
+              wgmma K4 kernel must appear and the old wmma one must not.
 11. train_oracle - the same stack in fp32: one gradient_and_score through
               the kernels, held against the dense plain versions on the
               card in fp64 (the fp32 dense path is reported beside it);
@@ -164,11 +170,16 @@ Phases, each printing one JSON line; any failure exits non-zero:
               with Q = 2/3/5/9 queries per slot, and each row i of K2
               against K1 at visible + i on the same pool; then the served
               shape at Q = 2/3/5 with both pools.
-              K6 (contiguous split-K decode, "kernel_contiguous"): fp32 and
-              bf16, cache lengths whose partition is 256, 64 and 4 (below
-              8), head dims 64 and 128 (the shared-memory cap); timed beside
-              torch's scaled_dot_product_attention with a boolean mask
-              (a yardstick only, never the route).
+              K6 (contiguous split-K decode with its merge in the launch,
+              "kernel_contiguous"): fp32 and bf16, cache lengths 1024,
+              320 and 300 (ragged last partitions), head dims 64 and 128,
+              GQA groups 1/2/4, windows 0/64, with each case's partition
+              plan; with the merge off, the partials against the plain
+              split of the same plan; then the served shape: the call
+              (merge in), the kernel with the merge off, launches a call,
+              the eager call, beside torch's
+              scaled_dot_product_attention with a boolean mask (a
+              yardstick only, never the route).
 13. serve   - the bench_decode_serving model at full width (2 causal GQA
               attention layers, d_model 256, 4 heads, 2 kv heads, vocab 64,
               bf16, max_seqs 8, max_len 1024, KV block 16; random XAVIER
@@ -542,12 +553,33 @@ def sdpa_call(torch, q, kc, vc, vis, scale):
     return out[:, :, 0, :]
 
 
+def contiguous_plan(da, lib, S, L, Hk, G, D, elt, visible, window=0):
+    """K6's partition plan for one call: positions per CTA, partitions per
+    (slot, kv head), CTAs launched and CTAs with visible positions, shared
+    memory per CTA (the wrapper's rule and the kernel's own count, which
+    must agree)."""
+    P = da.contiguous_partition(G, D, elt)
+    smem = da.contiguous_smem_bytes(G, D, P, elt)
+    smem_kernel = lib.dl4j_flash_decode_contiguous_smem(G, D, P, elt)
+    if smem != smem_kernel:
+        fail(f"K6 shared memory: wrapper {smem} B, kernel {smem_kernel} B")
+    busy = 0
+    for v in visible:
+        hi, lo = min(v, L), max(0, v - window) if window else 0
+        busy += Hk * ((-(-hi // P) - lo // P) if hi > lo else 0)
+    np_ = -(-L // P)
+    return {"P": P, "partitions": np_, "ctas": S * Hk * np_,
+            "busy_ctas": busy, "smem": smem}
+
+
 def phase_kernel_contiguous(torch):
-    """K6 against its plain version, then timed at the served shape beside
+    """K6 against its plain version, its partials (merge off) against the
+    plain split of the same plan, then timed at the served shape beside
     scaled_dot_product_attention."""
     from deeplearning4j_tpu_torch.ops import decode_attention as da
+    lib = da._contiguous_library()
     tol = {"float32": 1e-4, "bfloat16": 2e-2}
-    worst, n_cases, plans = {}, 0, {}
+    worst, worst_p, n_cases, plans = {}, {}, 0, {}
     for kind in ("float32", "bfloat16"):
         dtype = torch.bfloat16 if kind == "bfloat16" else torch.float32
         for L, D in ((1024, 64), (320, 64), (300, 64), (1024, 128)):
@@ -559,13 +591,24 @@ def phase_kernel_contiguous(torch):
                                                     window)
                     ref = da.decode_attention_dense(q, kc, vc, vis, scale,
                                                     window)
+                    parts = da.flash_decode_contiguous_partials(
+                        q, kc, vc, vis, scale, window)
+                    plan = contiguous_plan(da, lib, 4, L, 2, G, D,
+                                           q.element_size(), vis.tolist(),
+                                           window)
+                    pref = da.contiguous_partials_plain(
+                        q, kc, vc, vis, scale, window, plan["P"])
                     torch.cuda.synchronize()
                     err = (out.float() - ref.float()).abs().max().item()
-                    if not math.isfinite(err) or err > tol[kind]:
+                    perr = max(max_err(a, b) for a, b in zip(parts, pref))
+                    if not (err <= tol[kind] and perr <= tol[kind]):
                         fail(f"K6 vs plain: {kind} L={L} D={D} G={G} "
-                             f"window={window}: max abs err {err}")
+                             f"window={window}: max abs err {err}, "
+                             f"partials {perr}")
                     worst[kind] = max(worst.get(kind, 0.0), err)
-                    plans[f"L{L}_D{D}_G{G}"] = da.kernel_bkv(L, G, D)
+                    worst_p[kind] = max(worst_p.get(kind, 0.0), perr)
+                    plans[f"{kind}_L{L}_D{D}_G{G}"] = {
+                        k: plan[k] for k in ("P", "partitions", "smem")}
                     n_cases += 1
     S, Hk, G, D, L = MAX_SEQS, KV_HEADS, HEADS // KV_HEADS, \
         D_MODEL // HEADS, MAX_LEN
@@ -575,11 +618,17 @@ def phase_kernel_contiguous(torch):
                                             visible=visible)
     out = da.flash_decode_attention(q, kc, vc, vis, scale)
     ref = da.decode_attention_dense(q, kc, vc, vis, scale)
-    lib = sdpa_call(torch, q, kc, vc, vis, scale)
+    lib_out = sdpa_call(torch, q, kc, vc, vis, scale)
     served_err = (out.float() - ref.float()).abs().max().item()
-    lib_err = (lib.float() - ref.float()).abs().max().item()
+    lib_err = (lib_out.float() - ref.float()).abs().max().item()
     if not served_err <= tol["bfloat16"]:
         fail(f"K6 vs plain at the served shape: {served_err}")
+    torch.cuda.synchronize()
+    before = da.flash_decode_attention.launches
+    da.flash_decode_attention(q, kc, vc, vis, scale)
+    launches_per_call = da.flash_decode_attention.launches - before
+    if launches_per_call != 1:
+        fail(f"K6: {launches_per_call} launches a call, expected 1")
     ms = graph_ms(torch, lambda: da.flash_decode_attention(q, kc, vc, vis,
                                                            scale))
     plain_ms = graph_ms(torch, lambda: da.decode_attention_dense(
@@ -598,13 +647,16 @@ def phase_kernel_contiguous(torch):
     ops = 4 * sum(visible) * Hk * G * D
     bound_ms, bound_by = bound_of(nbytes, ops)
     res = {"phase": "kernel_contiguous", "cases": n_cases,
-           "max_abs_err": worst, "tolerance": tol, "bkv_plans": plans,
+           "max_abs_err": worst, "partials_max_abs_err": worst_p,
+           "tolerance": tol, "plans": plans,
            "served_shape": {"S": S, "L": L, "H": Hk * G, "Hk": Hk, "D": D,
-                            "bkv": da.kernel_bkv(L, G, D),
                             "visible": visible, "dtype": "bfloat16"},
+           "served_plan": contiguous_plan(da, lib, S, L, Hk, G, D, elt,
+                                          visible),
            "served_max_abs_err": served_err,
            "library_max_abs_err": lib_err, "ms": ms, "plain_ms": plain_ms,
            "kernel_only_ms": kernel_only_ms,
+           "launches_per_call": launches_per_call,
            "library_ms": library_ms, "eager_ms": eager_ms,
            "bound_ms": bound_ms, "bound_by": bound_by, "bytes": nbytes,
            "ops": ops}
@@ -1176,15 +1228,19 @@ def train_shape_case(torch, seed):
 
 # ------------------------------------------------ the wgmma kernels' build
 SM90_KERNELS = ("flash_fwd_sm90_kernel", "flash_dq_sm90_kernel",
-                "flash_dkv_sm90_kernel")
+                "flash_dkv_sm90_kernel", "flash_bwd_fused_sm90_kernel")
 SM90_KINDS = {"flash_fwd_sm90_kernel": 0, "flash_dq_sm90_kernel": 1,
-              "flash_dkv_sm90_kernel": 2}
-ATOMIC_OPS = ("ATOM", "ATOMS", "ATOMG", "RED")
+              "flash_dkv_sm90_kernel": 2, "flash_bwd_fused_sm90_kernel": 3}
+# K4 sums dq across CTAs by reductions in L2, and only K4 may
+SM90_REDUCING = ("flash_bwd_fused_sm90_kernel",)
+ATOMIC_OPS = ("ATOM", "ATOMS", "ATOMG")
+REDUCE_OPS = ("UBLKRED", "UTMAREDG")          # and every RED* (RED, REDG)
 
 
 def sm90_kernel_key(name: str):
     """(kernel, D) of a mangled sm90 flash kernel name, else None."""
-    m = re.search(r"(flash_(?:fwd|dq|dkv)_sm90_kernel)ILi(\d+)EE", name)
+    m = re.search(r"(flash_(?:fwd|dq|dkv|bwd_fused)_sm90_kernel)ILi(\d+)EE",
+                  name)
     return (m.group(1), int(m.group(2))) if m else None
 
 
@@ -1244,8 +1300,8 @@ def cuobjdump() -> str:
 
 
 def sass_counts(lib_path: str) -> dict:
-    """HGMMA, UTMALDG and atomic instructions of each sm90 kernel in the
-    SASS of the built library."""
+    """HGMMA, UTMALDG, atomic and reduction instructions of each sm90
+    kernel in the SASS of the built library (the reductions by name too)."""
     sass = subprocess.run([cuobjdump(), "-sass", lib_path],
                           capture_output=True, text=True, timeout=300)
     if sass.returncode != 0:
@@ -1257,7 +1313,8 @@ def sass_counts(lib_path: str) -> dict:
             key = sm90_kernel_key(m.group(1))
             cur = None if key is None else f"{key[0]}<{key[1]}>"
             if cur:
-                out[cur] = {"HGMMA": 0, "UTMALDG": 0, "atomic": 0}
+                out[cur] = {"HGMMA": 0, "UTMALDG": 0, "atomic": 0,
+                            "reduction": 0, "reduction_ops": {}}
             continue
         if cur is None:
             continue
@@ -1270,13 +1327,20 @@ def sass_counts(lib_path: str) -> dict:
             out[cur][op] += 1
         elif op in ATOMIC_OPS:
             out[cur]["atomic"] += 1
+        elif op.startswith("RED") or op in REDUCE_OPS:
+            out[cur]["reduction"] += 1
+            full = m.group(1)
+            ops = out[cur]["reduction_ops"]
+            ops[full] = ops.get(full, 0) + 1
     return out
 
 
 def sm90_build_report(built: dict) -> dict:
     """Per sm90 kernel: registers, spills, shared memory (static from
     ptxas, dynamic from the library) and the SASS counts. Fails when a
-    kernel has no HGMMA or no UTMALDG, holds an atomic, or spills at D 64."""
+    kernel has no HGMMA or no UTMALDG, holds an atomic, holds a reduction
+    where none belongs (K3, K5) or none where its dq needs them (K4), or
+    spills at D 64."""
     from deeplearning4j_tpu_torch.ops import flash_attention as fa
     b = built[fa.SM90_SOURCE]
     lib = fa._library(fa.SM90_SOURCE)
@@ -1296,6 +1360,9 @@ def sm90_build_report(built: dict) -> dict:
                      "instructions in its SASS")
             if r["atomic"]:
                 fail(f"{key}: {r['atomic']} atomic instructions in its SASS")
+            if bool(r["reduction"]) != (kern in SM90_REDUCING):
+                fail(f"{key}: {r['reduction']} reduction instructions in "
+                     f"its SASS ({r['reduction_ops']})")
             if D == 64 and r.get("spill_stores", 1) != 0:
                 fail(f"{key}: {r.get('spill_stores')} bytes of spill stores")
     return report
@@ -1425,7 +1492,12 @@ def phase_kernel_flash_bwd(torch):
                                      None, 0, "two_pass")
     if not all(torch.equal(a, b) for a, b in zip(got["two_pass"], g2)):
         fail("K5: two calls on the same inputs give other dq, dk or dv")
-    del ref, g, g2, got
+    g4 = fa.flash_attention_bwd_cuda(q, k, v, None, o, l, do, None, True,
+                                     None, 0, "fused")
+    if not all(torch.equal(a, b) for a, b in zip(got["fused"][1:], g4[1:])):
+        fail("K4: two calls on the same inputs give other dk or dv")
+    repeat_dq_err = max_err(got["fused"][0], g4[0])
+    del ref, g, g2, g4, got
     ms = {mode: event_ms(torch, lambda mode=mode: fa.flash_attention_bwd_cuda(
         q, k, v, None, o, l, do, None, True, None, 0, mode))
         for mode in fa.BWD_MODES}
@@ -1455,7 +1527,8 @@ def phase_kernel_flash_bwd(torch):
                           for m, b in bounds.items()},
            "tflops": {m: bounds[m][1] / ms[m] / 1e9 for m in ms},
            "bound_share": {m: bounds[m][2] / ms[m] for m in ms},
-           "bitwise_repeat": {"two_pass": True}}
+           "bitwise_repeat": {"two_pass": True, "fused_dk_dv": True},
+           "fused_repeat_dq_max_abs_err": repeat_dq_err}
     emit(res)
     return res
 
@@ -1590,14 +1663,24 @@ def phase_train(torch, np):
                         "ms_per_step": tp_wall / steps * 1e3,
                         "tokens_per_s": tokens * steps / tp_wall},
            "output_launches": out_launches}
-    res["profile"] = profile_train(torch, net, x, y)
+    res["profile"] = prof = profile_train(
+        torch, net, x, y, watch=("flash_bwd_fused_sm90_kernel",
+                                 "flash_bwd_kv_tc_kernel"))
+    seen = prof["watched_calls"]
+    if prof["device_busy_s"] is not None and (
+            seen["flash_bwd_fused_sm90_kernel"] != 4
+            or seen["flash_bwd_kv_tc_kernel"]):
+        fail(f"train profile: K4 kernels {seen}, expected 4 calls of the "
+             "wgmma K4 in two steps and none of the wmma one")
     emit(res)
     return res
 
 
-def profile_train(torch, net, x, y) -> dict:
+def profile_train(torch, net, x, y, watch=()) -> dict:
     """Device busy share and the top kernels over two fit_on_device steps,
-    from torch.profiler; None where the profiler saw no device time."""
+    from torch.profiler; None where the profiler saw no device time. Each
+    name in `watch` gets its calls over all device kernels whose name
+    holds it."""
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
@@ -1617,7 +1700,8 @@ def profile_train(torch, net, x, y) -> dict:
             rows.append((us, evt.key, evt.count))
     busy_s = sum(r[0] for r in rows) / 1e6
     rows.sort(reverse=True)
-    return {"wall_s": wall, "steps": 2,
+    seen = {w: sum(n for _, k, n in rows if w in k) for w in watch}
+    return {"wall_s": wall, "steps": 2, "watched_calls": seen,
             "device_busy_s": busy_s if rows else None,
             "device_idle_share": 1 - busy_s / wall if rows else None,
             "top_device": [{"name": k[:80], "ms": us / 1e3, "calls": n}
@@ -3291,11 +3375,11 @@ def main() -> int:
     from deeplearning4j_tpu_torch.ops import lstm_scan_fused as ts
     t0 = time.perf_counter()
     from deeplearning4j_tpu_torch.ops import threshold_encode as te
-    # K1, K2 and K6 are one source (the Q-query kernel, K6 on its view);
-    # fp32 K3/K5 and K4 another, bf16 K3 and K5 (wgmma) a third; K7 a
-    # fourth, K8 and K9 a fifth, K10 a sixth, K11 a seventh. One nvcc
-    # each, started together.
-    built = build.build(sorted({da.SOURCE, *fa.SOURCES, ts.SOURCE,
+    # K1 and K2 are one source (the Q-query paged kernel), K6 a second;
+    # fp32 K3-K5 a third, bf16 K3-K5 (wgmma) a fourth; K7 a fifth, K8 and
+    # K9 a sixth, K10 a seventh, K11 an eighth. One nvcc each, started
+    # together.
+    built = build.build(sorted({*da.SOURCES, *fa.SOURCES, ts.SOURCE,
                                 tg.SOURCE, cf.SOURCE, te.SOURCE}))
     sm90 = sm90_build_report(built)
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
@@ -3364,7 +3448,8 @@ def main() -> int:
         "library_ms": None, "kernel_only_ms": kspec["kernel_only_ms"],
         "oracle_max_abs_err": spec_oracle["max_abs_err"]}, {
         "name": "flash_decode_attention", "route": "cuda",
-        "source": src,
+        "source": "deeplearning4j_tpu_torch/ops/csrc/"
+                  "flash_decode_contiguous.cu",
         "replaces": "deeplearning4j_tpu/ops/decode_attention.py:180",
         "launches": dattn["launches"],
         "max_abs_err": max(max(kcont["max_abs_err"].values()),
@@ -3372,7 +3457,9 @@ def main() -> int:
         "ms": kcont["ms"], "plain_ms": kcont["plain_ms"],
         "bound_ms": kcont["bound_ms"], "bound_by": kcont["bound_by"],
         "library_ms": kcont["library_ms"],
-        "kernel_only_ms": kcont["kernel_only_ms"]}, {
+        "kernel_only_ms": kcont["kernel_only_ms"],
+        "launches_per_call": kcont["launches_per_call"],
+        "plan": kcont["served_plan"]}, {
         "name": "flash_attention_fwd", "route": "cuda", "source": f90,
         "fp32_source": fsrc,
         "replaces": "deeplearning4j_tpu/ops/flash_attention.py:448",
@@ -3385,7 +3472,7 @@ def main() -> int:
         "bound_share": kflash["bound_share"],
         "oracle_max_grad_rel_err": train_oracle["max_grad_rel_err"]}] + [{
         "name": f"flash_attention_bwd_{mode}", "route": "cuda",
-        "source": fsrc if mode == "fused" else f90,
+        "source": f90, "fp32_source": fsrc,
         "replaces": replaces,
         "launches": (train["launches"]["K4"] if mode == "fused"
                      else train["two_pass"]["launches"]["K5"]),

@@ -1,10 +1,8 @@
-// Flash attention for Hopper (sm_90a): the fp32 forward (K3), the fused
-// backward (K4) in fp32 and bf16, and the fp32 two-pass backward (K5). bf16
-// K4 runs the products of each tile on the tensor cores (nvcuda::wmma bf16
-// fragments, fp32 accumulators); fp32 inputs run them in fp32 on the CUDA
-// cores (wmma and wgmma have no fp32 product short of TF32, whose ~3
-// decimal digits would miss the fp32 tolerance). The bf16 forward and the
-// bf16 two-pass backward are flash_attention_sm90.cu's (wgmma, TMA).
+// Flash attention for Hopper (sm_90a) in fp32: the forward (K3), the fused
+// backward (K4) and the two-pass backward (K5), on the CUDA cores (wmma
+// and wgmma have no fp32 product short of TF32, whose ~3 decimal digits
+// would miss the fp32 tolerance). Every bf16 kernel is
+// flash_attention_sm90.cu's (wgmma, TMA).
 //
 // Replaces the Pallas kernels of deeplearning4j_tpu/ops/flash_attention.py:
 //   - K3 `_call_fwd` (:448, body `_fwd_kernel` :123): online-softmax
@@ -48,30 +46,23 @@
 // the others, from 1.3e-4 to 2.8e-5 of a float64 reference (chip_smoke.py
 // train_oracle).
 //
-// CUDA-core kernels (fp32): 256 threads as 16 x 16; a thread holds a 4 x 4
-// micro-tile of each 64 x 64 score tile (rows ty + 16 i, columns tx + 16 j)
-// and a 4 x D/16 micro-tile of each (64, D) accumulator. K and V tiles are
-// staged transposed with a padded stride (65) and q-side tiles with stride
-// D + 1, so the shared-memory reads of the inner loops are free of bank
+// 256 threads as 16 x 16; a thread holds a 4 x 4 micro-tile of each 64 x
+// 64 score tile (rows ty + 16 i, columns tx + 16 j) and a 4 x D/16
+// micro-tile of each (64, D) accumulator. K and V tiles are staged
+// transposed with a padded stride (65) and q-side tiles with stride D + 1,
+// so the shared-memory reads of the inner loops are free of bank
 // conflicts. At D = 128 a backward CTA needs ~166 KB of dynamic shared
 // memory (above 48 KB it takes cudaFuncSetAttribute).
 //
-// What bounds it on the H100, at the training shape (B*H = 16, T = 8192,
-// D = 64, causal, 33,558,528 visible pairs per head): operations. K4 does
-// 5 products (343.6 GFLOP, 0.347 ms at 989 TFLOP/s of bf16 tensor cores),
-// while its q/k/v/dO/dq/dk/dv/L/D_i take 0.035 ms at 3.35 TB/s. What the
-// design does about it: every score tile stays out of device memory,
-// invisible tiles are skipped, and the bf16 products run on the tensor
-// cores. bf16 K4 is still far from the bound: its softmax and p/ds passes
-// go through shared memory between the products, the tiles are loaded
-// without a pipeline, and wmma is not wgmma; its redesign reuses the
-// dk/dv kernel of flash_attention_sm90.cu.
-#include <cuda_bf16.h>
+// What bounds it on the H100, at the training shape in fp32 (B*H = 16, T
+// = 8192, D = 64, causal, 33,558,528 visible pairs per head): operations,
+// 5 products for K4 (343.6 GFLOP, 5.1 ms at 67 TFLOP/s of fp32 CUDA
+// cores), while its q/k/v/dO/dq/dk/dv/L/D_i take 0.07 ms at 3.35 TB/s.
+// What the design does about it: every score tile stays out of device
+// memory, invisible tiles are skipped, and the inner loops read shared
+// memory without bank conflicts.
 #include <cuda_runtime.h>
-#include <mma.h>
 #include <stdint.h>
-
-#include <type_traits>
 
 #include "flash_common.cuh"
 
@@ -82,14 +73,6 @@ constexpr int BN = 64;        // key rows per tile
 constexpr int NT = 256;       // threads per CTA: 16 x 16
 constexpr int KP = BN + 1;    // padded stride of transposed K/V and scores
 
-__device__ __forceinline__ float to_f(float x) { return x; }
-__device__ __forceinline__ float to_f(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
-__device__ __forceinline__ void put(float* p, float x) { *p = x; }
-__device__ __forceinline__ void put(__nv_bfloat16* p, float x) {
-  *p = __float2bfloat16(x);
-}
 
 // max / sum over the 16 lanes (tx = 0..15) that share a score row
 __device__ __forceinline__ float row_max(float x) {
@@ -106,23 +89,23 @@ __device__ __forceinline__ float row_sum(float x) {
 
 // Stage a (BN, D) key-side tile transposed: dst[d * KP + c]; rows past T
 // are zero.
-template <typename TI, int D>
-__device__ __forceinline__ void stage_kv_t(float* dst, const TI* src,
+template <int D>
+__device__ __forceinline__ void stage_kv_t(float* dst, const float* src,
                                            int k_lo, int T) {
   for (int e = threadIdx.x; e < BN * D; e += NT) {
     const int c = e / D, d = e - c * D, kj = k_lo + c;
-    dst[d * KP + c] = kj < T ? to_f(src[(long)kj * D + d]) : 0.f;
+    dst[d * KP + c] = kj < T ? src[(long)kj * D + d] : 0.f;
   }
 }
 
 // Stage a (BM, D) query-side tile row-major with stride D + 1; rows past T
 // are zero.
-template <typename TI, int D>
-__device__ __forceinline__ void stage_q(float* dst, const TI* src, int q_lo,
+template <int D>
+__device__ __forceinline__ void stage_q(float* dst, const float* src, int q_lo,
                                         int T) {
   for (int e = threadIdx.x; e < BM * D; e += NT) {
     const int r = e / D, d = e - r * D, qi = q_lo + r;
-    dst[r * (D + 1) + d] = qi < T ? to_f(src[(long)qi * D + d]) : 0.f;
+    dst[r * (D + 1) + d] = qi < T ? src[(long)qi * D + d] : 0.f;
   }
 }
 
@@ -135,11 +118,11 @@ __device__ __forceinline__ void stage_key_ok(int* kms, const int* km, int b,
 }
 
 // ------------------------------------------------------------------ K3
-template <typename TI, int D>
+template <int D>
 __global__ void __launch_bounds__(NT)
-flash_fwd_kernel(const TI* __restrict__ q, const TI* __restrict__ k,
-                 const TI* __restrict__ v, const int* __restrict__ km,
-                 TI* __restrict__ o, float* __restrict__ lse, int H, int Hk,
+flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                 const float* __restrict__ v, const int* __restrict__ km,
+                 float* __restrict__ o, float* __restrict__ lse, int H, int Hk,
                  Geometry g, float scale) {
   constexpr int DC = D / 16;
   const int nq = gridDim.x;
@@ -156,10 +139,10 @@ flash_fwd_kernel(const TI* __restrict__ q, const TI* __restrict__ k,
   float* Ps = Vt + D * KP;              // BM x KP
   int* kms = reinterpret_cast<int*>(Ps + BM * KP);   // BN
 
-  const TI* qb = q + (long)bh * T * D;
-  const TI* kb = k + (long)kvrow * T * D;
-  const TI* vb = v + (long)kvrow * T * D;
-  stage_q<TI, D>(Qs, qb, q_lo, T);
+  const float* qb = q + (long)bh * T * D;
+  const float* kb = k + (long)kvrow * T * D;
+  const float* vb = v + (long)kvrow * T * D;
+  stage_q<D>(Qs, qb, q_lo, T);
 
   float acc[4][DC], m[4], l[4], alpha[4];
 #pragma unroll
@@ -174,8 +157,8 @@ flash_fwd_kernel(const TI* __restrict__ q, const TI* __restrict__ k,
   for (int j = j0; j < j1; ++j) {
     const int k_lo = j * BN;
     __syncthreads();                    // the last tile's readers are done
-    stage_kv_t<TI, D>(Kt, kb, k_lo, T);
-    stage_kv_t<TI, D>(Vt, vb, k_lo, T);
+    stage_kv_t<D>(Kt, kb, k_lo, T);
+    stage_kv_t<D>(Vt, vb, k_lo, T);
     stage_key_ok(kms, km, b, k_lo, T);
     __syncthreads();
     const bool masked = tile_masked<BM, BN>(g, q_lo, k_lo, km != nullptr);
@@ -262,9 +245,9 @@ flash_fwd_kernel(const TI* __restrict__ q, const TI* __restrict__ k,
     const int qi = q_lo + ty + 16 * a;
     if (qi >= T) continue;
     const float inv = 1.f / fmaxf(l[a], 1e-30f);
-    TI* orow = o + ((long)bh * T + qi) * D;
+    float* orow = o + ((long)bh * T + qi) * D;
 #pragma unroll
-    for (int e = 0; e < DC; ++e) put(orow + tx + 16 * e, acc[a][e] * inv);
+    for (int e = 0; e < DC; ++e) orow[tx + 16 * e] = acc[a][e] * inv;
     if (tx == 0)
       lse[(long)bh * T + qi] =
           l[a] > 0.f ? m[a] + logf(fmaxf(l[a], 1e-30f)) : DL4J_NEG_INF;
@@ -334,13 +317,14 @@ __device__ __forceinline__ void stage_rows(float* Ls, float* Dis,
 }
 
 // ------------------------------------------------ K4, and K5's dk/dv pass
-template <typename TI, int D, bool WITH_DQ>
+template <int D, bool WITH_DQ>
 __global__ void __launch_bounds__(NT)
-flash_bwd_kv_kernel(const TI* __restrict__ q, const TI* __restrict__ k,
-                    const TI* __restrict__ v, const int* __restrict__ km,
-                    const TI* __restrict__ dout, const float* __restrict__ lse,
+flash_bwd_kv_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                    const float* __restrict__ v, const int* __restrict__ km,
+                    const float* __restrict__ dout,
+                    const float* __restrict__ lse,
                     const float* __restrict__ di, float* __restrict__ dq,
-                    TI* __restrict__ dk, TI* __restrict__ dv, int H,
+                    float* __restrict__ dk, float* __restrict__ dv, int H,
                     Geometry g, float scale) {
   constexpr int DC = D / 16;
   const int j = blockIdx.x;             // the most-visited key tiles first
@@ -360,8 +344,8 @@ flash_bwd_kv_kernel(const TI* __restrict__ q, const TI* __restrict__ k,
   int* kms = reinterpret_cast<int*>(Dis + BM);   // BN
 
   const long base = (long)bh * T * D;
-  stage_kv_t<TI, D>(Kt, k + base, k_lo, T);
-  stage_kv_t<TI, D>(Vt, v + base, k_lo, T);
+  stage_kv_t<D>(Kt, k + base, k_lo, T);
+  stage_kv_t<D>(Vt, v + base, k_lo, T);
   stage_key_ok(kms, km, b, k_lo, T);
 
   // dk/dv micro-tiles: key rows ty + 16 a, columns tx + 16 e
@@ -376,8 +360,8 @@ flash_bwd_kv_kernel(const TI* __restrict__ q, const TI* __restrict__ k,
   for (int i = i0; i < i1; ++i) {
     const int q_lo = i * BM;
     __syncthreads();
-    stage_q<TI, D>(Qs, q + base, q_lo, T);
-    stage_q<TI, D>(dOs, dout + base, q_lo, T);
+    stage_q<D>(Qs, q + base, q_lo, T);
+    stage_q<D>(dOs, dout + base, q_lo, T);
     stage_rows(Ls, Dis, lse, di, (long)bh * T, q_lo, T);
     __syncthreads();
     bwd_scores<D>(Qs, dOs, Kt, Vt, Ls, Dis, kms, Ps, dSs, g, q_lo, k_lo,
@@ -455,18 +439,19 @@ flash_bwd_kv_kernel(const TI* __restrict__ q, const TI* __restrict__ k,
 #pragma unroll
     for (int e = 0; e < DC; ++e) {
       const long off = base + (long)kj * D + tx + 16 * e;
-      put(dk + off, scale * dk_acc[a][e]);
-      put(dv + off, dv_acc[a][e]);
+      dk[off] = scale * dk_acc[a][e];
+      dv[off] = dv_acc[a][e];
     }
   }
 }
 
 // -------------------------------------------------------- K5's dq pass
-template <typename TI, int D>
+template <int D>
 __global__ void __launch_bounds__(NT)
-flash_bwd_q_kernel(const TI* __restrict__ q, const TI* __restrict__ k,
-                   const TI* __restrict__ v, const int* __restrict__ km,
-                   const TI* __restrict__ dout, const float* __restrict__ lse,
+flash_bwd_q_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                   const float* __restrict__ v, const int* __restrict__ km,
+                   const float* __restrict__ dout,
+                   const float* __restrict__ lse,
                    const float* __restrict__ di, float* __restrict__ dq,
                    int H, Geometry g, float scale) {
   constexpr int DC = D / 16;
@@ -488,8 +473,8 @@ flash_bwd_q_kernel(const TI* __restrict__ q, const TI* __restrict__ k,
   int* kms = reinterpret_cast<int*>(Dis + BM);
 
   const long base = (long)bh * T * D;
-  stage_q<TI, D>(Qs, q + base, q_lo, T);
-  stage_q<TI, D>(dOs, dout + base, q_lo, T);
+  stage_q<D>(Qs, q + base, q_lo, T);
+  stage_q<D>(dOs, dout + base, q_lo, T);
   stage_rows(Ls, Dis, lse, di, (long)bh * T, q_lo, T);
 
   float dq_acc[4][DC];
@@ -503,8 +488,8 @@ flash_bwd_q_kernel(const TI* __restrict__ q, const TI* __restrict__ k,
   for (int j = j0; j < j1; ++j) {
     const int k_lo = j * BN;
     __syncthreads();
-    stage_kv_t<TI, D>(Kt, k + base, k_lo, T);
-    stage_kv_t<TI, D>(Vt, v + base, k_lo, T);
+    stage_kv_t<D>(Kt, k + base, k_lo, T);
+    stage_kv_t<D>(Vt, v + base, k_lo, T);
     stage_key_ok(kms, km, b, k_lo, T);
     __syncthreads();
     bwd_scores<D>(Qs, dOs, Kt, Vt, Ls, Dis, kms, Ps, dSs, g, q_lo, k_lo,
@@ -542,225 +527,6 @@ flash_bwd_q_kernel(const TI* __restrict__ q, const TI* __restrict__ k,
   }
 }
 
-
-// ======================================================================
-// bf16 inputs: K4 with the products of each tile on the tensor cores
-// (nvcuda::wmma 16x16x16 bf16 fragments, fp32 accumulators). 4 warps per
-// CTA; in a (64 q, 64 key) tile warp w owns query rows 16w..16w+15 for
-// S = q k^T, dP = dO v^T and dq, and key rows 16w..16w+15 for dv and dk.
-// The fp32 scores go through shared memory, where two lanes per row apply
-// the mask and form p and ds, and write them back as bf16 for the next
-// products (the JAX kernels round p and ds to the input dtype there too,
-// :331).
-// ======================================================================
-namespace wm = nvcuda::wmma;
-using bf16 = __nv_bfloat16;
-using FragA = wm::fragment<wm::matrix_a, 16, 16, 16, bf16, wm::row_major>;
-using FragAt = wm::fragment<wm::matrix_a, 16, 16, 16, bf16, wm::col_major>;
-using FragBt = wm::fragment<wm::matrix_b, 16, 16, 16, bf16, wm::col_major>;
-using FragB = wm::fragment<wm::matrix_b, 16, 16, 16, bf16, wm::row_major>;
-using FragC = wm::fragment<wm::accumulator, 16, 16, 16, float>;
-
-constexpr int WT = 128;                 // threads of a tensor-core CTA
-
-template <int D>
-struct TcLayout {
-  static constexpr int NK = D / 16;     // 16-wide blocks of the head dim
-  static constexpr int LDB = D + 8;     // bf16 rows of q/k/v/dO tiles
-  static constexpr int LDS = BN + 4;    // fp32 rows of score tiles
-  static constexpr int LDP = BN + 8;    // bf16 rows of p / ds tiles
-  static constexpr int LDO = D + 4;     // fp32 rows of (64, D) tiles
-};
-
-// Stage a (64, D) bf16 tile, rows past T zero, 16 bytes per copy.
-template <int D>
-__device__ __forceinline__ void stage_tile(bf16* dst, const bf16* src,
-                                           int lo, int T) {
-  constexpr int V = D / 8;
-  for (int e = threadIdx.x; e < 64 * V; e += blockDim.x) {
-    const int r = e / V, c = e - r * V, row = lo + r;
-    uint4 val = make_uint4(0u, 0u, 0u, 0u);
-    if (row < T) val = reinterpret_cast<const uint4*>(src + (long)row * D)[c];
-    reinterpret_cast<uint4*>(dst + r * TcLayout<D>::LDB)[c] = val;
-  }
-}
-
-// S (q rows of this warp x 64 keys) = A B^T for (64, D) tiles A (this
-// warp's rows) and B, stored fp32 row-major at dst (stride LDS).
-template <int D>
-__device__ __forceinline__ void tile_products(float* dst, const bf16* A,
-                                              const bf16* B, int warp) {
-  using L = TcLayout<D>;
-#pragma unroll
-  for (int n = 0; n < 4; ++n) {
-    FragC acc;
-    wm::fill_fragment(acc, 0.f);
-#pragma unroll
-    for (int kk = 0; kk < L::NK; ++kk) {
-      FragA a;
-      FragBt bt;
-      wm::load_matrix_sync(a, A + 16 * warp * L::LDB + 16 * kk, L::LDB);
-      wm::load_matrix_sync(bt, B + 16 * n * L::LDB + 16 * kk, L::LDB);
-      wm::mma_sync(acc, a, bt, acc);
-    }
-    wm::store_matrix_sync(dst + 16 * warp * L::LDS + 16 * n, acc, L::LDS,
-                          wm::mem_row_major);
-  }
-}
-
-// p and ds of this lane's half row from the fp32 S and dP tiles, as bf16
-// (p only where Pb is given).
-template <int D>
-__device__ __forceinline__ void tc_p_ds(const float* Ss, const float* dPs,
-                                        const float* Ls, const float* Dis,
-                                        const int* kms, bf16* Pb, bf16* dSb,
-                                        const Geometry& g, int q_lo,
-                                        int k_lo, bool masked, float scale) {
-  using L = TcLayout<D>;
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int row = 16 * warp + (lane >> 1), half = lane & 1;
-  const float Lr = Ls[row], Dr = Dis[row];
-  const float* srow = Ss + row * L::LDS + 32 * half;
-  const float* dprow = dPs + row * L::LDS + 32 * half;
-#pragma unroll 8
-  for (int c = 0; c < 32; ++c) {
-    const int col = 32 * half + c;
-    const bool ok =
-        !masked || visible(g, q_lo + row, k_lo + col, kms[col] != 0);
-    const float p = ok ? expf(srow[c] * scale - Lr) : 0.f;
-    if (Pb) Pb[row * L::LDP + col] = __float2bfloat16(p);
-    dSb[row * L::LDP + col] = __float2bfloat16(p * (dprow[c] - Dr));
-  }
-}
-
-// (64, D) accumulators of this warp (rows 16w..) times `mul`, written as
-// rows lo + r < T of a (T, D) output through the fp32 staging tile St.
-template <typename TO, int D>
-__device__ __forceinline__ void tc_write_rows(TO* out, const FragC* acc,
-                                              float mul, float* St, int lo,
-                                              int T) {
-  using L = TcLayout<D>;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-#pragma unroll
-  for (int n = 0; n < L::NK; ++n)
-    wm::store_matrix_sync(St + 16 * warp * L::LDO + 16 * n, acc[n], L::LDO,
-                          wm::mem_row_major);
-  __syncwarp();
-  for (int e = lane; e < 16 * D; e += 32) {
-    const int r = 16 * warp + e / D, d = e % D;
-    if (lo + r < T) put(out + (long)(lo + r) * D + d, mul * St[r * L::LDO + d]);
-  }
-  __syncwarp();
-}
-
-// --------------------------------------------------------- K4, bf16
-template <int D, bool WITH_DQ>
-__global__ void __launch_bounds__(WT)
-flash_bwd_kv_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                       const bf16* __restrict__ v, const int* __restrict__ km,
-                       const bf16* __restrict__ dout,
-                       const float* __restrict__ lse,
-                       const float* __restrict__ di, float* __restrict__ dq,
-                       bf16* __restrict__ dk, bf16* __restrict__ dv, int H,
-                       Geometry g, float scale) {
-  using L = TcLayout<D>;
-  const int j = blockIdx.x;             // the most-visited key tiles first
-  const int bh = blockIdx.y, b = bh / H;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int T = g.T, k_lo = j * BN;
-
-  extern __shared__ __align__(128) unsigned char tc_smem[];
-  bf16* Ks = reinterpret_cast<bf16*>(tc_smem);        // BN x LDB
-  bf16* Vs = Ks + BN * L::LDB;
-  bf16* Qs = Vs + BN * L::LDB;                        // BM x LDB
-  bf16* dOs = Qs + BM * L::LDB;
-  float* Ss = reinterpret_cast<float*>(dOs + BM * L::LDB);  // BM x LDS
-  float* dPs = Ss + BM * L::LDS;                      // BM x LDS
-  bf16* Pb = reinterpret_cast<bf16*>(dPs + BM * L::LDS);    // BM x LDP
-  bf16* dSb = Pb + BM * L::LDP;
-  float* Ls = reinterpret_cast<float*>(dSb + BM * L::LDP);  // BM
-  float* Dis = Ls + BM;
-  int* kms = reinterpret_cast<int*>(Dis + BM);        // BN
-  float* St = Ss;   // (64, D) fp32 staging over Ss/dPs once they are read
-
-  const long base = (long)bh * T * D;
-  stage_tile<D>(Ks, k + base, k_lo, T);
-  stage_tile<D>(Vs, v + base, k_lo, T);
-  stage_key_ok(kms, km, b, k_lo, T);
-  FragC dk_acc[L::NK], dv_acc[L::NK];   // key rows 16w.., all of D
-#pragma unroll
-  for (int n = 0; n < L::NK; ++n) {
-    wm::fill_fragment(dk_acc[n], 0.f);
-    wm::fill_fragment(dv_acc[n], 0.f);
-  }
-  int i0, i1;
-  query_tiles<BM, BN>(g, k_lo, &i0, &i1);
-  for (int i = i0; i < i1; ++i) {
-    const int q_lo = i * BM;
-    __syncthreads();
-    stage_tile<D>(Qs, q + base, q_lo, T);
-    stage_tile<D>(dOs, dout + base, q_lo, T);
-    stage_rows(Ls, Dis, lse, di, (long)bh * T, q_lo, T);
-    __syncthreads();
-    tile_products<D>(Ss, Qs, Ks, warp);
-    tile_products<D>(dPs, dOs, Vs, warp);
-    __syncwarp();
-    tc_p_ds<D>(Ss, dPs, Ls, Dis, kms, Pb, dSb, g, q_lo, k_lo,
-               tile_masked<BM, BN>(g, q_lo, k_lo, km != nullptr), scale);
-    __syncthreads();                    // every row of p and ds is written
-    // dv += p^T dO, dk += ds^T q over this q tile (key rows 16w..)
-#pragma unroll
-    for (int n = 0; n < L::NK; ++n)
-#pragma unroll
-      for (int kk = 0; kk < 4; ++kk) {
-        FragAt pt, st;
-        FragB ob, qb;
-        wm::load_matrix_sync(pt, Pb + 16 * kk * L::LDP + 16 * warp, L::LDP);
-        wm::load_matrix_sync(ob, dOs + 16 * kk * L::LDB + 16 * n, L::LDB);
-        wm::mma_sync(dv_acc[n], pt, ob, dv_acc[n]);
-        wm::load_matrix_sync(st, dSb + 16 * kk * L::LDP + 16 * warp, L::LDP);
-        wm::load_matrix_sync(qb, Qs + 16 * kk * L::LDB + 16 * n, L::LDB);
-        wm::mma_sync(dk_acc[n], st, qb, dk_acc[n]);
-      }
-    if constexpr (WITH_DQ) {
-      // this warp's q rows: dq += scale * ds k, added into the fp32 buffer
-      FragC dq_t[L::NK];
-#pragma unroll
-      for (int n = 0; n < L::NK; ++n) {
-        wm::fill_fragment(dq_t[n], 0.f);
-#pragma unroll
-        for (int kk = 0; kk < 4; ++kk) {
-          FragA sa;
-          FragB kb;
-          wm::load_matrix_sync(sa, dSb + 16 * warp * L::LDP + 16 * kk,
-                               L::LDP);
-          wm::load_matrix_sync(kb, Ks + 16 * kk * L::LDB + 16 * n, L::LDB);
-          wm::mma_sync(dq_t[n], sa, kb, dq_t[n]);
-        }
-        wm::store_matrix_sync(St + 16 * warp * L::LDO + 16 * n, dq_t[n],
-                              L::LDO, wm::mem_row_major);
-      }
-      __syncwarp();
-      for (int e = lane; e < 16 * D; e += 32) {
-        const int r = 16 * warp + e / D, d = e % D;
-        if (q_lo + r < T)
-          atomicAdd(dq + base + (long)(q_lo + r) * D + d,
-                    scale * St[r * L::LDO + d]);
-      }
-    }
-  }
-  __syncthreads();                      // St overlays the score tiles
-  tc_write_rows<bf16, D>(dk + base, dk_acc, scale, St, k_lo, T);
-  tc_write_rows<bf16, D>(dv + base, dv_acc, 1.f, St, k_lo, T);
-}
-
-template <int D>
-constexpr size_t bwd_tc_smem() {
-  using L = TcLayout<D>;
-  return 2 * 4 * BM * L::LDB + 4 * 2 * BM * L::LDS + 2 * 2 * BM * L::LDP +
-         4 * 2 * BM + 4 * BN;
-}
-
 template <typename K>
 int prepare(K kern, size_t smem) {
   if (smem > 48 * 1024) {
@@ -785,81 +551,70 @@ constexpr size_t bwd_smem() {
 }
 
 // fp32 inputs only: the bf16 forward is flash_attention_sm90.cu's.
-template <typename TI, int D>
+template <int D>
 int launch_fwd(const void* q, const void* k, const void* v, const int* km,
                void* o, float* lse, int B, int H, int Hk, Geometry g,
                float scale, cudaStream_t st) {
   constexpr size_t smem = fwd_smem<D>();
-  auto kern = flash_fwd_kernel<TI, D>;
+  auto kern = flash_fwd_kernel<D>;
   int err = prepare(kern, smem);
   if (err) return err;
   dim3 grid((g.T + BM - 1) / BM, B * H);
   kern<<<grid, NT, smem, st>>>(
-      static_cast<const TI*>(q), static_cast<const TI*>(k),
-      static_cast<const TI*>(v), km, static_cast<TI*>(o), lse, H, Hk, g,
+      static_cast<const float*>(q), static_cast<const float*>(k),
+      static_cast<const float*>(v), km, static_cast<float*>(o), lse, H, Hk, g,
       scale);
   return (int)cudaGetLastError();
 }
 
-// The backward kernels for TI: for fp32 the CUDA-core K4 and K5 (wmma has
-// no fp32 product short of TF32, which would miss the fp32 tolerance); for
-// bf16 the tensor-core K4 only (bf16 K5 is flash_attention_sm90.cu's).
-template <typename TI, int D>
+// The CUDA-core K4 (one kernel, dq through atomics) or K5 (the dq kernel,
+// then the dk/dv kernel with the dq atomics compiled out).
+template <int D>
 int launch_bwd(const void* q, const void* k, const void* v, const int* km,
                const void* dout, const float* lse, const float* di,
                float* dq, void* dk, void* dv, int B, int H, Geometry g,
                int two_pass, float scale, cudaStream_t st) {
-  constexpr bool tc = std::is_same<TI, bf16>::value;
-  constexpr size_t smem = tc ? bwd_tc_smem<D>() : bwd_smem<D>();
-  constexpr int threads = tc ? WT : NT;
-  const TI* q_ = static_cast<const TI*>(q);
-  const TI* k_ = static_cast<const TI*>(k);
-  const TI* v_ = static_cast<const TI*>(v);
-  const TI* do_ = static_cast<const TI*>(dout);
-  TI* dk_ = static_cast<TI*>(dk);
-  TI* dv_ = static_cast<TI*>(dv);
+  constexpr size_t smem = bwd_smem<D>();
+  const float* q_ = static_cast<const float*>(q);
+  const float* k_ = static_cast<const float*>(k);
+  const float* v_ = static_cast<const float*>(v);
+  const float* do_ = static_cast<const float*>(dout);
+  float* dk_ = static_cast<float*>(dk);
+  float* dv_ = static_cast<float*>(dv);
   dim3 grid_k((g.T + BN - 1) / BN, B * H);
   dim3 grid_q((g.T + BM - 1) / BM, B * H);
   int err;
   if (!two_pass) {
-    auto kern = [] {
-      if constexpr (tc) return flash_bwd_kv_tc_kernel<D, true>;
-      else return flash_bwd_kv_kernel<TI, D, true>;
-    }();
+    auto kern = flash_bwd_kv_kernel<D, true>;
     if ((err = prepare(kern, smem))) return err;
-    kern<<<grid_k, threads, smem, st>>>(q_, k_, v_, km, do_, lse, di, dq,
-                                        dk_, dv_, H, g, scale);
+    kern<<<grid_k, NT, smem, st>>>(q_, k_, v_, km, do_, lse, di, dq, dk_,
+                                   dv_, H, g, scale);
     return (int)cudaGetLastError();
   }
-  if constexpr (tc) {
-    return (int)cudaErrorInvalidValue;
-  } else {
-    auto kq = flash_bwd_q_kernel<TI, D>;
-    if ((err = prepare(kq, smem))) return err;
-    kq<<<grid_q, threads, smem, st>>>(q_, k_, v_, km, do_, lse, di, dq, H,
-                                      g, scale);
-    if ((err = (int)cudaGetLastError())) return err;
-    auto kkv = flash_bwd_kv_kernel<TI, D, false>;
-    if ((err = prepare(kkv, smem))) return err;
-    kkv<<<grid_k, threads, smem, st>>>(q_, k_, v_, km, do_, lse, di,
-                                       nullptr, dk_, dv_, H, g, scale);
-    return (int)cudaGetLastError();
-  }
+  auto kq = flash_bwd_q_kernel<D>;
+  if ((err = prepare(kq, smem))) return err;
+  kq<<<grid_q, NT, smem, st>>>(q_, k_, v_, km, do_, lse, di, dq, H, g,
+                               scale);
+  if ((err = (int)cudaGetLastError())) return err;
+  auto kkv = flash_bwd_kv_kernel<D, false>;
+  if ((err = prepare(kkv, smem))) return err;
+  kkv<<<grid_k, NT, smem, st>>>(q_, k_, v_, km, do_, lse, di, nullptr, dk_,
+                                dv_, H, g, scale);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
 
-// dtype codes: 0 float32, 2 bfloat16 (the forward and two_pass take
-// float32 only here; their bf16 kernels are flash_attention_sm90.cu's).
+// dtype code 0 (float32) only: the bf16 kernels are flash_attention_sm90.cu's.
 // Head dims 16, 32, 64, 128. Return a cudaError_t code (0 on success).
 // They allocate nothing and do not synchronize: the kernels launch on
 // `stream`.
-#define DL4J_DISPATCH_D(FN, TI, ...)                               \
+#define DL4J_DISPATCH_D(FN, ...)                                   \
   {                                                                \
-    if (D == 16) return FN<TI, 16>(__VA_ARGS__);                   \
-    if (D == 32) return FN<TI, 32>(__VA_ARGS__);                   \
-    if (D == 64) return FN<TI, 64>(__VA_ARGS__);                   \
-    if (D == 128) return FN<TI, 128>(__VA_ARGS__);                 \
+    if (D == 16) return FN<16>(__VA_ARGS__);                       \
+    if (D == 32) return FN<32>(__VA_ARGS__);                       \
+    if (D == 64) return FN<64>(__VA_ARGS__);                       \
+    if (D == 128) return FN<128>(__VA_ARGS__);                     \
     return (int)cudaErrorInvalidValue;                             \
   }
 
@@ -872,7 +627,7 @@ extern "C" int dl4j_flash_fwd(const void* q, const void* k, const void* v,
   if (Hk <= 0 || H % Hk != 0) return (int)cudaErrorInvalidValue;
   if (dtype != 0) return (int)cudaErrorInvalidValue;
   const Geometry g{T, causal, window};
-  DL4J_DISPATCH_D(launch_fwd, float, q, k, v,
+  DL4J_DISPATCH_D(launch_fwd, q, k, v,
                   static_cast<const int*>(key_mask), o,
                   static_cast<float*>(lse), B, H, Hk, g, scale,
                   static_cast<cudaStream_t>(stream));
@@ -886,21 +641,13 @@ extern "C" int dl4j_flash_bwd(const void* q, const void* k, const void* v,
                               float scale, void* stream) {
   if (T <= 0 || B <= 0 || H <= 0) return 0;
   const Geometry g{T, causal, window};
-  if (dtype == 0)
-    DL4J_DISPATCH_D(launch_bwd, float, q, k, v,
-                    static_cast<const int*>(key_mask), dout,
-                    static_cast<const float*>(lse),
-                    static_cast<const float*>(di), static_cast<float*>(dq),
-                    dk, dv, B, H, g, two_pass, scale,
-                    static_cast<cudaStream_t>(stream));
-  if (dtype == 2 && !two_pass)
-    DL4J_DISPATCH_D(launch_bwd, __nv_bfloat16, q, k, v,
-                    static_cast<const int*>(key_mask), dout,
-                    static_cast<const float*>(lse),
-                    static_cast<const float*>(di), static_cast<float*>(dq),
-                    dk, dv, B, H, g, two_pass, scale,
-                    static_cast<cudaStream_t>(stream));
-  return (int)cudaErrorInvalidValue;
+  if (dtype != 0) return (int)cudaErrorInvalidValue;
+  DL4J_DISPATCH_D(launch_bwd, q, k, v,
+                  static_cast<const int*>(key_mask), dout,
+                  static_cast<const float*>(lse),
+                  static_cast<const float*>(di), static_cast<float*>(dq), dk,
+                  dv, B, H, g, two_pass, scale,
+                  static_cast<cudaStream_t>(stream));
 }
 
 extern "C" const char* dl4j_flash_error_string(int code) {

@@ -1,12 +1,14 @@
 // Flash attention on Hopper's wgmma and TMA (sm_90a) for bf16 inputs: the
-// forward (K3) and both passes of the two-pass backward (K5). fp32 inputs,
-// and the fused backward K4, stay with flash_attention.cu.
+// forward (K3), both passes of the two-pass backward (K5) and the fused
+// backward (K4). fp32 inputs stay with flash_attention.cu.
 //
 // Replaces the Pallas kernels of deeplearning4j_tpu/ops/flash_attention.py:
 //   - flash_fwd_sm90_kernel: K3, `_call_fwd` (:448) with body `_fwd_kernel`
 //     (:123): the online-softmax forward, o and the row log-sum-exp L;
 //   - flash_dq_sm90_kernel: K5's dq pass, `_dq_kernel` (:262);
-//   - flash_dkv_sm90_kernel: K5's dk/dv pass, `_dkv_kernel` (:301).
+//   - flash_dkv_sm90_kernel: K5's dk/dv pass, `_dkv_kernel` (:301);
+//   - flash_bwd_fused_sm90_kernel: K4, `_fused_bwd_kernel` (:349): the
+//     dk/dv pass that also forms dq, one launch.
 // Layout: q (B*H, T, D), k/v (B*Hk, T, D) bf16 row-major; L and D_i
 // (B*H, T) fp32; key mask (B, T) int32 or null; dq (B*H, T, D) fp32, dk/dv
 // bf16. Query head h reads kv row b*Hk + h / (H/Hk) (GQA, forward only).
@@ -23,26 +25,30 @@
 // 16, T 8192, D 64, causal, 33,558,528 visible pairs per head) the forward
 // does 2 products over the visible pairs, 137.5 GFLOP: 0.139 ms at 989
 // TFLOP/s of bf16 tensor cores, against 0.020 ms for its bytes at 3.35
-// TB/s. The backward's function is 5 products (0.347 ms); the two-pass
-// design recomputes S and dP in its second pass, 7 (0.486 ms). Beside the
-// tensor cores, the exponentials: one per visible pair and pass, at 16 a
-// clock per SM, take as long as the forward's two products at D 64.
+// TB/s. The backward's function is 5 products (0.347 ms): K4 does those 5,
+// the two-pass design recomputes S and dP in its second pass, 7 (0.486
+// ms). Beside the tensor cores, the exponentials: one per visible pair and
+// pass, at 16 a clock per SM, take as long as the forward's two products
+// at D 64. K4 also sums dq across the CTAs of a head in L2 (below).
 //
 // What the design does about it: every product is a warpgroup wgmma with
 // fp32 accumulators in registers, and nothing else goes through shared
-// memory. Each CTA has two consumer warpgroups of 64 rows and a producer
-// warpgroup, of which one warp works; setmaxnreg moves registers from the
-// producer (40) to the consumers (232). The producer streams the tiles of
-// the inner loop by TMA into a three-stage ring of swizzled shared-memory
-// tiles (a "full" and an "empty" mbarrier per stage), so the next tile
-// loads while this one is multiplied; the fixed operand of the CTA is
-// loaded once. The consumers run two shapes of product only:
+// memory but K4's dS and dq. Each CTA has two consumer warpgroups of 64
+// rows and a producer warpgroup, of which one warp loads (and in K4 a
+// second hands dq to the TMA unit); setmaxnreg moves registers from the
+// producer (40) to the consumers (232). The producer
+// streams the tiles of the inner loop by TMA into a three-stage ring of
+// swizzled shared-memory tiles (a "full" and an "empty" mbarrier per
+// stage), so the next tile loads while this one is multiplied; the fixed
+// operand of the CTA is loaded once. The consumers run these shapes of
+// product:
 //   - "SS": both operands in shared memory, both K-major (the head dim
 //     contiguous): S = Q K^T, dP = dO V^T, and transposed S^T = K Q^T,
 //     dP^T = V dO^T;
 //   - "RS": A from registers, B from shared memory with N = D contiguous
 //     (wgmma's transpose bit, no transpose pass): O += P V, dq += dS K,
-//     dv += P^T dO, dk += dS^T Q.
+//     dv += P^T dO, dk += dS^T Q;
+//   - K4's dq only, "SS" with both operands MN-major (DqPath).
 // An fp32 accumulator of m64nN wgmma holds, in thread t of the warpgroup
 // (warp w, lane l), rows 16w + l/4 (+8) and columns 8i + 2(l%4) + {0, 1};
 // for 16-bit types that is the A-fragment layout of the next product, k16
@@ -60,14 +66,38 @@
 // tile t - 1 is in flight: p is written over the scores in place and
 // packed into A fragments once P V is done. The backward passes do not:
 // the dq pass then spills at D 64 (S, dP, dS and dq live at once), and
-// the dk/dv pass measured slower. No atomics: dq, dk and dv are each
-// summed in one CTA and written once, so every output is bitwise the
-// same from run to run.
+// the dk/dv pass measured slower.
+//
+// K4's dq: dq of a q tile sums dS K over every key, that is over the CTAs
+// of the head, so it cannot be summed in one CTA. Each consumer warpgroup
+// writes its dS^T (64 keys x BQ q, bf16, the rounding point K5 shares) to
+// a swizzled shared-memory tile (two, alternating by tile, so that the
+// next tile's write never waits for the previous product), forms dq of
+// the tile over its own 64 keys with one chain of products in its turn at
+// the tensor cores, and writes it, scaled, to an fp32 staging tile of its
+// own (two a warpgroup, alternating). The producer warpgroup's second
+// warp, the dq warp, hands each staged tile to the TMA unit as a
+// reduce-add into the zeroed fp32 (B*H, T, D) buffer
+// (cp.reduce.async.bulk.tensor, UTMAREDG): the adds happen in L2 and no
+// consumer warp issues or waits on them. Named barriers (FULL, FREE) pass
+// each staging tile between its warpgroup and the dq warp, so the two
+// warpgroups never wait for each other. At the training shape the
+// reductions move 2 x (T^2/2 / 128) x D x 4 B x 16 heads ~ 2.2 GB into
+// the 33.5 MB buffer, which stays in the 50 MB L2. On an H100 80GB HBM3
+// at 700 W they cost 2% of K4's time (0.976 ms, 0.958 with them compiled
+// out), where adding from the consumers' registers (red.global.add) had
+// taken K4 from 0.65 to 1.37 ms, the warps stalled behind the adds.
+// Summing the two warpgroups' halves in shared memory first halves those
+// bytes but makes each warpgroup wait for the other: slower. Their
+// order differs from run to run, so dq is not bitwise repeatable; dk and
+// dv are summed in one CTA and written once, and so is every output of K3
+// and K5: those are bitwise the same from run to run, and hold no atomic
+// or reduction.
 //
 // Tiles: the forward takes 128 q rows per CTA and key tiles of 128 (D <=
 // 64) or 64 (D 128) keys; the dq pass 128 q rows and key tiles of the same
-// sizes; the dk/dv pass 128 keys per CTA and q tiles of 64 (32 at D 128,
-// to keep dk, dv, S^T and dP^T in registers). TMA maps are 3-D (D, T,
+// sizes; the dk/dv pass and K4 128 keys per CTA and q tiles of 64 (32 at D
+// 128, to keep dk, dv, S^T and dP^T in registers). TMA maps are 3-D (D, T,
 // rows), so a box that runs past T is zero-filled instead of reading the
 // next head; D 16/32/64 rows are one box with 32/64/128-byte swizzle, D
 // 128 is two 64-column boxes.
@@ -447,6 +477,64 @@ __device__ __forceinline__ void wgmma_rs<128>(float (&d)[64],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(acc));
 }
 
+// d += A B over one k16 slice with both operands in shared memory and both
+// MN-major (wgmma's two transpose bits): A's M and B's N contiguous, K =
+// the rows of each tile. K4's dq product only.
+template <int N>
+__device__ __forceinline__ void wgmma_ss_t(float (&d)[N / 2], uint64_t a,
+                                           uint64_t b, int acc);
+
+template <>
+__device__ __forceinline__ void wgmma_ss_t<16>(float (&d)[8], uint64_t a,
+                                               uint64_t b, int acc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %10, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7"
+      "}, %8, %9, p, 1, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
+      : "l"(a), "l"(b), "r"(acc));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_ss_t<32>(float (&d)[16], uint64_t a,
+                                               uint64_t b, int acc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7,"
+      "%8, %9, %10, %11, %12, %13, %14, %15"
+      "}, %16, %17, p, 1, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "l"(a), "l"(b), "r"(acc));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_ss_t<64>(float (&d)[32], uint64_t a,
+                                               uint64_t b, int acc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7,"
+      "%8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23,"
+      "%24, %25, %26, %27, %28, %29, %30, %31"
+      "}, %32, %33, p, 1, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(a), "l"(b), "r"(acc));
+}
+
 
 // The two shapes every product of the three kernels takes, over the whole
 // k extent: d = A B^T with A rows [a_row0, a_row0 + 64) of an R-row tile
@@ -468,6 +556,206 @@ __device__ __forceinline__ void rs_product(float (&d)[D / 2],
 #pragma unroll
   for (int kk = 0; kk < K / 16; ++kk)
     wgmma_rs<D>(d, a + 4 * kk, desc_mn<D, K>(b, kk), 1);
+}
+
+// ------------------------------------------------ K4's dq path
+// dS^T of a warpgroup leaves registers through a swizzled (BK keys x BQ
+// q) bf16 tile laid out as a TMA box of BQ columns would be; dq of the q
+// tile over the warpgroup's 64 keys is one chain of products with both
+// operands read from shared memory, MN-major. For D <= 64 (BQ 64) it is
+// dq (BQ x D) = dS K with M = the q rows (A = dS, the dS^T tile read
+// M-major; B = the warpgroup's K rows, N = D contiguous); at D 128 (BQ
+// 32, too few rows for M) its transpose dq^T (D x BQ) = K^T dS^T with M
+// = the head dim in two halves of 64 (A = K^T, the K box read M-major; B
+// = the dS^T tile, N = BQ contiguous).
+template <int D>
+struct DqPath {
+  static constexpr int BQ = D <= 64 ? 64 : 32;
+  static constexpr int REGS = D <= 64 ? D / 2 : BQ;   // accumulator floats
+};
+
+// The 16-byte chunk index of a row of an RB-byte swizzled tile is XORed
+// with bits 7.. of the row's byte offset (TMA's and wgmma's swizzle); a
+// thread's rows r and r + 8 share that term, so it is taken once.
+template <int RB>
+__device__ __forceinline__ uint32_t swizzle_term(int row) {
+  return ((uint32_t)(row * RB) >> 7) & (RB / 16 - 1);
+}
+
+// The thread's dS^T fragments (rows row0 and row0 + 8, q columns 8 e / 4 +
+// cq of its m64 x BQ A fragments) into the swizzled (BK x BQ) bf16 tile,
+// laid out as TMA writes a box
+template <int BQ>
+__device__ __forceinline__ void store_ds(unsigned char* tile,
+                                         const uint32_t (&da)[BQ / 4],
+                                         int row0, int cq) {
+  constexpr int RB = Box<BQ>::RB;
+  unsigned char* base = tile + row0 * RB + 2 * cq;
+  const uint32_t x = swizzle_term<RB>(row0);
+#pragma unroll
+  for (int e = 0; e < BQ / 2; e += 2)
+    *reinterpret_cast<uint32_t*>(base + 8 * RB * ((e >> 1) & 1) +
+                                 (((e >> 2) ^ x) << 4)) = da[e / 2];
+}
+
+// generic-proxy writes to shared memory made visible to wgmma's reads
+__device__ __forceinline__ void fence_async_smem() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// the 128 threads of consumer warpgroup wg (named barrier 3 + wg)
+__device__ __forceinline__ void wg_sync(int wg) {
+  asm volatile("bar.sync %0, 128;\n" ::"r"(3 + wg) : "memory");
+}
+
+// d = dq (or dq^T at D 128) of one q tile over keys [64 wg, 64 wg + 64)
+// of the CTA: ds the dS^T tile, ks the K tile (BK rows).
+template <int D, int BK>
+__device__ __forceinline__ void dq_product(float (&d)[DqPath<D>::REGS],
+                                           uint32_t ds, uint32_t ks,
+                                           int wg) {
+  constexpr int BQ = DqPath<D>::BQ;
+  const uint32_t dsw = ds + 64 * wg * Box<BQ>::RB;
+  const uint32_t ksw = ks + 64 * wg * Box<D>::RB;
+  if constexpr (D <= 64) {
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+      wgmma_ss_t<D>(d, desc_mn<BQ, BK>(dsw, kk), desc_mn<D, BK>(ksw, kk),
+                    kk > 0);
+  } else {
+#pragma unroll
+    for (int mh = 0; mh < 2; ++mh)
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)
+        wgmma_ss_t<BQ>(*reinterpret_cast<float(*)[BQ / 2]>(d + mh * BQ / 2),
+                       desc_mn<D, BK>(ksw + mh * BK * Box<D>::RB, kk),
+                       desc_mn<BQ, BK>(dsw, kk), kk > 0);
+  }
+}
+
+// fp32 dq staging tiles: TMA boxes of COLS columns (128- or 64-byte rows,
+// swizzled at their width), NBOX boxes across the head dim, BQ rows each.
+template <int D>
+struct DqBox {
+  static constexpr int COLS = D < 32 ? D : 32;
+  static constexpr int RB = 4 * COLS;
+  static constexpr int NBOX = D / COLS;
+  static constexpr int BYTES = DqPath<D>::BQ * D * 4;
+};
+
+// scale d of one q tile into the fp32 staging tile of its (q rows x D)
+// block (DqBox: boxes of COLS columns, swizzled at RB): pairs of head-dim
+// columns for D <= 64, single elements at D 128 (whose accumulator is
+// dq^T, rows along the head dim)
+template <int D>
+__device__ __forceinline__ void stage_dq(unsigned char* tile,
+                                         const float (&d)[DqPath<D>::REGS],
+                                         float scale, int tw, int cq) {
+  using Y = DqBox<D>;
+  constexpr int BQ = DqPath<D>::BQ, BOX = BQ * Y::RB;
+  const int r0 = 16 * (tw >> 5) + ((tw & 31) >> 2);
+  if constexpr (D <= 64) {
+    // pair (row r0 + 8 rr, column 8 j + cq): box 8 j / COLS, byte 32 (j %
+    // (COLS / 8)) + 4 cq of the row, so chunk 2 (j % (COLS / 8)) + cq / 4
+    unsigned char* base = tile + r0 * Y::RB + 4 * (cq & 2);
+    const uint32_t x = swizzle_term<Y::RB>(r0), c4 = cq >> 2;
+#pragma unroll
+    for (int e = 0; e < D / 2; e += 2) {
+      constexpr int JB = Y::COLS / 8;
+      const int j = e >> 2;
+      *reinterpret_cast<float2*>(base + (j / JB) * BOX +
+                                 8 * Y::RB * ((e >> 1) & 1) +
+                                 (((2 * (j % JB) + c4) ^ x) << 4)) =
+          make_float2(scale * d[e], scale * d[e + 1]);
+    }
+  } else {
+    // element (row 8 i + cq + u, column 64 mh + col, col = r0 + 8 rr):
+    // box (64 mh + col) / COLS, byte 4 (col % COLS) of the row; rows vary
+    // along q here, so the swizzle term does too
+#pragma unroll
+    for (int e = 0; e < BQ / 2; ++e) {
+      const int row = 8 * (e >> 2) + cq + (e & 1);
+      const int col = r0 + 8 * ((e >> 1) & 1);
+      const uint32_t off = row * Y::RB + 4 * (col % Y::COLS);
+#pragma unroll
+      for (int mh = 0; mh < 2; ++mh)
+        *reinterpret_cast<float*>(
+            tile + ((64 * mh + col) / Y::COLS) * BOX +
+            (off ^ (swizzle_term<Y::RB>(row) << 4))) =
+            scale * d[mh * BQ / 2 + e];
+    }
+  }
+}
+
+// dq[box] += the staging box at `src`, by the TMA unit, asynchronously
+// (rows past T are not written); {c0, c1, c2} = (column, row, head row)
+__device__ __forceinline__ void tma_reduce_add(const void* src,
+                                               const CUtensorMap* map,
+                                               int c0, int c1, int c2) {
+  asm volatile(
+      "cp.reduce.async.bulk.tensor.3d.global.shared::cta.add.tile"
+      ".bulk_group [%0, {%1, %2, %3}], [%4];\n" ::"l"(
+          reinterpret_cast<uint64_t>(map)),
+      "r"(c0), "r"(c1), "r"(c2), "r"(smem_u32(src))
+      : "memory");
+}
+__device__ __forceinline__ void bulk_commit() {
+  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+}
+// until at most N committed bulk groups still read shared memory
+template <int N>
+__device__ __forceinline__ void bulk_wait_read() {
+  asm volatile("cp.async.bulk.wait_group.read %0;\n" ::"n"(N) : "memory");
+}
+
+// named barrier `id` of `count` threads
+__device__ __forceinline__ void named_arrive(int id, int count) {
+  asm volatile("bar.arrive %0, %1;\n" ::"r"(id), "r"(count) : "memory");
+}
+__device__ __forceinline__ void named_sync(int id, int count) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(count) : "memory");
+}
+
+// K4's dq handoff, per consumer warpgroup w and staging buffer b (two a
+// warpgroup, alternating by q tile): FULL (5 + 2 w + b) when the
+// warpgroup has written its part of the tile, FREE (9 + 2 w + b) once the
+// TMA unit has read it; each between the warpgroup and the dq warp.
+constexpr int DQ_FULL = 5, DQ_FREE = 9, DQ_HANDOFF = 128 + 32;
+
+// The dq warp (the producer warpgroup's second): for each q tile and
+// warpgroup, waits for the staging buffer to be full, has the TMA unit add
+// it into dq, and hands back the buffer of the warpgroup's previous tile
+// once that reduction has read it (two groups later in issue order).
+template <int D>
+__device__ __forceinline__ void dq_writer(const CUtensorMap& tdq,
+                                          unsigned char* bufs, int i0, int nt,
+                                          int bh) {
+  using Y = DqBox<D>;
+  constexpr int BQ = DqPath<D>::BQ;
+  const bool lead = (threadIdx.x & 31) == 0;
+  for (int w = 0; w < NCWG; ++w) {
+    named_arrive(DQ_FREE + 2 * w, DQ_HANDOFF);
+    if (nt >= 2) named_arrive(DQ_FREE + 2 * w + 1, DQ_HANDOFF);
+  }
+  for (int n = 0; n < nt; ++n) {
+    const int b = n & 1;
+    for (int w = 0; w < NCWG; ++w) {
+      named_sync(DQ_FULL + 2 * w + b, DQ_HANDOFF);
+      if (lead) {
+        unsigned char* buf = bufs + (2 * w + b) * Y::BYTES;
+#pragma unroll
+        for (int c = 0; c < Y::NBOX; ++c)
+          tma_reduce_add(buf + c * BQ * Y::RB, &tdq, c * Y::COLS,
+                         (i0 + n) * BQ, bh);
+        bulk_commit();
+        bulk_wait_read<NCWG>();
+      }
+      __syncwarp();
+      if (n >= 1 && n + 1 < nt)
+        named_arrive(DQ_FREE + 2 * w + (b ^ 1), DQ_HANDOFF);
+    }
+  }
+  if (lead) bulk_wait_read<0>();
 }
 
 // ------------------------------------------ the per-tile register passes
@@ -920,33 +1208,38 @@ flash_dq_sm90_kernel(const __grid_constant__ CUtensorMap tq,
   }
 }
 
-// ------------------------------------------------- K5's dk/dv pass
-template <int D>
+// ------------------------------------- K5's dk/dv pass, and K4 (DQ)
+template <int D, bool DQ>
 struct DkvTiles {
   static constexpr int BK = ROWS;                 // keys per CTA
   static constexpr int BQ = D <= 64 ? 64 : 32;    // q rows per tile
   static constexpr int KBYTES = BK * D * 2;
   static constexpr int QBYTES = BQ * D * 2;
+  static constexpr int DSBYTES = DQ ? BK * BQ * 2 : 0;   // a dS^T tile
+  static constexpr int DQBYTES = DQ ? DqBox<D>::BYTES : 0;  // fp32 dq
   static constexpr int V_OFF = KBYTES;
   static constexpr int Q_OFF = 2 * KBYTES;
   static constexpr int DO_OFF = Q_OFF + STAGES * QBYTES;
-  static constexpr int L_OFF = DO_OFF + STAGES * QBYTES;
+  static constexpr int DS_OFF = DO_OFF + STAGES * QBYTES;  // two
+  static constexpr int DQ_OFF = DS_OFF + 2 * DSBYTES;      // two a warpgroup
+  static constexpr int L_OFF = DQ_OFF + 2 * NCWG * DQBYTES;
   static constexpr int DI_OFF = L_OFF + STAGES * BQ * 4;
   static constexpr int BAR_OFF = DI_OFF + STAGES * BQ * 4;
   static constexpr int SMEM = BAR_OFF + 8 * (1 + 2 * STAGES) + 1024;
 };
 
-template <int D>
-__global__ void __launch_bounds__(NT, 1)
-flash_dkv_sm90_kernel(const __grid_constant__ CUtensorMap tq,
-                      const __grid_constant__ CUtensorMap tk,
-                      const __grid_constant__ CUtensorMap tv,
-                      const __grid_constant__ CUtensorMap tdo,
-                      const int* __restrict__ km,
-                      const float* __restrict__ lse,
-                      const float* __restrict__ di, bf16* __restrict__ dk,
-                      bf16* __restrict__ dv, int H, Geometry g, float scale) {
-  using C = DkvTiles<D>;
+// The dk/dv pass (DQ false, K5's second kernel) and the fused backward
+// (DQ true, K4): the same walk over the q tiles that see the CTA's 128
+// keys; K4 also forms each tile's dq over its keys (DqPath) and adds it
+// into the zeroed fp32 buffer that `tdq` maps.
+template <int D, bool DQ>
+__device__ __forceinline__ void dkv_pass(
+    const CUtensorMap& tq, const CUtensorMap& tk, const CUtensorMap& tv,
+    const CUtensorMap& tdo, const CUtensorMap& tdq,
+    const int* __restrict__ km, const float* __restrict__ lse,
+    const float* __restrict__ di, bf16* __restrict__ dk,
+    bf16* __restrict__ dv, int H, Geometry g, float scale) {
+  using C = DkvTiles<D, DQ>;
   using X = Box<D>;
   constexpr int BK = C::BK, BQ = C::BQ;
   const int j = blockIdx.x;         // the most-visited key tiles first
@@ -978,9 +1271,14 @@ flash_dkv_sm90_kernel(const __grid_constant__ CUtensorMap tq,
   const int nt = i1 - i0;
 
   if (threadIdx.x >= NC) {
-    // producer warpgroup (its first warp): K and V once, then Q, dO, L
-    // and D_i of each q tile
+    // producer warpgroup: its first warp loads K and V once, then Q, dO,
+    // L and D_i of each q tile; in K4 its second warp is the dq warp
     regs_dec<PRODUCER_REGS>();
+    if constexpr (DQ)
+      if (threadIdx.x >= NC + 32 && threadIdx.x < NC + 64) {
+        dq_writer<D>(tdq, sm + C::DQ_OFF, i0, nt, bh);
+        return;
+      }
     if (threadIdx.x >= NC + 32) return;
     const int lane = threadIdx.x & 31;
     if (lane == 0) {
@@ -1046,6 +1344,37 @@ flash_dkv_sm90_kernel(const __grid_constant__ CUtensorMap tq,
     };
     const uint32_t qs = smem_u32(Qs), dos = smem_u32(dOs);
     constexpr int TILE = BQ * D * 2;            // bytes of a Q or dO stage
+    // K4: tile n's dS^T goes to buffer n % 2, whose last reader (the dq
+    // product of tile n - 2) every thread of the warpgroup has waited for
+    // before the barrier that follows the write of tile n - 1. Its dq over
+    // the warpgroup's keys goes to the warpgroup's fp32 staging buffer n %
+    // 2, which the dq warp then hands to the TMA unit (dq_writer).
+    float dqa[DQ ? DqPath<D>::REGS : 1];
+    const int ds_row = 64 * wg + 16 * (tw >> 5) + (lane >> 2);
+    // One proxy fence a tile covers both stores of the warpgroup: the dS^T
+    // of tile n and the staged dq of tile n - 1, handed to the dq warp
+    // (FULL) once it has passed.
+    auto stage_ds = [&](int n) {
+      if constexpr (DQ) {
+        store_ds<BQ>(sm + C::DS_OFF + (n & 1) * C::DSBYTES, da, ds_row, cq);
+        fence_async_smem();
+        wg_sync(wg);
+        if (n >= 1) named_arrive(DQ_FULL + 2 * wg + ((n - 1) & 1), DQ_HANDOFF);
+      }
+    };
+    auto dq_issue = [&](int n) {
+      if constexpr (DQ)
+        dq_product<D, BK>(dqa, smem_u32(sm + C::DS_OFF + (n & 1) * C::DSBYTES),
+                          ks, wg);
+    };
+    auto dq_add = [&](int n) {
+      if constexpr (DQ) {
+        fence_regs(dqa);
+        const int wb = 2 * wg + (n & 1);
+        named_sync(DQ_FREE + wb, DQ_HANDOFF);
+        stage_dq<D>(sm + C::DQ_OFF + wb * C::DQBYTES, dqa, scale, tw, cq);
+      }
+    };
     if (wg == 1) turn_pass(wg);
     turn_wait(wg);
     wg_fence();
@@ -1060,10 +1389,12 @@ flash_dkv_sm90_kernel(const __grid_constant__ CUtensorMap tq,
     for (int t = 1; t < nt; ++t) {
       const int sp = (t - 1) % STAGES, sn = t % STAGES;
       register_pass(t - 1);
+      stage_ds(t - 1);
       turn_wait(wg);
       wg_fence();
       rs_product<D, BQ>(dva, pa, dos + sp * TILE);
       rs_product<D, BQ>(dka, da, qs + sp * TILE);
+      dq_issue(t - 1);
       mbar_wait(&full[sn], (t / STAGES) & 1);
       ss_product<D, BK, BQ>(st, ks, 64 * wg, qs + sn * TILE);
       ss_product<D, BK, BQ>(dpt, vs, 64 * wg, dos + sn * TILE);
@@ -1075,17 +1406,25 @@ flash_dkv_sm90_kernel(const __grid_constant__ CUtensorMap tq,
       fence_regs(dva);
       fence_regs(dka);
       mbar_arrive(&empty[sp]);
+      dq_add(t - 1);
     }
     register_pass(nt - 1);
+    stage_ds(nt - 1);
     turn_wait(wg);
     wg_fence();
     rs_product<D, BQ>(dva, pa, dos + ((nt - 1) % STAGES) * TILE);
     rs_product<D, BQ>(dka, da, qs + ((nt - 1) % STAGES) * TILE);
+    dq_issue(nt - 1);
     wg_commit();
     if (wg == 0) turn_pass(wg);
     wg_wait<0>();
     fence_regs(dva);
     fence_regs(dka);
+    dq_add(nt - 1);
+    if constexpr (DQ) {
+      fence_async_smem();
+      named_arrive(DQ_FULL + 2 * wg + ((nt - 1) & 1), DQ_HANDOFF);
+    }
     const long base = (long)bh * T * D;
 #pragma unroll
     for (int e = 0; e < D / 2; e += 2) {
@@ -1099,6 +1438,34 @@ flash_dkv_sm90_kernel(const __grid_constant__ CUtensorMap tq,
       }
     }
   }
+}
+
+template <int D>
+__global__ void __launch_bounds__(NT, 1)
+flash_dkv_sm90_kernel(const __grid_constant__ CUtensorMap tq,
+                      const __grid_constant__ CUtensorMap tk,
+                      const __grid_constant__ CUtensorMap tv,
+                      const __grid_constant__ CUtensorMap tdo,
+                      const int* __restrict__ km,
+                      const float* __restrict__ lse,
+                      const float* __restrict__ di, bf16* __restrict__ dk,
+                      bf16* __restrict__ dv, int H, Geometry g, float scale) {
+  dkv_pass<D, false>(tq, tk, tv, tdo, tq, km, lse, di, dk, dv, H, g, scale);
+}
+
+template <int D>
+__global__ void __launch_bounds__(NT, 1)
+flash_bwd_fused_sm90_kernel(const __grid_constant__ CUtensorMap tq,
+                            const __grid_constant__ CUtensorMap tk,
+                            const __grid_constant__ CUtensorMap tv,
+                            const __grid_constant__ CUtensorMap tdo,
+                            const __grid_constant__ CUtensorMap tdq,
+                            const int* __restrict__ km,
+                            const float* __restrict__ lse,
+                            const float* __restrict__ di,
+                            bf16* __restrict__ dk, bf16* __restrict__ dv,
+                            int H, Geometry g, float scale) {
+  dkv_pass<D, true>(tq, tk, tv, tdo, tdq, km, lse, di, dk, dv, H, g, scale);
 }
 
 // ------------------------------------------------------------- host side
@@ -1127,28 +1494,37 @@ EncodeTiled encoder() {
   return fn;
 }
 
-// A 3-D map (D, T, rows) of a bf16 (rows, T, D) tensor, boxes of
-// (COLS, box_rows, 1) swizzled at the box's row width; boxes past T are
-// zero-filled.
-template <int D>
-int make_map(CUtensorMap* map, const void* ptr, int T, int rows,
-             int box_rows) {
+// A 3-D map (D, T, rows) of a (rows, T, D) tensor of `elt`-byte elements
+// (bf16, or K4's fp32 dq), boxes of (cols, box_rows, 1) swizzled at the
+// box's row width; boxes past T are zero-filled on loads and clipped on
+// reductions.
+int make_map(CUtensorMap* map, const void* ptr, int D, int T, int rows,
+             int cols, int box_rows, int elt) {
   const EncodeTiled enc = encoder();
   if (enc == nullptr) return kNoEncoder;
-  using X = Box<D>;
+  const int rb = cols * elt;
   const cuuint64_t dims[3] = {(cuuint64_t)D, (cuuint64_t)T, (cuuint64_t)rows};
-  const cuuint64_t strides[2] = {(cuuint64_t)D * 2, (cuuint64_t)T * D * 2};
-  const cuuint32_t box[3] = {(cuuint32_t)X::COLS, (cuuint32_t)box_rows, 1};
+  const cuuint64_t strides[2] = {(cuuint64_t)D * elt,
+                                 (cuuint64_t)T * D * elt};
+  const cuuint32_t box[3] = {(cuuint32_t)cols, (cuuint32_t)box_rows, 1};
   const cuuint32_t estr[3] = {1, 1, 1};
-  const CUtensorMapSwizzle swz = X::RB == 128  ? CU_TENSOR_MAP_SWIZZLE_128B
-                                 : X::RB == 64 ? CU_TENSOR_MAP_SWIZZLE_64B
-                                               : CU_TENSOR_MAP_SWIZZLE_32B;
-  const CUresult r = enc(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3,
+  const CUtensorMapSwizzle swz = rb == 128  ? CU_TENSOR_MAP_SWIZZLE_128B
+                                 : rb == 64 ? CU_TENSOR_MAP_SWIZZLE_64B
+                                            : CU_TENSOR_MAP_SWIZZLE_32B;
+  const CUresult r = enc(map, elt == 2 ? CU_TENSOR_MAP_DATA_TYPE_BFLOAT16
+                                       : CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 3,
                          const_cast<void*>(ptr), dims, strides, box, estr,
                          CU_TENSOR_MAP_INTERLEAVE_NONE, swz,
                          CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
                          CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return r == CUDA_SUCCESS ? 0 : kBadMap;
+}
+
+// the bf16 q/k/v/dO maps of the kernels
+template <int D>
+int make_map(CUtensorMap* map, const void* ptr, int T, int rows,
+             int box_rows) {
+  return make_map(map, ptr, D, T, rows, Box<D>::COLS, box_rows, 2);
 }
 
 template <typename K>
@@ -1175,13 +1551,46 @@ int launch_fwd(const void* q, const void* k, const void* v, const int* km,
   return (int)cudaGetLastError();
 }
 
+// The dk/dv pass (DQ false) or K4 (DQ true, dq into the zeroed buffer):
+// one CTA per 128 keys.
+template <int D, bool DQ>
+int launch_dkv(const void* q, const void* k, const void* v, const int* km,
+               const void* dout, const float* lse, const float* di,
+               float* dq, void* dk, void* dv, int B, int H, Geometry g,
+               float scale, cudaStream_t st) {
+  using K = DkvTiles<D, DQ>;
+  CUtensorMap mq, mk, mv, mdo;
+  int err;
+  if ((err = make_map<D>(&mq, q, g.T, B * H, K::BQ))) return err;
+  if ((err = make_map<D>(&mdo, dout, g.T, B * H, K::BQ))) return err;
+  if ((err = make_map<D>(&mk, k, g.T, B * H, K::BK))) return err;
+  if ((err = make_map<D>(&mv, v, g.T, B * H, K::BK))) return err;
+  const dim3 grid((g.T + K::BK - 1) / K::BK, B * H);
+  if constexpr (DQ) {
+    CUtensorMap mdq;
+    if ((err = make_map(&mdq, dq, D, g.T, B * H, DqBox<D>::COLS, K::BQ, 4)))
+      return err;
+    auto kern = flash_bwd_fused_sm90_kernel<D>;
+    if ((err = prepare(kern, K::SMEM))) return err;
+    kern<<<grid, NT, K::SMEM, st>>>(mq, mk, mv, mdo, mdq, km, lse, di,
+                                    static_cast<bf16*>(dk),
+                                    static_cast<bf16*>(dv), H, g, scale);
+  } else {
+    auto kern = flash_dkv_sm90_kernel<D>;
+    if ((err = prepare(kern, K::SMEM))) return err;
+    kern<<<grid, NT, K::SMEM, st>>>(mq, mk, mv, mdo, km, lse, di,
+                                    static_cast<bf16*>(dk),
+                                    static_cast<bf16*>(dv), H, g, scale);
+  }
+  return (int)cudaGetLastError();
+}
+
 template <int D>
 int launch_bwd(const void* q, const void* k, const void* v, const int* km,
                const void* dout, const float* lse, const float* di,
                float* dq, void* dk, void* dv, int B, int H, Geometry g,
                float scale, cudaStream_t st) {
   using Q = DqTiles<D>;
-  using K = DkvTiles<D>;
   CUtensorMap mq, mk, mv, mdo;
   int err;
   if ((err = make_map<D>(&mq, q, g.T, B * H, Q::BM))) return err;
@@ -1193,16 +1602,17 @@ int launch_bwd(const void* q, const void* k, const void* v, const int* km,
   kq<<<dim3((g.T + Q::BM - 1) / Q::BM, B * H), NT, Q::SMEM, st>>>(
       mq, mk, mv, mdo, km, lse, di, dq, H, g, scale);
   if ((err = (int)cudaGetLastError())) return err;
-  if ((err = make_map<D>(&mq, q, g.T, B * H, K::BQ))) return err;
-  if ((err = make_map<D>(&mdo, dout, g.T, B * H, K::BQ))) return err;
-  if ((err = make_map<D>(&mk, k, g.T, B * H, K::BK))) return err;
-  if ((err = make_map<D>(&mv, v, g.T, B * H, K::BK))) return err;
-  auto kkv = flash_dkv_sm90_kernel<D>;
-  if ((err = prepare(kkv, K::SMEM))) return err;
-  kkv<<<dim3((g.T + K::BK - 1) / K::BK, B * H), NT, K::SMEM, st>>>(
-      mq, mk, mv, mdo, km, lse, di, static_cast<bf16*>(dk),
-      static_cast<bf16*>(dv), H, g, scale);
-  return (int)cudaGetLastError();
+  return launch_dkv<D, false>(q, k, v, km, dout, lse, di, nullptr, dk, dv, B,
+                              H, g, scale, st);
+}
+
+template <int D>
+int launch_fused(const void* q, const void* k, const void* v, const int* km,
+                 const void* dout, const float* lse, const float* di,
+                 float* dq, void* dk, void* dv, int B, int H, Geometry g,
+                 float scale, cudaStream_t st) {
+  return launch_dkv<D, true>(q, k, v, km, dout, lse, di, dq, dk, dv, B, H, g,
+                             scale, st);
 }
 
 }  // namespace
@@ -1250,13 +1660,36 @@ extern "C" int dl4j_flash_sm90_bwd(const void* q, const void* k,
                      static_cast<cudaStream_t>(stream));
 }
 
+// K4: the fused backward, one launch; dq (fp32) must be zero on entry and
+// receives the sum of every key tile's reductions.
+extern "C" int dl4j_flash_sm90_bwd_fused(const void* q, const void* k,
+                                         const void* v, const void* key_mask,
+                                         const void* dout, const void* lse,
+                                         const void* di, void* dq, void* dk,
+                                         void* dv, int B, int H, int T, int D,
+                                         int causal, int window, float scale,
+                                         void* stream) {
+  if (T <= 0 || B <= 0 || H <= 0) return 0;
+  const Geometry g{T, causal, window};
+  DL4J_SM90_DISPATCH(launch_fused, q, k, v, static_cast<const int*>(key_mask),
+                     dout, static_cast<const float*>(lse),
+                     static_cast<const float*>(di), static_cast<float*>(dq),
+                     dk, dv, B, H, g, scale,
+                     static_cast<cudaStream_t>(stream));
+}
+
 // Dynamic shared memory of a kernel: kind 0 the forward, 1 the dq pass, 2
-// the dk/dv pass; -1 for a head dim without kernels.
+// the dk/dv pass, 3 the fused backward (K4); -1 for a head dim without
+// kernels or an unknown kind.
 extern "C" int dl4j_flash_sm90_smem(int kind, int D) {
 #define DL4J_SM90_SMEM(DD)                                           \
-  if (D == DD)                                                       \
-    return kind == 0 ? FwdTiles<DD>::SMEM                            \
-                     : kind == 1 ? DqTiles<DD>::SMEM : DkvTiles<DD>::SMEM;
+  if (D == DD) {                                                     \
+    if (kind == 0) return FwdTiles<DD>::SMEM;                        \
+    if (kind == 1) return DqTiles<DD>::SMEM;                         \
+    if (kind == 2) return DkvTiles<DD, false>::SMEM;                 \
+    if (kind == 3) return DkvTiles<DD, true>::SMEM;                  \
+    return -1;                                                       \
+  }
   DL4J_SM90_SMEM(16)
   DL4J_SM90_SMEM(32)
   DL4J_SM90_SMEM(64)

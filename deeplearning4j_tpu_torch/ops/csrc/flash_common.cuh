@@ -1,7 +1,7 @@
 // What the flash-attention sources share: the masking geometry and the
 // tile ranges a (query tile, key tile) walk visits. Included by
-// flash_attention.cu (the fp32 kernels and K4) and flash_attention_sm90.cu
-// (the bf16 wgmma kernels of K3 and K5). The tile helpers take the tile
+// flash_attention.cu (the fp32 kernels) and flash_attention_sm90.cu (the
+// bf16 wgmma kernels of K3, K4 and K5). The tile helpers take the tile
 // sizes as template arguments: TQ query rows by TK key rows.
 #pragma once
 

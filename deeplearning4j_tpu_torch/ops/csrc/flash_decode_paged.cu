@@ -1,17 +1,15 @@
 // Paged split-K flash-decode attention for Hopper (sm_90a), with Q query
 // positions per slot.
 //
-// Replaces three Pallas kernels of deeplearning4j_tpu/ops/decode_attention.py:
+// Replaces two Pallas kernels of deeplearning4j_tpu/ops/decode_attention.py:
 //   - K1 `flash_decode_attention_paged` (:281, body `_decode_kernel` :112):
 //     one query per slot, the Q = 1 case;
 //   - K2 `flash_decode_attention_spec_paged` (:480, body
 //     `_spec_decode_kernel` :428): Q consecutive query positions per slot
-//     (speculative verification); query i sits at position vis - 1 + i;
-//   - K6 `flash_decode_attention` (:180): a contiguous (S, L, Hk, D) cache,
-//     which the wrapper hands in as S * nk blocks of bkv positions with the
-//     block table bt[s, j] = s * nk + j.
+//     (speculative verification); query i sits at position vis - 1 + i.
 // Each slot's cache lives in fixed-size physical blocks of a pool, reached
-// through its row of the block table.
+// through its row of the block table. (K6, the contiguous cache, is
+// flash_decode_contiguous.cu.)
 //
 // One CTA per (logical block j, kv head h, slot s):
 //   - read phys = block_tables[s, j];

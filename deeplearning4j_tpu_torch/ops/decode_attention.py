@@ -14,9 +14,12 @@ queries per slot (K2, speculative verification).
   combines them with the logaddexp algebra of the JAX package (:389-:394,
   :579-:587). K1 is the Q = 1 case of the same kernel.
 - `flash_decode_attention` (K6): split-K decode over a contiguous
-  (S, L, Hk, D) cache, launched on the same kernel: the cache viewed as
-  S * nk physical blocks of bkv positions, with the table bt[s, j] =
-  s * nk + j (no copy, no trash block).
+  (S, L, Hk, D) cache with its own kernel, `csrc/flash_decode_contiguous.cu`:
+  one CTA per (partition of `contiguous_partition` positions, kv head,
+  slot), the logaddexp merge in the same launch (the last CTA of each
+  (slot, kv head) to finish merges, in partition order).
+  `contiguous_partials_plain` is the plain split of the same plan, which
+  `merge_partials` merges.
 
 On a CPU tensor each wrapper runs the plain version; on a CUDA tensor it
 launches the kernel or raises.
@@ -38,8 +41,10 @@ from deeplearning4j_tpu_torch.ops import build
 from deeplearning4j_tpu_torch.ops.helpers import register_helper
 
 NEG_INF = -1e30
-SOURCE = "flash_decode_paged.cu"
-BKV = 256                  # K6's partition, as the JAX package resolves it
+SOURCE = "flash_decode_paged.cu"                   # K1, K2
+CONTIGUOUS_SOURCE = "flash_decode_contiguous.cu"   # K6
+SOURCES = (SOURCE, CONTIGUOUS_SOURCE)
+PARTITION = 64             # K6's positions per CTA, where they fit
 # shared memory a CTA may hold on the H100 (227 KB)
 SMEM_LIMIT = 232448
 _DTYPE_CODE = {torch.float32: 0, torch.float16: 1, torch.bfloat16: 2,
@@ -111,8 +116,8 @@ def decode_attention_dense_spec_paged(q, kp, vp, block_tables, visible,
 def merge_partials(o_p, l_p, dtype):
     """Logaddexp merge of per-block partials over the block axis: o_p
     (S, Hk, bps, Q, G, D), l_p (S, Hk, bps, Q, G) -> (S, Q, Hk*G, D) in
-    `dtype` (Q = 1 for K1 and K6). Skipped blocks carry L_p = NEG_INF and
-    weigh zero."""
+    `dtype` (Q = 1 for K1 and the plain K6 split). Skipped blocks carry
+    L_p = NEG_INF and weigh zero."""
     m = l_p.amax(dim=2, keepdim=True)
     w = torch.exp(l_p - m.clamp(min=NEG_INF))
     denom = w.sum(dim=2).clamp(min=1e-30)
@@ -131,13 +136,6 @@ def _library():
         lib.dl4j_cuda_error_string.argtypes = [ctypes.c_int]
         lib.dl4j_cuda_error_string.restype = ctypes.c_char_p
     return lib
-
-
-def smem_bytes(rows: int, D: int, bs: int) -> int:
-    """Dynamic shared memory of one CTA of the kernel: the (rows, D) query
-    tile, the (bs, D+1) K and (bs, D) V tiles, the (rows, bs) scores and
-    two row statistics, all float32 (rows = Q * G)."""
-    return 4 * (rows * D + bs * (D + 1) + bs * D + rows * bs + 2 * rows)
 
 
 def _launch(q, kp, vp, block_tables, visible, scale, window, k_scale,
@@ -271,57 +269,167 @@ register_helper("decode_attention_spec_paged")(
 
 
 # ------------------------------------------------------ contiguous cache (K6)
-def kernel_bkv(L: int, G: int, D: int) -> int:
-    """The partition K6's kernel runs: the largest size <= BKV that divides
-    L (the JAX package's `_resolve_bkv(256, L)`: the cache is never copied
-    or padded), lowered to the largest divisor of L whose CTA fits in
-    shared memory. The merge makes the values independent of the
-    partition size."""
-    bkv = min(BKV, L)
-    while bkv > 1 and L % bkv:
-        bkv //= 2
-    while bkv > 1 and smem_bytes(G, D, bkv) > SMEM_LIMIT:
-        bkv = max(d for d in range(1, bkv) if L % d == 0)
-    return bkv
+def contiguous_smem_bytes(G: int, D: int, P: int, elt: int) -> int:
+    """Dynamic shared memory of one K6 CTA (csrc/flash_decode_contiguous.cu
+    `smem_bytes`): the G query rows and G x P scores in fp32, the rows'
+    max and sum and a flag, then P rows each of K and V in their dtype
+    (`elt` bytes), a row padded to a multiple of 16 bytes plus 16."""
+    head = (4 * (G * D + G * P + 2 * G + 1) + 15) // 16 * 16
+    return head + 2 * P * ((D * elt + 15) // 16 * 16 + 16)
+
+
+def contiguous_partition(G: int, D: int, elt: int) -> int:
+    """K6's positions per CTA: PARTITION, halved until its CTA fits the
+    H100's shared memory. Any L runs (a ragged last partition is masked),
+    and the merge makes the values independent of the partition."""
+    P = PARTITION
+    while P > 1 and contiguous_smem_bytes(G, D, P, elt) > SMEM_LIMIT:
+        P //= 2
+    if contiguous_smem_bytes(G, D, P, elt) > SMEM_LIMIT:
+        raise ValueError(f"K6: G {G} x D {D} does not fit one CTA's shared "
+                         "memory")
+    return P
+
+
+def contiguous_partials_plain(q, kc, vc, visible, scale, window: int = 0,
+                              P: int = PARTITION):
+    """The plain version of K6's split: for each partition of P positions,
+    the normalized partial o_p (S, Hk, np, G, D) and L_p = m + log l (S, Hk,
+    np, G) over its visible positions, in the accumulation dtype;
+    partitions with none are (0, NEG_INF), as the kernel writes them with
+    the merge off. `merge_partials(o_p[:, :, :, None], l_p[:, :, :, None],
+    dtype)[:, 0]` is then K6's output."""
+    S, H, D = q.shape
+    L, Hk = kc.shape[1], kc.shape[2]
+    G = H // Hk
+    acc = _acc_dtype(q.dtype)
+    np_ = -(-L // P)
+    q4 = q.reshape(S, Hk, G, D).to(acc)
+    s = torch.einsum("shgd,slhd->shgl", q4, kc.to(acc)) * scale
+    j = torch.arange(L, device=q.device)[None, :]
+    vis = visible.to(torch.int64)[:, None]
+    valid = j < vis
+    if window:
+        valid = valid & (vis - 1 - j < window)
+    pad = np_ * P - L
+    s = torch.nn.functional.pad(s, (0, pad)).view(S, Hk, G, np_, P)
+    valid = torch.nn.functional.pad(valid, (0, pad)).view(S, 1, 1, np_, P)
+    v = torch.nn.functional.pad(vc.to(acc), (0, 0, 0, 0, 0, pad)) \
+        .view(S, np_, P, Hk, D)
+    s = s.masked_fill(~valid, NEG_INF)
+    m = s.amax(dim=-1, keepdim=True)
+    p = torch.exp(s - m) * valid
+    l = p.sum(dim=-1)
+    o = torch.einsum("shgnp,snphd->shngd", p, v) \
+        / l.clamp(min=1e-30).transpose(2, 3)[..., None]
+    any_ = valid.any(dim=-1).transpose(2, 3)       # (S, 1, np, 1)
+    l_p = torch.where(any_, (m[..., 0] + torch.log(l)).transpose(2, 3),
+                      torch.full_like(o[..., 0], NEG_INF))
+    return o * any_[..., None], l_p
+
+
+_TICKETS = {}
+
+
+def _tickets(n: int, device, stream: int, lib) -> torch.Tensor:
+    """Zeroed int32 tickets for K6's merge, at least n. Every launch puts
+    the tickets it takes back to 0, so one buffer serves the calls of a
+    stream in order: one per (device, stream), and one per CUDA graph
+    capture, zeroed by a memset at its first call in the graph. Buffers
+    are kept, since a captured graph goes on using its own."""
+    key = (device, stream, lib.dl4j_capture_id(stream))
+    bufs = _TICKETS.setdefault(key, [])
+    if not bufs or bufs[-1].numel() < n:
+        bufs.append(torch.zeros(max(n, 64), dtype=torch.int32,
+                                device=device))
+    return bufs[-1]
+
+
+def _contiguous_library():
+    lib = build.load(CONTIGUOUS_SOURCE)
+    fn = lib.dl4j_flash_decode_contiguous
+    if fn.argtypes is None:
+        # q, kc, vc, visible, o_p, l_p, tickets, out, 9 ints, scale, stream
+        fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 9 + [
+            ctypes.c_float, ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+        lib.dl4j_flash_decode_contiguous_smem.argtypes = [ctypes.c_int] * 4
+        lib.dl4j_flash_decode_contiguous_smem.restype = ctypes.c_int
+        lib.dl4j_capture_id.argtypes = [ctypes.c_void_p]
+        lib.dl4j_capture_id.restype = ctypes.c_ulonglong
+        err = lib.dl4j_flash_decode_contiguous_error_string
+        err.argtypes = [ctypes.c_int]
+        err.restype = ctypes.c_char_p
+    return lib
+
+
+def _contiguous_launch(q, kc, vc, visible, scale, window, merge: bool):
+    """K6's kernel on CUDA tensors: the output (S, H, D) in q.dtype with the
+    merge on, else the partials (o_p, l_p) of `contiguous_partials_plain`'s
+    layout in float32. One launch on the current stream, no sync, counted
+    in `flash_decode_attention.launches`."""
+    S, H, D = q.shape
+    L, Hk = kc.shape[1], kc.shape[2]
+    if H % Hk != 0:
+        raise ValueError(f"n_heads {H} % n_kv_heads {Hk} != 0")
+    if vc.shape != kc.shape or kc.shape[0] != S or kc.shape[3] != D \
+            or visible.shape != (S,):
+        raise ValueError(f"shape mismatch: q {tuple(q.shape)}, kc "
+                         f"{tuple(kc.shape)}, vc {tuple(vc.shape)}, visible "
+                         f"{tuple(visible.shape)}")
+    if q.dtype not in (torch.float32, torch.float16, torch.bfloat16):
+        raise TypeError(f"q dtype {q.dtype} not supported on the card "
+                        "(float32, float16, bfloat16)")
+    if kc.dtype != q.dtype or vc.dtype != q.dtype:
+        raise TypeError(f"cache dtype {kc.dtype} must match q dtype "
+                        f"{q.dtype}")
+    if any(t.device != q.device for t in (kc, vc, visible)):
+        raise ValueError("all inputs must lie on one CUDA device")
+    G = H // Hk
+    P = contiguous_partition(G, D, q.element_size())
+    np_ = -(-L // P)
+    q, kc, vc = q.contiguous(), kc.contiguous(), vc.contiguous()
+    vis = visible.to(torch.int32).contiguous()
+    o_p = torch.empty((S, Hk, np_, G, D), dtype=torch.float32,
+                      device=q.device)
+    l_p = torch.empty((S, Hk, np_, G), dtype=torch.float32, device=q.device)
+    out = torch.empty_like(q)
+    lib = _contiguous_library()
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    tickets = _tickets(S * Hk, q.device, stream, lib)
+    err = lib.dl4j_flash_decode_contiguous(
+        q.data_ptr(), kc.data_ptr(), vc.data_ptr(), vis.data_ptr(),
+        o_p.data_ptr(), l_p.data_ptr(), tickets.data_ptr(), out.data_ptr(),
+        S, L, Hk, G, D, P, int(window), int(bool(merge)),
+        _DTYPE_CODE[q.dtype], float(scale), stream)
+    if err != 0:
+        raise RuntimeError(
+            "flash_decode_attention launch failed: "
+            f"{lib.dl4j_flash_decode_contiguous_error_string(err).decode()}")
+    flash_decode_attention.launches += 1
+    return out if merge else (o_p, l_p)
 
 
 def flash_decode_attention(q, kc, vc, visible, scale, window: int = 0):
     """K6, split-K flash-decode over a contiguous cache; same contract as
     `decode_attention_dense` (q (S, H, D), kc/vc (S, L, Hk, D), visible
-    (S,)). CPU tensors run the plain version. On CUDA tensors the cache is
-    viewed as S * nk blocks of `kernel_bkv` positions and K1's kernel runs
-    on it with the table bt[s, j] = s * nk + j (counted in
-    `flash_decode_attention.launches`); the partials merge as K1's. Any
-    partition size runs on the kernel (the TPU's bkv < 8 dense fallback
-    was a tiling limit)."""
+    (S,)). CPU tensors run the plain version; CUDA tensors launch K6's
+    kernel once, merge included (counted in
+    `flash_decode_attention.launches`)."""
     if q.device.type != "cuda":
         return decode_attention_dense(q, kc, vc, visible, scale, window)
-    o_p, l_p = flash_decode_contiguous_partials(q, kc, vc, visible, scale,
-                                                window)
-    return merge_partials(o_p, l_p, q.dtype)[:, 0]
+    return _contiguous_launch(q, kc, vc, visible, scale, window, True)
 
 
 def flash_decode_contiguous_partials(q, kc, vc, visible, scale,
                                      window: int = 0):
-    """K6's kernel launch on CUDA tensors: per-partition partials
-    (o_p (S, Hk, nk, 1, G, D), l_p (S, Hk, nk, 1, G)) in float32."""
-    S, H, D = q.shape
-    L, Hk = kc.shape[1], kc.shape[2]
-    if H % Hk != 0:
-        raise ValueError(f"n_heads {H} % n_kv_heads {Hk} != 0")
-    if vc.shape != kc.shape or kc.shape[0] != S:
-        raise ValueError(f"shape mismatch: q {tuple(q.shape)}, kc "
-                         f"{tuple(kc.shape)}, vc {tuple(vc.shape)}")
-    bkv = kernel_bkv(L, H // Hk, D)
-    nk = L // bkv
-    kp = kc.contiguous().view(S * nk, bkv, Hk, D)
-    vp = vc.contiguous().view(S * nk, bkv, Hk, D)
-    bt = torch.arange(S * nk, dtype=torch.int32,
-                      device=q.device).view(S, nk)
-    o_p, l_p = _launch(q[:, None], kp, vp, bt, visible, scale, window, None,
-                       None, "flash_decode_attention")
-    flash_decode_attention.launches += 1
-    return o_p, l_p
+    """K6's kernel with the merge off, on CUDA tensors: the per-partition
+    partials (o_p (S, Hk, np, G, D), l_p (S, Hk, np, G)) in float32, as
+    `contiguous_partials_plain` lays them out."""
+    if q.device.type != "cuda":
+        raise ValueError("flash_decode_contiguous_partials runs on CUDA "
+                         "tensors only")
+    return _contiguous_launch(q, kc, vc, visible, scale, window, False)
 
 
 flash_decode_attention.launches = 0

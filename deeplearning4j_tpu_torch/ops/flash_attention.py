@@ -22,17 +22,16 @@ H heads in the forward (query head h reads kv head h // (H / Hk)); the
 grouped backward raises, as in the JAX package: the layer repeats k/v to
 full heads before the call, so training never reaches it.
 
-Kernels (CUDA C++ for sm_90a in two sources, chosen by dtype in `_route`):
-- K3 `flash_attention_fwd_cuda` replaces `_call_fwd` / `_fwd_kernel`: bf16
-  inputs take `csrc/flash_attention_sm90.cu` (wgmma, TMA), fp32 inputs the
-  CUDA-core kernel of `csrc/flash_attention.cu`;
+Kernels (CUDA C++ for sm_90a in two sources, chosen by dtype in `_route`:
+bf16 inputs take `csrc/flash_attention_sm90.cu` (wgmma, TMA), fp32 inputs
+the CUDA-core kernels of `csrc/flash_attention.cu`):
+- K3 `flash_attention_fwd_cuda` replaces `_call_fwd` / `_fwd_kernel`;
 - K4 `flash_attention_bwd_cuda(..., bwd="fused")` replaces
-  `_fused_bwd_kernel`, `flash_attention.cu` in both dtypes (wmma for
-  bf16); dq accumulates through fp32 atomics into one zeroed (B*H, T, D)
-  buffer (no per-k-block partials);
+  `_fused_bwd_kernel`: one kernel per key tile giving dk, dv and each
+  tile's dq, which it adds into one zeroed fp32 (B*H, T, D) buffer (bf16:
+  reductions in L2; fp32: atomics), so there are no per-k-block partials;
 - K5 `flash_attention_bwd_cuda(..., bwd="two_pass")` replaces `_dq_kernel`
-  and `_dkv_kernel`: bf16 in `flash_attention_sm90.cu`, fp32 in
-  `flash_attention.cu`.
+  and `_dkv_kernel`.
 Each has a plain PyTorch version with the kernel's own signature,
 `flash_fwd_plain` and `flash_bwd_plain` (dense, fp32 scores, fp64 for
 fp64 inputs); the backward recomputes p from the lse, as the kernels do.
@@ -64,8 +63,8 @@ from deeplearning4j_tpu_torch.ops import build
 from deeplearning4j_tpu_torch.ops.helpers import helper_for, register_helper
 
 NEG_INF = -1e30
-SOURCE = "flash_attention.cu"            # fp32 K3 and K5, K4 in both dtypes
-SM90_SOURCE = "flash_attention_sm90.cu"  # bf16 K3 and K5 (wgmma, TMA)
+SOURCE = "flash_attention.cu"            # fp32 K3, K4 and K5
+SM90_SOURCE = "flash_attention_sm90.cu"  # bf16 K3, K4 and K5 (wgmma, TMA)
 SOURCES = (SOURCE, SM90_SOURCE)
 BWD_MODES = ("fused", "two_pass")
 HEAD_DIMS = (16, 32, 64, 128)         # head dims the kernels are built for
@@ -78,8 +77,9 @@ def _check_dq_partials(dq_partials: Optional[str]) -> None:
     if dq_partials not in (None, "acc"):
         raise NotImplementedError(
             f"dq_partials={dq_partials!r}: the port's fused backward "
-            "accumulates dq in fp32 on the card (no per-k-block partials "
-            "buffer); only 'acc' exists (ROADMAP queue 2, K4)")
+            "adds dq into one fp32 buffer on the card (no per-k-block "
+            "partials buffer, whose size 'io' bounds on the TPU); only "
+            "'acc' exists")
 
 
 def configure(bwd: Optional[str] = None, dq_partials: Optional[str] = None):
@@ -207,8 +207,10 @@ def flash_bwd_plain(q, k, v, mask, o, lse, do, dlse=None,
 
 
 def _di(do, o, dlse, acc):
-    """D_i = rowsum(dO * o) - dlse, accumulated in `acc` (B, H, T)."""
-    di = (do.to(acc) * o.to(acc)).sum(dim=-1)
+    """D_i = rowsum(dO * o) - dlse, accumulated in `acc` (B, H, T); o is
+    widened inside the product (the same values as widening it first, one
+    pass over device memory fewer)."""
+    di = (do.to(acc) * o).sum(dim=-1)
     if dlse is not None:
         di = di - dlse.to(acc)
     return di
@@ -280,13 +282,11 @@ def flash_attention(q, k, v, mask=None, causal: bool = False,
 # ------------------------------------------------------------------ kernels
 def _route(dtype: torch.dtype, kind: str) -> str:
     """The source whose kernel takes a launch: `kind` "fwd" (K3), "fused"
-    (K4) or "two_pass" (K5). bf16 K3 and K5 run on the wgmma kernels of
-    SM90_SOURCE; fp32, and K4 in both dtypes, on SOURCE."""
+    (K4) or "two_pass" (K5). bf16 runs on the wgmma kernels of
+    SM90_SOURCE, fp32 on SOURCE."""
     if kind not in ("fwd",) + BWD_MODES:
         raise ValueError(f"unknown flash kernel kind {kind!r}")
-    if dtype == torch.bfloat16 and kind != "fused":
-        return SM90_SOURCE
-    return SOURCE
+    return SM90_SOURCE if dtype == torch.bfloat16 else SOURCE
 
 
 def _library(source: str):
@@ -296,12 +296,13 @@ def _library(source: str):
             # fwd: q, k, v, km, o, lse, 7 ints, scale, stream
             lib.dl4j_flash_sm90_fwd.argtypes = [ctypes.c_void_p] * 6 + [
                 ctypes.c_int] * 7 + [ctypes.c_float, ctypes.c_void_p]
-            # bwd: q, k, v, km, do, lse, di, dq, dk, dv, 6 ints, scale,
-            # stream
-            lib.dl4j_flash_sm90_bwd.argtypes = [ctypes.c_void_p] * 10 + [
-                ctypes.c_int] * 6 + [ctypes.c_float, ctypes.c_void_p]
+            # bwd (K5) and bwd_fused (K4): q, k, v, km, do, lse, di, dq,
+            # dk, dv, 6 ints, scale, stream
+            for fn in (lib.dl4j_flash_sm90_bwd, lib.dl4j_flash_sm90_bwd_fused):
+                fn.argtypes = [ctypes.c_void_p] * 10 + [
+                    ctypes.c_int] * 6 + [ctypes.c_float, ctypes.c_void_p]
+                fn.restype = ctypes.c_int
             lib.dl4j_flash_sm90_fwd.restype = ctypes.c_int
-            lib.dl4j_flash_sm90_bwd.restype = ctypes.c_int
             lib.dl4j_flash_sm90_smem.argtypes = [ctypes.c_int] * 2
             lib.dl4j_flash_sm90_smem.restype = ctypes.c_int
             lib.dl4j_flash_sm90_error_string.argtypes = [ctypes.c_int]
@@ -434,7 +435,7 @@ register_helper("flash_attention_fwd")(flash_attention_fwd_cuda)
 def flash_attention_bwd_cuda(q, k, v, mask, o, lse, do, dlse=None,
                              causal: bool = False, scale=None,
                              window: int = 0, bwd: Optional[str] = None):
-    """K4 (bwd "fused": one kernel, dq through fp32 atomics, counted in
+    """K4 (bwd "fused": one kernel, dq added into an fp32 buffer, counted in
     `flash_attention_bwd_cuda.fused_launches`) or K5 (bwd "two_pass": the
     dq kernel and the dk/dv kernel, counted in `.two_pass_launches`, two
     per call) on CUDA tensors; same contract as `flash_bwd_plain`, any
@@ -466,7 +467,9 @@ def _bwd_launch(q, k, v, mask, o, lse, do, dlse, causal, scale, window,
             dv.data_ptr(), B, H, T, D, int(bool(causal)), int(window))
     stream = torch.cuda.current_stream(q.device).cuda_stream
     if source == SM90_SOURCE:
-        err = lib.dl4j_flash_sm90_bwd(*args, _scale(scale, D), stream)
+        fn = lib.dl4j_flash_sm90_bwd_fused if mode == 0 \
+            else lib.dl4j_flash_sm90_bwd
+        err = fn(*args, _scale(scale, D), stream)
         _raise_on(lib.dl4j_flash_sm90_error_string, err,
                   f"flash_attention_bwd ({bwd})")
     else:

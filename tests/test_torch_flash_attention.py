@@ -226,13 +226,13 @@ def test_head_dim_padding_is_exact(D, Dp):
 @pytest.mark.parametrize("dtype,kind,source", [
     (torch.bfloat16, "fwd", tfa.SM90_SOURCE),
     (torch.bfloat16, "two_pass", tfa.SM90_SOURCE),
-    (torch.bfloat16, "fused", tfa.SOURCE),
+    (torch.bfloat16, "fused", tfa.SM90_SOURCE),
     (torch.float32, "fwd", tfa.SOURCE),
     (torch.float32, "two_pass", tfa.SOURCE),
     (torch.float32, "fused", tfa.SOURCE),
 ])
 def test_route_by_dtype_and_mode(dtype, kind, source):
-    """bf16 K3 and K5 take the wgmma kernels; fp32, and K4, the others."""
+    """bf16 K3, K4 and K5 take the wgmma kernels; fp32 the others."""
     assert tfa._route(dtype, kind) == source
     assert source in tfa.SOURCES
     with pytest.raises(ValueError):
@@ -255,7 +255,8 @@ class _FakeLib:
     """Stands for both kernel libraries: records each launch."""
     NAMES = ("dl4j_flash_fwd", "dl4j_flash_bwd", "dl4j_flash_error_string",
              "dl4j_flash_sm90_fwd", "dl4j_flash_sm90_bwd",
-             "dl4j_flash_sm90_smem", "dl4j_flash_sm90_error_string")
+             "dl4j_flash_sm90_bwd_fused", "dl4j_flash_sm90_smem",
+             "dl4j_flash_sm90_error_string")
 
     def __init__(self, err=0):
         self.log = []
@@ -325,7 +326,8 @@ def test_backward_launch_reaches_its_kernel(fake_lib, dtype, mode):
     assert args[10:16] == (2, 4, 21, 16, 0, 0)
     assert args[-1] == 77 and args[-2] == 0.5
     if tfa._route(dtype, mode) == tfa.SM90_SOURCE:
-        assert name == "dl4j_flash_sm90_bwd"
+        assert name == ("dl4j_flash_sm90_bwd" if two
+                        else "dl4j_flash_sm90_bwd_fused")
     else:
         assert name == "dl4j_flash_bwd"
         assert args[16:18] == (tfa._DTYPE_CODE[dtype], int(two))
@@ -342,3 +344,58 @@ def test_failed_launch_raises_with_its_library_error(monkeypatch):
     with pytest.raises(RuntimeError,
                        match="error 1002 from dl4j_flash_sm90_error_string"):
         tfa._fwd_launch(q, k, v, None, True, None, 0)
+
+
+def test_fused_bf16_launch_reaches_the_wgmma_kernel(fake_lib):
+    """bf16 K4 is one call of the sm90 library's fused entry point: every
+    argument against its argtypes (10 pointers: the zeroed fp32 dq buffer
+    among them, then B, H, T, D, causal, window, the scale and the
+    stream), one fused launch counted and no two-pass one."""
+    import ctypes
+    q, k, v, do, m = (torch.from_numpy(a).to(torch.bfloat16) for a in
+                      _data(B=2, H=4, Hk=4, T=21, D=16, mask="random"))
+    o = torch.zeros_like(q)
+    lse = torch.zeros(2, 4, 21)
+    counts = (tfa.flash_attention_bwd_cuda.fused_launches,
+              tfa.flash_attention_bwd_cuda.two_pass_launches)
+    dq, dk, dv = tfa._bwd_launch(q, k, v, m, o, lse, do, None, True, 0.25,
+                                 7, "fused")
+    assert (tfa.flash_attention_bwd_cuda.fused_launches,
+            tfa.flash_attention_bwd_cuda.two_pass_launches) == (
+        counts[0] + 1, counts[1])
+    lib = fake_lib[tfa.SM90_SOURCE]
+    assert tfa.SOURCE not in fake_lib
+    ((name, args),) = lib.log
+    assert name == "dl4j_flash_sm90_bwd_fused"
+    fn = lib.dl4j_flash_sm90_bwd_fused
+    assert fn.argtypes == [ctypes.c_void_p] * 10 + [ctypes.c_int] * 6 + [
+        ctypes.c_float, ctypes.c_void_p]
+    assert fn.restype is ctypes.c_int
+    assert len(args) == len(fn.argtypes)
+    assert args[:3] == (q.data_ptr(), k.data_ptr(), v.data_ptr())
+    assert args[3] is not None and args[4] == do.data_ptr()
+    assert all(isinstance(a, int) for a in args[5:10])
+    assert args[10:16] == (2, 4, 21, 16, 1, 7)
+    assert args[-2] == 0.25 and args[-1] == 77
+    assert dq.shape == dk.shape == dv.shape == q.shape
+    assert dq.dtype == dk.dtype == dv.dtype == torch.bfloat16
+    assert torch.equal(dq, torch.zeros_like(dq))   # the stand-in adds nothing
+
+
+def test_failed_fused_launch_raises_and_counts_nothing(monkeypatch):
+    from types import SimpleNamespace
+    lib = _FakeLib(err=700)
+    monkeypatch.setattr(tfa.build, "load", lambda source: lib)
+    monkeypatch.setattr(torch.cuda, "current_stream",
+                        lambda device=None: SimpleNamespace(cuda_stream=0))
+    q, k, v, do = (torch.from_numpy(a).to(torch.bfloat16)
+                   for a in _data(D=16)[:4])
+    before = tfa.flash_attention_bwd_cuda.fused_launches
+    with pytest.raises(RuntimeError, match=r"flash_attention_bwd \(fused\) "
+                       "launch failed: error 700 from "
+                       "dl4j_flash_sm90_error_string"):
+        tfa._bwd_launch(q, k, v, None, torch.zeros_like(q),
+                        torch.zeros(q.shape[:3]), do, None, True, None, 0,
+                        "fused")
+    assert tfa.flash_attention_bwd_cuda.fused_launches == before
+    assert [n for n, _ in lib.log] == ["dl4j_flash_sm90_bwd_fused"]

@@ -11,11 +11,14 @@ in float64 on the CPU.
   package's.
 - Kernels' plain versions: the plain K2 (`decode_attention_dense_spec_paged`)
   equals JAX's Pallas `flash_decode_attention_spec_paged` (interpret mode on
-  the CPU) and its dense oracle to 1e-10, and its row i equals the port's
-  plain K1 at visible + i exactly; the plain K6 (`decode_attention_dense`,
-  what `flash_decode_attention` runs on a CPU tensor) equals JAX's
-  `flash_decode_attention` and `decode_attention_dense` to 1e-10,
-  including cache lengths whose partition falls below 8.
+  the CPU, under jax.jit) and its dense oracle to 1e-10, and its row i
+  equals the port's plain K1 at visible + i exactly; the plain K6
+  (`decode_attention_dense`, what `flash_decode_attention` runs on a CPU
+  tensor) equals JAX's `flash_decode_attention` and
+  `decode_attention_dense` to 1e-10, including cache lengths whose JAX
+  partition falls below 8, and so does the plain split of K6's own
+  partition plan, merged; the plan itself (`contiguous_partition`) fits
+  the H100's shared memory.
 - The n-gram draft index proposes what the JAX package's proposes.
 - Engine: spec-on greedy tokens, counted host syncs and accepted/rejected
   drafts equal the JAX engine's on the same schedules (repetitive prompts,
@@ -30,6 +33,7 @@ card by chip_smoke.py.
 import numpy as np
 import pytest
 
+import jax
 import jax.numpy as jnp
 import torch
 
@@ -290,9 +294,18 @@ SPEC_CASES = [(Q, G, w, bs, False) for Q in (2, 5) for G in (1, 2, 4)
     + [(3, G, 5, 8, True) for G in (1, 2)] + [(9, 2, 0, 4, True)]
 
 
+@pytest.fixture(scope="module")
+def jax_spec():
+    """The JAX package's K2 and its dense oracle under one jax.jit each for
+    the module (scale and window static), as `jax_k6` below."""
+    return (jax.jit(jax_flash_spec, static_argnums=(5, 6)),
+            jax.jit(jax_dense_spec, static_argnums=(5, 6)))
+
+
 @pytest.mark.parametrize("Q,G,window,bs,quant", SPEC_CASES)
-def test_plain_spec_paged_matches_jax_kernel_and_oracle(Q, G, window, bs,
-                                                        quant):
+def test_plain_spec_paged_matches_jax_kernel_and_oracle(jax_spec, Q, G,
+                                                        window, bs, quant):
+    jax_flash_spec, jax_dense_spec = jax_spec
     args, scales = _spec_case(Q, G, window, bs, quant, seed=Q * 7 + G + bs)
     targs, tsc = _as_torch(args, scales)
     out = tda.decode_attention_dense_spec_paged(*targs, **tsc)
@@ -353,9 +366,20 @@ def test_merge_of_exact_spec_partials_equals_dense():
     np.testing.assert_allclose(out.numpy(), ref.numpy(), atol=ATOL, rtol=0)
 
 
+@pytest.fixture(scope="module")
+def jax_k6():
+    """The JAX package's K6 and its dense oracle, each under one jax.jit
+    for the module (scale and window static): a case compiles one program
+    instead of dispatching every op of the interpreted kernel."""
+    return (jax.jit(jax_flash, static_argnums=(4, 5)),
+            jax.jit(jax_dense, static_argnums=(4, 5)))
+
+
 @pytest.mark.parametrize("L,G,window", [(32, 2, 0), (32, 1, 5), (24, 4, 0),
                                         (12, 2, 3), (6, 2, 0), (20, 2, 0)])
-def test_plain_contiguous_decode_matches_jax_flash_and_dense(L, G, window):
+def test_plain_contiguous_decode_matches_jax_flash_and_dense(jax_k6, L, G,
+                                                             window):
+    jax_flash, jax_dense = jax_k6
     """K6's contract on a contiguous cache; L = 6 and 20 give partitions
     below 8 (the JAX kernel takes its dense path there, the CUDA kernel
     runs them)."""
@@ -374,23 +398,39 @@ def test_plain_contiguous_decode_matches_jax_flash_and_dense(L, G, window):
                                np.asarray(jax_dense(*jargs, 0.3, window)),
                                atol=ATOL, rtol=0)
     assert torch.equal(out, tda.decode_attention_dense(*targs, 0.3, window))
-    assert tda.kernel_bkv(L, G, D) == jax_resolve_bkv(0, L) \
-        == {32: 32, 24: 24, 12: 12, 6: 6, 20: 20}[L]
+    # the JAX package splits L into divisors (below 8 it goes dense); the
+    # port's kernel takes partitions of its own size with a ragged last one
+    assert jax_resolve_bkv(0, L) == {32: 32, 24: 24, 12: 12, 6: 6, 20: 20}[L]
+    P = tda.contiguous_partition(G, D, 8)
+    o_p, l_p = tda.contiguous_partials_plain(*targs, 0.3, window, P)
+    assert P == 64 and o_p.shape[2] == 1 == -(-L // P)
+    np.testing.assert_allclose(
+        tda.merge_partials(o_p[:, :, :, None], l_p[:, :, :, None],
+                           torch.float64)[:, 0].numpy(), out.numpy(),
+        atol=ATOL, rtol=0)
 
 
 @pytest.mark.parametrize("L,G,D", [(1024, 2, 64), (1024, 2, 128),
                                    (1000, 4, 64), (300, 1, 32),
                                    (4096, 1, 256)])
 def test_k6_partition_fits_shared_memory_and_divides_l(L, G, D):
-    """The CUDA launch plan of K6: the JAX partition where its CTA fits the
-    H100's shared memory, else the largest divisor of L that does."""
-    bkv = tda.kernel_bkv(L, G, D)
-    assert L % bkv == 0 and bkv <= jax_resolve_bkv(0, L)
-    assert tda.smem_bytes(G, D, bkv) <= tda.SMEM_LIMIT
-    if tda.smem_bytes(G, D, jax_resolve_bkv(0, L)) <= tda.SMEM_LIMIT:
-        assert bkv == jax_resolve_bkv(0, L)
-    assert tda.kernel_bkv(1024, 2, 64) == 256
-    assert tda.kernel_bkv(1024, 2, 128) == 128
+    """The CUDA launch plan of K6: PARTITION positions per CTA, halved
+    until the CTA fits the H100's shared memory, in every dtype; the
+    partitions cover L, the last one ragged where P does not divide it."""
+    for elt in (2, 4):
+        P = tda.contiguous_partition(G, D, elt)
+        assert 1 <= P <= tda.PARTITION
+        assert tda.contiguous_smem_bytes(G, D, P, elt) <= tda.SMEM_LIMIT
+        if P < tda.PARTITION:
+            assert tda.contiguous_smem_bytes(G, D, 2 * P, elt) \
+                > tda.SMEM_LIMIT
+        n = -(-L // P)
+        assert (n - 1) * P < L <= n * P
+    assert tda.contiguous_partition(2, 64, 2) == 64
+    assert tda.contiguous_smem_bytes(2, 64, 64, 2) == 19488
+    assert tda.contiguous_partition(1, 1024, 4) == 16
+    with pytest.raises(ValueError, match="shared memory"):
+        tda.contiguous_partition(64, 1024, 4)
 
 
 def test_spec_and_contiguous_seams_route_by_device():
