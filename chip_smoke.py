@@ -16,18 +16,26 @@ Phases, each printing one JSON line; any failure exits non-zero:
               in the SASS (cuobjdump -sass); fails if a kernel has no
               HGMMA or no UTMALDG, has an atomic, has a reduction (K3, K5)
               or none (K4, whose dq reductions are the only ones allowed),
-              or spills at D 64.
+              or spills at D 64. The same for K10's bf16 kernel at each
+              load path and K7's cluster forward at H 64/128/256, with
+              their UTMASTG, UBLKCP, cluster-barrier and LDGSTS counts and
+              the clusters the card holds at once; fails on no HGMMA, an
+              atomic or a reduction, or a spill at a main-path shape.
 2a. kernel_conv1x1 - K10 (the 1x1 conv with per-channel sums) against its
               plain version: fp32 and bf16, B 1/3/256, channels drawn from
-              {8, 64, 256, 1024, 2048}, P 1/16/49/196/200/784, one case
+              {8, 64, 256, 1024, 2048}, P 1/16/49/81/196/200/784, one case
               with channel means far above their spread; y against the
               plain version in the same dtype, the sums against the fp64
-              plain sums; conv1x1_bn_act through K10 at stride 1 and 2
+              plain sums; every bf16 load path of x must have run (TMA at
+              P 784/200/16, cp.async at P 196, bulk copies of whole images
+              at P 49/1, 2-byte loads at P 81);
+              conv1x1_bn_act through K10 at stride 1 and 2
               against the unfused plain composition in fp64. Then each
               distinct ResNet50 shape at b256 in bf16 timed by CUDA events
-              beside the plain version and torch.matmul(w, x3) (cuBLAS,
-              the product without the sums: a yardstick only), with its
-              bound; per-step sums over the 36 calls.
+              and by CUDA-graph replay beside the plain version and
+              torch.matmul(w, x3) (cuBLAS, the product without the sums: a
+              yardstick only), with its bound and load path; per-step sums
+              over the 36 calls.
 2b. train_resnet50 - zoo ResNet50 as the JAX bench trains it (bench.py
               bench_resnet50: 224x224x3, 1000 classes, batch 256, bf16
               compute over fp32 params, RmsProp(0.1, 0.96), l1 1e-7, l2
@@ -85,10 +93,15 @@ Phases, each printing one JSON line; any failure exits non-zero:
               peepholes, a non-zero cs cotangent in every other case; per
               time step relative errors with a floor, and in bf16 each
               chain against the fp64 plain chain within twice the bf16
-              plain chain's own error. A GravesLSTM and an LSTM layer of
+              plain chain's own error. Each case's forward must take the
+              variant `scan_fwd_variant` names (bf16 H 64/128/256 the
+              cluster kernel, the rest the tile kernel; bf16 H 128 cases
+              added for the cluster kernel), and both variants must have
+              run. A GravesLSTM and an LSTM layer of
               H 1536, whose K7 tile does not fit in shared memory, step
               through K8 and K9 (launches counted) against the CPU. Then
-              the char-RNN layer (T 100, B 8192, H 256, bf16) timed beside
+              the char-RNN layer (T 100, B 8192, H 256, bf16; the cluster
+              forward) timed beside
               the plain versions and torch.nn.LSTM (cuDNN, a yardstick
               only).
 4. kernel_lstm_gates - K8 (peephole cell) and K9 (plain cell), forward
@@ -100,7 +113,8 @@ Phases, each printing one JSON line; any failure exits non-zero:
               batch 8192, T 100, bf16 compute over fp32 params, seed 42,
               the bench's data): fit_on_device(steps=5, sync=False) after
               a warm step (tokens/s, ms/step, peak memory; exactly 2 K7
-              forward + 2 backward launches a step), two tBPTT fit(x, y)
+              forward + 2 backward launches a step, every forward on the
+              cluster kernel), two tBPTT fit(x, y)
               calls (2 segments each), a masked fit_batch (K8 on every
               step) and the same stack with LSTM layers, masked (K9).
 6. lstm_oracle - gradient_and_score of the stack through the kernels
@@ -1244,14 +1258,26 @@ def sm90_kernel_key(name: str):
     return (m.group(1), int(m.group(2))) if m else None
 
 
-def ptxas_kernels(log: str) -> dict:
-    """Registers, spill bytes and static shared memory of each sm90 kernel
-    from nvcc's -Xptxas -v log, with the warnings ptxas gave for it."""
+def new_kernel_key(name: str):
+    """(kernel, template argument) of a mangled name of this slice's
+    kernels: K10's conv1x1_sm90<path, G> ("path.G") and K7's
+    scan_fwd_cluster<H>, else None."""
+    m = re.search(r"(conv1x1_sm90)ILi(\d)ELi(\d)EE", name)
+    if m:
+        return m.group(1), f"{m.group(2)}.{m.group(3)}"
+    m = re.search(r"(scan_fwd_cluster)ILi(\d+)EE", name)
+    return (m.group(1), int(m.group(2))) if m else None
+
+
+def ptxas_kernels(log: str, kernel_key=sm90_kernel_key) -> dict:
+    """Registers, spill bytes and static shared memory of each kernel that
+    `kernel_key` names from nvcc's -Xptxas -v log, with the warnings ptxas
+    gave for it."""
     out, cur, notes = {}, None, []
     for ln in log.splitlines():
         m = re.search(r"Compiling entry function '(\S+)'", ln)
         if m:
-            key = sm90_kernel_key(m.group(1))
+            key = kernel_key(m.group(1))
             cur = None if key is None else f"{key[0]}<{key[1]}>"
             if cur:
                 out[cur] = {"warnings": []}
@@ -1273,7 +1299,7 @@ def ptxas_kernels(log: str) -> dict:
             sm = re.search(r"(\d+) bytes smem", ln)
             out[cur]["static_smem"] = int(sm.group(1)) if sm else 0
     for ln in notes:
-        key = sm90_kernel_key(ln)
+        key = kernel_key(ln)
         if key and f"{key[0]}<{key[1]}>" in out:
             out[f"{key[0]}<{key[1]}>"]["warnings"].append(
                 re.sub(r"'\S+'", "", ln).strip()[:160])
@@ -1299,9 +1325,15 @@ def cuobjdump() -> str:
     return path
 
 
-def sass_counts(lib_path: str) -> dict:
-    """HGMMA, UTMALDG, atomic and reduction instructions of each sm90
-    kernel in the SASS of the built library (the reductions by name too)."""
+# TMA stores, bulk copies (into a peer's shared memory), cluster barriers
+# and cp.async, counted for this slice's kernels
+NEW_OPS = ("UTMASTG", "UBLKCP", "UCGABAR_ARV", "UCGABAR_WAIT", "LDGSTS")
+
+
+def sass_counts(lib_path: str, kernel_key=sm90_kernel_key) -> dict:
+    """HGMMA, UTMALDG, atomic and reduction instructions (and NEW_OPS) of
+    each kernel that `kernel_key` names in the SASS of the built library
+    (the reductions by name too)."""
     sass = subprocess.run([cuobjdump(), "-sass", lib_path],
                           capture_output=True, text=True, timeout=300)
     if sass.returncode != 0:
@@ -1310,11 +1342,13 @@ def sass_counts(lib_path: str) -> dict:
     for ln in sass.stdout.splitlines():
         m = re.search(r"Function : (\S+)", ln)
         if m:
-            key = sm90_kernel_key(m.group(1))
+            key = kernel_key(m.group(1))
             cur = None if key is None else f"{key[0]}<{key[1]}>"
             if cur:
                 out[cur] = {"HGMMA": 0, "UTMALDG": 0, "atomic": 0,
                             "reduction": 0, "reduction_ops": {}}
+                if kernel_key is not sm90_kernel_key:
+                    out[cur].update(dict.fromkeys(NEW_OPS, 0))
             continue
         if cur is None:
             continue
@@ -1323,7 +1357,7 @@ def sass_counts(lib_path: str) -> dict:
         if not m:
             continue
         op = m.group(1).split(".")[0]
-        if op in ("HGMMA", "UTMALDG"):
+        if op in ("HGMMA", "UTMALDG") or op in out[cur]:
             out[cur][op] += 1
         elif op in ATOMIC_OPS:
             out[cur]["atomic"] += 1
@@ -1365,6 +1399,59 @@ def sm90_build_report(built: dict) -> dict:
                      f"its SASS ({r['reduction_ops']})")
             if D == 64 and r.get("spill_stores", 1) != 0:
                 fail(f"{key}: {r.get('spill_stores')} bytes of spill stores")
+    return report
+
+
+# K10's load paths as (path code, G) of conv1x1_sm90<path, G>, and the
+# instances ResNet50's shapes run: P 784, 16, 196 (G 4) and 49 (bulk)
+K10_INSTANCES = ("0.8", "1.8", "2.8", "2.4", "2.2", "3.1", "4.1")
+K10_MAIN = ("0.8", "1.8", "2.4", "4.1")
+K7_CLUSTER_H = (64, 128, 256)
+
+
+def new_build_report(built: dict) -> dict:
+    """K10's bf16 kernel (each load path) and K7's cluster forward (each
+    H): registers, spills, shared memory (dynamic from the library), SASS
+    counts of HGMMA, UTMALDG, UTMASTG, UBLKCP, cluster barriers, cp.async
+    (LDGSTS), atomics and reductions, and the clusters the card holds at
+    once. Fails when a kernel has no HGMMA, holds an atomic or a
+    reduction, or spills at a shape of the main path (K10's four ResNet50
+    paths, K7 at H 256)."""
+    from deeplearning4j_tpu_torch.ops import conv_fused as cf
+    from deeplearning4j_tpu_torch.ops import lstm_scan_fused as ts
+    report = {}
+    for source, lib, names in (
+            (cf.SOURCE, cf._library(),
+             [f"conv1x1_sm90<{k}>" for k in K10_INSTANCES]),
+            (ts.SM90_SOURCE, ts._cluster_library(),
+             [f"scan_fwd_cluster<{h}>" for h in K7_CLUSTER_H])):
+        b = built[source]
+        regs = ptxas_kernels(b["log"], new_kernel_key)
+        sass = sass_counts(b["path"], new_kernel_key)
+        for key in names:
+            if key not in sass or key not in regs:
+                fail(f"{key}: not in the built library (ptxas "
+                     f"{sorted(regs)}, sass {sorted(sass)})")
+            r = dict(regs[key], **sass[key])
+            arg = key[key.index("<") + 1:-1]
+            if key.startswith("conv1x1"):
+                r["dynamic_smem"] = lib.dl4j_conv1x1_smem(2, int(arg[0]))
+                main = arg in K10_MAIN
+            else:
+                r["dynamic_smem"] = lib.dl4j_lstm_scan_fwd_cluster_smem(
+                    int(arg))
+                r["active_clusters"] = lib.dl4j_lstm_scan_fwd_clusters(
+                    int(arg))
+                main = int(arg) == LSTM_H
+            report[key] = r
+            if not r["HGMMA"]:
+                fail(f"{key}: no HGMMA in its SASS")
+            if r["atomic"] or r["reduction"]:
+                fail(f"{key}: {r['atomic']} atomic and {r['reduction']} "
+                     "reduction instructions in its SASS")
+            if main and r.get("spill_stores", 1) != 0:
+                fail(f"{key}: {r.get('spill_stores')} bytes of spill stores "
+                     "at a shape of the main path")
     return report
 
 
@@ -1899,7 +1986,8 @@ def scan_case(torch, T, B, H, dtype, state, dcs_on, seed):
 
 def scan_sweep():
     """(dtype, H, B, T, state, dcs) of the K7 sweep; H 200 is zero-padded
-    to 208 inside the wrappers."""
+    to 208 inside the wrappers. In bf16, H 64, 128 and 256 take the
+    cluster forward, the others the tile kernel."""
     n = 0
     for dt in ("float32", "bfloat16"):
         for H in (32, 64, 256, 512):
@@ -1912,6 +2000,11 @@ def scan_sweep():
             for T in (7, 100):
                 yield dt, 200, B, T, True, n % 2 == 1
                 n += 1
+    # the cluster forward's third width (bf16 H 64 and 256 are above)
+    for B in (3, 65):
+        for T in (7, 100):
+            yield "bfloat16", 128, B, T, True, n % 2 == 1
+            n += 1
 
 
 def lstm_oversized(torch, ts, tg) -> dict:
@@ -2015,11 +2108,21 @@ def phase_kernel_lstm_scan(torch):
     worst_abs = {dt: {} for dt in LSTM_REL_TOL}
     fp64_ratio = {}
     n_cases = 0
+    variants = {}
+    ts.graves_lstm_scan_fwd_cuda.variant_launches = dict.fromkeys(
+        ts.FWD_VARIANTS, 0)
     for dt, H, B, T, state, dcs_on in scan_sweep():
         dtype = getattr(torch, dt)
         ins, cots = scan_case(torch, T, B, H, dtype, state, dcs_on,
                               seed=n_cases)
+        before = dict(ts.graves_lstm_scan_fwd_cuda.variant_launches)
         kern = scan_run(torch, ts, ins, cots, True)
+        took = [v for v, n in ts.graves_lstm_scan_fwd_cuda
+                .variant_launches.items() if n != before[v]]
+        if took != [ts.scan_fwd_variant(H, dtype)]:
+            fail(f"kernel_lstm_scan {dt} H={H}: the forward took {took}, "
+                 f"the rule says {ts.scan_fwd_variant(H, dtype)}")
+        variants.setdefault(f"{dt} H={H}", took[0])
         # the plain backward on the kernel's ys/cs, so it checks the
         # backward alone
         pys, pcs = ts.graves_lstm_scan_plain(*ins)
@@ -2055,12 +2158,24 @@ def phase_kernel_lstm_scan(torch):
                                        ek[name] / max(ep[name], floor))
         del ins, cots
         n_cases += 1
+    sweep_variants = dict(ts.graves_lstm_scan_fwd_cuda.variant_launches)
+    if not all(sweep_variants.values()):
+        fail(f"kernel_lstm_scan: a forward variant never ran in the sweep: "
+             f"{sweep_variants}")
     from deeplearning4j_tpu_torch.ops import lstm_gates as tg
     oversized = lstm_oversized(torch, ts, tg)
-    # the layer shape of the char-RNN
+    # the layer shape of the char-RNN, on the cluster forward
+    if ts.scan_fwd_variant(LSTM_H, torch.bfloat16) != "cluster":
+        fail("kernel_lstm_scan: the char-RNN's H does not take the cluster "
+             "forward")
     a, (dys, dcs) = scan_case(torch, LSTM_T, LSTM_B, LSTM_H,
                               torch.bfloat16, True, True, seed=4242)
+    n_cluster = ts.graves_lstm_scan_fwd_cuda.variant_launches["cluster"]
     ys, cs = ts.graves_lstm_scan_fwd_cuda(*a)
+    if ts.graves_lstm_scan_fwd_cuda.variant_launches["cluster"] != \
+            n_cluster + 1:
+        fail("kernel_lstm_scan: the char-RNN layer did not launch the "
+             "cluster forward")
     ms = {"fwd": event_ms(torch, lambda: ts.graves_lstm_scan_fwd_cuda(*a)),
           "bwd": event_ms(torch, lambda: ts.graves_lstm_scan_bwd_cuda(
               *a, ys, cs, dys, dcs))}
@@ -2082,6 +2197,9 @@ def phase_kernel_lstm_scan(torch):
     bounds = {k: scan_bound(LSTM_T, LSTM_B, LSTM_H, 2, k)
               for k in ("fwd", "bwd")}
     res = {"phase": "kernel_lstm_scan", "cases": n_cases,
+           "fwd_variant": variants, "sweep_variant_launches": sweep_variants,
+           "active_clusters_h256":
+               ts._cluster_library().dl4j_lstm_scan_fwd_clusters(LSTM_H),
            "rel_err": worst, "max_abs_err": worst_abs,
            "oversized_h": oversized,
            "tolerance": LSTM_REL_TOL, "floor": LSTM_REF_FLOOR,
@@ -2218,6 +2336,8 @@ def reset_lstm_launches(ts, tg) -> None:
                tg.graves_gates_cuda, tg.graves_gates_bwd_cuda,
                tg.lstm_gates_cuda, tg.lstm_gates_bwd_cuda):
         fn.launches = 0
+    ts.graves_lstm_scan_fwd_cuda.variant_launches = dict.fromkeys(
+        ts.FWD_VARIANTS, 0)
 
 
 def char_rnn(torch, compute_dtype, layer="GravesLSTM", dtype="float32"):
@@ -2283,6 +2403,7 @@ def phase_train_lstm(torch, np):
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = lstm_launches(ts, tg)                   # main path ends
+    fwd_variants = dict(ts.graves_lstm_scan_fwd_cuda.variant_launches)
     peak = torch.cuda.max_memory_allocated()
     losses = losses.cpu().numpy().tolist()
     diverged = net._diverged_at
@@ -2291,6 +2412,9 @@ def phase_train_lstm(torch, np):
     if launches != expect:
         fail(f"train_lstm fit_on_device launches {launches}, expected "
              f"{expect}")
+    if fwd_variants != {"cluster": 2 * steps, "tile": 0}:
+        fail(f"train_lstm: K7 forward variants {fwd_variants}, expected "
+             "every launch on the cluster kernel")
     profile = profile_train(torch, net, x, y)
     fit_losses, fit_launches = [], []
     t0 = time.perf_counter()
@@ -2343,6 +2467,7 @@ def phase_train_lstm(torch, np):
            "tokens_per_s": tokens * steps / wall, "peak_bytes": peak,
            "peak_bytes_above_start": peak - base, "launches": launches,
            "launches_per_step": {k: v / steps for k, v in launches.items()},
+           "k7_fwd_variant_launches": fwd_variants,
            "losses": losses, "profile": profile,
            "fit": {"losses": fit_losses, "launches": fit_launches,
                    "ms_per_step": fit_wall / 4 * 1e3},
@@ -2622,8 +2747,9 @@ def conv_bound(B, C_in, C_out, P, elt):
 def conv_sweep():
     """(dtype, B, C_in, C_out, P, mean shift) of the K10 sweep: each P
     with B 1 and 3 and two channel pairs drawn (seed 0) from {8, 64, 256,
-    1024, 2048}^2, B 256 at two ResNet50 shapes, and one case whose
-    channel means are far above their spread."""
+    1024, 2048}^2, B 256 at two ResNet50 shapes, one case whose channel
+    means are far above their spread, and one at P 81 with C_out 44 (odd
+    P, y's runs not 16-byte aligned: the 2-byte-load path)."""
     import random
     rnd = random.Random(0)
     widths = (8, 64, 256, 1024, 2048)
@@ -2635,6 +2761,8 @@ def conv_sweep():
         yield dt, 256, 64, 256, 784, 0
         yield dt, 256, 1024, 2048, 16, 0
         yield dt, 3, 256, 64, 196, 30.0
+        # odd P past the bulk path (C_out % 8 != 0): 2-byte loads
+        yield dt, 3, 24, 44, 81, 0
 
 
 def conv_errs(torch, x3, w):
@@ -2655,8 +2783,8 @@ def conv_errs(torch, x3, w):
 
 def phase_kernel_conv1x1(torch):
     """K10 against its plain version over the sweep (fp32 and bf16, B
-    1/3/256, channels from {8, 64, 256, 1024, 2048}, P 1/16/49/196/200/784,
-    a large channel mean); conv1x1_bn_act through K10 at stride 1 and 2
+    1/3/256, channels from {8, 64, 256, 1024, 2048}, P 1/16/49/81/196/200/
+    784, a large channel mean); conv1x1_bn_act through K10 at stride 1 and 2
     against the unfused plain composition; then every distinct ResNet50
     shape at b256 in bf16 timed by CUDA events beside the plain version
     and torch.matmul(w, x3) (cuBLAS: the product without the sums, a
@@ -2665,6 +2793,7 @@ def phase_kernel_conv1x1(torch):
     g = torch.Generator(device="cuda").manual_seed(0)
     worst, worst_abs = {}, {}
     n_cases = 0
+    cf.conv1x1_stats_cuda.path_launches = dict.fromkeys(cf.LOAD_PATHS, 0)
     for dt, B, C_in, C_out, P, shift in conv_sweep():
         dtype = getattr(torch, dt)
         x3 = (torch.randn(B, C_in, P, generator=g, device="cuda")
@@ -2681,6 +2810,13 @@ def phase_kernel_conv1x1(torch):
                 fail(f"kernel_conv1x1 {case}: {name} err {e} > {tol}")
             worst[f"{name}_{dt}"] = max(worst.get(f"{name}_{dt}", 0.0), e)
         n_cases += 1
+    # the bf16 sweep ran x's loads by TMA (P 784, 200, 16) and without (P
+    # 196 by cp.async, P 49 and 1 by bulk copies of whole images, P 81 at
+    # C_out 44 by 2-byte loads)
+    sweep_paths = dict(cf.conv1x1_stats_cuda.path_launches)
+    if not all(sweep_paths.values()):
+        fail(f"kernel_conv1x1: a load path never ran in the sweep: "
+             f"{sweep_paths}")
     # the fused op through K10, strides 1 and 2, against the unfused plain
     # composition (out by max |diff| / max |ref|, mean and var likewise)
     fused_err = {}
@@ -2710,7 +2846,8 @@ def phase_kernel_conv1x1(torch):
                                 RESNET_B)
     timed = []
     totals = {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0, "bound_ms": 0.0,
-              "bytes": 0, "ops": 0}
+              "graph_ms": 0.0, "library_graph_ms": 0.0, "bytes": 0,
+              "ops": 0}
     for (B, C_in, C_out, P), calls in sorted(shapes.items()):
         x3 = torch.randn(B, C_in, P, generator=g, device="cuda",
                          dtype=torch.bfloat16)
@@ -2725,14 +2862,23 @@ def phase_kernel_conv1x1(torch):
         plain_ms = event_ms(torch, lambda: cf.conv1x1_stats_plain(x3, w),
                             iters=3)
         library_ms = event_ms(torch, lambda: torch.matmul(w, x3), iters=10)
+        # device time without the host's dispatch: the wrapper (kernel and
+        # its torch sum of the partials) and cuBLAS, each by graph replay
+        k_graph = graph_ms(torch, lambda: cf.conv1x1_stats_cuda(x3, w),
+                           reps=10, iters=10)
+        l_graph = graph_ms(torch, lambda: torch.matmul(w, x3), reps=10,
+                           iters=10)
         nbytes, ops, bound_ms, bound_by = conv_bound(B, C_in, C_out, P, 2)
         timed.append({"B": B, "C_in": C_in, "C_out": C_out, "P": P,
+                      "path": cf.conv1x1_load_path(P, C_in, C_out),
                       "calls_per_step": calls, "ms": ms, "plain_ms": plain_ms,
-                      "library_ms": library_ms, "bound_ms": bound_ms,
+                      "library_ms": library_ms, "graph_ms": k_graph,
+                      "library_graph_ms": l_graph, "bound_ms": bound_ms,
                       "bound_by": bound_by, "y_err": e_y,
                       "sum_err": max(e1, e2)})
         for k, v in (("ms", ms), ("plain_ms", plain_ms),
                      ("library_ms", library_ms), ("bound_ms", bound_ms),
+                     ("graph_ms", k_graph), ("library_graph_ms", l_graph),
                      ("bytes", nbytes), ("ops", ops)):
             totals[k] += calls * v
         del x3, w
@@ -2744,7 +2890,8 @@ def phase_kernel_conv1x1(torch):
     res = {"phase": "kernel_conv1x1", "cases": n_cases, "max_err": worst,
            "max_abs_err_y": worst_abs,
            "tolerance": {"y": CONV_Y_TOL, "sums": CONV_SUM_TOL},
-           "fused_op_err": fused_err, "shapes": timed,
+           "fused_op_err": fused_err, "sweep_path_launches": sweep_paths,
+           "shapes": timed,
            "per_step": totals | {"bound_by": "bytes" if t_b >= t_o
                                  else "operations"},
            "library": "torch.matmul(w, x3) (cuBLAS): the product alone, "
@@ -3376,14 +3523,15 @@ def main() -> int:
     t0 = time.perf_counter()
     from deeplearning4j_tpu_torch.ops import threshold_encode as te
     # K1 and K2 are one source (the Q-query paged kernel), K6 a second;
-    # fp32 K3-K5 a third, bf16 K3-K5 (wgmma) a fourth; K7 a fifth, K8 and
-    # K9 a sixth, K10 a seventh, K11 an eighth. One nvcc each, started
-    # together.
-    built = build.build(sorted({*da.SOURCES, *fa.SOURCES, ts.SOURCE,
+    # fp32 K3-K5 a third, bf16 K3-K5 (wgmma) a fourth; K7 a fifth and its
+    # cluster forward a sixth, K8 and K9 a seventh, K10 an eighth, K11 a
+    # ninth. One nvcc each, started together.
+    built = build.build(sorted({*da.SOURCES, *fa.SOURCES, *ts.SOURCES,
                                 tg.SOURCE, cf.SOURCE, te.SOURCE}))
     sm90 = sm90_build_report(built)
+    new_kernels = new_build_report(built)
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
-          "sm90_kernels": sm90,
+          "sm90_kernels": sm90, "k10_k7_fwd_kernels": new_kernels,
           "kernels": list(KERNEL_WRAPPERS) + [
               "flash_attention_fwd_cuda", "flash_attention_bwd_cuda",
               "graves_lstm_scan_fwd_cuda", "graves_lstm_scan_bwd_cuda",
@@ -3424,6 +3572,7 @@ def main() -> int:
     fsrc = "deeplearning4j_tpu_torch/ops/csrc/flash_attention.cu"
     f90 = "deeplearning4j_tpu_torch/ops/csrc/flash_attention_sm90.cu"
     lsrc = "deeplearning4j_tpu_torch/ops/csrc/lstm_scan.cu"
+    lsrc90 = "deeplearning4j_tpu_torch/ops/csrc/lstm_scan_fwd_sm90.cu"
     gsrc = "deeplearning4j_tpu_torch/ops/csrc/lstm_gates.cu"
     csrc = "deeplearning4j_tpu_torch/ops/csrc/conv1x1_stats.cu"
     emit({"kernels": [{
@@ -3490,7 +3639,8 @@ def main() -> int:
             ("fused", "deeplearning4j_tpu/ops/flash_attention.py:349"),
             ("two_pass", "deeplearning4j_tpu/ops/flash_attention.py:262"))]
         + [{
-        "name": f"graves_lstm_scan_{d}", "route": "cuda", "source": lsrc,
+        "name": f"graves_lstm_scan_{d}", "route": "cuda",
+        "source": lsrc90 if d == "fwd" else lsrc,
         "replaces": f"deeplearning4j_tpu/ops/lstm_scan_fused.py:{line}",
         "launches": train_lstm["launches"][f"K7_{d}"],
         "max_abs_err": max(max(v.values())
@@ -3502,6 +3652,10 @@ def main() -> int:
                         for dt, v in klstm["rel_err"].items()},
         "generate_launches": gen["launches"][f"K7_{d}"],
         "oracle_max_grad_ratio": lstm_oracle["fp32"]["max_ratio"]}
+        | ({"variant_launches": train_lstm["k7_fwd_variant_launches"],
+            "tile_source": lsrc,
+            "sweep_variant_launches": klstm["sweep_variant_launches"]}
+           if d == "fwd" else {})
         for d, line in (("fwd", 411), ("bwd", 492))] + [{
         "name": name, "route": "cuda", "source": gsrc,
         "replaces": f"deeplearning4j_tpu/ops/pallas_kernels.py:{line}",
@@ -3533,6 +3687,9 @@ def main() -> int:
         "bound_ms": kconv["per_step"]["bound_ms"],
         "bound_by": kconv["per_step"]["bound_by"],
         "library_ms": kconv["per_step"]["library_ms"],
+        "graph_ms": kconv["per_step"]["graph_ms"],
+        "library_graph_ms": kconv["per_step"]["library_graph_ms"],
+        "load_path_launches": kconv["sweep_path_launches"],
         "library": kconv["library"],
         "per": "one ResNet50 b256 bf16 training step: the 36 calls",
         "oracle_grad_norm_err": {k: v["norm"] for k, v in

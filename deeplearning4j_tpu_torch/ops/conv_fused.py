@@ -26,10 +26,14 @@ training.
 
 Kernel (`csrc/conv1x1_stats.cu`, CUDA C++ for sm_90a, fp32 and bf16):
 `conv1x1_stats_cuda` replaces `conv1x1_stats_pallas` (:68, call :88). It
-writes per-block partial sums that a torch sum reduces here, and counts
-its launches in `.launches`. `conv1x1_stats` goes through
-`ops/helpers.helper_for`: a CUDA tensor launches the kernel, a CPU tensor
-runs `conv1x1_stats_plain`.
+writes per-tile partial sums that a torch sum reduces here, and counts
+its launches in `.launches`. The bf16 kernel (wgmma, a ring of TMA or
+cp.async loads) loads x by one of five paths that `conv1x1_load_path`
+picks from P and the channels before the launch (a TMA map of x needs P % 8 ==
+0); each
+path counts its launches in `.path_launches`. `conv1x1_stats` goes
+through `ops/helpers.helper_for`: a CUDA tensor launches the kernel, a
+CPU tensor runs `conv1x1_stats_plain`.
 """
 from __future__ import annotations
 
@@ -43,6 +47,8 @@ from deeplearning4j_tpu_torch.ops.helpers import helper_for, register_helper
 
 SOURCE = "conv1x1_stats.cu"
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 2}
+# the bf16 kernel's ways of loading x, by their codes in the source
+LOAD_PATHS = ("tma_image", "tma_images", "cp_async", "ld_st", "bulk")
 
 
 def _acc(dtype: torch.dtype) -> torch.dtype:
@@ -172,18 +178,47 @@ def conv1x1_bn_act(x, w, gamma, beta, bias, eps: float, relu: bool,
 
 
 # ------------------------------------------------------------------ kernel
+def conv1x1_load_path(P: int, C_in: int, C_out: int) -> str:
+    """How the bf16 kernel loads x (B, C_in, P), whose rows are 2 P bytes
+    apart: by TMA where that is 16-aligned, 128 positions of one image a
+    tile for P > 64 ("tma_image", P 784) or 128 / P whole images for P 16,
+    32 or 64 ("tma_images", P 16); else by cp.async of 16, 8 or 4 bytes
+    for even P ("cp_async", P 196). At odd P a row is 2-byte aligned only,
+    but the rows of one image are one run, 16-byte aligned in x when C_in
+    % 8 == 0 and in y when C_out % 8 == 0: "bulk" (P 49, 1; P <= 128)
+    takes 128 / P whole images a tile, copies x's runs by the TMA unit and
+    converts them in shared memory, and writes y's runs 16 bytes at a
+    time; the rest take 2-byte loads and stores ("ld_st")."""
+    if P % 8 == 0 and P > 64:
+        return "tma_image"
+    if P in (16, 32, 64):
+        return "tma_images"
+    if P % 2 == 0:
+        return "cp_async"
+    bulk = P <= 128 and C_in % 8 == 0 and C_out % 8 == 0
+    return "bulk" if bulk else "ld_st"
+
+
 def _library():
     lib = build.load(SOURCE)
     if lib.dl4j_conv1x1_stats.argtypes is None:
-        # x, w, y, partials, B, C_in, C_out, P, dtype, stream
+        # x, w, y, partials, B, C_in, ldw, C_out, P, dtype, path, stream
         lib.dl4j_conv1x1_stats.argtypes = [ctypes.c_void_p] * 4 + [
-            ctypes.c_int] * 5 + [ctypes.c_void_p]
+            ctypes.c_int] * 7 + [ctypes.c_void_p]
         lib.dl4j_conv1x1_stats.restype = ctypes.c_int
-        lib.dl4j_conv1x1_p_tile.argtypes = [ctypes.c_int]
-        lib.dl4j_conv1x1_p_tile.restype = ctypes.c_int
+        lib.dl4j_conv1x1_tiles.argtypes = [ctypes.c_int] * 6
+        lib.dl4j_conv1x1_tiles.restype = ctypes.c_long
+        lib.dl4j_conv1x1_smem.argtypes = [ctypes.c_int] * 2
+        lib.dl4j_conv1x1_smem.restype = ctypes.c_int
         lib.dl4j_conv1x1_error_string.argtypes = [ctypes.c_int]
         lib.dl4j_conv1x1_error_string.restype = ctypes.c_char_p
     return lib
+
+
+def _aligned16(t: torch.Tensor) -> torch.Tensor:
+    """`t` contiguous with a 16-byte-aligned start (TMA, cp.async)."""
+    t = t.contiguous()
+    return t if t.data_ptr() % 16 == 0 else t.clone()
 
 
 def conv1x1_stats_cuda(x3, w):
@@ -192,6 +227,10 @@ def conv1x1_stats_cuda(x3, w):
     `.launches`."""
     if x3.device.type != "cuda":
         raise ValueError("conv1x1_stats runs on CUDA tensors only")
+    return _conv1x1_launch(x3, w)
+
+
+def _conv1x1_launch(x3, w):
     if x3.dtype not in _DTYPE_CODE or w.dtype != x3.dtype:
         raise TypeError(f"conv1x1_stats: dtypes {x3.dtype}, {w.dtype}: the "
                         "card's kernel takes float32 or bfloat16, the same "
@@ -202,23 +241,34 @@ def conv1x1_stats_cuda(x3, w):
                          f"x3 {tuple(x3.shape)} (need (C_out, C_in) on "
                          "x3's device)")
     C_out = w.shape[0]
-    x3, w = x3.contiguous(), w.contiguous()
-    lib = _library()
     code = _DTYPE_CODE[x3.dtype]
-    tiles = -(-(B * P) // lib.dl4j_conv1x1_p_tile(code))
+    path, ldw = 0, C_in
+    if x3.dtype == torch.bfloat16:
+        # W by TMA: rows of ldw, a multiple of 8 (zero columns past C_in)
+        path = LOAD_PATHS.index(conv1x1_load_path(P, C_in, C_out))
+        ldw = -(-C_in // 8) * 8
+        if ldw != C_in:
+            w = torch.nn.functional.pad(w, (0, ldw - C_in))
+    x3, w = _aligned16(x3), _aligned16(w)
+    lib = _library()
+    tiles = lib.dl4j_conv1x1_tiles(B, P, C_in, C_out, code, path)
     y = torch.empty((B, C_out, P), dtype=x3.dtype, device=x3.device)
     part = torch.empty((tiles, 2, C_out), dtype=_acc(x3.dtype),
                        device=x3.device)
     err = lib.dl4j_conv1x1_stats(
         x3.data_ptr(), w.data_ptr(), y.data_ptr(), part.data_ptr(), B, C_in,
-        C_out, P, code, torch.cuda.current_stream(x3.device).cuda_stream)
+        ldw, C_out, P, code, path,
+        torch.cuda.current_stream(x3.device).cuda_stream)
     if err != 0:
         raise RuntimeError("conv1x1_stats launch failed: "
                            f"{lib.dl4j_conv1x1_error_string(err).decode()}")
     conv1x1_stats_cuda.launches += 1
-    s = part.sum(dim=0)                       # (2, C_out), over the blocks
+    if x3.dtype == torch.bfloat16:
+        conv1x1_stats_cuda.path_launches[LOAD_PATHS[path]] += 1
+    s = part.sum(dim=0)                       # (2, C_out), over the tiles
     return y, s[0], s[1]
 
 
 conv1x1_stats_cuda.launches = 0
+conv1x1_stats_cuda.path_launches = dict.fromkeys(LOAD_PATHS, 0)
 register_helper("conv1x1_stats")(conv1x1_stats_cuda)

@@ -107,9 +107,11 @@
 #include <stdint.h>
 
 #include "flash_common.cuh"
+#include "sm90_common.cuh"
 
 namespace {
 
+using namespace sm90;
 using bf16 = __nv_bfloat16;
 
 constexpr int NCWG = 2;                  // consumer warpgroups per CTA
@@ -120,73 +122,7 @@ constexpr int CONSUMER_REGS = 232;       // registers to the consumers
 constexpr int STAGES = 3;                // depth of the TMA ring
 constexpr int ROWS = 64 * NCWG;          // CTA rows: q (K3, dq), keys (dk/dv)
 
-// errors of the tensor-map encoder, beside the cudaError_t codes
-constexpr int kNoEncoder = 1001;
-constexpr int kBadMap = 1002;
-
 // ------------------------------------------------------------- PTX helpers
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ unsigned char* align1024(unsigned char* p) {
-  return p + ((1024u - (smem_u32(p) & 1023u)) & 1023u);
-}
-
-__device__ __forceinline__ void mbar_init(uint64_t* bar, uint32_t count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(
-                   smem_u32(bar)),
-               "r"(count)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_fence_init() {
-  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
-}
-
-// arrive once and add `bytes` to the transaction count the phase waits for
-__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar,
-                                               uint32_t bytes) {
-  asm volatile(
-      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
-          smem_u32(bar)),
-      "r"(bytes)
-      : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(
-                   smem_u32(bar))
-               : "memory");
-}
-
-// wait until the phase of parity `parity` has completed
-__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
-  const uint32_t a = smem_u32(bar);
-  uint32_t done;
-  do {
-    asm volatile(
-        "{\n.reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done)
-        : "r"(a), "r"(parity)
-        : "memory");
-  } while (!done);
-}
-
-// one TMA box of a 3-D map, {c0, c1, c2} = (column, row, head row)
-__device__ __forceinline__ void tma_load(void* dst, const CUtensorMap* map,
-                                         uint64_t* bar, int c0, int c1,
-                                         int c2) {
-  asm volatile(
-      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx"
-      "::bytes [%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(smem_u32(dst)),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0),
-      "r"(c1), "r"(c2)
-      : "memory");
-}
-
 // Registers per thread of this warpgroup from here on (all its warps).
 template <int N>
 __device__ __forceinline__ void regs_dec() {
@@ -208,35 +144,10 @@ __device__ __forceinline__ void turn_pass(int wg) {
   asm volatile("bar.arrive %0, %1;\n" ::"r"(2 - wg), "n"(NC) : "memory");
 }
 
-__device__ __forceinline__ void wg_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wg_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-// wait until at most N committed groups of products are in flight
-template <int N>
-__device__ __forceinline__ void wg_wait() {
-  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
-}
-
-// keep the compiler from moving accumulator registers across the
-// asynchronous products
-template <int N>
-__device__ __forceinline__ void fence_regs(float (&d)[N]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
-}
-
 template <int N>
 __device__ __forceinline__ void zero(float (&d)[N]) {
 #pragma unroll
   for (int i = 0; i < N; ++i) d[i] = 0.f;
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
 }
 
 // an m64 x N fp32 accumulator as the bf16 A fragments of the next product
@@ -278,13 +189,6 @@ struct Box {
   // wgmma descriptor layout: 1 = 128-byte, 2 = 64-byte, 3 = 32-byte swizzle
   static constexpr uint64_t LAYOUT = RB == 128 ? 1 : RB == 64 ? 2 : 3;
 };
-
-__device__ __forceinline__ uint64_t gmma_desc(uint32_t addr, uint32_t lbo,
-                                              uint32_t sbo, uint64_t layout) {
-  return (uint64_t)((addr & 0x3FFFFu) >> 4) |
-         ((uint64_t)((lbo >> 4) & 0x3FFFu) << 16) |
-         ((uint64_t)((sbo >> 4) & 0x3FFFu) << 32) | (layout << 62);
-}
 
 // K-major operand: rows [row0, row0 + 64) (A) or all rows (B) of an R-row
 // tile at `tile`, k16 slice kk of the head dim. The 8-row groups are 8 RB
@@ -574,14 +478,6 @@ struct DqPath {
   static constexpr int REGS = D <= 64 ? D / 2 : BQ;   // accumulator floats
 };
 
-// The 16-byte chunk index of a row of an RB-byte swizzled tile is XORed
-// with bits 7.. of the row's byte offset (TMA's and wgmma's swizzle); a
-// thread's rows r and r + 8 share that term, so it is taken once.
-template <int RB>
-__device__ __forceinline__ uint32_t swizzle_term(int row) {
-  return ((uint32_t)(row * RB) >> 7) & (RB / 16 - 1);
-}
-
 // The thread's dS^T fragments (rows row0 and row0 + 8, q columns 8 e / 4 +
 // cq of its m64 x BQ A fragments) into the swizzled (BK x BQ) bf16 tile,
 // laid out as TMA writes a box
@@ -596,11 +492,6 @@ __device__ __forceinline__ void store_ds(unsigned char* tile,
   for (int e = 0; e < BQ / 2; e += 2)
     *reinterpret_cast<uint32_t*>(base + 8 * RB * ((e >> 1) & 1) +
                                  (((e >> 2) ^ x) << 4)) = da[e / 2];
-}
-
-// generic-proxy writes to shared memory made visible to wgmma's reads
-__device__ __forceinline__ void fence_async_smem() {
-  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
 }
 
 // the 128 threads of consumer warpgroup wg (named barrier 3 + wg)
@@ -698,22 +589,6 @@ __device__ __forceinline__ void tma_reduce_add(const void* src,
           reinterpret_cast<uint64_t>(map)),
       "r"(c0), "r"(c1), "r"(c2), "r"(smem_u32(src))
       : "memory");
-}
-__device__ __forceinline__ void bulk_commit() {
-  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
-}
-// until at most N committed bulk groups still read shared memory
-template <int N>
-__device__ __forceinline__ void bulk_wait_read() {
-  asm volatile("cp.async.bulk.wait_group.read %0;\n" ::"n"(N) : "memory");
-}
-
-// named barrier `id` of `count` threads
-__device__ __forceinline__ void named_arrive(int id, int count) {
-  asm volatile("bar.arrive %0, %1;\n" ::"r"(id), "r"(count) : "memory");
-}
-__device__ __forceinline__ void named_sync(int id, int count) {
-  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(count) : "memory");
 }
 
 // K4's dq handoff, per consumer warpgroup w and staging buffer b (two a
@@ -927,7 +802,7 @@ flash_fwd_sm90_kernel(const __grid_constant__ CUtensorMap tq,
     if (lane == 0) {
       mbar_expect_tx(qbar, C::QBYTES);
       for (int c = 0; c < X::NBOX; ++c)
-        tma_load(Qs + c * BM * X::COLS, &tq, qbar, c * X::COLS, q_lo, bh);
+        tma_load_3d(Qs + c * BM * X::COLS, &tq, qbar, c * X::COLS, q_lo, bh);
     }
     for (int n = 0; n < nt; ++n) {
       const int s = n % STAGES, k_lo = (j0 + n) * BN;
@@ -941,9 +816,9 @@ flash_fwd_sm90_kernel(const __grid_constant__ CUtensorMap tq,
       if (lane == 0) {
         mbar_expect_tx(&full[s], 2 * C::KBYTES);
         for (int c = 0; c < X::NBOX; ++c) {
-          tma_load(Ks + s * BN * D + c * BN * X::COLS, &tk, &full[s],
+          tma_load_3d(Ks + s * BN * D + c * BN * X::COLS, &tk, &full[s],
                    c * X::COLS, k_lo, kvrow);
-          tma_load(Vs + s * BN * D + c * BN * X::COLS, &tv, &full[s],
+          tma_load_3d(Vs + s * BN * D + c * BN * X::COLS, &tv, &full[s],
                    c * X::COLS, k_lo, kvrow);
         }
       }
@@ -1104,8 +979,8 @@ flash_dq_sm90_kernel(const __grid_constant__ CUtensorMap tq,
     if (lane == 0) {
       mbar_expect_tx(qbar, 2 * C::QBYTES);
       for (int c = 0; c < X::NBOX; ++c) {
-        tma_load(Qs + c * BM * X::COLS, &tq, qbar, c * X::COLS, q_lo, bh);
-        tma_load(dOs + c * BM * X::COLS, &tdo, qbar, c * X::COLS, q_lo, bh);
+        tma_load_3d(Qs + c * BM * X::COLS, &tq, qbar, c * X::COLS, q_lo, bh);
+        tma_load_3d(dOs + c * BM * X::COLS, &tdo, qbar, c * X::COLS, q_lo, bh);
       }
     }
     for (int n = 0; n < nt; ++n) {
@@ -1120,9 +995,9 @@ flash_dq_sm90_kernel(const __grid_constant__ CUtensorMap tq,
       if (lane == 0) {
         mbar_expect_tx(&full[s], 2 * C::KBYTES);
         for (int c = 0; c < X::NBOX; ++c) {
-          tma_load(Ks + s * BN * D + c * BN * X::COLS, &tk, &full[s],
+          tma_load_3d(Ks + s * BN * D + c * BN * X::COLS, &tk, &full[s],
                    c * X::COLS, k_lo, bh);
-          tma_load(Vs + s * BN * D + c * BN * X::COLS, &tv, &full[s],
+          tma_load_3d(Vs + s * BN * D + c * BN * X::COLS, &tv, &full[s],
                    c * X::COLS, k_lo, bh);
         }
       }
@@ -1284,8 +1159,8 @@ __device__ __forceinline__ void dkv_pass(
     if (lane == 0) {
       mbar_expect_tx(kvbar, 2 * C::KBYTES);
       for (int c = 0; c < X::NBOX; ++c) {
-        tma_load(Ks + c * BK * X::COLS, &tk, kvbar, c * X::COLS, k_lo, bh);
-        tma_load(Vs + c * BK * X::COLS, &tv, kvbar, c * X::COLS, k_lo, bh);
+        tma_load_3d(Ks + c * BK * X::COLS, &tk, kvbar, c * X::COLS, k_lo, bh);
+        tma_load_3d(Vs + c * BK * X::COLS, &tv, kvbar, c * X::COLS, k_lo, bh);
       }
     }
     for (int n = 0; n < nt; ++n) {
@@ -1300,9 +1175,9 @@ __device__ __forceinline__ void dkv_pass(
       if (lane == 0) {
         mbar_expect_tx(&full[s], 2 * C::QBYTES);
         for (int c = 0; c < X::NBOX; ++c) {
-          tma_load(Qs + s * BQ * D + c * BQ * X::COLS, &tq, &full[s],
+          tma_load_3d(Qs + s * BQ * D + c * BQ * X::COLS, &tq, &full[s],
                    c * X::COLS, q_lo, bh);
-          tma_load(dOs + s * BQ * D + c * BQ * X::COLS, &tdo, &full[s],
+          tma_load_3d(dOs + s * BQ * D + c * BQ * X::COLS, &tdo, &full[s],
                    c * X::COLS, q_lo, bh);
         }
       }
@@ -1469,31 +1344,6 @@ flash_bwd_fused_sm90_kernel(const __grid_constant__ CUtensorMap tq,
 }
 
 // ------------------------------------------------------------- host side
-typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
-                                void*, const cuuint64_t*, const cuuint64_t*,
-                                const cuuint32_t*, const cuuint32_t*,
-                                CUtensorMapInterleave, CUtensorMapSwizzle,
-                                CUtensorMapL2promotion,
-                                CUtensorMapFloatOOBfill);
-
-// cuTensorMapEncodeTiled from libcuda, through the runtime (no -lcuda)
-EncodeTiled encoder() {
-  static const EncodeTiled fn = []() -> EncodeTiled {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult res;
-#if CUDART_VERSION >= 12050
-    const cudaError_t e = cudaGetDriverEntryPointByVersion(
-        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &res);
-#else
-    const cudaError_t e = cudaGetDriverEntryPoint(
-        "cuTensorMapEncodeTiled", &p, cudaEnableDefault, &res);
-#endif
-    if (e != cudaSuccess || res != cudaDriverEntryPointSuccess) return nullptr;
-    return reinterpret_cast<EncodeTiled>(p);
-  }();
-  return fn;
-}
-
 // A 3-D map (D, T, rows) of a (rows, T, D) tensor of `elt`-byte elements
 // (bf16, or K4's fp32 dq), boxes of (cols, box_rows, 1) swizzled at the
 // box's row width; boxes past T are zero-filled on loads and clipped on

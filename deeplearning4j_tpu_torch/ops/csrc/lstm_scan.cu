@@ -59,8 +59,12 @@
 // tensors the function must read or write cross device memory, apart from
 // the dRW pass, which reads ys and dxw once more. It is far from the bound:
 // rw is re-read from L2 by every CTA at every step, the loads are not
-// pipelined, and wmma is not wgmma. A cluster design that splits 4H over
-// CTAs and shares rw through distributed shared memory is later work.
+// pipelined, and wmma is not wgmma. The bf16 forward at H 64, 128 and 256
+// (the char-RNN's layer) runs instead on lstm_scan_fwd_sm90.cu, a cluster
+// of 8 CTAs that keeps RW in shared memory and passes h between them
+// through distributed shared memory; the wrapper chooses by H and dtype
+// before the launch. This file keeps the forward of every other H and of
+// fp32, and the backward, whose cluster redesign is the next work.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <mma.h>

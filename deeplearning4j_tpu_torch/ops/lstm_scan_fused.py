@@ -32,7 +32,13 @@ nothing to any gradient):
 `graves_lstm_scan_pallas` (:379, call :411), `graves_lstm_scan_bwd_cuda`
 its backward (call :492): the reverse sweep, then a second kernel for dRW.
 The per-CTA peephole partials are summed in torch. Each counts its calls
-in `.launches`.
+in `.launches`. The forward has two variants, chosen by
+`scan_fwd_variant(H, dtype)` before the launch: "cluster"
+(`csrc/lstm_scan_fwd_sm90.cu`: bf16 at a padded H of 64, 128 or 256, a
+cluster of 8 CTAs that keeps RW in shared memory and passes h between
+its CTAs through distributed shared memory; the char-RNN's H 256) and
+"tile" (`lstm_scan.cu`: every other H, and fp32); each counts its
+launches in `graves_lstm_scan_fwd_cuda.variant_launches`.
 
 `configure(gate_math=...)`: "fp32" is the only mode; "native" (bf16 gate
 math) raises NotImplementedError (ROADMAP queue 2). `grid` and `k_steps`
@@ -55,7 +61,13 @@ from deeplearning4j_tpu_torch.ops import build
 from deeplearning4j_tpu_torch.ops.helpers import helper_for, register_helper
 
 SOURCE = "lstm_scan.cu"
+SM90_SOURCE = "lstm_scan_fwd_sm90.cu"
+SOURCES = (SOURCE, SM90_SOURCE)
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 2}
+# H (padded) of the cluster forward: H / 8 units per CTA, a multiple of 8,
+# and its RW slice (8 H^2 / 8 bytes) with the h buffers in shared memory
+CLUSTER_FWD_H = (64, 128, 256)
+FWD_VARIANTS = ("cluster", "tile")
 
 
 def configure(gate_math: Optional[str] = None, grid=None, k_steps=None):
@@ -196,8 +208,33 @@ def _library():
     return lib
 
 
+def _cluster_library():
+    lib = build.load(SM90_SOURCE)
+    if lib.dl4j_lstm_scan_fwd_cluster.argtypes is None:
+        # xw, rw, pi, pf, po, h0, c0, ys, cs, T, B, H, stream
+        lib.dl4j_lstm_scan_fwd_cluster.argtypes = [ctypes.c_void_p] * 9 + [
+            ctypes.c_int] * 3 + [ctypes.c_void_p]
+        lib.dl4j_lstm_scan_fwd_clusters.argtypes = [ctypes.c_int]
+        lib.dl4j_lstm_scan_fwd_cluster_smem.argtypes = [ctypes.c_int]
+        for fn in (lib.dl4j_lstm_scan_fwd_cluster,
+                   lib.dl4j_lstm_scan_fwd_clusters,
+                   lib.dl4j_lstm_scan_fwd_cluster_smem):
+            fn.restype = ctypes.c_int
+        lib.dl4j_lstm_scan_fwd_cluster_error_string.argtypes = [ctypes.c_int]
+        lib.dl4j_lstm_scan_fwd_cluster_error_string.restype = ctypes.c_char_p
+    return lib
+
+
 def _padded(H: int) -> int:
     return -(-H // 16) * 16
+
+
+def scan_fwd_variant(H: int, dtype: torch.dtype) -> str:
+    """Which kernel runs K7's forward for a layer of H units in `dtype`
+    on the card: "cluster" for bf16 at a padded H of 64, 128 or 256, else
+    "tile". Read before the launch; neither falls back to the other."""
+    return ("cluster" if dtype == torch.bfloat16
+            and _padded(H) in CLUSTER_FWD_H else "tile")
 
 
 def scan_fits(H: int, dtype: torch.dtype, device) -> bool:
@@ -270,11 +307,14 @@ def _aligned(t: torch.Tensor) -> torch.Tensor:
     return t if t.data_ptr() % 32 == 0 else t.clone()
 
 
+def _on_card(what, xw):
+    if xw.device.type != "cuda":
+        raise ValueError(f"{what} runs on CUDA tensors only")
+
+
 def _check(what, bwd, xw, rw, *state):
     """(T, B, H, the library) after checking the inputs; builds the
     library on first use."""
-    if xw.device.type != "cuda":
-        raise ValueError(f"{what} runs on CUDA tensors only")
     if xw.dtype not in _DTYPE_CODE:
         raise TypeError(f"{what}: dtype {xw.dtype} has no kernel on the card "
                         "(float32, bfloat16)")
@@ -308,6 +348,7 @@ def graves_lstm_scan_fwd_cuda(xw, rw, pi, pf, po, h0, c0):
     """K7 forward on CUDA tensors; same contract as
     `graves_lstm_scan_plain` (h0/c0 are taken in xw's dtype), any H whose
     padded tile fits."""
+    _on_card("graves_lstm_scan_fwd", xw)
     return padded_scan_fwd(_scan_fwd_launch, xw, rw, pi, pf, po,
                            h0.to(xw.dtype), c0.to(xw.dtype))
 
@@ -315,16 +356,28 @@ def graves_lstm_scan_fwd_cuda(xw, rw, pi, pf, po, h0, c0):
 def _scan_fwd_launch(xw, rw, pi, pf, po, h0, c0):
     T, B, H, lib = _check("graves_lstm_scan_fwd", False, xw, rw, pi, pf,
                           po, h0, c0)
-    xw, rw = _aligned(xw), _aligned(rw)
-    pi, pf, po, h0, c0 = (t.contiguous() for t in (pi, pf, po, h0, c0))
+    variant = scan_fwd_variant(H, xw.dtype)
+    # the cluster kernel reads rw, h0 and c0 16 bytes at a time
+    xw, rw, h0 = _aligned(xw), _aligned(rw), _aligned(h0)
+    pi, pf, po, c0 = (t.contiguous() for t in (pi, pf, po, c0))
     ys = torch.empty((T, B, H), dtype=xw.dtype, device=xw.device)
     cs = torch.empty_like(ys)
-    _launch(lib, lib.dl4j_lstm_scan_fwd, "graves_lstm_scan_fwd",
-            xw.data_ptr(), rw.data_ptr(), pi.data_ptr(), pf.data_ptr(),
+    ptrs = (xw.data_ptr(), rw.data_ptr(), pi.data_ptr(), pf.data_ptr(),
             po.data_ptr(), h0.data_ptr(), c0.data_ptr(), ys.data_ptr(),
-            cs.data_ptr(), T, B, H, _DTYPE_CODE[xw.dtype],
-            torch.cuda.current_stream(xw.device).cuda_stream)
+            cs.data_ptr(), T, B, H)
+    stream = torch.cuda.current_stream(xw.device).cuda_stream
+    if variant == "cluster":
+        clib = _cluster_library()
+        err = clib.dl4j_lstm_scan_fwd_cluster(*ptrs, stream)
+        if err != 0:
+            raise RuntimeError(
+                "graves_lstm_scan_fwd (cluster) launch failed: "
+                f"{clib.dl4j_lstm_scan_fwd_cluster_error_string(err).decode()}")
+    else:
+        _launch(lib, lib.dl4j_lstm_scan_fwd, "graves_lstm_scan_fwd", *ptrs,
+                _DTYPE_CODE[xw.dtype], stream)
     graves_lstm_scan_fwd_cuda.launches += 1
+    graves_lstm_scan_fwd_cuda.variant_launches[variant] += 1
     return ys, cs
 
 
@@ -332,6 +385,7 @@ def graves_lstm_scan_bwd_cuda(xw, rw, pi, pf, po, h0, c0, ys, cs, dys, dcs):
     """K7 backward on CUDA tensors (the reverse sweep and the dRW kernel);
     same contract as `graves_lstm_scan_bwd_plain`, any H whose padded tile
     fits."""
+    _on_card("graves_lstm_scan_bwd", xw)
     dt = xw.dtype
     return padded_scan_bwd(_scan_bwd_launch, xw, rw, pi, pf, po,
                            *(t.to(dt) for t in (h0, c0)), ys, cs,
@@ -368,6 +422,7 @@ def _scan_bwd_launch(xw, rw, pi, pf, po, h0, c0, ys, cs, dys, dcs):
 
 
 graves_lstm_scan_fwd_cuda.launches = 0
+graves_lstm_scan_fwd_cuda.variant_launches = dict.fromkeys(FWD_VARIANTS, 0)
 graves_lstm_scan_bwd_cuda.launches = 0
 register_helper("graves_lstm_scan_fwd")(graves_lstm_scan_fwd_cuda)
 register_helper("graves_lstm_scan_bwd")(graves_lstm_scan_bwd_cuda)

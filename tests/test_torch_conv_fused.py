@@ -14,8 +14,17 @@ conv_fused) against the JAX package's, on the CPU.
   fused Pallas route): outputs within bf16's 2^-7 relative, the loss
   within 1e-3 and the gradient within 2e-2 in norm (the port recomputes y
   in bf16 in the fused backward, the JAX package in fp32).
-- The CUDA wrapper refuses CPU tensors.
+- The CUDA wrapper refuses CPU tensors. The bf16 kernel's load path is
+  chosen from P before the launch (TMA where x's rows are 16-byte
+  aligned, cp.async or 2-byte loads elsewhere), and the launch runs
+  against a recording stand-in library: the function, its arguments
+  against its argtypes, W padded to a multiple of 8 columns, the launch
+  counters per path, and a failed launch. The kernel itself is held
+  against the plain version on the card by chip_smoke.py.
 """
+import ctypes
+from types import SimpleNamespace
+
 import numpy as np
 import pytest
 
@@ -160,3 +169,119 @@ def test_mini_bottleneck_matches_jax_bf16():
         assert np.linalg.norm(tg - jg) / np.linalg.norm(jg) < 2e-2
     finally:
         enable_helpers(False)
+
+
+# P of ResNet50's 1x1 pairs at 224x224 (784, 196, 49, 16) and of the
+# card's sweep (1, 200, 81), with the load path each takes
+@pytest.mark.parametrize("P,C_in,C_out,path", [
+    (784, 64, 256, "tma_image"), (200, 8, 3, "tma_image"),
+    (72, 12, 8, "tma_image"), (16, 512, 2048, "tma_images"),
+    (32, 8, 5, "tma_images"), (64, 4, 8, "tma_images"),
+    (196, 128, 512, "cp_async"), (24, 8, 40, "cp_async"),
+    (8, 64, 64, "cp_async"), (2, 3, 7, "cp_async"),
+    (49, 256, 1024, "bulk"), (1, 8, 8, "bulk"), (127, 64, 8, "bulk"),
+    (129, 64, 64, "ld_st"), (81, 24, 44, "ld_st"), (49, 12, 16, "ld_st")])
+def test_k10_load_path_follows_the_row_alignment(P, C_in, C_out, path):
+    assert tcf.conv1x1_load_path(P, C_in, C_out) == path
+    if path.startswith("tma"):
+        assert (2 * P) % 16 == 0       # a TMA map needs 16-byte strides
+    if path == "bulk":
+        # 64 rows of x[b] and 128 rows of y[b] are 16-byte-aligned runs,
+        # and whole images fill a 128-column tile
+        assert P % 2 == 1 and 1 <= 128 // P
+        assert (C_in * P * 2) % 16 == 0 and (C_out * P * 2) % 16 == 0
+
+
+class _FakeFn:
+    def __init__(self, name, log, ret):
+        self.name, self.log, self.ret = name, log, ret
+        self.argtypes = self.restype = None
+
+    def __call__(self, *args):
+        if self.name.endswith("error_string"):
+            return f"error {args[0]} from {self.name}".encode()
+        self.log.append((self.name, args))
+        return self.ret
+
+
+class _FakeConvLib:
+    def __init__(self, err=0, tiles=5):
+        self.log = []
+        self.dl4j_conv1x1_stats = _FakeFn("dl4j_conv1x1_stats", self.log,
+                                          err)
+        self.dl4j_conv1x1_tiles = _FakeFn("dl4j_conv1x1_tiles", self.log,
+                                          tiles)
+        self.dl4j_conv1x1_error_string = _FakeFn(
+            "dl4j_conv1x1_error_string", self.log, None)
+        self.dl4j_conv1x1_smem = _FakeFn("dl4j_conv1x1_smem", self.log, 0)
+
+
+def _fake_conv(monkeypatch, err=0):
+    lib = _FakeConvLib(err)
+    monkeypatch.setattr(tcf.build, "load", lambda source: lib)
+    monkeypatch.setattr(torch.cuda, "current_stream",
+                        lambda device=None: SimpleNamespace(cuda_stream=77))
+    return lib
+
+
+@pytest.mark.parametrize("P", [784, 196, 49, 16])
+@pytest.mark.parametrize("C_in", [64, 12])
+def test_k10_launch_reaches_its_kernel(monkeypatch, P, C_in):
+    """The real library set-up and launch of the bf16 kernel on a stand-in
+    library: argtypes, the arguments (W padded to 8 columns with zeros),
+    the partials' rows from the library, and the launch counters."""
+    lib = _fake_conv(monkeypatch)
+    x3 = torch.randn(2, C_in, P).bfloat16()
+    w = torch.randn(24, C_in).bfloat16()
+    path = tcf.conv1x1_load_path(P, C_in, 24)
+    before = tcf.conv1x1_stats_cuda.launches
+    by_path = dict(tcf.conv1x1_stats_cuda.path_launches)
+    y, s1, s2 = tcf._conv1x1_launch(x3, w)
+    assert tcf.conv1x1_stats_cuda.launches == before + 1
+    by_path[path] += 1
+    assert tcf.conv1x1_stats_cuda.path_launches == by_path
+    (tname, targs), (name, args) = lib.log
+    assert (tname, targs) == ("dl4j_conv1x1_tiles",
+                              (2, P, C_in, 24, 2,
+                               tcf.LOAD_PATHS.index(path)))
+    fn = lib.dl4j_conv1x1_stats
+    assert name == "dl4j_conv1x1_stats"
+    assert fn.argtypes == [ctypes.c_void_p] * 4 + [ctypes.c_int] * 7 + [
+        ctypes.c_void_p]
+    assert lib.dl4j_conv1x1_tiles.restype == ctypes.c_long
+    assert len(args) == len(fn.argtypes)
+    ldw = -(-C_in // 8) * 8
+    assert args[4:] == (2, C_in, ldw, 24, P, 2, tcf.LOAD_PATHS.index(path),
+                        77)
+    assert args[0] == x3.data_ptr() and args[2] == y.data_ptr()
+    assert (args[1] == w.data_ptr()) == (ldw == C_in)
+    assert y.shape == (2, 24, P) and y.dtype == torch.bfloat16
+    assert s1.shape == s2.shape == (24,) and s1.dtype == torch.float32
+
+
+def test_k10_fp32_launch_keeps_its_kernel(monkeypatch):
+    lib = _fake_conv(monkeypatch)
+    x3, w = torch.randn(3, 12, 49), torch.randn(5, 12)
+    by_path = dict(tcf.conv1x1_stats_cuda.path_launches)
+    y, s1, _ = tcf._conv1x1_launch(x3, w)
+    (_, targs), (_, args) = lib.log
+    assert targs == (3, 49, 12, 5, 0, 0)
+    assert args[1] == w.data_ptr() and args[4:] == (3, 12, 12, 5, 49, 0, 0,
+                                                     77)
+    assert tcf.conv1x1_stats_cuda.path_launches == by_path
+    assert y.dtype == torch.float32 and s1.dtype == torch.float64
+
+
+def test_k10_failed_launch_raises(monkeypatch):
+    _fake_conv(monkeypatch, err=700)
+    before = tcf.conv1x1_stats_cuda.launches
+    by_path = dict(tcf.conv1x1_stats_cuda.path_launches)
+    with pytest.raises(RuntimeError, match="error 700 from "
+                       "dl4j_conv1x1_error_string"):
+        tcf._conv1x1_launch(torch.randn(2, 8, 16).bfloat16(),
+                            torch.randn(4, 8).bfloat16())
+    assert tcf.conv1x1_stats_cuda.launches == before
+    assert tcf.conv1x1_stats_cuda.path_launches == by_path
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        tcf._conv1x1_launch(torch.randn(2, 8, 16).half(),
+                            torch.randn(4, 8).half())

@@ -10,7 +10,18 @@ and their lax/jnp references, in float64 on the CPU.
   `graves_gates_pallas` / `lstm_gates_pallas` and their `_xla` versions.
 
 Inputs are numpy draws handed to both packages. Tolerance 1e-10.
+
+K7's forward has two kernels on the card, chosen by
+`scan_fwd_variant(H, dtype)` before the launch: the cluster kernel (bf16
+at a padded H of 64, 128 or 256) and the tile kernel (every other H, and
+fp32). The rule, `scan_fits` beside it, and each variant's launch run
+here against recording stand-in libraries (argtypes, arguments, launch
+counters, failed launches); the kernels themselves are held against the
+plain version on the card by chip_smoke.py.
 """
+import ctypes
+from types import SimpleNamespace
+
 import numpy as np
 import pytest
 
@@ -230,3 +241,166 @@ def test_scan_padding_is_exact(H_true):
 def test_scan_fits_on_the_cpu_for_any_h():
     assert ts.scan_fits(1536, torch.bfloat16, "cpu")
     assert ts.scan_fits(200, torch.float64, "cpu")
+
+
+@pytest.mark.parametrize("H,dtype,variant", [
+    (256, torch.bfloat16, "cluster"), (250, torch.bfloat16, "cluster"),
+    (64, torch.bfloat16, "cluster"), (128, torch.bfloat16, "cluster"),
+    (32, torch.bfloat16, "tile"), (200, torch.bfloat16, "tile"),
+    (512, torch.bfloat16, "tile"), (1536, torch.bfloat16, "tile"),
+    (256, torch.float32, "tile"), (64, torch.float32, "tile")])
+def test_scan_fwd_variant_rule(H, dtype, variant):
+    """The cluster kernel keeps H / 8 units' RW columns of all four gates
+    in each of 8 CTAs (8 H^2 / 8 bytes, 64 KB at H 256) beside its h
+    buffers; at H 512 that slice alone is 256 KB, past a CTA's 227 KB,
+    and units per CTA must be a multiple of 8: the other H take the tile
+    kernel, and so does fp32."""
+    assert ts.scan_fwd_variant(H, dtype) == variant
+    if variant == "cluster":
+        Hp = -(-H // 16) * 16
+        assert Hp in ts.CLUSTER_FWD_H and (Hp // 8) % 8 == 0
+        assert Hp * (Hp // 2) * 2 + 4 * 64 * Hp * 2 <= 232448
+
+
+class _FakeFn:
+    def __init__(self, name, log, ret):
+        self.name, self.log, self.ret = name, log, ret
+        self.argtypes = self.restype = None
+
+    def __call__(self, *args):
+        if self.name.endswith("error_string"):
+            return f"error {args[0]} from {self.name}".encode()
+        self.log.append((self.name, args))
+        return self.ret(*args) if callable(self.ret) else self.ret
+
+
+def _tile_rows(H, dtype, bwd):
+    """The tile kernel's batch rows per CTA (lstm_scan.cu `pick_bt`,
+    transcribed): the largest of 64/32/16 (down to 8 in fp32) whose
+    shared memory fits in 232,448 bytes, 0 when none does."""
+    if H <= 0 or H % 16 or dtype not in (0, 2):
+        return 0
+    tc = dtype == 2
+    elt, stage = (2, 4 * 8 * 4 * 256) if tc else (4, 0)
+    ldh, ldg = (H + 8, 4 * H + 8) if tc else (H, 4 * H)
+    bt = 64
+    while bt >= (16 if tc else 8):
+        if bwd:
+            owners = 2 if tc else bt // 8
+            need = stage + 12 * owners * H + elt * (bt * ldh + bt * ldg)
+        else:
+            need = elt * (2 * bt * ldh + bt * H) + stage
+        if need <= 232448:
+            return bt
+        bt //= 2
+    return 0
+
+
+class _FakeScanLib:
+    NAMES = {"dl4j_lstm_scan_fwd": None, "dl4j_lstm_scan_bwd": None,
+             "dl4j_lstm_scan_tile": _tile_rows,
+             "dl4j_lstm_scan_error_string": None,
+             "dl4j_lstm_scan_fwd_cluster": None,
+             "dl4j_lstm_scan_fwd_clusters": 16,
+             "dl4j_lstm_scan_fwd_cluster_smem": 0,
+             "dl4j_lstm_scan_fwd_cluster_error_string": None}
+
+    def __init__(self, err=0):
+        self.log = []
+        for n, ret in self.NAMES.items():
+            setattr(self, n, _FakeFn(n, self.log, err if ret is None
+                                     else ret))
+
+
+@pytest.fixture
+def fake_scan(monkeypatch):
+    """The real `_library` / `_cluster_library` set-up on one stand-in
+    library and a stand-in stream, so that the launch code runs on CPU
+    tensors."""
+    libs = {}
+
+    def install(err=0):
+        libs["lib"] = _FakeScanLib(err)
+        monkeypatch.setattr(ts.build, "load", lambda source: libs["lib"])
+        monkeypatch.setattr(
+            torch.cuda, "current_stream",
+            lambda device=None: SimpleNamespace(cuda_stream=53))
+        return libs["lib"]
+    return install
+
+
+def test_scan_fits_is_unchanged_by_the_cluster_variant(fake_scan):
+    """scan_fits still asks the tile kernel's forward and backward tiles
+    (the layers fall back to K8/K9 only where those do not fit): on the
+    card every H from 16 to 1536 fits exactly where both tiles do, in
+    bf16 up to H 1072 and in fp32 up to 1344, every cluster H fits, and
+    H 1536 fits in neither."""
+    fake_scan()
+    for dt, code, top in ((torch.bfloat16, 2, 1072),
+                          (torch.float32, 0, 1344)):
+        for H in range(16, 1537, 16):
+            fits = ts.scan_fits(H, dt, "cuda")
+            assert fits == bool(_tile_rows(H, code, False)
+                                and _tile_rows(H, code, True))
+            assert fits == (H <= top)
+    for H in ts.CLUSTER_FWD_H:
+        assert ts.scan_fits(H, torch.bfloat16, "cuda")
+
+
+def _scan_inputs(H, dtype, T=3, B=5):
+    rng = np.random.RandomState(H)
+    a = [rng.randn(T, B, 4 * H), rng.randn(H, 4 * H)]
+    a += [rng.randn(H) for _ in range(3)] + [rng.randn(B, H)
+                                             for _ in range(2)]
+    return [_t(x).to(dtype) for x in a]
+
+
+@pytest.mark.parametrize("H,dtype", [(256, torch.bfloat16),
+                                     (64, torch.bfloat16),
+                                     (32, torch.bfloat16),
+                                     (512, torch.bfloat16),
+                                     (256, torch.float32)])
+def test_scan_fwd_launch_reaches_its_variant(fake_scan, H, dtype):
+    lib = fake_scan()
+    a = _scan_inputs(H, dtype)
+    variant = ts.scan_fwd_variant(H, dtype)
+    before = ts.graves_lstm_scan_fwd_cuda.launches
+    by_variant = dict(ts.graves_lstm_scan_fwd_cuda.variant_launches)
+    ys, cs = ts._scan_fwd_launch(*a)
+    assert ts.graves_lstm_scan_fwd_cuda.launches == before + 1
+    by_variant[variant] += 1
+    assert ts.graves_lstm_scan_fwd_cuda.variant_launches == by_variant
+    launches = [(n, args) for n, args in lib.log
+                if n in ("dl4j_lstm_scan_fwd", "dl4j_lstm_scan_fwd_cluster")]
+    ((name, args),) = launches
+    fn = getattr(lib, name)
+    if variant == "cluster":
+        assert name == "dl4j_lstm_scan_fwd_cluster"
+        assert fn.argtypes == [ctypes.c_void_p] * 9 + [ctypes.c_int] * 3 + [
+            ctypes.c_void_p]
+        assert args[9:] == (3, 5, H, 53)
+    else:
+        assert name == "dl4j_lstm_scan_fwd"
+        assert fn.argtypes == [ctypes.c_void_p] * 9 + [ctypes.c_int] * 4 + [
+            ctypes.c_void_p]
+        assert args[9:] == (3, 5, H, 2 if dtype == torch.bfloat16 else 0,
+                            53)
+    assert len(args) == len(fn.argtypes)
+    assert args[0] == a[0].data_ptr() and args[1] == a[1].data_ptr()
+    assert (args[7], args[8]) == (ys.data_ptr(), cs.data_ptr())
+    assert ys.shape == cs.shape == (3, 5, H) and ys.dtype == dtype
+
+
+@pytest.mark.parametrize("H", [256, 32])
+def test_scan_fwd_failed_launch_raises(fake_scan, H):
+    fake_scan(err=700)
+    a = _scan_inputs(H, torch.bfloat16)
+    variant = ts.scan_fwd_variant(H, torch.bfloat16)
+    before = ts.graves_lstm_scan_fwd_cuda.launches
+    by_variant = dict(ts.graves_lstm_scan_fwd_cuda.variant_launches)
+    source = ("dl4j_lstm_scan_fwd_cluster_error_string"
+              if variant == "cluster" else "dl4j_lstm_scan_error_string")
+    with pytest.raises(RuntimeError, match=f"error 700 from {source}"):
+        ts._scan_fwd_launch(*a)
+    assert ts.graves_lstm_scan_fwd_cuda.launches == before
+    assert ts.graves_lstm_scan_fwd_cuda.variant_launches == by_variant
