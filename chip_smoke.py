@@ -17,10 +17,12 @@ Phases, each printing one JSON line; any failure exits non-zero:
               HGMMA or no UTMALDG, has an atomic, has a reduction (K3, K5)
               or none (K4, whose dq reductions are the only ones allowed),
               or spills at D 64. The same for K10's bf16 kernel at each
-              load path and K7's cluster forward at H 64/128/256, with
-              their UTMASTG, UBLKCP, cluster-barrier and LDGSTS counts and
-              the clusters the card holds at once; fails on no HGMMA, an
-              atomic or a reduction, or a spill at a main-path shape.
+              load path, K7's cluster forward and cluster backward sweep
+              at H 64/128/256 and K7's bf16 dRW kernel, with their
+              UTMASTG, UBLKCP, cluster-barrier, LDGSTS and STAS (st.async)
+              counts and the clusters the card holds at once; fails on no
+              HGMMA, an atomic or a reduction, or a spill at a main-path
+              shape (K7 at H 256, the dRW kernel).
 2a. kernel_conv1x1 - K10 (the 1x1 conv with per-channel sums) against its
               plain version: fp32 and bf16, B 1/3/256, channels drawn from
               {8, 64, 256, 1024, 2048}, P 1/16/49/81/196/200/784, one case
@@ -96,25 +98,32 @@ Phases, each printing one JSON line; any failure exits non-zero:
               plain chain's own error. Each case's forward must take the
               variant `scan_fwd_variant` names (bf16 H 64/128/256 the
               cluster kernel, the rest the tile kernel; bf16 H 128 cases
-              added for the cluster kernel), and both variants must have
-              run. A GravesLSTM and an LSTM layer of
+              added for the cluster kernel), and so must each case's
+              backward sweep (`scan_bwd_variant`, the same rule); every
+              variant must have run. A GravesLSTM and an LSTM layer of
               H 1536, whose K7 tile does not fit in shared memory, step
               through K8 and K9 (launches counted) against the CPU. Then
               the char-RNN layer (T 100, B 8192, H 256, bf16; the cluster
-              forward) timed beside
+              forward and backward) timed beside
               the plain versions and torch.nn.LSTM (cuDNN, a yardstick
-              only).
+              only). At T 100, B 8192 and H 64, 128 and 256 the cluster
+              backward must give bitwise-equal dxw, dRW, dh0, dc0 and
+              peephole sums in two calls, and is timed whole and as its
+              sweep and its dRW kernel apart, beside cuDNN's backward at
+              the same H and the bounds.
 4. kernel_lstm_gates - K8 (peephole cell) and K9 (plain cell), forward
               and backward, against their plain versions; then timed at
-              (B 8192, H 256, bf16).
+              (B 8192, H 256, bf16), K9 beside PyTorch's fused LSTM cell
+              (aten._thnn_fused_lstm_cell and its backward, gates
+              permuted; a yardstick only).
 5. train_lstm - the zoo TextGenerationLSTM at the bench's width
               (bench.py bench_graves_lstm: GravesLSTM(256) x 2 +
               RnnOutputLayer(47), tBPTT 50, RmsProp(0.01), l2 1e-3,
               batch 8192, T 100, bf16 compute over fp32 params, seed 42,
               the bench's data): fit_on_device(steps=5, sync=False) after
               a warm step (tokens/s, ms/step, peak memory; exactly 2 K7
-              forward + 2 backward launches a step, every forward on the
-              cluster kernel), two tBPTT fit(x, y)
+              forward + 2 backward launches a step, every forward and
+              backward on the cluster kernels), two tBPTT fit(x, y)
               calls (2 segments each), a masked fit_batch (K8 on every
               step) and the same stack with LSTM layers, masked (K9).
 6. lstm_oracle - gradient_and_score of the stack through the kernels
@@ -131,7 +140,9 @@ Phases, each printing one JSON line; any failure exits non-zero:
               flash_fwd_plain:
               fp32 and bf16, head dims 32/64/128, T 1/63/64/65/200/1000
               (and head dims 8 and 48 at T 1024, zero-padded to 16 and 64
-              in the wrappers),
+              in the wrappers; head dims 160, 192 and 256 at T 31/33/200,
+              causal and windowed, on the CUDA-core kernels in both dtypes,
+              160 zero-padded to 192),
               causal on/off, window 0/17/256, no key mask or a random one
               with a fully masked batch row, kv heads 4 and 2 (GQA) of 4;
               then the training shape (B 4, H 4, T 8192, D 64, bf16,
@@ -171,6 +182,17 @@ Phases, each printing one JSON line; any failure exits non-zero:
               dense plain versions on the same inputs, each against fp64;
               losses within 1e-4 of each other, every gradient of the
               kernel path within twice the dense path's own error.
+11a. flash_head_dims - K3, K4 and K5 at B*H 16, T 8192, bf16, causal,
+              D 128 (wgmma) and D 256 (CUDA-core kernels, bf16 widened):
+              CUDA-event times beside scaled_dot_product_attention forward
+              and backward, bounds, the source each took; K3 at D 256
+              against the plain version. A head-dim-256 stack
+              (SelfAttentionLayer(512, 2 heads, block 256) +
+              RnnOutputLayer(16), T 1024, batch 2): fp32 gradient_and_score
+              through the kernels against the dense plain versions in
+              fp64 (1e-4), two bf16 fit steps through the kernels (1 K3 +
+              1 K4 each, on flash_attention.cu); D 257 must raise naming
+              ROADMAP.md queue 3.
 12. kernel  - each kernel against its plain PyTorch version on the card,
               then timed at the served shape (device time by CUDA-graph
               replay, kernel alone and with the merge; the eager call; the
@@ -1220,7 +1242,9 @@ def lse_err(torch, l, ref) -> float:
 
 def flash_sweep():
     """(dtype, D, T, causal, window, masked) of the kernel sweeps; head
-    dims 8 and 48 are zero-padded to 16 and 64 inside the wrappers."""
+    dims 8, 48 and 160 are zero-padded to 16, 64 and 192 inside the
+    wrappers. D 160, 192 and 256 run on the CUDA-core kernels in both
+    dtypes (bf16 widened to fp32), at T around their 32-row tiles."""
     for dt in ("float32", "bfloat16"):
         for D in (32, 64, 128):
             for T in (1, 63, 64, 65, 200, 1000):
@@ -1231,6 +1255,21 @@ def flash_sweep():
         for D in (8, 48):
             for masked in (False, True):
                 yield dt, D, 1024, True, 0, masked
+        for D in FLASH_WIDE_D:
+            for T in (31, 33, 200):
+                for causal, window in ((False, 0), (True, 0), (True, 17),
+                                       (False, 17)):
+                    for masked in (False, True):
+                        yield dt, D, T, causal, window, masked
+
+
+# head dims above the wgmma kernels' 128, and the training-shape timing
+FLASH_WIDE_D = (160, 192, 256)
+FLASH_TIMED_D = (128, 256)
+# the head-dim-256 stack of flash_head_dims: SelfAttentionLayer(512, 2
+# heads, causal, block 256) + RnnOutputLayer, T 1024, batch 2
+WIDE_B, WIDE_T, WIDE_D_MODEL, WIDE_HEADS, WIDE_BLOCK, WIDE_CLASSES = \
+    2, 1024, 512, 2, 256, 16
 
 
 def train_shape_case(torch, seed):
@@ -1259,13 +1298,17 @@ def sm90_kernel_key(name: str):
 
 
 def new_kernel_key(name: str):
-    """(kernel, template argument) of a mangled name of this slice's
-    kernels: K10's conv1x1_sm90<path, G> ("path.G") and K7's
-    scan_fwd_cluster<H>, else None."""
+    """(kernel, template argument) of a mangled name of the later slices'
+    kernels: K10's conv1x1_sm90<path, G> ("path.G"), K7's
+    scan_fwd_cluster<H> and scan_bwd_cluster<H>, and K7's dRW kernel
+    drw_sm90 (argument "bf16"), else None."""
     m = re.search(r"(conv1x1_sm90)ILi(\d)ELi(\d)EE", name)
     if m:
         return m.group(1), f"{m.group(2)}.{m.group(3)}"
-    m = re.search(r"(scan_fwd_cluster)ILi(\d+)EE", name)
+    m = re.search(r"(drw_sm90)E", name)
+    if m:
+        return m.group(1), "bf16"
+    m = re.search(r"(scan_(?:fwd|bwd)_cluster)ILi(\d+)EE", name)
     return (m.group(1), int(m.group(2))) if m else None
 
 
@@ -1325,9 +1368,11 @@ def cuobjdump() -> str:
     return path
 
 
-# TMA stores, bulk copies (into a peer's shared memory), cluster barriers
-# and cp.async, counted for this slice's kernels
-NEW_OPS = ("UTMASTG", "UBLKCP", "UCGABAR_ARV", "UCGABAR_WAIT", "LDGSTS")
+# TMA stores, bulk copies (into a peer's shared memory), cluster barriers,
+# cp.async and st.async (stores into a peer's shared memory that complete
+# on its mbarrier), counted for the later slices' kernels
+NEW_OPS = ("UTMASTG", "UBLKCP", "UCGABAR_ARV", "UCGABAR_WAIT", "LDGSTS",
+           "STAS")
 
 
 def sass_counts(lib_path: str, kernel_key=sm90_kernel_key) -> dict:
@@ -1381,7 +1426,7 @@ def sm90_build_report(built: dict) -> dict:
     regs, sass = ptxas_kernels(b["log"]), sass_counts(b["path"])
     report = {}
     for kern in SM90_KERNELS:
-        for D in fa.HEAD_DIMS:
+        for D in fa.SM90_HEAD_DIMS:
             key = f"{kern}<{D}>"
             if key not in sass or key not in regs:
                 fail(f"{key}: not in the built library (ptxas "
@@ -1410,13 +1455,14 @@ K7_CLUSTER_H = (64, 128, 256)
 
 
 def new_build_report(built: dict) -> dict:
-    """K10's bf16 kernel (each load path) and K7's cluster forward (each
-    H): registers, spills, shared memory (dynamic from the library), SASS
-    counts of HGMMA, UTMALDG, UTMASTG, UBLKCP, cluster barriers, cp.async
-    (LDGSTS), atomics and reductions, and the clusters the card holds at
-    once. Fails when a kernel has no HGMMA, holds an atomic or a
+    """K10's bf16 kernel (each load path), K7's cluster forward and
+    backward sweep (each H) and K7's bf16 dRW kernel: registers, spills,
+    shared memory (dynamic from the library), SASS counts of HGMMA,
+    UTMALDG, UTMASTG, UBLKCP, cluster barriers, cp.async (LDGSTS),
+    st.async (STAS), atomics and reductions, and the clusters the card
+    holds at once. Fails when a kernel has no HGMMA, holds an atomic or a
     reduction, or spills at a shape of the main path (K10's four ResNet50
-    paths, K7 at H 256)."""
+    paths, K7 at H 256, the dRW kernel)."""
     from deeplearning4j_tpu_torch.ops import conv_fused as cf
     from deeplearning4j_tpu_torch.ops import lstm_scan_fused as ts
     report = {}
@@ -1424,7 +1470,10 @@ def new_build_report(built: dict) -> dict:
             (cf.SOURCE, cf._library(),
              [f"conv1x1_sm90<{k}>" for k in K10_INSTANCES]),
             (ts.SM90_SOURCE, ts._cluster_library(),
-             [f"scan_fwd_cluster<{h}>" for h in K7_CLUSTER_H])):
+             [f"scan_fwd_cluster<{h}>" for h in K7_CLUSTER_H]),
+            (ts.BWD_SM90_SOURCE, ts._bwd_library(),
+             [f"scan_bwd_cluster<{h}>" for h in K7_CLUSTER_H]
+             + ["drw_sm90<bf16>"])):
         b = built[source]
         regs = ptxas_kernels(b["log"], new_kernel_key)
         sass = sass_counts(b["path"], new_kernel_key)
@@ -1437,10 +1486,18 @@ def new_build_report(built: dict) -> dict:
             if key.startswith("conv1x1"):
                 r["dynamic_smem"] = lib.dl4j_conv1x1_smem(2, int(arg[0]))
                 main = arg in K10_MAIN
-            else:
+            elif key.startswith("drw_sm90"):
+                main = True
+            elif key.startswith("scan_fwd"):
                 r["dynamic_smem"] = lib.dl4j_lstm_scan_fwd_cluster_smem(
                     int(arg))
                 r["active_clusters"] = lib.dl4j_lstm_scan_fwd_clusters(
+                    int(arg))
+                main = int(arg) == LSTM_H
+            else:
+                r["dynamic_smem"] = lib.dl4j_lstm_scan_bwd_cluster_smem(
+                    int(arg))
+                r["active_clusters"] = lib.dl4j_lstm_scan_bwd_clusters(
                     int(arg))
                 main = int(arg) == LSTM_H
             report[key] = r
@@ -1910,6 +1967,165 @@ def phase_train_oracle(torch, np):
     return res
 
 
+def build_wide_net(torch, compute_dtype):
+    """One causal SelfAttentionLayer(512, 2 heads: head dim 256, block 256)
+    + RnnOutputLayer(16, SOFTMAX), Sgd(1e-3), XAVIER, seed 7, on the card;
+    at T 1024 > block it runs flash attention."""
+    from deeplearning4j_tpu_torch import (Activation, InputType,
+                                          MultiLayerNetwork,
+                                          NeuralNetConfiguration,
+                                          RnnOutputLayer, SelfAttentionLayer,
+                                          WeightInit)
+    from deeplearning4j_tpu_torch.nn.updater.updaters import Sgd
+    b = (NeuralNetConfiguration.Builder().seed(7)
+         .weight_init(WeightInit.XAVIER).updater(Sgd(learning_rate=1e-3))
+         .compute_dtype(compute_dtype).list())
+    b.layer(SelfAttentionLayer(n_out=WIDE_D_MODEL, n_heads=WIDE_HEADS,
+                               causal=True, block_size=WIDE_BLOCK))
+    b.layer(RnnOutputLayer(n_out=WIDE_CLASSES,
+                           activation=Activation.SOFTMAX))
+    conf = b.set_input_type(InputType.recurrent(64, WIDE_T)).build()
+    return MultiLayerNetwork(conf, device="cuda").init()
+
+
+def phase_flash_head_dims(torch, np):
+    """K3, K4 and K5 at head dims above 128 (the CUDA-core kernels, bf16
+    widened to fp32). At B*H 16, T 8192, causal, bf16, D 128 (the wgmma
+    kernels) and D 256: CUDA-event times beside scaled_dot_product_attention
+    forward and backward (a yardstick, never the route), bounds, and the
+    source each call took; K3 at D 256 against the plain version. Then a
+    head-dim-256 SelfAttentionLayer stack at T 1024 > block 256: one
+    gradient_and_score through the kernels in fp32 against the dense plain
+    versions in fp64 (loss and every gradient within 1e-4 relative, as
+    train_oracle), and two fit steps in bf16 compute through the kernels
+    (1 K3 + 1 K4 a step, every loss finite)."""
+    from deeplearning4j_tpu_torch import MultiLayerNetwork
+    from deeplearning4j_tpu_torch.nn.conf.configuration import \
+        MultiLayerConfiguration
+    from deeplearning4j_tpu_torch.ops import flash_attention as fa
+    from deeplearning4j_tpu_torch.ops import helpers
+    from deeplearning4j_tpu_torch.util.flat_params import unflatten_params
+    timed = {}
+    for D in FLASH_TIMED_D:
+        q, k, v, do, _ = flash_case(torch, TRAIN_B, TRAIN_HEADS, TRAIN_HEADS,
+                                    TRAIN_T, D, torch.bfloat16, False,
+                                    seed=4545 + D)
+        fwd_routes = dict(fa.flash_attention_fwd_cuda.route_launches)
+        o, l = fa.flash_attention_fwd_cuda(q, k, v, None, True)
+        source = fa._route(torch.bfloat16, "fwd", D)
+        if fa.flash_attention_fwd_cuda.route_launches[source] != \
+                fwd_routes[source] + 1:
+            fail(f"flash_head_dims D={D}: K3 did not run on {source}")
+        row = {"source": source}
+        if D > 128:
+            ro, rl = fa.flash_fwd_plain(q, k, v, None, True)
+            row["max_abs_err"] = max(max_err(o, ro), lse_err(torch, l, rl))
+            row["tile_rel_err"] = tile_rel_err(torch, o, ro,
+                                               FLASH_REF_FLOOR["bfloat16"])
+            del ro, rl
+            if not (row["max_abs_err"] <= FLASH_TOL["bfloat16"]
+                    and row["tile_rel_err"] <= FLASH_REL_TOL["bfloat16"]):
+                fail(f"flash_head_dims: K3 at D={D}, T={TRAIN_T}: {row}")
+        row["ms"] = {"K3": event_ms(torch, lambda: fa.flash_attention_fwd_cuda(
+            q, k, v, None, True))}
+        for mode, name in (("fused", "K4"), ("two_pass", "K5")):
+            row["ms"][name] = event_ms(
+                torch, lambda mode=mode: fa.flash_attention_bwd_cuda(
+                    q, k, v, None, o, l, do, None, True, None, 0, mode))
+        row["library_ms"] = {"fwd": event_ms(
+            torch, lambda: torch.nn.functional.scaled_dot_product_attention(
+                q, k, v, is_causal=True))}
+        qr, kr, vr = (t.detach().requires_grad_(True) for t in (q, k, v))
+        out = torch.nn.functional.scaled_dot_product_attention(
+            qr, kr, vr, is_causal=True)
+        row["library_ms"]["bwd"] = event_ms(torch, lambda: torch.autograd.grad(
+            out, (qr, kr, vr), do, retain_graph=True))
+        pairs = visible_pairs(TRAIN_T, True, 0)
+        for kind, name in (("fwd", "K3"), ("fused", "K4")):
+            b = flash_bound(kind, TRAIN_B, TRAIN_HEADS, TRAIN_T, D, 2, pairs)
+            row.setdefault("bound_ms", {})[name] = b[2]
+            row.setdefault("bound_by", {})[name] = b[3]
+            row.setdefault("ops", {})[name] = b[1]
+        row["bound_ms"]["K5"] = row["bound_ms"]["K4"]
+        row["bound_by"]["K5"] = row["bound_by"]["K4"]
+        row["tflops"] = {n: row["ops"][n if n != "K5" else "K4"] / ms / 1e9
+                         for n, ms in row["ms"].items()}
+        timed[f"D={D}"] = row
+        del q, k, v, do, o, l, qr, kr, vr, out
+    # the head-dim-256 stack
+    rng = np.random.RandomState(3)
+    x = torch.from_numpy(rng.rand(WIDE_B, 64, WIDE_T).astype(
+        np.float32)).cuda()
+    y = torch.from_numpy(np.eye(WIDE_CLASSES, dtype=np.float32)[
+        rng.randint(0, WIDE_CLASSES, (WIDE_B, WIDE_T))].transpose(
+            0, 2, 1).copy()).cuda()
+    net = build_wide_net(torch, None)
+    d = json.loads(net.conf.to_json())
+    d["global_conf"]["dtype"] = "float64"
+    net64 = MultiLayerNetwork(MultiLayerConfiguration.from_dict(d),
+                              device="cuda").init(params=net.params_tree)
+    reset_flash_launches(fa)
+    g_k, s_k = net.gradient_and_score(x, y)
+    launches = flash_launches(fa)
+    with plain_flash(fa, helpers):
+        g_ref, s_ref = net64.gradient_and_score(x.double(), y.double())
+    torch.cuda.synchronize()
+    if launches != {"K3": 1, "K4": 1, "K5": 0} or \
+            flash_launches(fa) != launches:
+        fail(f"flash_head_dims: the fp32 pass launched {launches}, then "
+             f"{flash_launches(fa)} with the plain versions")
+    rel = {}
+    for i, (gg, gr) in enumerate(zip(
+            unflatten_params(net64.params_tree, g_k.double()),
+            unflatten_params(net64.params_tree, g_ref))):
+        for name in sorted(gr):
+            rel[f"{i}.{name}"] = max_err(gg[name], gr[name]) / max(
+                gr[name].abs().max().item(), 1e-300)
+    loss_rel = abs(s_k - s_ref) / max(abs(s_ref), 1e-300)
+    if not (math.isfinite(s_k) and loss_rel <= 1e-4
+            and max(rel.values()) <= 1e-4):
+        fail(f"flash_head_dims: head-dim-256 stack loss rel {loss_rel}, "
+             f"grad rel {rel}")
+    net_b = build_wide_net(torch, "bfloat16")
+    reset_flash_launches(fa)
+    routes = dict(fa.flash_attention_fwd_cuda.route_launches)
+    losses = []
+    for _ in range(2):
+        net_b.fit(x, y)
+        losses.append(net_b.score())
+    torch.cuda.synchronize()
+    b_launches = flash_launches(fa)
+    wide_routes = {k: v - routes[k] for k, v in
+                   fa.flash_attention_fwd_cuda.route_launches.items()}
+    if b_launches != {"K3": 2, "K4": 2, "K5": 0} or \
+            wide_routes != {fa.SOURCE: 2, fa.SM90_SOURCE: 0} or \
+            not all(math.isfinite(v) for v in losses):
+        fail(f"flash_head_dims: bf16 fit launched {b_launches} on "
+             f"{wide_routes}, losses {losses}")
+    res = {"phase": "flash_head_dims",
+           "shape": {"B": TRAIN_B, "H": TRAIN_HEADS, "T": TRAIN_T,
+                     "causal": True, "dtype": "bfloat16"},
+           "timed": timed,
+           "stack": {"layer": f"SelfAttentionLayer({WIDE_D_MODEL}, "
+                              f"{WIDE_HEADS} heads, block {WIDE_BLOCK})",
+                     "T": WIDE_T, "B": WIDE_B, "head_dim": 256,
+                     "loss_rel_err": loss_rel, "grad_rel_err": rel,
+                     "max_grad_rel_err": max(rel.values()),
+                     "tolerance": 1e-4, "launches": launches,
+                     "bf16_fit_losses": losses,
+                     "bf16_fit_launches": b_launches,
+                     "bf16_fit_routes": wide_routes},
+           "raises_above": fa.HEAD_DIMS[-1]}
+    try:
+        fa._kernel_head_dim(fa.HEAD_DIMS[-1] + 1)
+        fail("flash_head_dims: D 257 did not raise")
+    except ValueError as e:
+        if "queue 3" not in str(e):
+            fail(f"flash_head_dims: D 257 raised without naming queue 3: {e}")
+    emit(res)
+    return res
+
+
 # ------------------------------------------------------------- LSTM slice
 # The char-RNN of bench.py bench_graves_lstm (zoo TextGenerationLSTM:
 # GravesLSTM(256) x 2 + RnnOutputLayer(47), tBPTT 50, RmsProp(0.01), l2
@@ -2095,27 +2311,109 @@ def scan_bound(T, B, H, elt, kind):
         ("bytes" if t_b >= t_o else "operations")
 
 
+def k7_bwd_bounds(T, B, H):
+    """(bytes, ops, ms, bound_by) of K7's bf16 backward sweep alone (the
+    function's reads and writes without dRW; the gate-recompute and dh
+    products) and of its dRW pass alone (h_prev and dxw read, fp32 dRW
+    written; one product)."""
+    n_h, n_g = T * B * H, T * B * 4 * H
+    out = {}
+    for part, nbytes, prods in (
+            ("sweep", 2 * (2 * n_g + 4 * n_h + 4 * B * H + 4 * H * H + 3 * H)
+             + 4 * 3 * H, 2),
+            ("drw", 2 * (n_h + n_g) + 4 * 4 * H * H, 1)):
+        ops = 2 * prods * T * B * H * 4 * H
+        t_b, t_o = nbytes / HBM_BYTES_PER_S, ops / BF16_OPS_PER_S
+        out[part] = (nbytes, ops, max(t_b, t_o) * 1e3,
+                     "bytes" if t_b >= t_o else "operations")
+    return out
+
+
+def k7_bwd_parts(torch, ts, H):
+    """K7's bf16 backward at T 100, B 8192 and H (the cluster variant):
+    two calls bitwise equal (dxw, dRW, dh0, dc0 and the peephole sums);
+    CUDA-event times of the whole backward, of the cluster sweep and of
+    the dRW kernel (and its chunk sum) apart, beside torch.nn.LSTM's
+    (cuDNN) backward at the same H and the bounds."""
+    a, (dys, dcs) = scan_case(torch, LSTM_T, LSTM_B, H, torch.bfloat16,
+                              True, True, seed=4300 + H)
+    ys, cs = ts.graves_lstm_scan_fwd_cuda(*a)
+    n0 = dict(ts.graves_lstm_scan_bwd_cuda.variant_launches)
+    g1 = ts.graves_lstm_scan_bwd_cuda(*a, ys, cs, dys, dcs)
+    g2 = ts.graves_lstm_scan_bwd_cuda(*a, ys, cs, dys, dcs)
+    torch.cuda.synchronize()
+    if ts.graves_lstm_scan_bwd_cuda.variant_launches["cluster"] != \
+            n0["cluster"] + 2:
+        fail(f"kernel_lstm_scan: H={H} did not take the cluster backward")
+    if not all(torch.equal(x, y) for x, y in zip(g1, g2)):
+        fail(f"kernel_lstm_scan: two cluster backward calls at H={H} "
+             "differ")
+    lib = ts._bwd_library()
+    T, B = LSTM_T, LSTM_B
+    st = torch.cuda.current_stream().cuda_stream
+    dxw, dh0, dc0 = (torch.empty_like(t) for t in (g1[0], g1[5], g1[6]))
+    dp = torch.empty((-(-B // 128), 3, H), dtype=torch.float32,
+                     device="cuda")
+    ins = [t.data_ptr() for t in a] + [ys.data_ptr(), cs.data_ptr(),
+                                       dys.data_ptr(), dcs.data_ptr()]
+    sweep = [*ins, dxw.data_ptr(), dh0.data_ptr(), dc0.data_ptr(),
+             dp.data_ptr(), T, B, H, st]
+    chunks = lib.dl4j_lstm_drw_chunks(T, B, H)
+    slab = torch.empty((chunks, H, 4 * H), dtype=torch.float32,
+                       device="cuda")
+    drw = [a[5].data_ptr(), ys.data_ptr(), g1[0].data_ptr(),
+           slab.data_ptr(), T, B, H, chunks, st]
+    ms = {"bwd": event_ms(torch, lambda: ts.graves_lstm_scan_bwd_cuda(
+              *a, ys, cs, dys, dcs)),
+          "sweep": event_ms(torch, lambda: lib.dl4j_lstm_scan_bwd_cluster(
+              *sweep)),
+          "drw": event_ms(torch, lambda: lib.dl4j_lstm_drw_sm90(*drw)),
+          "drw_chunk_sum": event_ms(torch, lambda: ts.reduce_drw_partials(
+              slab))}
+    lstm = torch.nn.LSTM(H, H).to("cuda", torch.bfloat16)
+    lstm.flatten_parameters()
+    xin = torch.randn(T, B, H, device="cuda", dtype=torch.bfloat16,
+                      requires_grad=True)
+    f = event_ms(torch, lambda: lstm(xin)[0])
+    fb = event_ms(torch, lambda: lstm(xin)[0].backward(dys))
+    bound = scan_bound(T, B, H, 2, "bwd")
+    parts = k7_bwd_bounds(T, B, H)
+    return {"ms": ms, "library_ms": fb - f, "chunks": chunks,
+            "bitwise_repeat": True,
+            "active_clusters": lib.dl4j_lstm_scan_bwd_clusters(H),
+            "bound_ms": bound[2], "bound_by": bound[3], "bytes": bound[0],
+            "part_bound_ms": {k: v[2] for k, v in parts.items()},
+            "part_bound_by": {k: v[3] for k, v in parts.items()}}
+
+
 def phase_kernel_lstm_scan(torch):
     """K7 (forward and backward) against its plain versions over the sweep
     (fp32/bf16, H 32/64/256/512, B 1/3/65/8192, T 1/7/100, zero and
     non-zero state and peepholes, a non-zero dcs in every other case);
-    bf16 also against the fp64 plain chain. Then the char-RNN layer
-    shape (T 100, B 8192, H 256, bf16) timed with CUDA events beside the
-    plain versions and torch.nn.LSTM (cuDNN) forward and backward, a
-    yardstick only (it adds the input projection and has no peepholes)."""
+    bf16 also against the fp64 plain chain; each case's forward and
+    backward on the variant the rule names, and every variant run. Then
+    the char-RNN layer shape (T 100, B 8192, H 256, bf16) timed with CUDA
+    events beside the plain versions and torch.nn.LSTM (cuDNN) forward
+    and backward, a yardstick only (it adds the input projection and has
+    no peepholes); and the cluster backward at T 100, B 8192, H 64, 128
+    and 256: bitwise repeatable, timed whole and as its sweep and dRW
+    kernels, beside cuDNN's backward at the same H (k7_bwd_parts)."""
     from deeplearning4j_tpu_torch.ops import lstm_scan_fused as ts
     worst = {dt: {} for dt in LSTM_REL_TOL}
     worst_abs = {dt: {} for dt in LSTM_REL_TOL}
     fp64_ratio = {}
     n_cases = 0
-    variants = {}
+    variants, bwd_variants = {}, {}
     ts.graves_lstm_scan_fwd_cuda.variant_launches = dict.fromkeys(
         ts.FWD_VARIANTS, 0)
+    ts.graves_lstm_scan_bwd_cuda.variant_launches = dict.fromkeys(
+        ts.BWD_VARIANTS, 0)
     for dt, H, B, T, state, dcs_on in scan_sweep():
         dtype = getattr(torch, dt)
         ins, cots = scan_case(torch, T, B, H, dtype, state, dcs_on,
                               seed=n_cases)
         before = dict(ts.graves_lstm_scan_fwd_cuda.variant_launches)
+        before_b = dict(ts.graves_lstm_scan_bwd_cuda.variant_launches)
         kern = scan_run(torch, ts, ins, cots, True)
         took = [v for v, n in ts.graves_lstm_scan_fwd_cuda
                 .variant_launches.items() if n != before[v]]
@@ -2123,6 +2421,12 @@ def phase_kernel_lstm_scan(torch):
             fail(f"kernel_lstm_scan {dt} H={H}: the forward took {took}, "
                  f"the rule says {ts.scan_fwd_variant(H, dtype)}")
         variants.setdefault(f"{dt} H={H}", took[0])
+        took_b = [v for v, n in ts.graves_lstm_scan_bwd_cuda
+                  .variant_launches.items() if n != before_b[v]]
+        if took_b != [ts.scan_bwd_variant(H, dtype)]:
+            fail(f"kernel_lstm_scan {dt} H={H}: the backward took {took_b}, "
+                 f"the rule says {ts.scan_bwd_variant(H, dtype)}")
+        bwd_variants.setdefault(f"{dt} H={H}", took_b[0])
         # the plain backward on the kernel's ys/cs, so it checks the
         # backward alone
         pys, pcs = ts.graves_lstm_scan_plain(*ins)
@@ -2162,6 +2466,10 @@ def phase_kernel_lstm_scan(torch):
     if not all(sweep_variants.values()):
         fail(f"kernel_lstm_scan: a forward variant never ran in the sweep: "
              f"{sweep_variants}")
+    sweep_bwd_variants = dict(ts.graves_lstm_scan_bwd_cuda.variant_launches)
+    if not all(sweep_bwd_variants.values()):
+        fail(f"kernel_lstm_scan: a backward variant never ran in the sweep: "
+             f"{sweep_bwd_variants}")
     from deeplearning4j_tpu_torch.ops import lstm_gates as tg
     oversized = lstm_oversized(torch, ts, tg)
     # the layer shape of the char-RNN, on the cluster forward
@@ -2194,10 +2502,15 @@ def phase_kernel_lstm_scan(torch):
         cudnn_fwd().backward(dys)
     library_fwd = event_ms(torch, cudnn_fwd)
     library_fwd_bwd = event_ms(torch, cudnn_fwd_bwd)
+    del lstm, xin, a, ys, cs, dys, dcs
     bounds = {k: scan_bound(LSTM_T, LSTM_B, LSTM_H, 2, k)
               for k in ("fwd", "bwd")}
+    bwd_parts = {f"H={H}": k7_bwd_parts(torch, ts, H) for H in K7_CLUSTER_H}
     res = {"phase": "kernel_lstm_scan", "cases": n_cases,
            "fwd_variant": variants, "sweep_variant_launches": sweep_variants,
+           "bwd_variant": bwd_variants,
+           "sweep_bwd_variant_launches": sweep_bwd_variants,
+           "bwd_parts": bwd_parts,
            "active_clusters_h256":
                ts._cluster_library().dl4j_lstm_scan_fwd_clusters(LSTM_H),
            "rel_err": worst, "max_abs_err": worst_abs,
@@ -2256,12 +2569,42 @@ def gates_bound(B, H, elt, kind, peep):
         ("bytes" if t_b >= t_o else "operations")
 
 
+def k9_library(torch, tg, gates, c, dc, dh) -> dict:
+    """K9's function as PyTorch's fused LSTM cell (the CUDA kernel behind
+    torch.nn.LSTMCell, `aten._thnn_fused_lstm_cell`: gate order i, f, g,
+    o, so ours permuted, plus a zeroed second gate input; its backward
+    `_thnn_fused_lstm_cell_backward_impl` reads the saved activations):
+    CUDA-graph replay times, a yardstick only, and its largest difference
+    from K9's plain version. Where the call fails, "ms" is null and the
+    reason is kept."""
+    H = c.shape[1]
+    zi, zf, zo, zg = gates.split(H, 1)
+    ig = torch.cat([zi, zf, zg, zo], 1).contiguous()
+    hg = torch.zeros_like(ig)
+    op = torch.ops.aten
+    try:
+        hy, cy, ws = op._thnn_fused_lstm_cell(ig, hg, c)
+        ref_c, ref_h = tg.lstm_gates_plain(gates, c)
+        err = max(max_err(cy, ref_c), max_err(hy, ref_h))
+        ms = {"fwd": graph_ms(torch, lambda: op._thnn_fused_lstm_cell(
+                  ig, hg, c)),
+              "bwd": graph_ms(torch, lambda: op
+                              ._thnn_fused_lstm_cell_backward_impl(
+                                  dh, dc, c, cy, ws, False))}
+    except (RuntimeError, NotImplementedError) as e:
+        return {"ms": None, "call": "aten._thnn_fused_lstm_cell",
+                "why_not": str(e)[:300]}
+    return {"ms": ms, "call": "aten._thnn_fused_lstm_cell (+ backward_impl)",
+            "max_abs_err_vs_plain": err}
+
+
 def phase_kernel_lstm_gates(torch):
     """K8 and K9 (forward and backward) against their plain versions: fp32
     and bf16, H 32/64/256/512, B 1/3/65/8192; then the char-RNN step
     shape (B 8192, H 256, bf16), device time by CUDA-graph replay beside
-    the plain versions. No single library call computes the peephole
-    cell: library_ms is null."""
+    the plain versions, and K9 beside PyTorch's fused LSTM cell
+    (k9_library). No single library call computes the peephole cell (K8):
+    its library_ms is null."""
     from deeplearning4j_tpu_torch.ops import lstm_gates as tg
     worst = {}
     worst_abs = {}
@@ -2306,6 +2649,7 @@ def phase_kernel_lstm_gates(torch):
                           "bwd": graph_ms(torch, pbwd)}
         bounds[name] = {k: gates_bound(LSTM_B, LSTM_H, 2, k, peep)
                         for k in ("fwd", "bwd")}
+    library = k9_library(torch, tg, gates, c, dc, dh)
     res = {"phase": "kernel_lstm_gates", "cases": n_cases,
            "rel_err": worst, "max_abs_err": worst_abs,
            "tolerance": GATES_REL_TOL,
@@ -2317,7 +2661,9 @@ def phase_kernel_lstm_gates(torch):
                         for n, v in bounds.items()},
            "bytes": {n: {k: b[0] for k, b in v.items()}
                      for n, v in bounds.items()},
-           "library_ms": None}
+           "library_ms": {"graves_gates": None,
+                          "lstm_gates": library.pop("ms")},
+           "library": library}
     emit(res)
     return res
 
@@ -2338,6 +2684,8 @@ def reset_lstm_launches(ts, tg) -> None:
         fn.launches = 0
     ts.graves_lstm_scan_fwd_cuda.variant_launches = dict.fromkeys(
         ts.FWD_VARIANTS, 0)
+    ts.graves_lstm_scan_bwd_cuda.variant_launches = dict.fromkeys(
+        ts.BWD_VARIANTS, 0)
 
 
 def char_rnn(torch, compute_dtype, layer="GravesLSTM", dtype="float32"):
@@ -2381,7 +2729,8 @@ def char_mask(np, seed=1):
 def phase_train_lstm(torch, np):
     """The char-RNN trained as bench.py trains it: a warm step, then
     fit_on_device(steps=5, sync=False) (tokens/s, ms/step, peak memory,
-    K7 2 forward + 2 backward launches a step, K8/K9 none); two fit(x, y)
+    K7 2 forward + 2 backward launches a step, every one on the cluster
+    variants, K8/K9 none); two fit(x, y)
     calls under tBPTT 50 (2 segments, 2 optimizer steps and 4 + 4 K7
     launches each); one masked fit_batch (K8 on every step of each layer,
     forward and backward, K7 none); and the stack with LSTM layers, masked
@@ -2404,6 +2753,7 @@ def phase_train_lstm(torch, np):
     wall = time.perf_counter() - t0
     launches = lstm_launches(ts, tg)                   # main path ends
     fwd_variants = dict(ts.graves_lstm_scan_fwd_cuda.variant_launches)
+    bwd_variants = dict(ts.graves_lstm_scan_bwd_cuda.variant_launches)
     peak = torch.cuda.max_memory_allocated()
     losses = losses.cpu().numpy().tolist()
     diverged = net._diverged_at
@@ -2415,6 +2765,9 @@ def phase_train_lstm(torch, np):
     if fwd_variants != {"cluster": 2 * steps, "tile": 0}:
         fail(f"train_lstm: K7 forward variants {fwd_variants}, expected "
              "every launch on the cluster kernel")
+    if bwd_variants != {"cluster": 2 * steps, "tile": 0}:
+        fail(f"train_lstm: K7 backward variants {bwd_variants}, expected "
+             "every launch on the cluster sweep")
     profile = profile_train(torch, net, x, y)
     fit_losses, fit_launches = [], []
     t0 = time.perf_counter()
@@ -2468,6 +2821,7 @@ def phase_train_lstm(torch, np):
            "peak_bytes_above_start": peak - base, "launches": launches,
            "launches_per_step": {k: v / steps for k, v in launches.items()},
            "k7_fwd_variant_launches": fwd_variants,
+           "k7_bwd_variant_launches": bwd_variants,
            "losses": losses, "profile": profile,
            "fit": {"losses": fit_losses, "launches": fit_launches,
                    "ms_per_step": fit_wall / 4 * 1e3},
@@ -3523,15 +3877,16 @@ def main() -> int:
     t0 = time.perf_counter()
     from deeplearning4j_tpu_torch.ops import threshold_encode as te
     # K1 and K2 are one source (the Q-query paged kernel), K6 a second;
-    # fp32 K3-K5 a third, bf16 K3-K5 (wgmma) a fourth; K7 a fifth and its
-    # cluster forward a sixth, K8 and K9 a seventh, K10 an eighth, K11 a
-    # ninth. One nvcc each, started together.
+    # fp32 K3-K5 a third, bf16 K3-K5 (wgmma) a fourth; K7 a fifth, its
+    # cluster forward a sixth and its cluster backward with the bf16 dRW
+    # a seventh, K8 and K9 an eighth, K10 a ninth, K11 a tenth. One nvcc
+    # each, started together.
     built = build.build(sorted({*da.SOURCES, *fa.SOURCES, *ts.SOURCES,
                                 tg.SOURCE, cf.SOURCE, te.SOURCE}))
     sm90 = sm90_build_report(built)
     new_kernels = new_build_report(built)
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
-          "sm90_kernels": sm90, "k10_k7_fwd_kernels": new_kernels,
+          "sm90_kernels": sm90, "k10_k7_kernels": new_kernels,
           "kernels": list(KERNEL_WRAPPERS) + [
               "flash_attention_fwd_cuda", "flash_attention_bwd_cuda",
               "graves_lstm_scan_fwd_cuda", "graves_lstm_scan_bwd_cuda",
@@ -3559,6 +3914,7 @@ def main() -> int:
     kflash_bwd = phase_kernel_flash_bwd(torch)
     train = phase_train(torch, np)
     train_oracle = phase_train_oracle(torch, np)
+    wide = phase_flash_head_dims(torch, np)
     kern = phase_kernel(torch)
     kspec = phase_kernel_spec(torch)
     kcont = phase_kernel_contiguous(torch)
@@ -3573,6 +3929,7 @@ def main() -> int:
     f90 = "deeplearning4j_tpu_torch/ops/csrc/flash_attention_sm90.cu"
     lsrc = "deeplearning4j_tpu_torch/ops/csrc/lstm_scan.cu"
     lsrc90 = "deeplearning4j_tpu_torch/ops/csrc/lstm_scan_fwd_sm90.cu"
+    lsrc90b = "deeplearning4j_tpu_torch/ops/csrc/lstm_scan_bwd_sm90.cu"
     gsrc = "deeplearning4j_tpu_torch/ops/csrc/lstm_gates.cu"
     csrc = "deeplearning4j_tpu_torch/ops/csrc/conv1x1_stats.cu"
     emit({"kernels": [{
@@ -3619,7 +3976,12 @@ def main() -> int:
         "bound_ms": kflash["bound_ms"], "bound_by": kflash["bound_by"],
         "library_ms": kflash["library_ms"], "tflops": kflash["tflops"],
         "bound_share": kflash["bound_share"],
-        "oracle_max_grad_rel_err": train_oracle["max_grad_rel_err"]}] + [{
+        "oracle_max_grad_rel_err": train_oracle["max_grad_rel_err"],
+        "wide_head_dims": {d: {"ms": r["ms"]["K3"],
+                               "library_ms": r["library_ms"]["fwd"],
+                               "bound_ms": r["bound_ms"]["K3"],
+                               "source": r["source"]}
+                           for d, r in wide["timed"].items()}}] + [{
         "name": f"flash_attention_bwd_{mode}", "route": "cuda",
         "source": f90, "fp32_source": fsrc,
         "replaces": replaces,
@@ -3634,13 +3996,18 @@ def main() -> int:
         "bound_by": kflash_bwd["bound_by"][mode],
         "library_ms": kflash_bwd["library_ms"],
         "tflops": kflash_bwd["tflops"][mode],
-        "bound_share": kflash_bwd["bound_share"][mode]}
+        "bound_share": kflash_bwd["bound_share"][mode],
+        "wide_head_dims": {
+            d: {"ms": r["ms"]["K4" if mode == "fused" else "K5"],
+                "library_ms": r["library_ms"]["bwd"],
+                "bound_ms": r["bound_ms"]["K4"], "source": r["source"]}
+            for d, r in wide["timed"].items()}}
         for mode, replaces in (
             ("fused", "deeplearning4j_tpu/ops/flash_attention.py:349"),
             ("two_pass", "deeplearning4j_tpu/ops/flash_attention.py:262"))]
         + [{
         "name": f"graves_lstm_scan_{d}", "route": "cuda",
-        "source": lsrc90 if d == "fwd" else lsrc,
+        "source": lsrc90 if d == "fwd" else lsrc90b,
         "replaces": f"deeplearning4j_tpu/ops/lstm_scan_fused.py:{line}",
         "launches": train_lstm["launches"][f"K7_{d}"],
         "max_abs_err": max(max(v.values())
@@ -3655,7 +4022,13 @@ def main() -> int:
         | ({"variant_launches": train_lstm["k7_fwd_variant_launches"],
             "tile_source": lsrc,
             "sweep_variant_launches": klstm["sweep_variant_launches"]}
-           if d == "fwd" else {})
+           if d == "fwd" else {
+            "variant_launches": train_lstm["k7_bwd_variant_launches"],
+            "tile_source": lsrc,
+            "sweep_variant_launches": klstm["sweep_bwd_variant_launches"],
+            "parts_ms": klstm["bwd_parts"][f"H={LSTM_H}"]["ms"],
+            "part_bound_ms":
+                klstm["bwd_parts"][f"H={LSTM_H}"]["part_bound_ms"]})
         for d, line in (("fwd", 411), ("bwd", 492))] + [{
         "name": name, "route": "cuda", "source": gsrc,
         "replaces": f"deeplearning4j_tpu/ops/pallas_kernels.py:{line}",
@@ -3671,8 +4044,10 @@ def main() -> int:
         "bound_ms": kgates["bound_ms"][name]["fwd"]
         + kgates["bound_ms"][name]["bwd"],
         "bound_by": kgates["bound_by"][name]["bwd"],
-        "library_ms": None, "ms_fwd_bwd": [kgates["ms"][name]["fwd"],
-                                           kgates["ms"][name]["bwd"]]}
+        "library_ms": None if kgates["library_ms"][name] is None else
+        sum(kgates["library_ms"][name].values()),
+        "ms_fwd_bwd": [kgates["ms"][name]["fwd"],
+                       kgates["ms"][name]["bwd"]]}
         for name, k, layer, line in (
             ("graves_gates", "K8", "GravesLSTM", 226),
             ("lstm_gates", "K9", "LSTM", 93))] + [{

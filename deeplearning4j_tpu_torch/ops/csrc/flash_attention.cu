@@ -52,7 +52,10 @@
 // transposed with a padded stride (65) and q-side tiles with stride D + 1,
 // so the shared-memory reads of the inner loops are free of bank
 // conflicts. At D = 128 a backward CTA needs ~166 KB of dynamic shared
-// memory (above 48 KB it takes cudaFuncSetAttribute).
+// memory (above 48 KB it takes cudaFuncSetAttribute). At D 192 and 256
+// the tiles are 32 x 32 (a 2 x 2 micro-tile a thread; ~109 and ~142 KB);
+// these instances also run bf16 inputs of those head dims, which the
+// wrapper widens to fp32 (the wgmma kernels stop at D 128).
 //
 // What bounds it on the H100, at the training shape in fp32 (B*H = 16, T
 // = 8192, D = 64, causal, 33,558,528 visible pairs per head): operations,
@@ -68,10 +71,19 @@
 
 namespace {
 
-constexpr int BM = 64;        // query rows per tile
-constexpr int BN = 64;        // key rows per tile
 constexpr int NT = 256;       // threads per CTA: 16 x 16
-constexpr int KP = BN + 1;    // padded stride of transposed K/V and scores
+
+// Tiles at head dim D: 64 query rows by 64 keys up to D 128, 32 by 32 at D
+// 192 and 256, where a 64-row backward CTA would need ~298 KB of shared
+// memory (32 rows: ~142 KB). A thread holds RA rows and RA key columns of
+// a score tile (rows ty + 16 a, columns tx + 16 c).
+template <int D>
+struct Tile {
+  static constexpr int RA = D > 128 ? 2 : 4;
+  static constexpr int BM = 16 * RA;   // query rows per tile
+  static constexpr int BN = 16 * RA;   // key rows per tile
+  static constexpr int KP = BN + 1;    // padded stride of transposed K/V
+};
 
 
 // max / sum over the 16 lanes (tx = 0..15) that share a score row
@@ -92,6 +104,7 @@ __device__ __forceinline__ float row_sum(float x) {
 template <int D>
 __device__ __forceinline__ void stage_kv_t(float* dst, const float* src,
                                            int k_lo, int T) {
+  constexpr int BN = Tile<D>::BN, KP = Tile<D>::KP;
   for (int e = threadIdx.x; e < BN * D; e += NT) {
     const int c = e / D, d = e - c * D, kj = k_lo + c;
     dst[d * KP + c] = kj < T ? src[(long)kj * D + d] : 0.f;
@@ -103,12 +116,14 @@ __device__ __forceinline__ void stage_kv_t(float* dst, const float* src,
 template <int D>
 __device__ __forceinline__ void stage_q(float* dst, const float* src, int q_lo,
                                         int T) {
+  constexpr int BM = Tile<D>::BM;
   for (int e = threadIdx.x; e < BM * D; e += NT) {
     const int r = e / D, d = e - r * D, qi = q_lo + r;
     dst[r * (D + 1) + d] = qi < T ? src[(long)qi * D + d] : 0.f;
   }
 }
 
+template <int BN>
 __device__ __forceinline__ void stage_key_ok(int* kms, const int* km, int b,
                                              int k_lo, int T) {
   for (int c = threadIdx.x; c < BN; c += blockDim.x) {
@@ -125,6 +140,8 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
                  float* __restrict__ o, float* __restrict__ lse, int H, int Hk,
                  Geometry g, float scale) {
   constexpr int DC = D / 16;
+  constexpr int RA = Tile<D>::RA, BM = Tile<D>::BM, BN = Tile<D>::BN;
+  constexpr int KP = Tile<D>::KP;
   const int nq = gridDim.x;
   const int i = nq - 1 - blockIdx.x;     // the longest causal rows first
   const int bh = blockIdx.y, b = bh / H, h = bh - b * H;
@@ -144,9 +161,9 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
   const float* vb = v + (long)kvrow * T * D;
   stage_q<D>(Qs, qb, q_lo, T);
 
-  float acc[4][DC], m[4], l[4], alpha[4];
+  float acc[RA][DC], m[RA], l[RA], alpha[RA];
 #pragma unroll
-  for (int a = 0; a < 4; ++a) {
+  for (int a = 0; a < RA; ++a) {
     m[a] = DL4J_NEG_INF;
     l[a] = 0.f;
 #pragma unroll
@@ -159,55 +176,55 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
     __syncthreads();                    // the last tile's readers are done
     stage_kv_t<D>(Kt, kb, k_lo, T);
     stage_kv_t<D>(Vt, vb, k_lo, T);
-    stage_key_ok(kms, km, b, k_lo, T);
+    stage_key_ok<BN>(kms, km, b, k_lo, T);
     __syncthreads();
     const bool masked = tile_masked<BM, BN>(g, q_lo, k_lo, km != nullptr);
 
-    float s[4][4];
+    float s[RA][RA];
 #pragma unroll
-    for (int a = 0; a < 4; ++a)
+    for (int a = 0; a < RA; ++a)
 #pragma unroll
-      for (int c = 0; c < 4; ++c) s[a][c] = 0.f;
+      for (int c = 0; c < RA; ++c) s[a][c] = 0.f;
 #pragma unroll 8
     for (int d = 0; d < D; ++d) {
-      float qa[4], kc[4];
+      float qa[RA], kc[RA];
 #pragma unroll
-      for (int a = 0; a < 4; ++a) qa[a] = Qs[(ty + 16 * a) * (D + 1) + d];
+      for (int a = 0; a < RA; ++a) qa[a] = Qs[(ty + 16 * a) * (D + 1) + d];
 #pragma unroll
-      for (int c = 0; c < 4; ++c) kc[c] = Kt[d * KP + tx + 16 * c];
+      for (int c = 0; c < RA; ++c) kc[c] = Kt[d * KP + tx + 16 * c];
 #pragma unroll
-      for (int a = 0; a < 4; ++a)
+      for (int a = 0; a < RA; ++a)
 #pragma unroll
-        for (int c = 0; c < 4; ++c) s[a][c] += qa[a] * kc[c];
+        for (int c = 0; c < RA; ++c) s[a][c] += qa[a] * kc[c];
     }
-    unsigned ok = 0xffffu;              // bit a*4+c: pair visible
+    unsigned ok = (1u << (RA * RA)) - 1u;  // bit a*RA+c: pair visible
     if (masked) {
       ok = 0;
 #pragma unroll
-      for (int a = 0; a < 4; ++a)
+      for (int a = 0; a < RA; ++a)
 #pragma unroll
-        for (int c = 0; c < 4; ++c)
+        for (int c = 0; c < RA; ++c)
           if (visible(g, q_lo + ty + 16 * a, k_lo + tx + 16 * c,
                       kms[tx + 16 * c] != 0))
-            ok |= 1u << (a * 4 + c);
+            ok |= 1u << (a * RA + c);
     }
 #pragma unroll
-    for (int a = 0; a < 4; ++a) {
+    for (int a = 0; a < RA; ++a) {
       float mx = DL4J_NEG_INF;
 #pragma unroll
-      for (int c = 0; c < 4; ++c) {
+      for (int c = 0; c < RA; ++c) {
         // scale after the dot, as the backward recomputes it: the two
         // passes then see the same scores to the last bit
-        s[a][c] = ((ok >> (a * 4 + c)) & 1u) ? s[a][c] * scale
+        s[a][c] = ((ok >> (a * RA + c)) & 1u) ? s[a][c] * scale
                                              : DL4J_NEG_INF;
         mx = fmaxf(mx, s[a][c]);
       }
       const float m_new = fmaxf(m[a], row_max(mx));
       float rs = 0.f;
 #pragma unroll
-      for (int c = 0; c < 4; ++c) {
+      for (int c = 0; c < RA; ++c) {
         const float p =
-            ((ok >> (a * 4 + c)) & 1u) ? expf(s[a][c] - m_new) : 0.f;
+            ((ok >> (a * RA + c)) & 1u) ? expf(s[a][c] - m_new) : 0.f;
         Ps[(ty + 16 * a) * KP + tx + 16 * c] = p;
         rs += p;
       }
@@ -218,30 +235,30 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
     __syncthreads();
     // this tile's p v in its own sum, then one rescaled add per tile: the
     // running sum takes T / 64 additions instead of T (fp32 error)
-    float t[4][DC];
+    float t[RA][DC];
 #pragma unroll
-    for (int a = 0; a < 4; ++a)
+    for (int a = 0; a < RA; ++a)
 #pragma unroll
       for (int e = 0; e < DC; ++e) t[a][e] = 0.f;
 #pragma unroll 4
     for (int c = 0; c < BN; ++c) {
-      float pa[4], vd[DC];
+      float pa[RA], vd[DC];
 #pragma unroll
-      for (int a = 0; a < 4; ++a) pa[a] = Ps[(ty + 16 * a) * KP + c];
+      for (int a = 0; a < RA; ++a) pa[a] = Ps[(ty + 16 * a) * KP + c];
 #pragma unroll
       for (int e = 0; e < DC; ++e) vd[e] = Vt[(tx + 16 * e) * KP + c];
 #pragma unroll
-      for (int a = 0; a < 4; ++a)
+      for (int a = 0; a < RA; ++a)
 #pragma unroll
         for (int e = 0; e < DC; ++e) t[a][e] += pa[a] * vd[e];
     }
 #pragma unroll
-    for (int a = 0; a < 4; ++a)
+    for (int a = 0; a < RA; ++a)
 #pragma unroll
       for (int e = 0; e < DC; ++e) acc[a][e] = acc[a][e] * alpha[a] + t[a][e];
   }
 #pragma unroll
-  for (int a = 0; a < 4; ++a) {
+  for (int a = 0; a < RA; ++a) {
     const int qi = q_lo + ty + 16 * a;
     if (qi >= T) continue;
     const float inv = 1.f / fmaxf(l[a], 1e-30f);
@@ -262,39 +279,40 @@ __device__ __forceinline__ void bwd_scores(
     const float* Qs, const float* dOs, const float* Kt, const float* Vt,
     const float* Ls, const float* Dis, const int* kms, float* Ps, float* dSs,
     const Geometry& g, int q_lo, int k_lo, bool masked, float scale) {
+  constexpr int RA = Tile<D>::RA, KP = Tile<D>::KP;
   const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
-  float s[4][4], dp[4][4];
+  float s[RA][RA], dp[RA][RA];
 #pragma unroll
-  for (int a = 0; a < 4; ++a)
+  for (int a = 0; a < RA; ++a)
 #pragma unroll
-    for (int c = 0; c < 4; ++c) s[a][c] = dp[a][c] = 0.f;
+    for (int c = 0; c < RA; ++c) s[a][c] = dp[a][c] = 0.f;
 #pragma unroll 4
   for (int d = 0; d < D; ++d) {
-    float qa[4], oa[4], kc[4], vc[4];
+    float qa[RA], oa[RA], kc[RA], vc[RA];
 #pragma unroll
-    for (int a = 0; a < 4; ++a) {
+    for (int a = 0; a < RA; ++a) {
       qa[a] = Qs[(ty + 16 * a) * (D + 1) + d];
       oa[a] = dOs[(ty + 16 * a) * (D + 1) + d];
     }
 #pragma unroll
-    for (int c = 0; c < 4; ++c) {
+    for (int c = 0; c < RA; ++c) {
       kc[c] = Kt[d * KP + tx + 16 * c];
       vc[c] = Vt[d * KP + tx + 16 * c];
     }
 #pragma unroll
-    for (int a = 0; a < 4; ++a)
+    for (int a = 0; a < RA; ++a)
 #pragma unroll
-      for (int c = 0; c < 4; ++c) {
+      for (int c = 0; c < RA; ++c) {
         s[a][c] += qa[a] * kc[c];
         dp[a][c] += oa[a] * vc[c];
       }
   }
 #pragma unroll
-  for (int a = 0; a < 4; ++a) {
+  for (int a = 0; a < RA; ++a) {
     const int r = ty + 16 * a;
     const float L = Ls[r], Di = Dis[r];
 #pragma unroll
-    for (int c = 0; c < 4; ++c) {
+    for (int c = 0; c < RA; ++c) {
       const int col = tx + 16 * c;
       const bool ok =
           !masked || visible(g, q_lo + r, k_lo + col, kms[col] != 0);
@@ -306,6 +324,7 @@ __device__ __forceinline__ void bwd_scores(
 }
 
 // Stage L and D_i of a q tile (rows past T: 0; their pairs are masked).
+template <int BM>
 __device__ __forceinline__ void stage_rows(float* Ls, float* Dis,
                                            const float* lse, const float* di,
                                            long row0, int q_lo, int T) {
@@ -327,6 +346,8 @@ flash_bwd_kv_kernel(const float* __restrict__ q, const float* __restrict__ k,
                     float* __restrict__ dk, float* __restrict__ dv, int H,
                     Geometry g, float scale) {
   constexpr int DC = D / 16;
+  constexpr int RA = Tile<D>::RA, BM = Tile<D>::BM, BN = Tile<D>::BN;
+  constexpr int KP = Tile<D>::KP;
   const int j = blockIdx.x;             // the most-visited key tiles first
   const int bh = blockIdx.y, b = bh / H;
   const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
@@ -346,12 +367,12 @@ flash_bwd_kv_kernel(const float* __restrict__ q, const float* __restrict__ k,
   const long base = (long)bh * T * D;
   stage_kv_t<D>(Kt, k + base, k_lo, T);
   stage_kv_t<D>(Vt, v + base, k_lo, T);
-  stage_key_ok(kms, km, b, k_lo, T);
+  stage_key_ok<BN>(kms, km, b, k_lo, T);
 
   // dk/dv micro-tiles: key rows ty + 16 a, columns tx + 16 e
-  float dk_acc[4][DC], dv_acc[4][DC];
+  float dk_acc[RA][DC], dv_acc[RA][DC];
 #pragma unroll
-  for (int a = 0; a < 4; ++a)
+  for (int a = 0; a < RA; ++a)
 #pragma unroll
     for (int e = 0; e < DC; ++e) dk_acc[a][e] = dv_acc[a][e] = 0.f;
 
@@ -362,23 +383,23 @@ flash_bwd_kv_kernel(const float* __restrict__ q, const float* __restrict__ k,
     __syncthreads();
     stage_q<D>(Qs, q + base, q_lo, T);
     stage_q<D>(dOs, dout + base, q_lo, T);
-    stage_rows(Ls, Dis, lse, di, (long)bh * T, q_lo, T);
+    stage_rows<BM>(Ls, Dis, lse, di, (long)bh * T, q_lo, T);
     __syncthreads();
     bwd_scores<D>(Qs, dOs, Kt, Vt, Ls, Dis, kms, Ps, dSs, g, q_lo, k_lo,
                   tile_masked<BM, BN>(g, q_lo, k_lo, km != nullptr), scale);
     __syncthreads();
     // dv += p^T dO, dk += ds^T q (scale applied at the end), this q tile's
     // terms summed on their own first, as in the forward
-    float dk_t[4][DC], dv_t[4][DC];
+    float dk_t[RA][DC], dv_t[RA][DC];
 #pragma unroll
-    for (int a = 0; a < 4; ++a)
+    for (int a = 0; a < RA; ++a)
 #pragma unroll
       for (int e = 0; e < DC; ++e) dk_t[a][e] = dv_t[a][e] = 0.f;
 #pragma unroll 4
     for (int r = 0; r < BM; ++r) {
-      float pa[4], sa[4], od[DC], qd[DC];
+      float pa[RA], sa[RA], od[DC], qd[DC];
 #pragma unroll
-      for (int a = 0; a < 4; ++a) {
+      for (int a = 0; a < RA; ++a) {
         pa[a] = Ps[r * KP + ty + 16 * a];
         sa[a] = dSs[r * KP + ty + 16 * a];
       }
@@ -388,7 +409,7 @@ flash_bwd_kv_kernel(const float* __restrict__ q, const float* __restrict__ k,
         qd[e] = Qs[r * (D + 1) + tx + 16 * e];
       }
 #pragma unroll
-      for (int a = 0; a < 4; ++a)
+      for (int a = 0; a < RA; ++a)
 #pragma unroll
         for (int e = 0; e < DC; ++e) {
           dv_t[a][e] += pa[a] * od[e];
@@ -396,7 +417,7 @@ flash_bwd_kv_kernel(const float* __restrict__ q, const float* __restrict__ k,
         }
     }
 #pragma unroll
-    for (int a = 0; a < 4; ++a)
+    for (int a = 0; a < RA; ++a)
 #pragma unroll
       for (int e = 0; e < DC; ++e) {
         dk_acc[a][e] += dk_t[a][e];
@@ -404,25 +425,25 @@ flash_bwd_kv_kernel(const float* __restrict__ q, const float* __restrict__ k,
       }
     if constexpr (WITH_DQ) {
       // dq[q rows ty + 16 a, columns tx + 16 e] += scale * ds k
-      float dq_t[4][DC];
+      float dq_t[RA][DC];
 #pragma unroll
-      for (int a = 0; a < 4; ++a)
+      for (int a = 0; a < RA; ++a)
 #pragma unroll
         for (int e = 0; e < DC; ++e) dq_t[a][e] = 0.f;
 #pragma unroll 4
       for (int c = 0; c < BN; ++c) {
-        float sa[4], kd[DC];
+        float sa[RA], kd[DC];
 #pragma unroll
-        for (int a = 0; a < 4; ++a) sa[a] = dSs[(ty + 16 * a) * KP + c];
+        for (int a = 0; a < RA; ++a) sa[a] = dSs[(ty + 16 * a) * KP + c];
 #pragma unroll
         for (int e = 0; e < DC; ++e) kd[e] = Kt[(tx + 16 * e) * KP + c];
 #pragma unroll
-        for (int a = 0; a < 4; ++a)
+        for (int a = 0; a < RA; ++a)
 #pragma unroll
           for (int e = 0; e < DC; ++e) dq_t[a][e] += sa[a] * kd[e];
       }
 #pragma unroll
-      for (int a = 0; a < 4; ++a) {
+      for (int a = 0; a < RA; ++a) {
         const int qi = q_lo + ty + 16 * a;
         if (qi >= T) continue;
         float* row = dq + base + (long)qi * D;
@@ -433,7 +454,7 @@ flash_bwd_kv_kernel(const float* __restrict__ q, const float* __restrict__ k,
     }
   }
 #pragma unroll
-  for (int a = 0; a < 4; ++a) {
+  for (int a = 0; a < RA; ++a) {
     const int kj = k_lo + ty + 16 * a;
     if (kj >= T) continue;
 #pragma unroll
@@ -455,6 +476,8 @@ flash_bwd_q_kernel(const float* __restrict__ q, const float* __restrict__ k,
                    const float* __restrict__ di, float* __restrict__ dq,
                    int H, Geometry g, float scale) {
   constexpr int DC = D / 16;
+  constexpr int RA = Tile<D>::RA, BM = Tile<D>::BM, BN = Tile<D>::BN;
+  constexpr int KP = Tile<D>::KP;
   const int nq = gridDim.x;
   const int i = nq - 1 - blockIdx.x;
   const int bh = blockIdx.y, b = bh / H;
@@ -475,11 +498,11 @@ flash_bwd_q_kernel(const float* __restrict__ q, const float* __restrict__ k,
   const long base = (long)bh * T * D;
   stage_q<D>(Qs, q + base, q_lo, T);
   stage_q<D>(dOs, dout + base, q_lo, T);
-  stage_rows(Ls, Dis, lse, di, (long)bh * T, q_lo, T);
+  stage_rows<BM>(Ls, Dis, lse, di, (long)bh * T, q_lo, T);
 
-  float dq_acc[4][DC];
+  float dq_acc[RA][DC];
 #pragma unroll
-  for (int a = 0; a < 4; ++a)
+  for (int a = 0; a < RA; ++a)
 #pragma unroll
     for (int e = 0; e < DC; ++e) dq_acc[a][e] = 0.f;
 
@@ -490,35 +513,35 @@ flash_bwd_q_kernel(const float* __restrict__ q, const float* __restrict__ k,
     __syncthreads();
     stage_kv_t<D>(Kt, k + base, k_lo, T);
     stage_kv_t<D>(Vt, v + base, k_lo, T);
-    stage_key_ok(kms, km, b, k_lo, T);
+    stage_key_ok<BN>(kms, km, b, k_lo, T);
     __syncthreads();
     bwd_scores<D>(Qs, dOs, Kt, Vt, Ls, Dis, kms, Ps, dSs, g, q_lo, k_lo,
                   tile_masked<BM, BN>(g, q_lo, k_lo, km != nullptr), scale);
     __syncthreads();
-    float dq_t[4][DC];                  // this key tile's terms first
+    float dq_t[RA][DC];                  // this key tile's terms first
 #pragma unroll
-    for (int a = 0; a < 4; ++a)
+    for (int a = 0; a < RA; ++a)
 #pragma unroll
       for (int e = 0; e < DC; ++e) dq_t[a][e] = 0.f;
 #pragma unroll 4
     for (int c = 0; c < BN; ++c) {
-      float sa[4], kd[DC];
+      float sa[RA], kd[DC];
 #pragma unroll
-      for (int a = 0; a < 4; ++a) sa[a] = dSs[(ty + 16 * a) * KP + c];
+      for (int a = 0; a < RA; ++a) sa[a] = dSs[(ty + 16 * a) * KP + c];
 #pragma unroll
       for (int e = 0; e < DC; ++e) kd[e] = Kt[(tx + 16 * e) * KP + c];
 #pragma unroll
-      for (int a = 0; a < 4; ++a)
+      for (int a = 0; a < RA; ++a)
 #pragma unroll
         for (int e = 0; e < DC; ++e) dq_t[a][e] += sa[a] * kd[e];
     }
 #pragma unroll
-    for (int a = 0; a < 4; ++a)
+    for (int a = 0; a < RA; ++a)
 #pragma unroll
       for (int e = 0; e < DC; ++e) dq_acc[a][e] += dq_t[a][e];
   }
 #pragma unroll
-  for (int a = 0; a < 4; ++a) {
+  for (int a = 0; a < RA; ++a) {
     const int qi = q_lo + ty + 16 * a;
     if (qi >= T) continue;
 #pragma unroll
@@ -539,18 +562,20 @@ int prepare(K kern, size_t smem) {
 
 template <int D>
 constexpr size_t fwd_smem() {
+  constexpr int BM = Tile<D>::BM, BN = Tile<D>::BN, KP = Tile<D>::KP;
   return sizeof(float) * (BM * (D + 1) + 2 * D * KP + BM * KP) +
          sizeof(int) * BN;
 }
 
 template <int D>
 constexpr size_t bwd_smem() {
+  constexpr int BM = Tile<D>::BM, BN = Tile<D>::BN, KP = Tile<D>::KP;
   return sizeof(float) *
              (2 * D * KP + 2 * BM * (D + 1) + 2 * BM * KP + 2 * BM) +
          sizeof(int) * BN;
 }
 
-// fp32 inputs only: the bf16 forward is flash_attention_sm90.cu's.
+// fp32 inputs only (bf16 at D <= 128 is flash_attention_sm90.cu's).
 template <int D>
 int launch_fwd(const void* q, const void* k, const void* v, const int* km,
                void* o, float* lse, int B, int H, int Hk, Geometry g,
@@ -559,7 +584,7 @@ int launch_fwd(const void* q, const void* k, const void* v, const int* km,
   auto kern = flash_fwd_kernel<D>;
   int err = prepare(kern, smem);
   if (err) return err;
-  dim3 grid((g.T + BM - 1) / BM, B * H);
+  dim3 grid((g.T + Tile<D>::BM - 1) / Tile<D>::BM, B * H);
   kern<<<grid, NT, smem, st>>>(
       static_cast<const float*>(q), static_cast<const float*>(k),
       static_cast<const float*>(v), km, static_cast<float*>(o), lse, H, Hk, g,
@@ -575,14 +600,15 @@ int launch_bwd(const void* q, const void* k, const void* v, const int* km,
                float* dq, void* dk, void* dv, int B, int H, Geometry g,
                int two_pass, float scale, cudaStream_t st) {
   constexpr size_t smem = bwd_smem<D>();
+  static_assert(smem <= 232448, "one CTA's shared memory");
   const float* q_ = static_cast<const float*>(q);
   const float* k_ = static_cast<const float*>(k);
   const float* v_ = static_cast<const float*>(v);
   const float* do_ = static_cast<const float*>(dout);
   float* dk_ = static_cast<float*>(dk);
   float* dv_ = static_cast<float*>(dv);
-  dim3 grid_k((g.T + BN - 1) / BN, B * H);
-  dim3 grid_q((g.T + BM - 1) / BM, B * H);
+  dim3 grid_k((g.T + Tile<D>::BN - 1) / Tile<D>::BN, B * H);
+  dim3 grid_q((g.T + Tile<D>::BM - 1) / Tile<D>::BM, B * H);
   int err;
   if (!two_pass) {
     auto kern = flash_bwd_kv_kernel<D, true>;
@@ -605,16 +631,19 @@ int launch_bwd(const void* q, const void* k, const void* v, const int* km,
 
 }  // namespace
 
-// dtype code 0 (float32) only: the bf16 kernels are flash_attention_sm90.cu's.
-// Head dims 16, 32, 64, 128. Return a cudaError_t code (0 on success).
-// They allocate nothing and do not synchronize: the kernels launch on
-// `stream`.
+// dtype code 0 (float32) only: bf16 at D <= 128 runs on
+// flash_attention_sm90.cu's kernels, and the wrapper widens bf16 at D 192
+// and 256 to fp32 for these. Head dims 16, 32, 64, 128, 192, 256. Return
+// a cudaError_t code (0 on success). They allocate nothing and do not
+// synchronize: the kernels launch on `stream`.
 #define DL4J_DISPATCH_D(FN, ...)                                   \
   {                                                                \
     if (D == 16) return FN<16>(__VA_ARGS__);                       \
     if (D == 32) return FN<32>(__VA_ARGS__);                       \
     if (D == 64) return FN<64>(__VA_ARGS__);                       \
     if (D == 128) return FN<128>(__VA_ARGS__);                     \
+    if (D == 192) return FN<192>(__VA_ARGS__);                     \
+    if (D == 256) return FN<256>(__VA_ARGS__);                     \
     return (int)cudaErrorInvalidValue;                             \
   }
 

@@ -41,13 +41,14 @@
 // leaves the shared memory to h_prev and the gate gradients, so the tile
 // is 64 rows at H 256 in bf16, 128 CTAs, one wave. Each CTA
 // sums the peephole gradients of its rows in fixed order and writes one
-// fp32 partial per column; the caller sums them over CTAs. dRW = sum over
-// the T*B rows of h_prev^T dgates is a second kernel in this source: a
-// split-K reduction over the rows, 128 x 128 output tiles (64 x 64 in
-// fp32), fp32 sums of 1024 rows at a time added into running totals, each
-// CTA adding its tile into a zeroed fp32 dRW with fp32 atomics (the order
-// of those additions varies from run to run). It reads the dxw the sweep
-// wrote, which is the rounded dgates the JAX kernel multiplies.
+// fp32 partial per column; the caller sums them over CTAs. In fp32, dRW =
+// sum over the T*B rows of h_prev^T dgates is a second kernel in this
+// source: a split-K reduction over the rows, 64 x 64 output tiles, fp32
+// sums of 1024 rows at a time added into running totals, each CTA adding
+// its tile into a zeroed fp32 dRW with fp32 atomics (the order of those
+// additions varies from run to run). It reads the dxw the sweep wrote. In
+// bf16, dRW is lstm_scan_bwd_sm90.cu's wgmma kernel (sums in a fixed
+// order), which the wrapper launches after this sweep.
 //
 // What bounds it on the H100, at the char-RNN layer (T 100, B 8192, H 256,
 // bf16): bytes. The forward moves 2.52 GB (xw read, ys and cs written),
@@ -59,12 +60,11 @@
 // tensors the function must read or write cross device memory, apart from
 // the dRW pass, which reads ys and dxw once more. It is far from the bound:
 // rw is re-read from L2 by every CTA at every step, the loads are not
-// pipelined, and wmma is not wgmma. The bf16 forward at H 64, 128 and 256
-// (the char-RNN's layer) runs instead on lstm_scan_fwd_sm90.cu, a cluster
-// of 8 CTAs that keeps RW in shared memory and passes h between them
-// through distributed shared memory; the wrapper chooses by H and dtype
-// before the launch. This file keeps the forward of every other H and of
-// fp32, and the backward, whose cluster redesign is the next work.
+// pipelined, and wmma is not wgmma. The bf16 forward and backward sweep at
+// H 64, 128 and 256 (the char-RNN's layer) run instead on clusters of 8
+// CTAs that keep RW in shared memory (lstm_scan_fwd_sm90.cu,
+// lstm_scan_bwd_sm90.cu); the wrapper chooses by H and dtype before the
+// launch. This file keeps every other H and fp32.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <mma.h>
@@ -84,12 +84,10 @@ constexpr int STAGE = NW * 4 * 256;  // bf16 path: staging floats (4 tiles/warp)
 constexpr size_t SMEM_MAX = 232448;  // dynamic shared memory of one CTA
 
 typedef wm::fragment<wm::matrix_a, 16, 16, 16, bf16, wm::row_major> FragA;
-typedef wm::fragment<wm::matrix_a, 16, 16, 16, bf16, wm::col_major> FragAc;
 typedef wm::fragment<wm::matrix_b, 16, 16, 16, bf16, wm::row_major> FragB;
 typedef wm::fragment<wm::matrix_b, 16, 16, 16, bf16, wm::col_major> FragBc;
 typedef wm::fragment<wm::accumulator, 16, 16, 16, float> FragC;
 
-__device__ __forceinline__ float ld(const float* p) { return *p; }
 __device__ __forceinline__ float ld(const bf16* p) {
   return __bfloat162float(*p);
 }
@@ -577,9 +575,9 @@ scan_bwd_f32(const float* __restrict__ xw, const float* __restrict__ rw,
 }
 
 // ------------------------------------------------------------------ dRW
-// dRW (H, 4H) += h_prev^T dgates over rows [z * chunk, (z + 1) * chunk) of
-// the T*B rows: row m's h_prev is h0[m] for m < B, else ys[m - B]; its
-// dgates are dxw[m]. One CTA per output tile of dRW and row chunk z; DK
+// fp32 dRW (H, 4H) += h_prev^T dgates over rows [z * chunk, (z + 1) *
+// chunk) of the T*B rows: row m's h_prev is h0[m] for m < B, else ys[m -
+// B]; its dgates are dxw[m]. One CTA per output tile of dRW and row chunk z; DK
 // rows at a time through shared memory. fp32 sums that run over ~10^5 rows
 // lose digits, so the CTA sums INNER rows at a time into a fresh
 // accumulator and adds each such partial into a running total; the totals
@@ -592,99 +590,6 @@ __device__ __forceinline__ const TS* hprev_at(const TS* h0, const TS* ys,
                                               long m, int B, int H,
                                               int col) {
   return m < B ? h0 + m * H + col : ys + (m - B) * H + col;
-}
-
-// bf16: 128 x 128 tiles, 8 warps as 4 (h) x 2 (n), each 32 x 64 (2 x 4
-// fragments); rows staged with 16-byte loads (H is a multiple of 16, so a
-// vector of 8 columns is all in or all out). The running totals live in
-// shared memory (fp32, 64 KB), each warp adding its own fragments.
-constexpr int DTC = 128;
-constexpr int DLD = DTC + 8;
-constexpr size_t DRW_TC_SMEM =
-    4 * (size_t)DTC * DTC + 2 * 2 * (size_t)DK * DLD;
-
-__global__ void __launch_bounds__(NT)
-drw_tc(const bf16* __restrict__ h0, const bf16* __restrict__ ys,
-       const bf16* __restrict__ dxw, float* __restrict__ drw, int T, int B,
-       int H, long chunk) {
-  extern __shared__ __align__(128) unsigned char smem[];
-  float* tot = reinterpret_cast<float*>(smem);             // DTC x DTC
-  bf16* As = reinterpret_cast<bf16*>(tot + DTC * DTC);     // DK x DLD
-  bf16* Bs = As + DK * DLD;                                // DK x DLD
-  const int nc = blockIdx.x * DTC, hc = blockIdx.y * DTC;
-  const long M = (long)T * B, m_lo = blockIdx.z * chunk;
-  const long m_hi = m_lo + chunk < M ? m_lo + chunk : M;
-  const int warp = threadIdx.x >> 5;
-  const int h_off = 32 * (warp >> 1), n_off = 64 * (warp & 1);
-  for (int e = threadIdx.x; e < DTC * DTC; e += NT) tot[e] = 0.f;
-  FragC acc[2][4];
-  auto clear = [&] {
-#pragma unroll
-    for (int i = 0; i < 2; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) wm::fill_fragment(acc[i][j], 0.f);
-  };
-  auto flush = [&] {   // tot += acc for this warp's fragments
-#pragma unroll
-    for (int i = 0; i < 2; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        float* t = tot + (h_off + 16 * i) * DTC + n_off + 16 * j;
-        FragC run;
-        wm::load_matrix_sync(run, t, DTC, wm::mem_row_major);
-#pragma unroll
-        for (int e = 0; e < run.num_elements; ++e) run.x[e] += acc[i][j].x[e];
-        wm::store_matrix_sync(t, run, DTC, wm::mem_row_major);
-      }
-    clear();
-  };
-  clear();
-  __syncthreads();
-  int n_in = 0;
-  for (long m = m_lo; m < m_hi; m += DK) {
-    __syncthreads();
-    for (int v = threadIdx.x; v < 2 * DK * (DTC / 8); v += NT) {
-      const bool is_b = v >= DK * (DTC / 8);
-      const int w = is_b ? v - DK * (DTC / 8) : v;
-      const int r = w / (DTC / 8), col = 8 * (w % (DTC / 8));
-      const long mm = m + r;
-      uint4 val = make_uint4(0u, 0u, 0u, 0u);
-      if (mm < m_hi) {
-        if (!is_b && hc + col < H)
-          val = *reinterpret_cast<const uint4*>(
-              hprev_at(h0, ys, mm, B, H, hc + col));
-        else if (is_b && nc + col < 4 * H)
-          val = *reinterpret_cast<const uint4*>(dxw + mm * 4 * H + nc + col);
-      }
-      *reinterpret_cast<uint4*>((is_b ? Bs : As) + r * DLD + col) = val;
-    }
-    __syncthreads();
-#pragma unroll
-    for (int ks = 0; ks < DK / 16; ++ks) {
-      FragAc a[2];   // h_prev^T: (h, m) read from the (m, h) tile
-#pragma unroll
-      for (int i = 0; i < 2; ++i)
-        wm::load_matrix_sync(a[i], As + 16 * ks * DLD + h_off + 16 * i, DLD);
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        FragB b;
-        wm::load_matrix_sync(b, Bs + 16 * ks * DLD + n_off + 16 * j, DLD);
-#pragma unroll
-        for (int i = 0; i < 2; ++i) wm::mma_sync(acc[i][j], a[i], b, acc[i][j]);
-      }
-    }
-    if (++n_in == INNER / DK) {
-      flush();
-      n_in = 0;
-    }
-  }
-  flush();
-  __syncthreads();
-  for (int e = threadIdx.x; e < DTC * DTC; e += NT) {
-    const int r = e / DTC, col = e - r * DTC;
-    if (hc + r < H && nc + col < 4 * H)
-      atomicAdd(drw + (long)(hc + r) * 4 * H + nc + col, tot[e]);
-  }
 }
 
 // fp32: 64 x 64 tiles on the CUDA cores, a 4 x 4 micro-tile a thread, the
@@ -857,18 +762,16 @@ int launch_bwd(const void* xw, const void* rw, const void* rwt,
     }
 #undef DL4J_BWD
   }
-  if (err) return err;
-  int splits;
-  constexpr int tile = tc ? DTC : DT;
-  const long chunk = drw_chunk((long)T * B, H, tile, &splits);
-  dim3 g((4 * H + tile - 1) / tile, (H + tile - 1) / tile, splits);
   if constexpr (tc) {
-    if ((err = prepare(drw_tc, DRW_TC_SMEM))) return err;
-    drw_tc<<<g, NT, DRW_TC_SMEM, st>>>(h, y, dx, drw, T, B, H, chunk);
+    return err;                 // bf16: dRW is lstm_scan_bwd_sm90.cu's
   } else {
+    if (err) return err;
+    int splits;
+    const long chunk = drw_chunk((long)T * B, H, DT, &splits);
+    dim3 g((4 * H + DT - 1) / DT, (H + DT - 1) / DT, splits);
     drw_f32<<<g, NT, 0, st>>>(h, y, dx, drw, T, B, H, chunk);
+    return (int)cudaGetLastError();
   }
-  return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -900,8 +803,9 @@ extern "C" int dl4j_lstm_scan_fwd(const void* xw, const void* rw,
   return (int)cudaErrorInvalidValue;
 }
 
-// The reverse sweep, then dRW. `drw` (H, 4H) fp32 must be zero on entry;
-// `rwt` is RW^T (4H, H), read by the fp32 sweep only.
+// The reverse sweep, then (fp32 only) dRW: `drw` (H, 4H) fp32 must be zero
+// on entry; in bf16 it is not read (dRW is lstm_scan_bwd_sm90.cu's
+// kernel). `rwt` is RW^T (4H, H), read by the fp32 sweep only.
 extern "C" int dl4j_lstm_scan_bwd(const void* xw, const void* rw,
                                   const void* rwt, const void* pi,
                                   const void* pf, const void* po,

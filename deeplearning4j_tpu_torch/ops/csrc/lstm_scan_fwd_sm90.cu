@@ -59,76 +59,23 @@
 // shared memory, 256 threads, one CTA an SM; the H100 holds 15 such
 // clusters at once (`dl4j_lstm_scan_fwd_clusters`), so B 8192 (64
 // clusters) runs in five waves of the whole sequence.
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-
-#include "sm90_common.cuh"
+#include "lstm_sm90.cuh"
 
 namespace {
 
-using namespace sm90;
-typedef __nv_bfloat16 bf16;
-
-constexpr int CL = 8;            // CTAs per cluster
-constexpr int BT = 128;          // batch rows per cluster
-constexpr int NT = 256;          // two warpgroups of 64 rows
-constexpr int TURN = 3;          // named barriers 3, 4: the cell's turns
+using namespace lstm90;
 
 template <int H>
-struct Cfg {
-  static constexpr int U = H / CL;                 // units per CTA
-  static constexpr int N = 4 * U;                  // gate columns per CTA
-  static constexpr int COLS = N < 64 ? N : 64;     // columns of a B box
-  static constexpr int RB = 2 * COLS;              // its row bytes
-  static constexpr int RW_BYTES = H * N * 2;
+struct Cfg : Slice<H> {
+  using S = Slice<H>;
   static constexpr int HT_BYTES = 64 * H * 2;      // a warpgroup's h tile
-  static constexpr int SLICE = 64 * U * 2;         // one CTA's units of it
-  static constexpr int H_OFF = RW_BYTES;           // h[buffer][warpgroup]
+  static constexpr int SLICE = 64 * S::U * 2;      // one CTA's units of it
+  static constexpr int H_OFF = S::RW_BYTES;        // h[buffer][warpgroup]
   static constexpr int C_OFF = H_OFF + 4 * HT_BYTES;  // c[parity][warpgroup]
   static constexpr int BAR_OFF = C_OFF + 4 * SLICE;
   static constexpr int SMEM = BAR_OFF + 4 * 8 + 1024;
-  static_assert(U % 8 == 0 && N <= 128 && RB >= 64, "wgmma shapes");
   static_assert(SMEM <= 232448, "one CTA's shared memory");
 };
-
-// 1 / (1 + e^-x) on the special-function unit (ex2, rcp: relative error a
-// few fp32 ulps, far under bf16's rounding of h and c)
-__device__ __forceinline__ float sigm(float x) {
-  return __fdividef(1.f, 1.f + __expf(-x));
-}
-
-// The unit at column p of a gate's block of the RW slice: accumulator
-// columns 8 a + 2 q + e (a < A8, e < 2) belong to the threads with lane % 4
-// == q, and hold units 2 A8 q + 2 a + e, 2 A8 consecutive units a thread.
-template <int A8>
-__device__ __forceinline__ int unit_of(int p) {
-  return 2 * A8 * ((p >> 1) & 3) + 2 * (p >> 3) + (p & 1);
-}
-
-// A8 words (4, 8 or 16 bytes, aligned) from global or to shared memory
-template <int A8>
-__device__ __forceinline__ void load_words(uint32_t (&x)[A8],
-                                           const void* src) {
-  if constexpr (A8 == 4) {
-    const uint4 v = __ldg(reinterpret_cast<const uint4*>(src));
-    x[0] = v.x, x[1] = v.y, x[2] = v.z, x[3] = v.w;
-  } else if constexpr (A8 == 2) {
-    const uint2 v = __ldg(reinterpret_cast<const uint2*>(src));
-    x[0] = v.x, x[1] = v.y;
-  } else {
-    x[0] = __ldg(reinterpret_cast<const unsigned int*>(src));
-  }
-}
-template <int A8>
-__device__ __forceinline__ void store_words(unsigned char* dst,
-                                            const uint32_t (&x)[A8]) {
-  if constexpr (A8 == 4)
-    *reinterpret_cast<uint4*>(dst) = make_uint4(x[0], x[1], x[2], x[3]);
-  else if constexpr (A8 == 2)
-    *reinterpret_cast<uint2*>(dst) = make_uint2(x[0], x[1]);
-  else
-    *reinterpret_cast<uint32_t*>(dst) = x[0];
-}
 
 // byte offset of (row r, unit k) in a 64-row h tile: core matrices of 8
 // rows x 8 units, 128 bytes each, 8-row groups 128 bytes apart, 8-unit
@@ -158,21 +105,8 @@ scan_fwd_cluster(const bf16* __restrict__ xw, const bf16* __restrict__ rw,
     for (int i = 0; i < 4; ++i) mbar_init(&hbar[i], 1);
     mbar_fence_init();
   }
-  // the RW slice: (k, n) with n = gate * U + p, boxes of COLS columns,
-  // rows of RB bytes swizzled at RB. Column p of a gate holds unit
-  // unit_of(p), so that the accumulator columns 8 a + 2 q + {0, 1} of the
-  // threads with lane % 4 == q are 2 A8 consecutive units: 4 bytes (a unit
-  // pair) a copy.
-  for (int q = tid; q < H * (N / 2); q += NT) {
-    const int k = q / (N / 2), n = 2 * (q % (N / 2));
-    const int g = n / U, pc = n % U;
-    const uint32_t v = *reinterpret_cast<const uint32_t*>(
-        rw + (long)k * 4 * H + g * H + u0 + unit_of<A8>(pc));
-    const int c = n % K::COLS;
-    *reinterpret_cast<uint32_t*>(
-        sm + (n / K::COLS) * H * K::RB + k * K::RB +
-        (((c >> 3) ^ swizzle_term<K::RB>(k)) << 4) + (c & 7) * 2) = v;
-  }
+  // the RW slice, columns permuted (lstm_sm90.cuh)
+  load_rw_slice<H, false>(sm, rw, u0);
   // h0 of the cluster's rows, all H units, into buffer 0 of each warpgroup
   for (int q = tid; q < BT * (H / 8); q += NT) {
     const int r = q / (H / 8), k = 8 * (q % (H / 8)), b = b0 + r;

@@ -22,9 +22,12 @@ H heads in the forward (query head h reads kv head h // (H / Hk)); the
 grouped backward raises, as in the JAX package: the layer repeats k/v to
 full heads before the call, so training never reaches it.
 
-Kernels (CUDA C++ for sm_90a in two sources, chosen by dtype in `_route`:
-bf16 inputs take `csrc/flash_attention_sm90.cu` (wgmma, TMA), fp32 inputs
-the CUDA-core kernels of `csrc/flash_attention.cu`):
+Kernels (CUDA C++ for sm_90a in two sources, chosen by dtype and head
+dim in `_route`: bf16 inputs at a kernel head dim up to 128 take
+`csrc/flash_attention_sm90.cu` (wgmma, TMA); fp32 inputs, and bf16 at
+192 and 256, the CUDA-core kernels of `csrc/flash_attention.cu` (bf16
+widened to fp32 before the launch, the outputs rounded back); each
+wrapper counts its launches per source in `.route_launches`):
 - K3 `flash_attention_fwd_cuda` replaces `_call_fwd` / `_fwd_kernel`;
 - K4 `flash_attention_bwd_cuda(..., bwd="fused")` replaces
   `_fused_bwd_kernel`: one kernel per key tile giving dk, dv and each
@@ -43,10 +46,10 @@ the kernels, as it is an XLA reduction in the JAX package.
 Head dims: the kernels are built for D in HEAD_DIMS; the wrappers zero-pad
 any smaller D to the next of them (`padded_fwd`, `padded_bwd`) and cut the
 outputs back, with the scale of the true D. Padded columns add 0 to every
-score and every output, so the result is exact. D > 128 raises.
+score and every output, so the result is exact. D > 256 raises.
 
 Left out of the port: the TPU tile arguments `bq`/`bk` (the CUDA kernels
-pick 64-row tiles), the (B*H, nk, T, D) dq-partials buffer and its byte
+pick their own tiles), the (B*H, nk, T, D) dq-partials buffer and its byte
 cap, and `dq_partials="io"`, which raises. DL4J_TPU_FLASH_DQ_PARTIALS and
 DL4J_TPU_FLASH_DQP_MAX_BYTES are not read.
 """
@@ -67,7 +70,8 @@ SOURCE = "flash_attention.cu"            # fp32 K3, K4 and K5
 SM90_SOURCE = "flash_attention_sm90.cu"  # bf16 K3, K4 and K5 (wgmma, TMA)
 SOURCES = (SOURCE, SM90_SOURCE)
 BWD_MODES = ("fused", "two_pass")
-HEAD_DIMS = (16, 32, 64, 128)         # head dims the kernels are built for
+HEAD_DIMS = (16, 32, 64, 128, 192, 256)   # head dims of the kernels
+SM90_HEAD_DIMS = (16, 32, 64, 128)        # ... of the wgmma kernels
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 2}
 
 _CONFIG = {"bwd": os.environ.get("DL4J_TPU_FLASH_BWD", "fused")}
@@ -280,13 +284,17 @@ def flash_attention(q, k, v, mask=None, causal: bool = False,
 
 
 # ------------------------------------------------------------------ kernels
-def _route(dtype: torch.dtype, kind: str) -> str:
+def _route(dtype: torch.dtype, kind: str, D: int) -> str:
     """The source whose kernel takes a launch: `kind` "fwd" (K3), "fused"
-    (K4) or "two_pass" (K5). bf16 runs on the wgmma kernels of
-    SM90_SOURCE, fp32 on SOURCE."""
+    (K4) or "two_pass" (K5), D the kernel head dim. bf16 up to D 128 runs
+    on the wgmma kernels of SM90_SOURCE; fp32, and bf16 at D 192 and 256
+    (widened to fp32), on SOURCE."""
     if kind not in ("fwd",) + BWD_MODES:
         raise ValueError(f"unknown flash kernel kind {kind!r}")
-    return SM90_SOURCE if dtype == torch.bfloat16 else SOURCE
+    if D not in HEAD_DIMS:
+        raise ValueError(f"no flash kernel at head dim {D} ({HEAD_DIMS})")
+    return SM90_SOURCE if dtype == torch.bfloat16 and D in SM90_HEAD_DIMS \
+        else SOURCE
 
 
 def _library(source: str):
@@ -345,7 +353,8 @@ def _kernel_head_dim(D: int) -> int:
         if D <= d:
             return d
     raise ValueError(f"head dim {D} > {HEAD_DIMS[-1]}: the flash-attention "
-                     "kernels hold at most 128 (ROADMAP queue 3)")
+                     f"kernels hold at most {HEAD_DIMS[-1]} (ROADMAP.md "
+                     "queue 3)")
 
 
 def _pad_d(t: torch.Tensor, Dp: int) -> torch.Tensor:
@@ -397,8 +406,8 @@ def _raise_on(error_string, err, what):
 def flash_attention_fwd_cuda(q, k, v, mask=None, causal: bool = False,
                              scale=None, window: int = 0):
     """K3 on CUDA tensors; same contract as `flash_fwd_plain`, any head
-    dim up to 128. Launches on the current stream without a sync; counted
-    in `.launches`."""
+    dim up to 256. Launches on the current stream without a sync; counted
+    in `.launches` and, per source, in `.route_launches`."""
     _check_cuda("flash_attention_fwd", q, k, v, mask)
     return padded_fwd(_fwd_launch, q, k, v, mask, causal, scale, window)
 
@@ -406,11 +415,13 @@ def flash_attention_fwd_cuda(q, k, v, mask=None, causal: bool = False,
 def _fwd_launch(q, k, v, mask, causal, scale, window):
     B, H, T, D = q.shape
     Hk = k.shape[1]
-    q, k, v = _aligned(q), _aligned(k), _aligned(v)
+    dtype = q.dtype
+    source = _route(dtype, "fwd", D)
+    wide = source == SOURCE and dtype != torch.float32
+    q, k, v = (_aligned(t.float() if wide else t) for t in (q, k, v))
     km = _key_mask(mask)
     o = torch.empty_like(q)
     lse = torch.empty((B, H, T), dtype=torch.float32, device=q.device)
-    source = _route(q.dtype, "fwd")
     lib = _library(source)
     args = (q.data_ptr(), k.data_ptr(), v.data_ptr(),
             None if km is None else km.data_ptr(), o.data_ptr(),
@@ -425,10 +436,12 @@ def _fwd_launch(q, k, v, mask, causal, scale, window):
                                  _scale(scale, D), stream)
         _raise_on(lib.dl4j_flash_error_string, err, "flash_attention_fwd")
     flash_attention_fwd_cuda.launches += 1
-    return o, lse
+    flash_attention_fwd_cuda.route_launches[source] += 1
+    return o.to(dtype), lse
 
 
 flash_attention_fwd_cuda.launches = 0
+flash_attention_fwd_cuda.route_launches = dict.fromkeys(SOURCES, 0)
 register_helper("flash_attention_fwd")(flash_attention_fwd_cuda)
 
 
@@ -439,8 +452,8 @@ def flash_attention_bwd_cuda(q, k, v, mask, o, lse, do, dlse=None,
     `flash_attention_bwd_cuda.fused_launches`) or K5 (bwd "two_pass": the
     dq kernel and the dk/dv kernel, counted in `.two_pass_launches`, two
     per call) on CUDA tensors; same contract as `flash_bwd_plain`, any
-    head dim up to 128. D_i is a torch reduction here, before the
-    launch."""
+    head dim up to 256. D_i is a torch reduction here, before the launch.
+    Calls are also counted per source in `.route_launches`."""
     bwd = _resolve_bwd(bwd)
     _check_cuda("flash_attention_bwd", q, k, v, mask, o, lse, do)
     _no_grouped_backward(q, k)
@@ -451,14 +464,16 @@ def flash_attention_bwd_cuda(q, k, v, mask, o, lse, do, dlse=None,
 def _bwd_launch(q, k, v, mask, o, lse, do, dlse, causal, scale, window,
                 bwd):
     B, H, T, D = q.shape
-    q, k, v = _aligned(q), _aligned(k), _aligned(v)
+    dtype = q.dtype
+    source = _route(dtype, bwd, D)
+    wide = source == SOURCE and dtype != torch.float32
+    q, k, v = (_aligned(t.float() if wide else t) for t in (q, k, v))
     do = _aligned(do.to(q.dtype))
     lse = lse.to(torch.float32).contiguous()
     di = _di(do, o, dlse, torch.float32).contiguous()
     km = _key_mask(mask)
     dq = torch.zeros((B, H, T, D), dtype=torch.float32, device=q.device)
     dk, dv = torch.empty_like(k), torch.empty_like(v)
-    source = _route(q.dtype, bwd)
     lib = _library(source)
     mode = 0 if bwd == "fused" else 1
     args = (q.data_ptr(), k.data_ptr(), v.data_ptr(),
@@ -481,9 +496,11 @@ def _bwd_launch(q, k, v, mask, o, lse, do, dlse, causal, scale, window,
         flash_attention_bwd_cuda.fused_launches += 1
     else:
         flash_attention_bwd_cuda.two_pass_launches += 2
-    return dq.to(q.dtype), dk, dv
+    flash_attention_bwd_cuda.route_launches[source] += 1
+    return dq.to(dtype), dk.to(dtype), dv.to(dtype)
 
 
 flash_attention_bwd_cuda.fused_launches = 0
 flash_attention_bwd_cuda.two_pass_launches = 0
+flash_attention_bwd_cuda.route_launches = dict.fromkeys(SOURCES, 0)
 register_helper("flash_attention_bwd")(flash_attention_bwd_cuda)

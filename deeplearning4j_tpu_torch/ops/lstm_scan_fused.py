@@ -32,13 +32,18 @@ nothing to any gradient):
 `graves_lstm_scan_pallas` (:379, call :411), `graves_lstm_scan_bwd_cuda`
 its backward (call :492): the reverse sweep, then a second kernel for dRW.
 The per-CTA peephole partials are summed in torch. Each counts its calls
-in `.launches`. The forward has two variants, chosen by
-`scan_fwd_variant(H, dtype)` before the launch: "cluster"
-(`csrc/lstm_scan_fwd_sm90.cu`: bf16 at a padded H of 64, 128 or 256, a
-cluster of 8 CTAs that keeps RW in shared memory and passes h between
-its CTAs through distributed shared memory; the char-RNN's H 256) and
+in `.launches`. Both directions have two variants, chosen by
+`scan_fwd_variant(H, dtype)` and `scan_bwd_variant(H, dtype)` before the
+launch: "cluster" (bf16 at a padded H of 64, 128 or 256, a cluster of 8
+CTAs that keeps RW in shared memory and passes h, or the partial sums of
+dh, between its CTAs through distributed shared memory; the char-RNN's
+H 256: `csrc/lstm_scan_fwd_sm90.cu`, `csrc/lstm_scan_bwd_sm90.cu`) and
 "tile" (`lstm_scan.cu`: every other H, and fp32); each counts its
-launches in `graves_lstm_scan_fwd_cuda.variant_launches`.
+launches in `.variant_launches` of its wrapper. In bf16, dRW of either
+sweep is the wgmma kernel of `lstm_scan_bwd_sm90.cu`: each (output tile,
+row chunk) writes an fp32 partial, and `reduce_drw_partials` sums the
+chunks in order, so dRW repeats bit for bit; fp32 keeps `lstm_scan.cu`'s
+split-K kernel, whose chunks meet through atomics.
 
 `configure(gate_math=...)`: "fp32" is the only mode; "native" (bf16 gate
 math) raises NotImplementedError (ROADMAP queue 2). `grid` and `k_steps`
@@ -62,12 +67,15 @@ from deeplearning4j_tpu_torch.ops.helpers import helper_for, register_helper
 
 SOURCE = "lstm_scan.cu"
 SM90_SOURCE = "lstm_scan_fwd_sm90.cu"
-SOURCES = (SOURCE, SM90_SOURCE)
+BWD_SM90_SOURCE = "lstm_scan_bwd_sm90.cu"
+SOURCES = (SOURCE, SM90_SOURCE, BWD_SM90_SOURCE)
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 2}
 # H (padded) of the cluster forward: H / 8 units per CTA, a multiple of 8,
 # and its RW slice (8 H^2 / 8 bytes) with the h buffers in shared memory
 CLUSTER_FWD_H = (64, 128, 256)
+CLUSTER_ROWS = 128          # batch rows of a cluster
 FWD_VARIANTS = ("cluster", "tile")
+BWD_VARIANTS = FWD_VARIANTS
 
 
 def configure(gate_math: Optional[str] = None, grid=None, k_steps=None):
@@ -225,6 +233,28 @@ def _cluster_library():
     return lib
 
 
+def _bwd_library():
+    lib = build.load(BWD_SM90_SOURCE)
+    if lib.dl4j_lstm_scan_bwd_cluster.argtypes is None:
+        # xw, rw, pi, pf, po, h0, c0, ys, cs, dys, dcs, dxw, dh0, dc0,
+        # dp_part, T, B, H, stream
+        lib.dl4j_lstm_scan_bwd_cluster.argtypes = [ctypes.c_void_p] * 15 + [
+            ctypes.c_int] * 3 + [ctypes.c_void_p]
+        # h0, ys, dxw, slab, T, B, H, chunks, stream
+        lib.dl4j_lstm_drw_sm90.argtypes = [ctypes.c_void_p] * 4 + [
+            ctypes.c_int] * 4 + [ctypes.c_void_p]
+        lib.dl4j_lstm_drw_chunks.argtypes = [ctypes.c_int] * 3
+        lib.dl4j_lstm_scan_bwd_clusters.argtypes = [ctypes.c_int]
+        lib.dl4j_lstm_scan_bwd_cluster_smem.argtypes = [ctypes.c_int]
+        for fn in (lib.dl4j_lstm_scan_bwd_cluster, lib.dl4j_lstm_drw_sm90,
+                   lib.dl4j_lstm_drw_chunks, lib.dl4j_lstm_scan_bwd_clusters,
+                   lib.dl4j_lstm_scan_bwd_cluster_smem):
+            fn.restype = ctypes.c_int
+        lib.dl4j_lstm_scan_bwd_error_string.argtypes = [ctypes.c_int]
+        lib.dl4j_lstm_scan_bwd_error_string.restype = ctypes.c_char_p
+    return lib
+
+
 def _padded(H: int) -> int:
     return -(-H // 16) * 16
 
@@ -235,6 +265,27 @@ def scan_fwd_variant(H: int, dtype: torch.dtype) -> str:
     "tile". Read before the launch; neither falls back to the other."""
     return ("cluster" if dtype == torch.bfloat16
             and _padded(H) in CLUSTER_FWD_H else "tile")
+
+
+def scan_bwd_variant(H: int, dtype: torch.dtype) -> str:
+    """Which kernel runs K7's backward sweep for a layer of H units in
+    `dtype` on the card: the same rule as the forward's, "cluster" for
+    bf16 at a padded H of 64, 128 or 256, else "tile". Read before the
+    launch; neither falls back to the other."""
+    return scan_fwd_variant(H, dtype)
+
+
+def reduce_drw_partials(slab: torch.Tensor) -> torch.Tensor:
+    """dRW from the bf16 dRW kernel's (chunks, H, 4H) fp32 partials, summed
+    in place by a pairwise tree in a fixed order (chunk z takes chunk z +
+    n - n // 2 while n > 1 chunks are left), whatever ran first on the
+    card: ceil(log2(chunks)) adds."""
+    n = slab.shape[0]
+    while n > 1:
+        half = n // 2
+        slab[:half] += slab[n - half:n]
+        n -= half
+    return slab[0]
 
 
 def scan_fits(H: int, dtype: torch.dtype, device) -> bool:
@@ -337,11 +388,13 @@ def _check(what, bwd, xw, rw, *state):
     return T, B, H, lib
 
 
-def _launch(lib, fn, what, *args):
+def _launch(fn, error_string, what, *args):
+    """Call a library entry point; raise with the library's message for a
+    non-zero return."""
     err = fn(*args)
     if err != 0:
         raise RuntimeError(f"{what} launch failed: "
-                           f"{lib.dl4j_lstm_scan_error_string(err).decode()}")
+                           f"{error_string(err).decode()}")
 
 
 def graves_lstm_scan_fwd_cuda(xw, rw, pi, pf, po, h0, c0):
@@ -368,23 +421,22 @@ def _scan_fwd_launch(xw, rw, pi, pf, po, h0, c0):
     stream = torch.cuda.current_stream(xw.device).cuda_stream
     if variant == "cluster":
         clib = _cluster_library()
-        err = clib.dl4j_lstm_scan_fwd_cluster(*ptrs, stream)
-        if err != 0:
-            raise RuntimeError(
-                "graves_lstm_scan_fwd (cluster) launch failed: "
-                f"{clib.dl4j_lstm_scan_fwd_cluster_error_string(err).decode()}")
+        _launch(clib.dl4j_lstm_scan_fwd_cluster,
+                clib.dl4j_lstm_scan_fwd_cluster_error_string,
+                "graves_lstm_scan_fwd (cluster)", *ptrs, stream)
     else:
-        _launch(lib, lib.dl4j_lstm_scan_fwd, "graves_lstm_scan_fwd", *ptrs,
-                _DTYPE_CODE[xw.dtype], stream)
+        _launch(lib.dl4j_lstm_scan_fwd, lib.dl4j_lstm_scan_error_string,
+                "graves_lstm_scan_fwd", *ptrs, _DTYPE_CODE[xw.dtype], stream)
     graves_lstm_scan_fwd_cuda.launches += 1
     graves_lstm_scan_fwd_cuda.variant_launches[variant] += 1
     return ys, cs
 
 
 def graves_lstm_scan_bwd_cuda(xw, rw, pi, pf, po, h0, c0, ys, cs, dys, dcs):
-    """K7 backward on CUDA tensors (the reverse sweep and the dRW kernel);
-    same contract as `graves_lstm_scan_bwd_plain`, any H whose padded tile
-    fits."""
+    """K7 backward on CUDA tensors (the reverse sweep of the variant
+    `scan_bwd_variant` names, then the dRW kernel); same contract as
+    `graves_lstm_scan_bwd_plain`, any H whose padded tile fits. Counted in
+    `.launches` and `.variant_launches` once both kernels launched."""
     _on_card("graves_lstm_scan_bwd", xw)
     dt = xw.dtype
     return padded_scan_bwd(_scan_bwd_launch, xw, rw, pi, pf, po,
@@ -396,26 +448,51 @@ def _scan_bwd_launch(xw, rw, pi, pf, po, h0, c0, ys, cs, dys, dcs):
     dt = xw.dtype
     T, B, H, lib = _check("graves_lstm_scan_bwd", True, xw, rw, pi, pf, po,
                           h0, c0, ys, cs, dys, dcs)
-    # h0, ys and dxw are read 16 bytes at a time by the dRW kernel
-    xw, rw, h0, ys = (_aligned(t) for t in (xw, rw, h0, ys))
+    variant = scan_bwd_variant(H, dt)
+    # the cluster sweep and the dRW kernels read h0, ys, cs, dys, dcs and
+    # xw 16 bytes at a time (dRW by TMA)
+    xw, rw, h0, c0, ys, cs, dys, dcs = (
+        _aligned(t) for t in (xw, rw, h0, c0, ys, cs, dys, dcs))
     rwt = rw.t().contiguous() if dt == torch.float32 else None
-    pi, pf, po, c0, cs, dys, dcs = (
-        t.contiguous() for t in (pi, pf, po, c0, cs, dys, dcs))
+    pi, pf, po = (t.contiguous() for t in (pi, pf, po))
     dxw = torch.empty_like(xw)
     dh0, dc0 = torch.empty_like(h0), torch.empty_like(c0)
-    tile = lib.dl4j_lstm_scan_tile(H, _DTYPE_CODE[dt], 1)
+    stream = torch.cuda.current_stream(xw.device).cuda_stream
+    tile = CLUSTER_ROWS if variant == "cluster" else lib.dl4j_lstm_scan_tile(
+        H, _DTYPE_CODE[dt], 1)
     dp = torch.empty((-(-B // tile), 3, H), dtype=torch.float32,
                      device=xw.device)
-    drw = torch.zeros((H, 4 * H), dtype=torch.float32, device=xw.device)
-    _launch(lib, lib.dl4j_lstm_scan_bwd, "graves_lstm_scan_bwd",
-            xw.data_ptr(), rw.data_ptr(),
-            None if rwt is None else rwt.data_ptr(), pi.data_ptr(),
-            pf.data_ptr(), po.data_ptr(), h0.data_ptr(), c0.data_ptr(),
-            ys.data_ptr(), cs.data_ptr(), dys.data_ptr(), dcs.data_ptr(),
-            dxw.data_ptr(), dh0.data_ptr(), dc0.data_ptr(), dp.data_ptr(),
-            drw.data_ptr(), T, B, H, _DTYPE_CODE[dt],
-            torch.cuda.current_stream(xw.device).cuda_stream)
+    ins = (xw.data_ptr(), rw.data_ptr(), pi.data_ptr(), pf.data_ptr(),
+           po.data_ptr(), h0.data_ptr(), c0.data_ptr(), ys.data_ptr(),
+           cs.data_ptr(), dys.data_ptr(), dcs.data_ptr())
+    outs = (dxw.data_ptr(), dh0.data_ptr(), dc0.data_ptr(), dp.data_ptr())
+    # fp32: the tile sweep, then its split-K dRW into a zeroed buffer;
+    # bf16: either sweep, then the wgmma dRW's chunk partials
+    drw = torch.zeros((H, 4 * H), dtype=torch.float32, device=xw.device) \
+        if dt == torch.float32 else None
+    if variant == "cluster":
+        blib = _bwd_library()
+        _launch(blib.dl4j_lstm_scan_bwd_cluster,
+                blib.dl4j_lstm_scan_bwd_error_string,
+                "graves_lstm_scan_bwd (cluster sweep)", *ins, *outs, T, B, H,
+                stream)
+    else:
+        _launch(lib.dl4j_lstm_scan_bwd, lib.dl4j_lstm_scan_error_string,
+                "graves_lstm_scan_bwd", ins[0], ins[1],
+                None if rwt is None else rwt.data_ptr(), *ins[2:], *outs,
+                None if drw is None else drw.data_ptr(), T, B, H,
+                _DTYPE_CODE[dt], stream)
+    if drw is None:
+        blib = _bwd_library()
+        chunks = blib.dl4j_lstm_drw_chunks(T, B, H)
+        slab = torch.empty((chunks, H, 4 * H), dtype=torch.float32,
+                           device=xw.device)
+        _launch(blib.dl4j_lstm_drw_sm90, blib.dl4j_lstm_scan_bwd_error_string,
+                "graves_lstm_scan_bwd (dRW)", h0.data_ptr(), ys.data_ptr(),
+                dxw.data_ptr(), slab.data_ptr(), T, B, H, chunks, stream)
+        drw = reduce_drw_partials(slab)
     graves_lstm_scan_bwd_cuda.launches += 1
+    graves_lstm_scan_bwd_cuda.variant_launches[variant] += 1
     dp = dp.sum(0)                          # (3, H) fp32, over the CTAs
     return (dxw, drw.to(rw.dtype), dp[0].to(pi.dtype), dp[1].to(pf.dtype),
             dp[2].to(po.dtype), dh0, dc0)
@@ -424,5 +501,6 @@ def _scan_bwd_launch(xw, rw, pi, pf, po, h0, c0, ys, cs, dys, dcs):
 graves_lstm_scan_fwd_cuda.launches = 0
 graves_lstm_scan_fwd_cuda.variant_launches = dict.fromkeys(FWD_VARIANTS, 0)
 graves_lstm_scan_bwd_cuda.launches = 0
+graves_lstm_scan_bwd_cuda.variant_launches = dict.fromkeys(BWD_VARIANTS, 0)
 register_helper("graves_lstm_scan_fwd")(graves_lstm_scan_fwd_cuda)
 register_helper("graves_lstm_scan_bwd")(graves_lstm_scan_bwd_cuda)

@@ -218,8 +218,8 @@ def test_head_dim_padding_is_exact(D, Dp):
     for g, r in zip(got, ref):
         assert g.shape == r.shape
         torch.testing.assert_close(g, r, rtol=0, atol=ATOL)
-    with pytest.raises(ValueError, match="> 128"):
-        tfa._kernel_head_dim(160)
+    with pytest.raises(ValueError, match="> 256.*queue 3"):
+        tfa._kernel_head_dim(257)
 
 
 # ------------------------------------------------ the route to the kernels
@@ -232,11 +232,12 @@ def test_head_dim_padding_is_exact(D, Dp):
     (torch.float32, "fused", tfa.SOURCE),
 ])
 def test_route_by_dtype_and_mode(dtype, kind, source):
-    """bf16 K3, K4 and K5 take the wgmma kernels; fp32 the others."""
-    assert tfa._route(dtype, kind) == source
+    """bf16 K3, K4 and K5 take the wgmma kernels (up to D 128); fp32 the
+    others."""
+    assert tfa._route(dtype, kind, 16) == source
     assert source in tfa.SOURCES
     with pytest.raises(ValueError):
-        tfa._route(dtype, "three_pass")
+        tfa._route(dtype, "three_pass", 16)
 
 
 class _FakeFn:
@@ -288,7 +289,7 @@ def test_forward_launch_reaches_its_kernel(fake_lib, dtype):
     assert tfa.flash_attention_fwd_cuda.launches == before + 1
     assert o.shape == q.shape and o.dtype == dtype
     assert lse.shape == (2, 4, 21) and lse.dtype == torch.float32
-    source = tfa._route(dtype, "fwd")
+    source = tfa._route(dtype, "fwd", 16)
     lib = fake_lib[source]
     ((name, args),) = lib.log
     fn = getattr(lib, name)
@@ -320,12 +321,12 @@ def test_backward_launch_reaches_its_kernel(fake_lib, dtype, mode):
     assert (tfa.flash_attention_bwd_cuda.fused_launches,
             tfa.flash_attention_bwd_cuda.two_pass_launches) == (
         counts[0] + (not two), counts[1] + 2 * two)
-    lib = fake_lib[tfa._route(dtype, mode)]
+    lib = fake_lib[tfa._route(dtype, mode, 16)]
     ((name, args),) = lib.log
     assert len(args) == len(getattr(lib, name).argtypes)
     assert args[10:16] == (2, 4, 21, 16, 0, 0)
     assert args[-1] == 77 and args[-2] == 0.5
-    if tfa._route(dtype, mode) == tfa.SM90_SOURCE:
+    if tfa._route(dtype, mode, 16) == tfa.SM90_SOURCE:
         assert name == ("dl4j_flash_sm90_bwd" if two
                         else "dl4j_flash_sm90_bwd_fused")
     else:
