@@ -22,7 +22,12 @@ Phases, each printing one JSON line; any failure exits non-zero:
               UTMASTG, UBLKCP, cluster-barrier, LDGSTS and STAS (st.async)
               counts and the clusters the card holds at once; fails on no
               HGMMA, an atomic or a reduction, or a spill at a main-path
-              shape (K7 at H 256, the dRW kernel).
+              shape (K7 at H 256, the dRW kernel). And K1/K2's twelve
+              instances (q dtype x pool dtype x 16-byte rows): registers,
+              spills, HMMA, LDSM, LDGSTS, atomics and reductions; fails when
+              a tensor-core instance has no HMMA, a 16-byte-row instance no
+              LDGSTS, an instance no atomic (its ticket) or a reduction, or
+              a served instance spills.
 2a. kernel_conv1x1 - K10 (the 1x1 conv with per-channel sums) against its
               plain version: fp32 and bf16, B 1/3/256, channels drawn from
               {8, 64, 256, 1024, 2048}, P 1/16/49/81/196/200/784, one case
@@ -182,30 +187,35 @@ Phases, each printing one JSON line; any failure exits non-zero:
               dense plain versions on the same inputs, each against fp64;
               losses within 1e-4 of each other, every gradient of the
               kernel path within twice the dense path's own error.
-11a. flash_head_dims - K3, K4 and K5 at B*H 16, T 8192, bf16, causal,
-              D 128 (wgmma) and D 256 (CUDA-core kernels, bf16 widened):
-              CUDA-event times beside scaled_dot_product_attention forward
-              and backward, bounds, the source each took; K3 at D 256
-              against the plain version. A head-dim-256 stack
+11a. flash_head_dims - K3, K4 and K5 at B*H 16, bf16, causal, D 128
+              (wgmma) and D 256 at T 8192 and D 512 at T 1024 (CUDA-core
+              kernels, bf16 widened): CUDA-event times beside
+              scaled_dot_product_attention forward and backward, bounds,
+              the source each took; K3 at D 256 and 512 against the plain
+              version; K3, K4 and K5 at D 512, T 1024 in bf16 and fp32
+              against the plain versions. A head-dim-256 stack
               (SelfAttentionLayer(512, 2 heads, block 256) +
               RnnOutputLayer(16), T 1024, batch 2): fp32 gradient_and_score
               through the kernels against the dense plain versions in
               fp64 (1e-4), two bf16 fit steps through the kernels (1 K3 +
-              1 K4 each, on flash_attention.cu); D 257 must raise naming
+              1 K4 each, on flash_attention.cu); D 513 must raise naming
               ROADMAP.md queue 3.
 12. kernel  - each kernel against its plain PyTorch version on the card,
               then timed at the served shape (device time by CUDA-graph
-              replay, kernel alone and with the merge; the eager call; the
-              plain version):
+              replay, with the merge in the launch and with it off; the
+              eager call; the plain version):
               K1 (paged decode): fp32, bf16, and an int8 pool with fp32
-              and with bf16 queries; GQA groups 1/2/4; windows 0/64; block
-              sizes 8/16; ragged visible lengths; shuffled block tables
-              with trash entries; then the served shape with the bf16 pool
-              and with the int8 pool (bf16 queries, as the serves run).
+              and with bf16 queries; head dims 64/128; GQA groups 1/2/4;
+              windows 0/64; block sizes 8/16/32; ragged visible lengths;
+              shuffled block tables with trash entries; each case's
+              partials (merge off) against paged_partials_plain at the same
+              plan, and two calls bit for bit; then the served shape with
+              the bf16 pool and with the int8 pool (bf16 queries, as the
+              serves run): one launch a call, the plan, each pool timed.
               K2 (multi-query paged decode, "kernel_spec"): the same sweep
               with Q = 2/3/5/9 queries per slot, and each row i of K2
               against K1 at visible + i on the same pool; then the served
-              shape at Q = 2/3/5 with both pools.
+              shape at Q = 2/3/5 with both pools, timed in full at Q 5.
               K6 (contiguous split-K decode with its merge in the launch,
               "kernel_contiguous"): fp32 and bf16, cache lengths 1024,
               320 and 300 (ragged last partitions), head dims 64 and 128,
@@ -388,179 +398,249 @@ def served_shape():
             MAX_LEN // 16, [MAX_LEN * 3 // 4 - 3 * s for s in range(MAX_SEQS)])
 
 
+PAGED_BS, PAGED_D = (8, 16, 32), (64, 128)
+
+
+def paged_check(torch, da, fn, parts_fn, args, sc, tol, what):
+    """One K1 or K2 case: the call against the plain version, its
+    partials (merge off) against the plain split of the same plan, and a
+    second call bit for bit. Returns (output, err, partials err)."""
+    out = fn(*args, **sc)
+    again = fn(*args, **sc)
+    ref = (da.decode_attention_dense_paged if fn is
+           da.flash_decode_attention_paged else
+           da.decode_attention_dense_spec_paged)(*args, **sc)
+    parts = parts_fn(*args, **sc)
+    bs, D = args[1].shape[1], args[1].shape[3]
+    plan = da.paged_partition(bs, D, args[0].element_size(),
+                              args[1].element_size())
+    pref = da.paged_partials_plain(*args, **sc, plan=plan)
+    torch.cuda.synchronize()
+    err = (out.float() - ref.float()).abs().max().item()
+    perr = max(max_err(a, b) for a, b in zip(parts, pref))
+    if not (math.isfinite(err) and err <= tol and perr <= tol):
+        fail(f"{what}: max abs err {err}, partials {perr} > {tol}")
+    if not torch.equal(out, again):
+        fail(f"{what}: two calls on the same inputs differ")
+    return out, err, perr
+
+
+def paged_plan(da, lib, S, Hk, bs, bps, D, q_elt, kv_elt, visible, Q=1):
+    """K1/K2's plan for one call: blocks per partition, partitions per
+    (slot, kv head), CTAs launched and CTAs with work, shared memory per
+    CTA (the wrapper's rule and the kernel's own count, which must
+    agree)."""
+    bpp = da.paged_partition(bs, D, q_elt, kv_elt)
+    smem = da.paged_smem_bytes(bs, bpp, D, q_elt, kv_elt)
+    smem_kernel = lib.dl4j_flash_decode_paged_smem(bs, bpp, D, q_elt, kv_elt)
+    if smem != smem_kernel:
+        fail(f"K1/K2 shared memory: wrapper {smem} B, kernel {smem_kernel} B")
+    P, np_ = bpp * bs, -(-bps // bpp)
+    busy = sum(Hk * -(-min(v + Q - 1, bps * bs) // P) for v in visible)
+    return {"blocks_per_partition": bpp, "positions": P, "partitions": np_,
+            "ctas": S * Hk * np_, "busy_ctas": busy, "smem": smem}
+
+
+def paged_bound(S, Q, Hk, G, D, bs, bps, visible, q_elt, kv_elt):
+    """Least work of one K1 (Q = 1) or K2 call: q read and the output
+    written in q's dtype, the K/V blocks any query can see read once in
+    the pool's (with two fp32 scales a block and kv head for an int8
+    pool), block table and lengths read; QK and PV over every (query,
+    visible position), on the tensor cores for 2-byte queries."""
+    blocks = sum(-(-(v + Q - 1) // bs) for v in visible)
+    nbytes = (S * Q * Hk * G * D * q_elt * 2
+              + blocks * bs * Hk * D * kv_elt * 2
+              + (blocks * Hk * 8 if kv_elt == 1 else 0)
+              + S * bps * 4 + S * 4)
+    ops = 4 * sum(v + i for v in visible for i in range(Q)) * Hk * G * D
+    rate = BF16_OPS_PER_S if q_elt == 2 else FP32_OPS_PER_S
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / rate
+    return nbytes, ops, max(t_bytes, t_ops) * 1e3, \
+        ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def paged_timed(torch, da, lib, Q, kind, seed):
+    """The served shape with the bf16 pool or the int8 pool (bf16 queries,
+    as the serves run): the call against the plain version, then the call
+    (merge in) and the kernel with the merge off by CUDA-graph replay, the
+    eager call, the plain version, launches a call, the plan and the
+    bound."""
+    S, Hk, G, D, bs, bps, visible = served_shape()
+    quant = SWEEP[kind][1]
+    a, sc = paged_case(torch, S, Hk, G, D, bs, bps, 0, torch.bfloat16, quant,
+                       seed=seed, visible=visible,
+                       Q=None if Q == 1 else Q)
+    k1 = Q == 1
+    fn = da.flash_decode_attention_paged if k1 \
+        else da.flash_decode_attention_spec_paged
+    parts = da.flash_decode_partials if k1 else da.flash_decode_spec_partials
+    plain = da.decode_attention_dense_paged if k1 \
+        else da.decode_attention_dense_spec_paged
+    _, err, perr = paged_check(
+        torch, da, fn, parts, a, sc, SWEEP[kind][2],
+        f"K{1 if k1 else 2} at the served shape, {kind} Q={Q}")
+    torch.cuda.synchronize()
+    before = fn.launches
+    fn(*a, **sc)
+    if fn.launches - before != 1:
+        fail(f"K{1 if k1 else 2}: {fn.launches - before} launches a call")
+    kv_elt = a[1].element_size()
+    nbytes, ops, bound_ms, bound_by = paged_bound(S, Q, Hk, G, D, bs, bps,
+                                                  visible, 2, kv_elt)
+    return {"max_abs_err": err, "partials_max_abs_err": perr,
+            "ms": graph_ms(torch, lambda: fn(*a, **sc)),
+            "kernel_only_ms": graph_ms(torch, lambda: parts(*a, **sc)),
+            "eager_ms": time_ms(torch, lambda: fn(*a, **sc)),
+            "plain_ms": graph_ms(torch, lambda: plain(*a, **sc)),
+            "eager_plain_ms": time_ms(torch, lambda: plain(*a, **sc),
+                                      iters=50),
+            "launches_per_call": 1,
+            "plan": paged_plan(da, lib, S, Hk, bs, bps, D, 2, kv_elt,
+                               visible, Q),
+            "bound_ms": bound_ms, "bound_by": bound_by, "bytes": nbytes,
+            "ops": ops}, a
+
+
 def phase_kernel(torch):
+    """K1 against its plain version over the sweep (each case's partials
+    with the merge off against the plain split of the same plan, and two
+    calls bit for bit), then timed at the served shape with the bf16 and
+    the int8 pool."""
     from deeplearning4j_tpu_torch.ops import decode_attention as da
+    lib = da._library()
     tol = {k: t for k, (_, _, t) in SWEEP.items()}
-    worst = {}
+    worst, worst_p = {}, {}
     n_cases = 0
     for kind, (qt, quant, _) in SWEEP.items():
         dtype = getattr(torch, qt)
-        for G in (1, 2, 4):
-            for window in (0, 64):
-                for bs in (8, 16):
-                    args, sc = paged_case(torch, 6, 2, G, 64, bs, 12, window,
-                                          dtype, quant, seed=n_cases)
-                    out = da.flash_decode_attention_paged(*args, **sc)
-                    ref = da.decode_attention_dense_paged(*args, **sc)
-                    torch.cuda.synchronize()
-                    err = (out.float() - ref.float()).abs().max().item()
-                    if not math.isfinite(err) or err > tol[kind]:
-                        fail(f"kernel vs plain: {kind} G={G} window={window} "
-                             f"bs={bs}: max abs err {err} > {tol[kind]}")
-                    worst[kind] = max(worst.get(kind, 0.0), err)
-                    n_cases += 1
-    # the served shape, with the bf16 pool of the float serve and the int8
-    # pool of the int8 serve, bf16 queries both
+        for D in PAGED_D:
+            for G in (1, 2, 4):
+                for window in (0, 64):
+                    for bs in PAGED_BS:
+                        args, sc = paged_case(torch, 6, 2, G, D, bs, 12,
+                                              window, dtype, quant,
+                                              seed=n_cases)
+                        _, err, perr = paged_check(
+                            torch, da, da.flash_decode_attention_paged,
+                            da.flash_decode_partials, args, sc, tol[kind],
+                            f"kernel vs plain: {kind} D={D} G={G} "
+                            f"window={window} bs={bs}")
+                        worst[kind] = max(worst.get(kind, 0.0), err)
+                        worst_p[kind] = max(worst_p.get(kind, 0.0), perr)
+                        n_cases += 1
     S, Hk, G, D, bs, bps, visible = served_shape()
-    served = {}
+    timed = {}
     for kind in ("bfloat16", "int8_bf16q"):
-        a, sc = paged_case(torch, S, Hk, G, D, bs, bps, 0, torch.bfloat16,
-                           SWEEP[kind][1], seed=1234, visible=visible)
-        out = da.flash_decode_attention_paged(*a, **sc)
-        ref = da.decode_attention_dense_paged(*a, **sc)
-        served[kind] = (out.float() - ref.float()).abs().max().item()
-        if not served[kind] <= tol[kind]:
-            fail(f"kernel vs plain at the served shape, {kind}: "
-                 f"{served[kind]} > {tol[kind]}")
-        if kind == "bfloat16":
-            args = a
-    # device time per call (CUDA-graph replay) and the eager call's time,
-    # which the host's launch overhead dominates at this size
-    ms = graph_ms(torch, lambda: da.flash_decode_attention_paged(*args))
-    plain_ms = graph_ms(torch,
-                        lambda: da.decode_attention_dense_paged(*args))
-    kernel_only_ms = graph_ms(torch, lambda: da.flash_decode_partials(*args))
-    eager_ms = time_ms(torch, lambda: da.flash_decode_attention_paged(*args))
-    eager_plain_ms = time_ms(
-        torch, lambda: da.decode_attention_dense_paged(*args), iters=50)
-    # least work this call needs: q read, the visible K/V blocks read once,
-    # block table + lengths read, output written; two matmul-shaped
-    # contractions over the visible positions
-    elt = 2
-    blocks = sum(-(-v // bs) for v in visible)
-    nbytes = (S * Hk * G * D * elt * 2 + blocks * bs * Hk * D * elt * 2
-              + S * bps * 4 + S * 4)
-    ops = 4 * sum(visible) * Hk * G * D
-    bound_ms = max(nbytes / HBM_BYTES_PER_S, ops / FP32_OPS_PER_S) * 1e3
-    bound_by = "bytes" if nbytes / HBM_BYTES_PER_S >= ops / FP32_OPS_PER_S \
-        else "operations"
+        timed[kind], a = paged_timed(torch, da, lib, 1, kind, seed=1234)
+    bf = timed["bfloat16"]
     res = {"phase": "kernel", "cases": n_cases,
-           "max_abs_err": {k: v for k, v in worst.items()},
+           "max_abs_err": worst, "partials_max_abs_err": worst_p,
            "tolerance": tol, "served_shape": {
                "S": S, "H": Hk * G, "Hk": Hk, "D": D, "bs": bs, "bps": bps,
                "visible": visible, "dtype": "bfloat16"},
-           "served_max_abs_err": served, "ms": ms, "plain_ms": plain_ms,
-           "kernel_only_ms": kernel_only_ms, "eager_ms": eager_ms,
-           "eager_plain_ms": eager_plain_ms,
-           "bound_ms": bound_ms, "bound_by": bound_by,
-           "bytes": nbytes, "ops": ops}
+           "served_max_abs_err": {k: v["max_abs_err"]
+                                  for k, v in timed.items()},
+           "timed": timed}
+    res.update({k: bf[k] for k in (
+        "ms", "plain_ms", "kernel_only_ms", "eager_ms", "eager_plain_ms",
+        "bound_ms", "bound_by", "bytes", "ops", "plan")})
     emit(res)
     return res
 
 
-def spec_bound(S, Q, Hk, G, D, bs, bps, visible, elt):
-    """Least work of one K2 call: q read, the K/V blocks any query can see
-    read once, block table + lengths read, output written; QK and PV over
-    every (query, visible position)."""
-    blocks = sum(-(-(v + Q - 1) // bs) for v in visible)
-    nbytes = (S * Q * Hk * G * D * elt * 2 + blocks * bs * Hk * D * elt * 2
-              + S * bps * 4 + S * 4)
-    ops = 4 * sum(v + i for v in visible for i in range(Q)) * Hk * G * D
-    return nbytes, ops
-
-
-def bound_of(nbytes, ops):
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / FP32_OPS_PER_S
-    return max(t_bytes, t_ops) * 1e3, \
-        ("bytes" if t_bytes >= t_ops else "operations")
-
-
 def phase_kernel_spec(torch):
     """K2 against its plain version over the sweep, each row i against K1
-    at visible + i, then timed at the served shape of the spec serve."""
+    at visible + i, the partials (merge off) against the plain split of
+    the same plan and two calls bit for bit; then timed at the served
+    shape of the spec serve with the bf16 and the int8 pool."""
     from deeplearning4j_tpu_torch.ops import decode_attention as da
+    lib = da._library()
     tol = {k: t for k, (_, _, t) in SWEEP.items()}
-    worst, worst_row = {}, {}
+    worst, worst_row, worst_p = {}, {}, {}
     n_cases = 0
     for kind, (qt, quant, _) in SWEEP.items():
         dtype = getattr(torch, qt)
         for Q in (2, 3, 5, 9):
-            for G in (1, 2, 4):
-                for window in (0, 64):
-                    for bs in (8, 16):
-                        args, sc = paged_case(torch, 6, 2, G, 64, bs, 12,
-                                              window, dtype, quant,
-                                              seed=5000 + n_cases, Q=Q)
-                        out = da.flash_decode_attention_spec_paged(*args,
-                                                                   **sc)
-                        ref = da.decode_attention_dense_spec_paged(*args,
-                                                                   **sc)
-                        q, kp, vp, bt, vis, scale, w = args
-                        rows = torch.stack([da.flash_decode_attention_paged(
-                            q[:, i], kp, vp, bt, vis + i, scale, w, **sc)
-                            for i in range(Q)], dim=1)
-                        torch.cuda.synchronize()
-                        err = (out.float() - ref.float()).abs().max().item()
-                        row_err = (out.float() - rows.float()).abs().max() \
-                            .item()
-                        if not math.isfinite(err) or err > tol[kind] \
-                                or not row_err <= tol[kind]:
-                            fail(f"K2 vs plain / vs K1 rows: {kind} Q={Q} "
-                                 f"G={G} window={window} bs={bs}: max abs "
-                                 f"err {err}, {row_err} > {tol[kind]}")
-                        worst[kind] = max(worst.get(kind, 0.0), err)
-                        worst_row[kind] = max(worst_row.get(kind, 0.0),
-                                              row_err)
-                        n_cases += 1
+            for D in PAGED_D:
+                for G in (1, 2, 4):
+                    for window in (0, 64):
+                        for bs in PAGED_BS:
+                            args, sc = paged_case(
+                                torch, 6, 2, G, D, bs, 12, window, dtype,
+                                quant, seed=5000 + n_cases, Q=Q)
+                            what = (f"K2 vs plain: {kind} Q={Q} D={D} G={G} "
+                                    f"window={window} bs={bs}")
+                            out, err, perr = paged_check(
+                                torch, da,
+                                da.flash_decode_attention_spec_paged,
+                                da.flash_decode_spec_partials, args, sc,
+                                tol[kind], what)
+                            q, kp, vp, bt, vis, scale, w = args
+                            rows = torch.stack([
+                                da.flash_decode_attention_paged(
+                                    q[:, i], kp, vp, bt, vis + i, scale, w,
+                                    **sc) for i in range(Q)], dim=1)
+                            row_err = (out.float() - rows.float()).abs() \
+                                .max().item()
+                            if not row_err <= tol[kind]:
+                                fail(f"{what}: rows vs K1 {row_err}")
+                            worst[kind] = max(worst.get(kind, 0.0), err)
+                            worst_p[kind] = max(worst_p.get(kind, 0.0), perr)
+                            worst_row[kind] = max(worst_row.get(kind, 0.0),
+                                                  row_err)
+                            n_cases += 1
     # the served shape at every Q the spec serve runs with spec_draft 4
     # (2, 3, 5), with the bf16 pool and the int8 pool, bf16 queries both;
-    # timed at Q = 5 on the bf16 pool, and by Q beside it
+    # timed at each Q on the bf16 pool, and in full at Q = 5 on both
     S, Hk, G, D, bs, bps, visible = served_shape()
-    served, ms_by_q = {}, {}
-    for Q in (2, 3, SPEC_DRAFT + 1):
+    Q = SPEC_DRAFT + 1
+    served, ms_by_q, timed = {}, {}, {}
+    for q_ in (2, 3, Q):
         for kind in ("bfloat16", "int8_bf16q"):
+            if q_ == Q:
+                timed[kind], a = paged_timed(torch, da, lib, Q, kind,
+                                             seed=4321 + Q)
+                served[f"{kind}_Q{q_}"] = timed[kind]["max_abs_err"]
+                if kind == "bfloat16":
+                    args = a
+                    ms_by_q[q_] = timed[kind]["ms"]
+                continue
             a, sc = paged_case(torch, S, Hk, G, D, bs, bps, 0,
                                torch.bfloat16, SWEEP[kind][1],
-                               seed=4321 + Q, visible=visible, Q=Q)
-            out = da.flash_decode_attention_spec_paged(*a, **sc)
-            ref = da.decode_attention_dense_spec_paged(*a, **sc)
-            err = (out.float() - ref.float()).abs().max().item()
-            served[f"{kind}_Q{Q}"] = err
-            if not err <= tol[kind]:
-                fail(f"K2 vs plain at the served shape, {kind} Q={Q}: "
-                     f"{err} > {tol[kind]}")
+                               seed=4321 + q_, visible=visible, Q=q_)
+            _, served[f"{kind}_Q{q_}"], _ = paged_check(
+                torch, da, da.flash_decode_attention_spec_paged,
+                da.flash_decode_spec_partials, a, sc, tol[kind],
+                f"K2 at the served shape, {kind} Q={q_}")
             if kind == "bfloat16":
-                args = a
-                ms_by_q[Q] = graph_ms(
+                ms_by_q[q_] = graph_ms(
                     torch, lambda: da.flash_decode_attention_spec_paged(*a))
-    Q = SPEC_DRAFT + 1                 # args: the bf16 pool at this Q
-    ms = ms_by_q[Q]
-    plain_ms = graph_ms(torch,
-                        lambda: da.decode_attention_dense_spec_paged(*args))
-    kernel_only_ms = graph_ms(torch,
-                              lambda: da.flash_decode_spec_partials(*args))
-    eager_ms = time_ms(torch,
-                       lambda: da.flash_decode_attention_spec_paged(*args))
     # K1 at the same pool, Q times: what verifying Q positions would cost
     # without the multi-query kernel
     q, kp, vp, bt, vis, scale, w = args
     k1_times_q_ms = graph_ms(torch, lambda: [
         da.flash_decode_attention_paged(q[:, i], kp, vp, bt, vis + i, scale,
                                         w) for i in range(Q)])
-    nbytes, ops = spec_bound(S, Q, Hk, G, D, bs, bps, visible, 2)
-    bound_ms, bound_by = bound_of(nbytes, ops)
+    bf = timed["bfloat16"]
     res = {"phase": "kernel_spec", "cases": n_cases,
            "max_abs_err": worst, "max_abs_err_vs_k1_rows": worst_row,
+           "partials_max_abs_err": worst_p,
            "tolerance": tol, "served_shape": {
                "S": S, "Q": Q, "H": Hk * G, "Hk": Hk, "D": D, "bs": bs,
                "bps": bps, "visible": visible, "dtype": "bfloat16"},
-           "served_max_abs_err": served, "ms": ms, "ms_by_q": ms_by_q,
-           "plain_ms": plain_ms, "kernel_only_ms": kernel_only_ms,
-           "eager_ms": eager_ms, "k1_times_q_ms": k1_times_q_ms,
-           "bound_ms": bound_ms, "bound_by": bound_by, "bytes": nbytes,
-           "ops": ops}
+           "served_max_abs_err": served, "ms_by_q": ms_by_q,
+           "k1_times_q_ms": k1_times_q_ms, "timed": timed}
+    res.update({k: bf[k] for k in (
+        "ms", "plain_ms", "kernel_only_ms", "eager_ms", "eager_plain_ms",
+        "bound_ms", "bound_by", "bytes", "ops", "plan")})
     emit(res)
     return res
+
+
+def bound_of(nbytes, ops):
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / FP32_OPS_PER_S
+    return max(t_bytes, t_ops) * 1e3, \
+        ("bytes" if t_bytes >= t_ops else "operations")
 
 
 def contiguous_case(torch, S, L, Hk, G, D, dtype, seed, visible=None):
@@ -1242,9 +1322,9 @@ def lse_err(torch, l, ref) -> float:
 
 def flash_sweep():
     """(dtype, D, T, causal, window, masked) of the kernel sweeps; head
-    dims 8, 48 and 160 are zero-padded to 16, 64 and 192 inside the
-    wrappers. D 160, 192 and 256 run on the CUDA-core kernels in both
-    dtypes (bf16 widened to fp32), at T around their 32-row tiles."""
+    dims 8, 48, 160 and 320 are zero-padded to 16, 64, 192 and 384 inside
+    the wrappers. D 160 to 512 run on the CUDA-core kernels in both dtypes
+    (bf16 widened to fp32), at T around their 32-row tiles."""
     for dt in ("float32", "bfloat16"):
         for D in (32, 64, 128):
             for T in (1, 63, 64, 65, 200, 1000):
@@ -1263,9 +1343,10 @@ def flash_sweep():
                         yield dt, D, T, causal, window, masked
 
 
-# head dims above the wgmma kernels' 128, and the training-shape timing
-FLASH_WIDE_D = (160, 192, 256)
-FLASH_TIMED_D = (128, 256)
+# head dims above the wgmma kernels' 128 (320 pads to 384), and the
+# timings: (D, T) at B*H 16, the training T up to D 256, T 1024 at D 512
+FLASH_WIDE_D = (160, 192, 256, 320, 512)
+FLASH_TIMED = ((128, TRAIN_T), (256, TRAIN_T), (512, 1024))
 # the head-dim-256 stack of flash_head_dims: SelfAttentionLayer(512, 2
 # heads, causal, block 256) + RnnOutputLayer, T 1024, batch 2
 WIDE_B, WIDE_T, WIDE_D_MODEL, WIDE_HEADS, WIDE_BLOCK, WIDE_CLASSES = \
@@ -1375,8 +1456,9 @@ NEW_OPS = ("UTMASTG", "UBLKCP", "UCGABAR_ARV", "UCGABAR_WAIT", "LDGSTS",
            "STAS")
 
 
-def sass_counts(lib_path: str, kernel_key=sm90_kernel_key) -> dict:
-    """HGMMA, UTMALDG, atomic and reduction instructions (and NEW_OPS) of
+def sass_counts(lib_path: str, kernel_key=sm90_kernel_key,
+                ops=NEW_OPS) -> dict:
+    """HGMMA, UTMALDG, atomic and reduction instructions (and `ops`) of
     each kernel that `kernel_key` names in the SASS of the built library
     (the reductions by name too)."""
     sass = subprocess.run([cuobjdump(), "-sass", lib_path],
@@ -1393,7 +1475,7 @@ def sass_counts(lib_path: str, kernel_key=sm90_kernel_key) -> dict:
                 out[cur] = {"HGMMA": 0, "UTMALDG": 0, "atomic": 0,
                             "reduction": 0, "reduction_ops": {}}
                 if kernel_key is not sm90_kernel_key:
-                    out[cur].update(dict.fromkeys(NEW_OPS, 0))
+                    out[cur].update(dict.fromkeys(ops, 0))
             continue
         if cur is None:
             continue
@@ -1509,6 +1591,52 @@ def new_build_report(built: dict) -> dict:
             if main and r.get("spill_stores", 1) != 0:
                 fail(f"{key}: {r.get('spill_stores')} bytes of spill stores "
                      "at a shape of the main path")
+    return report
+
+
+# K1/K2's instances flash_decode_paged_kernel<q, pool, vec> (dtype codes 0
+# fp32, 1 fp16, 2 bf16, 3 int8; vec 1: 16-byte cp.async rows), and those of
+# the served pools (bf16 and int8, bf16 queries); tensor-core products
+# (HMMA), ldmatrix (LDSM) and cp.async (LDGSTS) counted
+DECODE_OPS = ("HMMA", "LDSM", "LDGSTS")
+K1_INSTANCES = tuple(f"{q}.{kv}.{v}" for q, kv in (
+    (0, 0), (1, 1), (2, 2), (0, 3), (1, 3), (2, 3)) for v in (0, 1))
+K1_MAIN = ("2.2.1", "2.3.1")
+
+
+def decode_kernel_key(name: str):
+    """(kernel, "q.pool.vec") of a mangled K1/K2 kernel name, else None."""
+    m = re.search(r"(flash_decode_paged_kernel)ILi(\d)ELi(\d)ELb(\d)EE",
+                  name)
+    return (m.group(1), f"{m.group(2)}.{m.group(3)}.{m.group(4)}") \
+        if m else None
+
+
+def decode_build_report(built: dict) -> dict:
+    """K1/K2's twelve instances: registers, spills and the SASS counts of
+    HMMA, LDSM, LDGSTS, atomics and reductions. Fails when an instance is
+    missing, a tensor-core instance (2-byte queries) has no HMMA, a
+    16-byte-row instance no LDGSTS, an instance no atomic (its ticket) or
+    a reduction, or a served instance spills."""
+    from deeplearning4j_tpu_torch.ops import decode_attention as da
+    b = built[da.SOURCE]
+    regs = ptxas_kernels(b["log"], decode_kernel_key)
+    sass = sass_counts(b["path"], decode_kernel_key, DECODE_OPS)
+    report = {}
+    for inst in K1_INSTANCES:
+        key = f"flash_decode_paged_kernel<{inst}>"
+        if key not in sass or key not in regs:
+            fail(f"{key}: not in the built library (ptxas {sorted(regs)}, "
+                 f"sass {sorted(sass)})")
+        r = report[key] = dict(regs[key], **sass[key])
+        qc, _, vec = inst.split(".")
+        if (qc != "0") != (r["HMMA"] > 0) or (vec == "1") != \
+                (r["LDGSTS"] > 0) or not r["atomic"] or r["reduction"]:
+            fail(f"{key}: {r['HMMA']} HMMA, {r['LDGSTS']} LDGSTS, "
+                 f"{r['atomic']} atomic and {r['reduction']} reduction "
+                 "instructions in its SASS")
+        if inst in K1_MAIN and r.get("spill_stores", 1) != 0:
+            fail(f"{key}: {r.get('spill_stores')} bytes of spill stores")
     return report
 
 
@@ -2006,9 +2134,9 @@ def phase_flash_head_dims(torch, np):
     from deeplearning4j_tpu_torch.ops import helpers
     from deeplearning4j_tpu_torch.util.flat_params import unflatten_params
     timed = {}
-    for D in FLASH_TIMED_D:
+    for D, T in FLASH_TIMED:
         q, k, v, do, _ = flash_case(torch, TRAIN_B, TRAIN_HEADS, TRAIN_HEADS,
-                                    TRAIN_T, D, torch.bfloat16, False,
+                                    T, D, torch.bfloat16, False,
                                     seed=4545 + D)
         fwd_routes = dict(fa.flash_attention_fwd_cuda.route_launches)
         o, l = fa.flash_attention_fwd_cuda(q, k, v, None, True)
@@ -2025,7 +2153,7 @@ def phase_flash_head_dims(torch, np):
             del ro, rl
             if not (row["max_abs_err"] <= FLASH_TOL["bfloat16"]
                     and row["tile_rel_err"] <= FLASH_REL_TOL["bfloat16"]):
-                fail(f"flash_head_dims: K3 at D={D}, T={TRAIN_T}: {row}")
+                fail(f"flash_head_dims: K3 at D={D}, T={T}: {row}")
         row["ms"] = {"K3": event_ms(torch, lambda: fa.flash_attention_fwd_cuda(
             q, k, v, None, True))}
         for mode, name in (("fused", "K4"), ("two_pass", "K5")):
@@ -2040,9 +2168,9 @@ def phase_flash_head_dims(torch, np):
             qr, kr, vr, is_causal=True)
         row["library_ms"]["bwd"] = event_ms(torch, lambda: torch.autograd.grad(
             out, (qr, kr, vr), do, retain_graph=True))
-        pairs = visible_pairs(TRAIN_T, True, 0)
+        pairs = visible_pairs(T, True, 0)
         for kind, name in (("fwd", "K3"), ("fused", "K4")):
-            b = flash_bound(kind, TRAIN_B, TRAIN_HEADS, TRAIN_T, D, 2, pairs)
+            b = flash_bound(kind, TRAIN_B, TRAIN_HEADS, T, D, 2, pairs)
             row.setdefault("bound_ms", {})[name] = b[2]
             row.setdefault("bound_by", {})[name] = b[3]
             row.setdefault("ops", {})[name] = b[1]
@@ -2050,8 +2178,32 @@ def phase_flash_head_dims(torch, np):
         row["bound_by"]["K5"] = row["bound_by"]["K4"]
         row["tflops"] = {n: row["ops"][n if n != "K5" else "K4"] / ms / 1e9
                          for n, ms in row["ms"].items()}
-        timed[f"D={D}"] = row
+        timed[f"D={D}" if T == TRAIN_T else f"D={D},T={T}"] = row
         del q, k, v, do, o, l, qr, kr, vr, out
+    # D 512 (16-row tiles) in both dtypes at T 1024: K3, K4 and K5 against
+    # the plain versions, the backward from the plain forward's o and L
+    d512 = {}
+    for dt in ("bfloat16", "float32"):
+        q, k, v, do, m = flash_case(torch, TRAIN_B, TRAIN_HEADS, TRAIN_HEADS,
+                                    1024, 512, getattr(torch, dt), True,
+                                    seed=4747)
+        o, l = fa.flash_attention_fwd_cuda(q, k, v, m, True)
+        ro, rl = fa.flash_fwd_plain(q, k, v, m, True)
+        ref = fa.flash_bwd_plain(q, k, v, m, ro, rl, do, None, True)
+        err = {"K3": max(max_err(o, ro), lse_err(torch, l, rl))}
+        rel = {"K3": tile_rel_err(torch, o, ro, FLASH_REF_FLOOR[dt])}
+        for mode, name in (("fused", "K4"), ("two_pass", "K5")):
+            g = fa.flash_attention_bwd_cuda(q, k, v, m, ro, rl, do, None,
+                                            True, None, 0, mode)
+            err[name] = max(max_err(a, b) for a, b in zip(g, ref))
+            rel[name] = max(tile_rel_err(torch, a, b, FLASH_REF_FLOOR[dt])
+                            for a, b in zip(g, ref))
+        torch.cuda.synchronize()
+        d512[dt] = {"max_abs_err": err, "tile_rel_err": rel}
+        if not (max(err.values()) <= FLASH_TOL[dt]
+                and max(rel.values()) <= FLASH_REL_TOL[dt]):
+            fail(f"flash_head_dims: D 512, T 1024, {dt}: {d512[dt]}")
+        del q, k, v, do, m, o, l, ro, rl, ref, g
     # the head-dim-256 stack
     rng = np.random.RandomState(3)
     x = torch.from_numpy(rng.rand(WIDE_B, 64, WIDE_T).astype(
@@ -2115,13 +2267,13 @@ def phase_flash_head_dims(torch, np):
                      "bf16_fit_losses": losses,
                      "bf16_fit_launches": b_launches,
                      "bf16_fit_routes": wide_routes},
-           "raises_above": fa.HEAD_DIMS[-1]}
+           "d512": d512, "raises_above": fa.HEAD_DIMS[-1]}
     try:
         fa._kernel_head_dim(fa.HEAD_DIMS[-1] + 1)
-        fail("flash_head_dims: D 257 did not raise")
+        fail("flash_head_dims: D 513 did not raise")
     except ValueError as e:
         if "queue 3" not in str(e):
-            fail(f"flash_head_dims: D 257 raised without naming queue 3: {e}")
+            fail(f"flash_head_dims: D 513 raised without naming queue 3: {e}")
     emit(res)
     return res
 
@@ -3885,8 +4037,10 @@ def main() -> int:
                                 tg.SOURCE, cf.SOURCE, te.SOURCE}))
     sm90 = sm90_build_report(built)
     new_kernels = new_build_report(built)
+    decode_kernels = decode_build_report(built)
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
           "sm90_kernels": sm90, "k10_k7_kernels": new_kernels,
+          "k1_k2_kernels": decode_kernels,
           "kernels": list(KERNEL_WRAPPERS) + [
               "flash_attention_fwd_cuda", "flash_attention_bwd_cuda",
               "graves_lstm_scan_fwd_cuda", "graves_lstm_scan_bwd_cuda",
@@ -3934,7 +4088,7 @@ def main() -> int:
     csrc = "deeplearning4j_tpu_torch/ops/csrc/conv1x1_stats.cu"
     emit({"kernels": [{
         "name": "flash_decode_attention_paged", "route": "cuda",
-        "source": src,
+        "source": src, "status": "redesigned, PR 12",
         "replaces": "deeplearning4j_tpu/ops/decode_attention.py:281",
         "launches": serve["flash_decode_launches"],
         "max_abs_err": max(max(kern["max_abs_err"].values()),
@@ -3942,9 +4096,12 @@ def main() -> int:
         "ms": kern["ms"], "plain_ms": kern["plain_ms"],
         "bound_ms": kern["bound_ms"], "bound_by": kern["bound_by"],
         "library_ms": None, "kernel_only_ms": kern["kernel_only_ms"],
+        "eager_ms": kern["eager_ms"], "plan": kern["plan"],
+        "int8_pool": {k: kern["timed"]["int8_bf16q"][k] for k in (
+            "ms", "kernel_only_ms", "eager_ms", "plain_ms", "bound_ms")},
         "oracle_max_abs_err": oracle["max_abs_err"]}, {
         "name": "flash_decode_attention_spec_paged", "route": "cuda",
-        "source": src,
+        "source": src, "status": "redesigned, PR 12",
         "replaces": "deeplearning4j_tpu/ops/decode_attention.py:480",
         "launches": spec["k2_launches"],
         "max_abs_err": max(max(kspec["max_abs_err"].values()),
@@ -3952,6 +4109,9 @@ def main() -> int:
         "ms": kspec["ms"], "plain_ms": kspec["plain_ms"],
         "bound_ms": kspec["bound_ms"], "bound_by": kspec["bound_by"],
         "library_ms": None, "kernel_only_ms": kspec["kernel_only_ms"],
+        "eager_ms": kspec["eager_ms"], "plan": kspec["plan"],
+        "int8_pool": {k: kspec["timed"]["int8_bf16q"][k] for k in (
+            "ms", "kernel_only_ms", "eager_ms", "plain_ms", "bound_ms")},
         "oracle_max_abs_err": spec_oracle["max_abs_err"]}, {
         "name": "flash_decode_attention", "route": "cuda",
         "source": "deeplearning4j_tpu_torch/ops/csrc/"

@@ -55,7 +55,8 @@
 // memory (above 48 KB it takes cudaFuncSetAttribute). At D 192 and 256
 // the tiles are 32 x 32 (a 2 x 2 micro-tile a thread; ~109 and ~142 KB);
 // these instances also run bf16 inputs of those head dims, which the
-// wrapper widens to fp32 (the wgmma kernels stop at D 128).
+// wrapper widens to fp32 (the wgmma kernels stop at D 128). At D 384 and
+// 512 the tiles are 16 x 16 (one score a thread), widened the same way.
 //
 // What bounds it on the H100, at the training shape in fp32 (B*H = 16, T
 // = 8192, D = 64, causal, 33,558,528 visible pairs per head): operations,
@@ -75,11 +76,12 @@ constexpr int NT = 256;       // threads per CTA: 16 x 16
 
 // Tiles at head dim D: 64 query rows by 64 keys up to D 128, 32 by 32 at D
 // 192 and 256, where a 64-row backward CTA would need ~298 KB of shared
-// memory (32 rows: ~142 KB). A thread holds RA rows and RA key columns of
-// a score tile (rows ty + 16 a, columns tx + 16 c).
+// memory (32 rows: ~142 KB), and 16 by 16 at D 384 and 512 (~104 KB for
+// the forward, ~138 KB for the backward at D 512). A thread holds RA rows
+// and RA key columns of a score tile (rows ty + 16 a, columns tx + 16 c).
 template <int D>
 struct Tile {
-  static constexpr int RA = D > 128 ? 2 : 4;
+  static constexpr int RA = D > 256 ? 1 : D > 128 ? 2 : 4;
   static constexpr int BM = 16 * RA;   // query rows per tile
   static constexpr int BN = 16 * RA;   // key rows per tile
   static constexpr int KP = BN + 1;    // padded stride of transposed K/V
@@ -633,7 +635,8 @@ int launch_bwd(const void* q, const void* k, const void* v, const int* km,
 
 // dtype code 0 (float32) only: bf16 at D <= 128 runs on
 // flash_attention_sm90.cu's kernels, and the wrapper widens bf16 at D 192
-// and 256 to fp32 for these. Head dims 16, 32, 64, 128, 192, 256. Return
+// to 512 to fp32 for these. Head dims 16, 32, 64, 128, 192, 256, 384,
+// 512. Return
 // a cudaError_t code (0 on success). They allocate nothing and do not
 // synchronize: the kernels launch on `stream`.
 #define DL4J_DISPATCH_D(FN, ...)                                   \
@@ -644,6 +647,8 @@ int launch_bwd(const void* q, const void* k, const void* v, const int* km,
     if (D == 128) return FN<128>(__VA_ARGS__);                     \
     if (D == 192) return FN<192>(__VA_ARGS__);                     \
     if (D == 256) return FN<256>(__VA_ARGS__);                     \
+    if (D == 384) return FN<384>(__VA_ARGS__);                     \
+    if (D == 512) return FN<512>(__VA_ARGS__);                     \
     return (int)cudaErrorInvalidValue;                             \
   }
 

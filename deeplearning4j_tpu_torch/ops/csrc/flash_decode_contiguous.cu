@@ -37,42 +37,21 @@
 //     partials of the (slot, kv head) in partition order, so the output
 //     does not depend on which CTA finishes last, writes (G, D) of the
 //     output in its dtype and puts the ticket back to 0 for the next
-//     launch. A call is one launch; with `merge` = 0 the kernel writes the
+//     launch (the ticket and the merge are flash_decode_common.cuh's,
+//     shared with K1/K2). A call is one launch; with `merge` = 0 the kernel writes the
 //     partials only (skipped partitions as (0, NEG_INF)), for timing and
 //     for the merge of ops/decode_attention.py.
 // Row i of the output is the dense softmax attention of decode_attention_
 // dense up to the order of the fp32 sums; a slot with no visible position
 // gets zeros.
-#include <cuda_bf16.h>
-#include <cuda_fp16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
-
-#define DL4J_NEG_INF (-1e30f)
+#include "flash_decode_common.cuh"
 
 namespace {
 
+using namespace dl4j_decode;
+
 constexpr int NT = 128;                  // threads per CTA
 constexpr int SMEM_LIMIT = 232448;       // a CTA's shared memory on the H100
-
-__device__ __forceinline__ float to_f(float x) { return x; }
-__device__ __forceinline__ float to_f(__half x) { return __half2float(x); }
-__device__ __forceinline__ float to_f(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
-
-template <typename T>
-__device__ __forceinline__ T from_f(float x);
-template <>
-__device__ __forceinline__ float from_f<float>(float x) { return x; }
-template <>
-__device__ __forceinline__ __half from_f<__half>(float x) {
-  return __float2half(x);
-}
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float x) {
-  return __float2bfloat16(x);
-}
 
 // Shared memory of a CTA, in bytes: the G query rows and the G x P scores
 // in fp32, the rows' max and sum and a flag, then P rows of K and P of V
@@ -86,18 +65,6 @@ __host__ __device__ __forceinline__ int kv_offset(int G, int D, int P) {
 __host__ __device__ __forceinline__ int smem_bytes(int G, int D, int P,
                                                    int elt) {
   return kv_offset(G, D, P) + 2 * P * row_bytes(D, elt);
-}
-
-__device__ __forceinline__ float warp_max(float x) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1)
-    x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, o));
-  return x;
-}
-__device__ __forceinline__ float warp_sum(float x) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) x += __shfl_xor_sync(0xffffffffu, x, o);
-  return x;
 }
 
 // n rows of D elements, `stride` elements apart in global memory, into
@@ -229,29 +196,14 @@ flash_decode_contiguous_kernel(const T* __restrict__ q,
   for (int g = tid; g < G; g += NT) l_p[cell * G + g] = ms[g] + logf(ls[g]);
   if (!merge) return;
 
-  // the CTA that draws the last ticket of (s, h) merges its partials
-  __threadfence();
-  __syncthreads();
-  if (tid == 0)
-    *last = atomicAdd(&tickets[s * Hk + h], 1) == j1 - j0 - 1;
-  __syncthreads();
-  if (!*last) return;
-  __threadfence();
-  if (tid == 0) tickets[s * Hk + h] = 0;
-  const float* lb = l_p + ((long)s * Hk + h) * np * G;
-  const float* ob = o_p + ((long)s * Hk + h) * np * G * D;
-  for (int i = tid; i < G * D; i += NT) {
-    const int g = i / D;
-    float mx = DL4J_NEG_INF;
-    for (int jj = j0; jj < j1; ++jj) mx = fmaxf(mx, __ldcg(lb + jj * G + g));
-    float den = 0.f, acc = 0.f;
-    for (int jj = j0; jj < j1; ++jj) {
-      const float w = expf(__ldcg(lb + jj * G + g) - mx);
-      den += w;
-      acc = fmaf(w, __ldcg(ob + (long)jj * G * D + i), acc);
-    }
-    outb[i] = from_f<T>(acc / den);
-  }
+  // the CTA that draws the last ticket of (s, h) merges its partials (per
+  // element at G * D <= 128; E and U timed by
+  // experiments/torch_decode_merge_ab.py)
+  if (!last_ticket(&tickets[s * Hk + h], j1 - j0, last)) return;
+  merge_partitions<T, NT, 8, 2>(l_p + ((long)s * Hk + h) * np * G,
+                                o_p + ((long)s * Hk + h) * np * G * D, outb,
+                                G, G, 0, D, j0, j1,
+                                reinterpret_cast<float*>(ks), 2 * P * rb / 4);
 }
 
 template <typename T>
@@ -312,17 +264,6 @@ extern "C" int dl4j_flash_decode_contiguous(
 extern "C" int dl4j_flash_decode_contiguous_smem(int G, int D, int P,
                                                  int elt) {
   return smem_bytes(G, D, P, elt);
-}
-
-// The id of the CUDA graph capture under way on `stream`, 0 when none: the
-// caller keeps one ticket buffer per capture, zeroed inside the graph.
-extern "C" unsigned long long dl4j_capture_id(void* stream) {
-  cudaStreamCaptureStatus status;
-  unsigned long long id = 0;
-  if (cudaStreamGetCaptureInfo(static_cast<cudaStream_t>(stream), &status,
-                               &id) != cudaSuccess)
-    return 0;
-  return status == cudaStreamCaptureStatusActive ? id : 0;
 }
 
 extern "C" const char* dl4j_flash_decode_contiguous_error_string(int code) {

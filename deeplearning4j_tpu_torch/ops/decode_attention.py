@@ -8,11 +8,14 @@ queries per slot (K2, speculative verification).
   math as the JAX package's oracles. The CPU path and the tests use them;
   on the card they are only the yardstick the kernels are checked against.
 - `flash_decode_attention_paged` (K1) and `flash_decode_attention_spec_paged`
-  (K2): wrappers of the hand-written CUDA kernel `csrc/flash_decode_paged.cu`.
-  One CTA per (logical block, kv head, slot) emits a normalized partial and
-  its log-sum-exp for each of its Q x G query rows; `merge_partials`
-  combines them with the logaddexp algebra of the JAX package (:389-:394,
-  :579-:587). K1 is the Q = 1 case of the same kernel.
+  (K2): wrappers of the hand-written CUDA kernel `csrc/flash_decode_paged.cu`,
+  one launch a call. One CTA per (partition of `paged_partition` whole
+  blocks, kv head, slot) emits a normalized partial and its log-sum-exp
+  for each of its Q x G query rows, and the last CTA of each (slot, kv
+  head) to finish merges them in partition order with the logaddexp
+  algebra of the JAX package (:389-:394, :579-:587), in the same launch.
+  K1 is the Q = 1 case of the same kernel. `paged_partials_plain` is the
+  plain split of the same plan, which `merge_partials` merges.
 - `flash_decode_attention` (K6): split-K decode over a contiguous
   (S, L, Hk, D) cache with its own kernel, `csrc/flash_decode_contiguous.cu`:
   one CTA per (partition of `contiguous_partition` positions, kv head,
@@ -44,7 +47,7 @@ NEG_INF = -1e30
 SOURCE = "flash_decode_paged.cu"                   # K1, K2
 CONTIGUOUS_SOURCE = "flash_decode_contiguous.cu"   # K6
 SOURCES = (SOURCE, CONTIGUOUS_SOURCE)
-PARTITION = 64             # K6's positions per CTA, where they fit
+PARTITION = 64             # positions per CTA of K1, K2 and K6, where they fit
 # shared memory a CTA may hold on the H100 (227 KB)
 SMEM_LIMIT = 232448
 _DTYPE_CODE = {torch.float32: 0, torch.float16: 1, torch.bfloat16: 2,
@@ -114,10 +117,10 @@ def decode_attention_dense_spec_paged(q, kp, vp, block_tables, visible,
 
 
 def merge_partials(o_p, l_p, dtype):
-    """Logaddexp merge of per-block partials over the block axis: o_p
-    (S, Hk, bps, Q, G, D), l_p (S, Hk, bps, Q, G) -> (S, Q, Hk*G, D) in
-    `dtype` (Q = 1 for K1 and the plain K6 split). Skipped blocks carry
-    L_p = NEG_INF and weigh zero."""
+    """Logaddexp merge of per-partition partials over the partition axis:
+    o_p (S, Hk, np, Q, G, D), l_p (S, Hk, np, Q, G) -> (S, Q, Hk*G, D) in
+    `dtype` (Q = 1 for K1 and the plain K6 split). Skipped partitions
+    carry L_p = NEG_INF and weigh zero."""
     m = l_p.amax(dim=2, keepdim=True)
     w = torch.exp(l_p - m.clamp(min=NEG_INF))
     denom = w.sum(dim=2).clamp(min=1e-30)
@@ -126,28 +129,127 @@ def merge_partials(o_p, l_p, dtype):
     return out.transpose(1, 2).reshape(S, Q, Hk * G, D).to(dtype)
 
 
+# ------------------------------------------------------ paged cache (K1, K2)
+def _pad16(x: int) -> int:
+    return (x + 15) // 16 * 16
+
+
+def _row_bytes(D: int, elt: int) -> int:
+    return _pad16(_pad16(D) * elt) + 16
+
+
+def paged_smem_bytes(bs: int, bpp: int, D: int, q_elt: int,
+                     kv_elt: int) -> int:
+    """Dynamic shared memory of one K1/K2 CTA (csrc/flash_decode_paged.cu
+    `smem_bytes`): a head (block ids, scales, 16 row maxima and sums, a
+    flag), Pp = bpp * bs rounded up to 16 rows each of K and V in the
+    pool's dtype (`kv_elt` bytes), 16 query rows in q's (`q_elt`), the
+    16 x (Pp + 4) fp32 scores and, for 2-byte queries (the tensor-core
+    path), the 16 x (Pp + 8) probabilities. A row holds D rounded up to
+    16, padded to a multiple of 16 bytes plus 16."""
+    P = _pad16(bpp * bs)
+    head = _pad16(4 * (3 * bpp + 2 * 16 + 1))
+    return (head + 2 * P * _row_bytes(D, kv_elt) + 16 * _row_bytes(D, q_elt)
+            + 4 * 16 * (P + 4) + (2 * 16 * (P + 8) if q_elt == 2 else 0))
+
+
+def paged_partition(bs: int, D: int, q_elt: int, kv_elt: int) -> int:
+    """K1/K2's plan: whole KV blocks per CTA, about PARTITION positions
+    (PARTITION // bs blocks, at least one), halved until the CTA fits the
+    H100's shared memory. It does not depend on Q or G (the kernel takes
+    query rows 16 at a time), so row i of K2 is K1 at visible + i; any
+    bs runs, the last partition of a row may hold fewer blocks."""
+    bpp = max(1, PARTITION // bs)
+    while bpp > 1 and paged_smem_bytes(bs, bpp, D, q_elt, kv_elt) \
+            > SMEM_LIMIT:
+        bpp //= 2
+    if paged_smem_bytes(bs, bpp, D, q_elt, kv_elt) > SMEM_LIMIT:
+        raise ValueError(f"K1/K2: one block of {bs} positions at D {D} does "
+                         "not fit one CTA's shared memory")
+    return bpp
+
+
+def paged_partials_plain(q, kp, vp, block_tables, visible, scale,
+                         window: int = 0, k_scale=None, v_scale=None, *,
+                         plan: int):
+    """The plain version of K1/K2's split at `plan` blocks per partition:
+    q (S, H, D) (K1) or (S, Q, H, D) (K2); for each partition and query
+    row the normalized partial o_p (S, Hk, np, Q, G, D) and L_p = m + log
+    l (S, Hk, np, Q, G) over the positions the row sees there, in the
+    accumulation dtype; a row that sees none there, and every row of a
+    skipped partition, is (0, NEG_INF), as the kernel writes them with the
+    merge off. `merge_partials(o_p, l_p, dtype)` is the call's output
+    (`[:, 0]` for K1)."""
+    q4 = q[:, None] if q.dim() == 3 else q
+    S, Q, H, D = q4.shape
+    bs, Hk = kp.shape[1], kp.shape[2]
+    bps = block_tables.shape[1]
+    G, L = H // Hk, bps * bs
+    P = plan * bs
+    np_ = -(-bps // plan)
+    acc = _acc_dtype(q.dtype)
+    bt = block_tables.long()
+    kc, vc = kp[bt].to(acc), vp[bt].to(acc)
+    if k_scale is not None:
+        kc = kc * k_scale[bt][:, :, None, :, None].to(acc)
+        vc = vc * v_scale[bt][:, :, None, :, None].to(acc)
+    pad = np_ * P - L
+    kc = kc.reshape(S, L, Hk, D)
+    vc = torch.nn.functional.pad(vc.reshape(S, L, Hk, D),
+                                 (0, 0, 0, 0, 0, pad)).view(S, np_, P, Hk, D)
+    q5 = q4.reshape(S, Q, Hk, G, D).to(acc)
+    s = torch.einsum("sqhgd,slhd->shqgl", q5, kc) * scale
+    j = torch.arange(L, device=q.device)[None, None, :]
+    vis = visible.to(torch.int64)[:, None, None] \
+        + torch.arange(Q, device=q.device)[None, :, None]
+    valid = j < vis                                   # (S, Q, L)
+    if window:
+        valid = valid & (vis - 1 - j < window)
+    s = torch.nn.functional.pad(s, (0, pad)).view(S, Hk, Q, G, np_, P)
+    valid = torch.nn.functional.pad(valid, (0, pad)) \
+        .view(S, 1, Q, 1, np_, P)
+    s = s.masked_fill(~valid, NEG_INF)
+    m = s.amax(dim=-1, keepdim=True)
+    p = torch.exp(s - m) * valid
+    l = p.sum(dim=-1)                                 # (S, Hk, Q, G, np)
+    o = torch.einsum("shqgnp,snphd->shnqgd", p, vc) \
+        / l.clamp(min=1e-30).permute(0, 1, 4, 2, 3)[..., None]
+    any_ = valid.any(dim=-1).expand(S, Hk, Q, G, np_).permute(0, 1, 4, 2, 3)
+    l_p = torch.where(any_, (m[..., 0] + torch.log(l)).permute(0, 1, 4, 2, 3),
+                      torch.full_like(o[..., 0], NEG_INF))
+    return o * any_[..., None], l_p
+
+
 def _library():
     lib = build.load(SOURCE)
     fn = lib.dl4j_flash_decode_paged
     if fn.argtypes is None:
-        fn.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 10 + [
+        # q, kp, vp, k_scale, v_scale, block_tables, visible, o_p, l_p,
+        # tickets, out, 12 ints, scale, stream
+        fn.argtypes = [ctypes.c_void_p] * 11 + [ctypes.c_int] * 12 + [
             ctypes.c_float, ctypes.c_void_p]
         fn.restype = ctypes.c_int
+        lib.dl4j_flash_decode_paged_smem.argtypes = [ctypes.c_int] * 5
+        lib.dl4j_flash_decode_paged_smem.restype = ctypes.c_int
+        lib.dl4j_capture_id.argtypes = [ctypes.c_void_p]
+        lib.dl4j_capture_id.restype = ctypes.c_ulonglong
         lib.dl4j_cuda_error_string.argtypes = [ctypes.c_int]
         lib.dl4j_cuda_error_string.restype = ctypes.c_char_p
     return lib
 
 
 def _launch(q, kp, vp, block_tables, visible, scale, window, k_scale,
-            v_scale, what: str):
-    """Launch the CUDA kernel on q (S, Q, H, D): per-block partials
-    (o_p (S, Hk, bps, Q, G, D), l_p (S, Hk, bps, Q, G)) in float32, on the
-    current stream, without a sync. Checks device, dtype, shape and
+            v_scale, merge: bool, wrapper):
+    """K1/K2's kernel on CUDA tensors (the callers check the device), q
+    (S, H, D) for K1 or (S, Q, H, D) for K2: one launch on the current
+    stream, no sync, counted in `wrapper.launches`. With the merge on, the
+    output in q's shape and dtype; off, the partials of
+    `paged_partials_plain`'s layout in float32. Checks dtype, shape and
     contiguity and raises on what the kernel does not take; a refused
     launch raises too."""
-    if q.device.type != "cuda":
-        raise ValueError(f"{what} runs on CUDA tensors only")
-    S, Q, H, D = q.shape
+    what = wrapper.__name__
+    S, H, D = q.shape[0], q.shape[-2], q.shape[-1]
+    Q = 1 if q.dim() == 3 else q.shape[1]
     _, bs, Hk, Dk = kp.shape
     bps = block_tables.shape[1]
     quantized = k_scale is not None
@@ -177,56 +279,62 @@ def _launch(q, kp, vp, block_tables, visible, scale, window, k_scale,
         [k_scale, v_scale] if quantized else [])
     if any(t.device != q.device for t in tensors):
         raise ValueError("all inputs must lie on one CUDA device")
-    q = q.contiguous()
-    kp, vp = kp.contiguous(), vp.contiguous()
+    G = H // Hk
+    bpp = paged_partition(bs, D, q.element_size(), kp.element_size())
+    np_ = -(-bps // bpp)
+    q, kp, vp = q.contiguous(), kp.contiguous(), vp.contiguous()
     bt = block_tables.to(torch.int32).contiguous()
     vis = visible.to(torch.int32).contiguous()
-    G = H // Hk
-    o_p = torch.empty((S, Hk, bps, Q, G, D), dtype=torch.float32,
-                      device=q.device)
-    l_p = torch.empty((S, Hk, bps, Q, G), dtype=torch.float32,
-                      device=q.device)
+    # one fp32 buffer: the partials, then their L_p
+    n_o = S * Hk * np_ * Q * G * D
+    scratch = torch.empty(n_o + n_o // D, dtype=torch.float32,
+                          device=q.device)
+    out = torch.empty_like(q) if merge else None
     lib = _library()
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    tickets = _tickets(S * Hk, q.device, stream, lib)
     err = lib.dl4j_flash_decode_paged(
         q.data_ptr(), kp.data_ptr(), vp.data_ptr(),
         k_scale.data_ptr() if quantized else None,
         v_scale.data_ptr() if quantized else None,
-        bt.data_ptr(), vis.data_ptr(), o_p.data_ptr(), l_p.data_ptr(),
-        S, Q, Hk, G, D, bs, bps, int(window), _DTYPE_CODE[q.dtype],
-        _DTYPE_CODE[kp.dtype], float(scale),
-        torch.cuda.current_stream(q.device).cuda_stream)
+        bt.data_ptr(), vis.data_ptr(), scratch.data_ptr(),
+        scratch.data_ptr() + 4 * n_o, tickets.data_ptr(),
+        out.data_ptr() if merge else None, S, Q, Hk, G, D, bs, bps, bpp,
+        int(window), int(bool(merge)), _DTYPE_CODE[q.dtype],
+        _DTYPE_CODE[kp.dtype], float(scale), stream)
     if err != 0:
         raise RuntimeError(f"{what} launch failed: "
                            f"{lib.dl4j_cuda_error_string(err).decode()}")
-    return o_p, l_p
+    wrapper.launches += 1
+    if merge:
+        return out
+    return (scratch[:n_o].view(S, Hk, np_, Q, G, D),
+            scratch[n_o:].view(S, Hk, np_, Q, G))
 
 
 def flash_decode_attention_paged(q, kp, vp, block_tables, visible, scale,
                                  window: int = 0, k_scale=None, v_scale=None):
     """K1, paged split-K flash-decode; same contract as
     `decode_attention_dense_paged`. CPU tensors run the plain version; CUDA
-    tensors launch the CUDA kernel on the current stream (no sync, counted
-    in `flash_decode_attention_paged.launches`) and merge its partials."""
+    tensors launch the CUDA kernel once on the current stream, merge
+    included (no sync; counted in `flash_decode_attention_paged.launches`)."""
     if q.device.type != "cuda":
         return decode_attention_dense_paged(q, kp, vp, block_tables, visible,
                                             scale, window, k_scale=k_scale,
                                             v_scale=v_scale)
-    o_p, l_p = flash_decode_partials(q, kp, vp, block_tables, visible, scale,
-                                     window, k_scale, v_scale)
-    return merge_partials(o_p, l_p, q.dtype)[:, 0]
+    return _launch(q, kp, vp, block_tables, visible, scale, window, k_scale,
+                   v_scale, True, flash_decode_attention_paged)
 
 
 def flash_decode_partials(q, kp, vp, block_tables, visible, scale,
                           window: int = 0, k_scale=None, v_scale=None):
-    """K1's kernel launch on CUDA tensors q (S, H, D): per-block partials
-    (o_p (S, Hk, bps, 1, G, D), l_p (S, Hk, bps, 1, G)) in float32."""
+    """K1's kernel with the merge off, on CUDA tensors q (S, H, D): the
+    per-partition partials (o_p (S, Hk, np, 1, G, D), l_p (S, Hk, np, 1,
+    G)) in float32, as `paged_partials_plain` lays them out."""
     if q.device.type != "cuda":
         raise ValueError("flash_decode_partials runs on CUDA tensors only")
-    o_p, l_p = _launch(q[:, None], kp, vp, block_tables, visible, scale,
-                       window, k_scale, v_scale,
-                       "flash_decode_attention_paged")
-    flash_decode_attention_paged.launches += 1
-    return o_p, l_p
+    return _launch(q, kp, vp, block_tables, visible, scale, window, k_scale,
+                   v_scale, False, flash_decode_attention_paged)
 
 
 flash_decode_attention_paged.launches = 0
@@ -239,28 +347,29 @@ def flash_decode_attention_spec_paged(q, kp, vp, block_tables, visible,
     """K2, the multi-query paged split-K flash-decode of speculative
     verification; same contract as `decode_attention_dense_spec_paged`
     (q (S, Q, H, D), query i sees j < visible + i). CPU tensors run the
-    plain version; CUDA tensors launch the kernel once for all Q queries
-    (counted in `flash_decode_attention_spec_paged.launches`), so each K/V
-    element is read once per call whatever Q is, and merge its partials.
+    plain version; CUDA tensors launch the kernel once for all Q queries,
+    merge included (counted in `flash_decode_attention_spec_paged
+    .launches`), so each K/V element is read once per call whatever Q is.
     Any block size runs on the kernel (the TPU's bs < 8 dense fallback was
     a tiling limit)."""
     if q.device.type != "cuda":
         return decode_attention_dense_spec_paged(
             q, kp, vp, block_tables, visible, scale, window,
             k_scale=k_scale, v_scale=v_scale)
-    o_p, l_p = flash_decode_spec_partials(q, kp, vp, block_tables, visible,
-                                          scale, window, k_scale, v_scale)
-    return merge_partials(o_p, l_p, q.dtype)
+    return _launch(q, kp, vp, block_tables, visible, scale, window, k_scale,
+                   v_scale, True, flash_decode_attention_spec_paged)
 
 
 def flash_decode_spec_partials(q, kp, vp, block_tables, visible, scale,
                                window: int = 0, k_scale=None, v_scale=None):
-    """K2's kernel launch on CUDA tensors q (S, Q, H, D): per-block
-    partials (o_p (S, Hk, bps, Q, G, D), l_p (S, Hk, bps, Q, G))."""
-    out = _launch(q, kp, vp, block_tables, visible, scale, window, k_scale,
-                  v_scale, "flash_decode_attention_spec_paged")
-    flash_decode_attention_spec_paged.launches += 1
-    return out
+    """K2's kernel with the merge off, on CUDA tensors q (S, Q, H, D): the
+    per-partition partials (o_p (S, Hk, np, Q, G, D), l_p (S, Hk, np, Q,
+    G)) in float32, as `paged_partials_plain` lays them out."""
+    if q.device.type != "cuda":
+        raise ValueError("flash_decode_spec_partials runs on CUDA tensors "
+                         "only")
+    return _launch(q, kp, vp, block_tables, visible, scale, window, k_scale,
+                   v_scale, False, flash_decode_attention_spec_paged)
 
 
 flash_decode_attention_spec_paged.launches = 0

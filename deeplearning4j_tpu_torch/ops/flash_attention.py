@@ -25,7 +25,7 @@ full heads before the call, so training never reaches it.
 Kernels (CUDA C++ for sm_90a in two sources, chosen by dtype and head
 dim in `_route`: bf16 inputs at a kernel head dim up to 128 take
 `csrc/flash_attention_sm90.cu` (wgmma, TMA); fp32 inputs, and bf16 at
-192 and 256, the CUDA-core kernels of `csrc/flash_attention.cu` (bf16
+192 to 512, the CUDA-core kernels of `csrc/flash_attention.cu` (bf16
 widened to fp32 before the launch, the outputs rounded back); each
 wrapper counts its launches per source in `.route_launches`):
 - K3 `flash_attention_fwd_cuda` replaces `_call_fwd` / `_fwd_kernel`;
@@ -46,7 +46,9 @@ the kernels, as it is an XLA reduction in the JAX package.
 Head dims: the kernels are built for D in HEAD_DIMS; the wrappers zero-pad
 any smaller D to the next of them (`padded_fwd`, `padded_bwd`) and cut the
 outputs back, with the scale of the true D. Padded columns add 0 to every
-score and every output, so the result is exact. D > 256 raises.
+score and every output, so the result is exact. D > 512 raises: at D
+1024 even a backward CTA of 16-row tiles needs ~266 KB of shared memory,
+above the 227 KB one CTA may hold.
 
 Left out of the port: the TPU tile arguments `bq`/`bk` (the CUDA kernels
 pick their own tiles), the (B*H, nk, T, D) dq-partials buffer and its byte
@@ -70,7 +72,7 @@ SOURCE = "flash_attention.cu"            # fp32 K3, K4 and K5
 SM90_SOURCE = "flash_attention_sm90.cu"  # bf16 K3, K4 and K5 (wgmma, TMA)
 SOURCES = (SOURCE, SM90_SOURCE)
 BWD_MODES = ("fused", "two_pass")
-HEAD_DIMS = (16, 32, 64, 128, 192, 256)   # head dims of the kernels
+HEAD_DIMS = (16, 32, 64, 128, 192, 256, 384, 512)   # of the kernels
 SM90_HEAD_DIMS = (16, 32, 64, 128)        # ... of the wgmma kernels
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 2}
 
@@ -287,7 +289,7 @@ def flash_attention(q, k, v, mask=None, causal: bool = False,
 def _route(dtype: torch.dtype, kind: str, D: int) -> str:
     """The source whose kernel takes a launch: `kind` "fwd" (K3), "fused"
     (K4) or "two_pass" (K5), D the kernel head dim. bf16 up to D 128 runs
-    on the wgmma kernels of SM90_SOURCE; fp32, and bf16 at D 192 and 256
+    on the wgmma kernels of SM90_SOURCE; fp32, and bf16 at D 192 to 512
     (widened to fp32), on SOURCE."""
     if kind not in ("fwd",) + BWD_MODES:
         raise ValueError(f"unknown flash kernel kind {kind!r}")
@@ -353,8 +355,9 @@ def _kernel_head_dim(D: int) -> int:
         if D <= d:
             return d
     raise ValueError(f"head dim {D} > {HEAD_DIMS[-1]}: the flash-attention "
-                     f"kernels hold at most {HEAD_DIMS[-1]} (ROADMAP.md "
-                     "queue 3)")
+                     f"kernels hold at most {HEAD_DIMS[-1]}: at D 1024 a "
+                     "backward CTA of 16-row tiles needs ~266 KB of shared "
+                     "memory, above one CTA's 227 KB (ROADMAP.md queue 3)")
 
 
 def _pad_d(t: torch.Tensor, Dp: int) -> torch.Tensor:
@@ -406,7 +409,7 @@ def _raise_on(error_string, err, what):
 def flash_attention_fwd_cuda(q, k, v, mask=None, causal: bool = False,
                              scale=None, window: int = 0):
     """K3 on CUDA tensors; same contract as `flash_fwd_plain`, any head
-    dim up to 256. Launches on the current stream without a sync; counted
+    dim up to 512. Launches on the current stream without a sync; counted
     in `.launches` and, per source, in `.route_launches`."""
     _check_cuda("flash_attention_fwd", q, k, v, mask)
     return padded_fwd(_fwd_launch, q, k, v, mask, causal, scale, window)
@@ -452,7 +455,7 @@ def flash_attention_bwd_cuda(q, k, v, mask, o, lse, do, dlse=None,
     `flash_attention_bwd_cuda.fused_launches`) or K5 (bwd "two_pass": the
     dq kernel and the dk/dv kernel, counted in `.two_pass_launches`, two
     per call) on CUDA tensors; same contract as `flash_bwd_plain`, any
-    head dim up to 256. D_i is a torch reduction here, before the launch.
+    head dim up to 512. D_i is a torch reduction here, before the launch.
     Calls are also counted per source in `.route_launches`."""
     bwd = _resolve_bwd(bwd)
     _check_cuda("flash_attention_bwd", q, k, v, mask, o, lse, do)

@@ -218,8 +218,8 @@ def test_head_dim_padding_is_exact(D, Dp):
     for g, r in zip(got, ref):
         assert g.shape == r.shape
         torch.testing.assert_close(g, r, rtol=0, atol=ATOL)
-    with pytest.raises(ValueError, match="> 256.*queue 3"):
-        tfa._kernel_head_dim(257)
+    with pytest.raises(ValueError, match="> 512.*queue 3"):
+        tfa._kernel_head_dim(513)
 
 
 # ------------------------------------------------ the route to the kernels

@@ -1,15 +1,16 @@
 """Flash attention at head dims above 128 (the port's K3, K4 and K5 up to D
-256), in float64 on the CPU.
+512), in float64 on the CPU.
 
 The port's plain versions, alone and inside the head-dim padding the CUDA
-wrappers apply (`padded_fwd` / `padded_bwd`: 160 -> 192, 256 as is),
-against the JAX package's `flash_attention_lse` (its Pallas kernels in
-interpret mode, small tiles, compiled once by `jax.jit` through a module
-fixture), forward and the backward of both schedules, with a non-zero lse
-cotangent; tolerance 1e-10. Padding 160 -> 192 is exact. On the card D
-192 and 256 run on the CUDA-core kernels of flash_attention.cu in both
-dtypes (bf16 widened to fp32): the route and the launches at those head
-dims run here against a recording stand-in library. D 257 raises.
+wrappers apply (`padded_fwd` / `padded_bwd`: 160 -> 192, 320 -> 384, 256
+and 512 as they are), against the JAX package's `flash_attention_lse`
+(its Pallas kernels in interpret mode, small tiles, compiled once by
+`jax.jit` through a module fixture), forward and the backward of both
+schedules, with a non-zero lse cotangent; tolerance 1e-10. Padding is
+exact. On the card D 192 to 512 run on the CUDA-core kernels of
+flash_attention.cu in both dtypes (bf16 widened to fp32): the route and
+the launches at those head dims run here against a recording stand-in
+library. D 513 raises.
 """
 from types import SimpleNamespace
 
@@ -51,7 +52,8 @@ def jax_flash():
 
 
 CASES = [(160, True, 0, False), (160, False, 5, True), (256, True, 5, True),
-         (256, False, 0, False)]
+         (256, False, 0, False), (320, True, 5, True), (320, False, 0, False),
+         (512, True, 0, True), (512, False, 5, False)]
 
 
 @pytest.mark.parametrize("D,causal,window,masked", CASES)
@@ -87,10 +89,11 @@ def test_plain_matches_jax_at_wide_head_dims(jax_flash, D, causal, window,
 
 
 @pytest.mark.parametrize("D,Dp", [(129, 192), (160, 192), (192, 192),
-                                  (200, 256), (256, 256)])
+                                  (200, 256), (256, 256), (257, 384),
+                                  (320, 384), (400, 512), (512, 512)])
 def test_wide_head_dims_pad_exactly(D, Dp):
-    """Above 128 the kernel head dim is 192 or 256; zero columns add 0 to
-    every score and output, at the scale of the true D."""
+    """Above 128 the kernel head dim is 192, 256, 384 or 512; zero columns
+    add 0 to every score and output, at the scale of the true D."""
     assert tfa._kernel_head_dim(D) == Dp
     q, k, v, do, dlse, m = (None if a is None else torch.from_numpy(a)
                             for a in _data(D, seed=1, masked=True))
@@ -106,9 +109,9 @@ def test_wide_head_dims_pad_exactly(D, Dp):
         torch.testing.assert_close(g, r, rtol=0, atol=ATOL)
 
 
-@pytest.mark.parametrize("D", [257, 320, 512])
-def test_head_dims_above_256_raise_naming_queue_3(D):
-    with pytest.raises(ValueError, match=r"> 256.*ROADMAP.md queue 3"):
+@pytest.mark.parametrize("D", [513, 768, 1024])
+def test_head_dims_above_512_raise_naming_queue_3(D):
+    with pytest.raises(ValueError, match=r"> 512.*ROADMAP.md queue 3"):
         tfa._kernel_head_dim(D)
     q = torch.zeros(1, 1, 4, D)
     with pytest.raises(ValueError, match="queue 3"):
@@ -119,7 +122,7 @@ def test_head_dims_above_256_raise_naming_queue_3(D):
 @pytest.mark.parametrize("kind", ["fwd", "fused", "two_pass"])
 def test_route_by_head_dim(dtype, kind):
     """bf16 takes the wgmma kernels up to D 128 and the CUDA-core kernels
-    at 192 and 256; fp32 always the CUDA-core kernels. Only kernel head
+    at 192 to 512; fp32 always the CUDA-core kernels. Only kernel head
     dims are routed."""
     for D in tfa.HEAD_DIMS:
         want = tfa.SM90_SOURCE if (dtype == torch.bfloat16
@@ -181,7 +184,7 @@ def _bf16(D):
     return q, k, v, do, torch.from_numpy(m)
 
 
-@pytest.mark.parametrize("D", [192, 256])
+@pytest.mark.parametrize("D", [192, 256, 384, 512])
 def test_wide_bf16_forward_launch_widens_to_the_fp32_kernel(fake_libs, D):
     libs = fake_libs()
     q, k, v, _, m = _bf16(D)
@@ -201,7 +204,7 @@ def test_wide_bf16_forward_launch_widens_to_the_fp32_kernel(fake_libs, D):
     assert tfa.flash_attention_fwd_cuda.route_launches == routes
 
 
-@pytest.mark.parametrize("D", [192, 256])
+@pytest.mark.parametrize("D", [192, 256, 384, 512])
 @pytest.mark.parametrize("mode", ["fused", "two_pass"])
 def test_wide_bf16_backward_launch_widens_to_the_fp32_kernel(fake_libs, D,
                                                              mode):
