@@ -8,8 +8,9 @@ Phases, each printing one JSON line; any failure exits non-zero:
 1. device   - CUDA present with compute capability (9, 0).
 2. build    - compile every CUDA kernel of the paths from the checkout's
               sources (one nvcc per source, all started together). For
-              each wgmma kernel of flash_attention_sm90.cu (K3, K5's dq
-              and dk/dv passes, K4, at head dims 16/32/64/128): registers,
+              each wgmma kernel of flash_attention_sm90.cu (K3 and K5's
+              dq pass at head dims 16 to 256, K5's dk/dv pass and K4 at
+              16/32/64/128, the wide dk/dv pass at 192/256): registers,
               spill bytes and static shared memory from the -Xptxas -v
               log, its dynamic shared memory, and the HGMMA, UTMALDG,
               atomic and reduction (RED*, UBLKRED, UTMAREDG) instructions
@@ -187,19 +188,22 @@ Phases, each printing one JSON line; any failure exits non-zero:
               dense plain versions on the same inputs, each against fp64;
               losses within 1e-4 of each other, every gradient of the
               kernel path within twice the dense path's own error.
-11a. flash_head_dims - K3, K4 and K5 at B*H 16, bf16, causal, D 128
-              (wgmma) and D 256 at T 8192 and D 512 at T 1024 (CUDA-core
-              kernels, bf16 widened): CUDA-event times beside
-              scaled_dot_product_attention forward and backward, bounds,
-              the source each took; K3 at D 256 and 512 against the plain
-              version; K3, K4 and K5 at D 512, T 1024 in bf16 and fp32
-              against the plain versions. A head-dim-256 stack
-              (SelfAttentionLayer(512, 2 heads, block 256) +
-              RnnOutputLayer(16), T 1024, batch 2): fp32 gradient_and_score
-              through the kernels against the dense plain versions in
-              fp64 (1e-4), two bf16 fit steps through the kernels (1 K3 +
-              1 K4 each, on flash_attention.cu); D 513 must raise naming
-              ROADMAP.md queue 3.
+11a. flash_head_dims - K3, K4 and K5 at B*H 16, bf16, causal, D 128,
+              192 and 256 at T 8192 and D 512 and 1024 at T 1024:
+              CUDA-event times beside scaled_dot_product_attention forward
+              and backward, bounds, the source each took (bf16 K3 and K5
+              at D 128 to 256 on the wgmma kernels, K4 above 128 and
+              everything above 256 on the CUDA-core kernels, bf16
+              widened); K3 above 128 against the plain version; K3, K4 and
+              K5 at D 192, 256, 512, 640 and 1024, T 1024, masked, in bf16
+              and fp32 against the plain versions, each on the source
+              _route names. A head-dim-256 stack (SelfAttentionLayer(512,
+              2 heads, block 256) + RnnOutputLayer(16), T 1024, batch 2):
+              fp32 gradient_and_score through the kernels against the
+              dense plain versions in fp64 (1e-4), two bf16 fit steps
+              under the fused backward (1 K3 on flash_attention_sm90.cu +
+              1 K4 on flash_attention.cu each) and two under two_pass (1 K3
+              + 2 K5 each, all on flash_attention_sm90.cu).
 12. kernel  - each kernel against its plain PyTorch version on the card,
               then timed at the served shape (device time by CUDA-graph
               replay, with the merge in the launch and with it off; the
@@ -1322,9 +1326,12 @@ def lse_err(torch, l, ref) -> float:
 
 def flash_sweep():
     """(dtype, D, T, causal, window, masked) of the kernel sweeps; head
-    dims 8, 48, 160 and 320 are zero-padded to 16, 64, 192 and 384 inside
-    the wrappers. D 160 to 512 run on the CUDA-core kernels in both dtypes
-    (bf16 widened to fp32), at T around their 32-row tiles."""
+    dims 8, 48, 160, 320 and 600 are zero-padded to 16, 64, 192, 384 and
+    640 inside the wrappers. The wide head dims run at T around the
+    32-row tiles of the CUDA-core kernels: bf16 K3 and K5 at 160 to 256 on
+    the wgmma kernels (K4 widened to fp32), bf16 above on the CUDA-core
+    kernels widened to fp32, fp32 on those at every D (above 512 the
+    kernels that stream the head dim in chunks)."""
     for dt in ("float32", "bfloat16"):
         for D in (32, 64, 128):
             for T in (1, 63, 64, 65, 200, 1000):
@@ -1343,10 +1350,14 @@ def flash_sweep():
                         yield dt, D, T, causal, window, masked
 
 
-# head dims above the wgmma kernels' 128 (320 pads to 384), and the
-# timings: (D, T) at B*H 16, the training T up to D 256, T 1024 at D 512
-FLASH_WIDE_D = (160, 192, 256, 320, 512)
-FLASH_TIMED = ((128, TRAIN_T), (256, TRAIN_T), (512, 1024))
+# head dims above 128 (320 pads to 384, 600 to 640), and the timings: (D,
+# T) at B*H 16, the training T up to D 256, T 1024 at D 512 and 1024
+FLASH_WIDE_D = (160, 192, 256, 320, 512, 600)
+FLASH_TIMED = ((128, TRAIN_T), (192, TRAIN_T), (256, TRAIN_T), (512, 1024),
+               (1024, 1024))
+# flash_head_dims holds K3, K4 and K5 against the plain versions at these
+# head dims (T 1024, B*H 16, a random key mask, both dtypes)
+FLASH_CHECKED_D, FLASH_CHECKED_T = (192, 256, 512, 640, 1024), 1024
 # the head-dim-256 stack of flash_head_dims: SelfAttentionLayer(512, 2
 # heads, causal, block 256) + RnnOutputLayer, T 1024, batch 2
 WIDE_B, WIDE_T, WIDE_D_MODEL, WIDE_HEADS, WIDE_BLOCK, WIDE_CLASSES = \
@@ -1361,10 +1372,23 @@ def train_shape_case(torch, seed):
 
 
 # ------------------------------------------------ the wgmma kernels' build
-SM90_KERNELS = ("flash_fwd_sm90_kernel", "flash_dq_sm90_kernel",
-                "flash_dkv_sm90_kernel", "flash_bwd_fused_sm90_kernel")
 SM90_KINDS = {"flash_fwd_sm90_kernel": 0, "flash_dq_sm90_kernel": 1,
-              "flash_dkv_sm90_kernel": 2, "flash_bwd_fused_sm90_kernel": 3}
+              "flash_dkv_sm90_kernel": 2, "flash_bwd_fused_sm90_kernel": 3,
+              "flash_dkv_wide_sm90_kernel": 2}
+
+
+def sm90_instances(fa):
+    """(kernel, D) of every wgmma flash instance: K3 and K5's dq pass at
+    each of fa.SM90_HEAD_DIMS, K5's dk/dv pass and K4 up to D 128 and the
+    wide dk/dv pass above."""
+    for D in fa.SM90_HEAD_DIMS:
+        yield "flash_fwd_sm90_kernel", D
+        yield "flash_dq_sm90_kernel", D
+        if D in fa.SM90_FUSED_HEAD_DIMS:
+            yield "flash_dkv_sm90_kernel", D
+            yield "flash_bwd_fused_sm90_kernel", D
+        else:
+            yield "flash_dkv_wide_sm90_kernel", D
 # K4 sums dq across CTAs by reductions in L2, and only K4 may
 SM90_REDUCING = ("flash_bwd_fused_sm90_kernel",)
 ATOMIC_OPS = ("ATOM", "ATOMS", "ATOMG")
@@ -1373,8 +1397,8 @@ REDUCE_OPS = ("UBLKRED", "UTMAREDG")          # and every RED* (RED, REDG)
 
 def sm90_kernel_key(name: str):
     """(kernel, D) of a mangled sm90 flash kernel name, else None."""
-    m = re.search(r"(flash_(?:fwd|dq|dkv|bwd_fused)_sm90_kernel)ILi(\d+)EE",
-                  name)
+    m = re.search(r"(flash_(?:fwd|dq|dkv|dkv_wide|bwd_fused)_sm90_kernel)"
+                  r"ILi(\d+)EE", name)
     return (m.group(1), int(m.group(2))) if m else None
 
 
@@ -1501,31 +1525,31 @@ def sm90_build_report(built: dict) -> dict:
     ptxas, dynamic from the library) and the SASS counts. Fails when a
     kernel has no HGMMA or no UTMALDG, holds an atomic, holds a reduction
     where none belongs (K3, K5) or none where its dq needs them (K4), or
-    spills at D 64."""
+    spills at D 64. The D 192/256 instances (K3, K5's dq pass and the wide
+    dk/dv pass) report their registers and spills."""
     from deeplearning4j_tpu_torch.ops import flash_attention as fa
     b = built[fa.SM90_SOURCE]
     lib = fa._library(fa.SM90_SOURCE)
     regs, sass = ptxas_kernels(b["log"]), sass_counts(b["path"])
     report = {}
-    for kern in SM90_KERNELS:
-        for D in fa.SM90_HEAD_DIMS:
-            key = f"{kern}<{D}>"
-            if key not in sass or key not in regs:
-                fail(f"{key}: not in the built library (ptxas "
-                     f"{sorted(regs)}, sass {sorted(sass)})")
-            r = dict(regs[key], **sass[key])
-            r["dynamic_smem"] = lib.dl4j_flash_sm90_smem(SM90_KINDS[kern], D)
-            report[key] = r
-            if not (r["HGMMA"] > 0 and r["UTMALDG"] > 0):
-                fail(f"{key}: {r['HGMMA']} HGMMA and {r['UTMALDG']} UTMALDG "
-                     "instructions in its SASS")
-            if r["atomic"]:
-                fail(f"{key}: {r['atomic']} atomic instructions in its SASS")
-            if bool(r["reduction"]) != (kern in SM90_REDUCING):
-                fail(f"{key}: {r['reduction']} reduction instructions in "
-                     f"its SASS ({r['reduction_ops']})")
-            if D == 64 and r.get("spill_stores", 1) != 0:
-                fail(f"{key}: {r.get('spill_stores')} bytes of spill stores")
+    for kern, D in sm90_instances(fa):
+        key = f"{kern}<{D}>"
+        if key not in sass or key not in regs:
+            fail(f"{key}: not in the built library (ptxas "
+                 f"{sorted(regs)}, sass {sorted(sass)})")
+        r = dict(regs[key], **sass[key])
+        r["dynamic_smem"] = lib.dl4j_flash_sm90_smem(SM90_KINDS[kern], D)
+        report[key] = r
+        if not (r["HGMMA"] > 0 and r["UTMALDG"] > 0):
+            fail(f"{key}: {r['HGMMA']} HGMMA and {r['UTMALDG']} UTMALDG "
+                 "instructions in its SASS")
+        if r["atomic"]:
+            fail(f"{key}: {r['atomic']} atomic instructions in its SASS")
+        if bool(r["reduction"]) != (kern in SM90_REDUCING):
+            fail(f"{key}: {r['reduction']} reduction instructions in "
+                 f"its SASS ({r['reduction_ops']})")
+        if D == 64 and r.get("spill_stores", 1) != 0:
+            fail(f"{key}: {r.get('spill_stores')} bytes of spill stores")
     return report
 
 
@@ -2117,34 +2141,71 @@ def build_wide_net(torch, compute_dtype):
 
 
 def phase_flash_head_dims(torch, np):
-    """K3, K4 and K5 at head dims above 128 (the CUDA-core kernels, bf16
-    widened to fp32). At B*H 16, T 8192, causal, bf16, D 128 (the wgmma
-    kernels) and D 256: CUDA-event times beside scaled_dot_product_attention
-    forward and backward (a yardstick, never the route), bounds, and the
-    source each call took; K3 at D 256 against the plain version. Then a
-    head-dim-256 SelfAttentionLayer stack at T 1024 > block 256: one
-    gradient_and_score through the kernels in fp32 against the dense plain
-    versions in fp64 (loss and every gradient within 1e-4 relative, as
-    train_oracle), and two fit steps in bf16 compute through the kernels
-    (1 K3 + 1 K4 a step, every loss finite)."""
+    """K3, K4 and K5 at head dims above 128: bf16 K3 and K5 at D 192 and
+    256 on the wgmma kernels, everything else on the CUDA-core kernels
+    (bf16 widened to fp32; above 512 the kernels that stream the head dim
+    in chunks). At B*H 16, causal, bf16, each (D, T) of FLASH_TIMED:
+    CUDA-event times beside scaled_dot_product_attention forward and
+    backward (a yardstick, never the route), bounds, the source each call
+    took, and K3 against the plain version. At each D of FLASH_CHECKED_D
+    (T 1024, random key mask, bf16 and fp32): K3, K4 and K5 against the
+    plain versions, the backward from the plain forward's o and L, with
+    the source of each. Then a head-dim-256 SelfAttentionLayer stack at T
+    1024 > block 256: one gradient_and_score through the kernels in fp32
+    against the dense plain versions in fp64 (loss and every gradient
+    within 1e-4 relative, as train_oracle), two bf16 fit steps under the
+    fused backward (1 K3 on the wgmma kernel + 1 K4 on the CUDA-core
+    kernel a step) and two under two_pass (1 K3 + 2 K5 a step, all on the
+    wgmma kernels), every loss finite."""
     from deeplearning4j_tpu_torch import MultiLayerNetwork
     from deeplearning4j_tpu_torch.nn.conf.configuration import \
         MultiLayerConfiguration
     from deeplearning4j_tpu_torch.ops import flash_attention as fa
     from deeplearning4j_tpu_torch.ops import helpers
     from deeplearning4j_tpu_torch.util.flat_params import unflatten_params
+
+    def routes():
+        return (dict(fa.flash_attention_fwd_cuda.route_launches),
+                dict(fa.flash_attention_bwd_cuda.route_launches))
+
+    def took(before, dtype, D, kinds):
+        """fail unless the calls since `before` were one a kind in
+        `kinds`, each on the source _route names"""
+        want = ({}, {})
+        for kind in kinds:
+            d = want[kind != "fwd"]
+            src = fa._route(dtype, kind, fa._kernel_head_dim(D))
+            d[src] = d.get(src, 0) + 1
+        now = routes()
+        got = tuple({k: v - b[k] for k, v in n.items() if v != b[k]}
+                    for n, b in zip(now, before))
+        if got != want:
+            fail(f"flash_head_dims D={D} {dtype}: launches by source "
+                 f"{got}, expected {want}")
+        return {"fwd": want[0], "bwd": want[1]}
+
     timed = {}
     for D, T in FLASH_TIMED:
         q, k, v, do, _ = flash_case(torch, TRAIN_B, TRAIN_HEADS, TRAIN_HEADS,
                                     T, D, torch.bfloat16, False,
                                     seed=4545 + D)
-        fwd_routes = dict(fa.flash_attention_fwd_cuda.route_launches)
+        before = routes()
         o, l = fa.flash_attention_fwd_cuda(q, k, v, None, True)
-        source = fa._route(torch.bfloat16, "fwd", D)
-        if fa.flash_attention_fwd_cuda.route_launches[source] != \
-                fwd_routes[source] + 1:
-            fail(f"flash_head_dims D={D}: K3 did not run on {source}")
-        row = {"source": source}
+        g = [fa.flash_attention_bwd_cuda(q, k, v, None, o, l, do, None, True,
+                                         None, 0, mode)
+             for mode in fa.BWD_MODES]
+        row = {"source": took(before, torch.bfloat16, D,
+                              ("fwd",) + fa.BWD_MODES)}
+        # K3 and K5 hold no atomic: two calls give the same bits
+        o2, l2 = fa.flash_attention_fwd_cuda(q, k, v, None, True)
+        g2 = fa.flash_attention_bwd_cuda(q, k, v, None, o, l, do, None, True,
+                                         None, 0, "two_pass")
+        if not (torch.equal(o, o2) and torch.equal(l, l2) and all(
+                torch.equal(a, b) for a, b in zip(g[1], g2))):
+            fail(f"flash_head_dims D={D}: K3 or K5 differs between two "
+                 "calls on the same inputs")
+        row["bitwise_repeat"] = ["K3", "K5"]
+        del g, o2, l2, g2
         if D > 128:
             ro, rl = fa.flash_fwd_plain(q, k, v, None, True)
             row["max_abs_err"] = max(max_err(o, ro), lse_err(torch, l, rl))
@@ -2180,30 +2241,36 @@ def phase_flash_head_dims(torch, np):
                          for n, ms in row["ms"].items()}
         timed[f"D={D}" if T == TRAIN_T else f"D={D},T={T}"] = row
         del q, k, v, do, o, l, qr, kr, vr, out
-    # D 512 (16-row tiles) in both dtypes at T 1024: K3, K4 and K5 against
-    # the plain versions, the backward from the plain forward's o and L
-    d512 = {}
-    for dt in ("bfloat16", "float32"):
-        q, k, v, do, m = flash_case(torch, TRAIN_B, TRAIN_HEADS, TRAIN_HEADS,
-                                    1024, 512, getattr(torch, dt), True,
-                                    seed=4747)
-        o, l = fa.flash_attention_fwd_cuda(q, k, v, m, True)
-        ro, rl = fa.flash_fwd_plain(q, k, v, m, True)
-        ref = fa.flash_bwd_plain(q, k, v, m, ro, rl, do, None, True)
-        err = {"K3": max(max_err(o, ro), lse_err(torch, l, rl))}
-        rel = {"K3": tile_rel_err(torch, o, ro, FLASH_REF_FLOOR[dt])}
-        for mode, name in (("fused", "K4"), ("two_pass", "K5")):
-            g = fa.flash_attention_bwd_cuda(q, k, v, m, ro, rl, do, None,
-                                            True, None, 0, mode)
-            err[name] = max(max_err(a, b) for a, b in zip(g, ref))
-            rel[name] = max(tile_rel_err(torch, a, b, FLASH_REF_FLOOR[dt])
-                            for a, b in zip(g, ref))
-        torch.cuda.synchronize()
-        d512[dt] = {"max_abs_err": err, "tile_rel_err": rel}
-        if not (max(err.values()) <= FLASH_TOL[dt]
-                and max(rel.values()) <= FLASH_REL_TOL[dt]):
-            fail(f"flash_head_dims: D 512, T 1024, {dt}: {d512[dt]}")
-        del q, k, v, do, m, o, l, ro, rl, ref, g
+    # K3, K4 and K5 against the plain versions, the backward from the
+    # plain forward's o and L
+    checked = {}
+    for D in FLASH_CHECKED_D:
+        for dt in ("bfloat16", "float32"):
+            dtype = getattr(torch, dt)
+            q, k, v, do, m = flash_case(torch, TRAIN_B, TRAIN_HEADS,
+                                        TRAIN_HEADS, FLASH_CHECKED_T, D,
+                                        dtype, True, seed=4747 + D)
+            before = routes()
+            o, l = fa.flash_attention_fwd_cuda(q, k, v, m, True)
+            ro, rl = fa.flash_fwd_plain(q, k, v, m, True)
+            ref = fa.flash_bwd_plain(q, k, v, m, ro, rl, do, None, True)
+            err = {"K3": max(max_err(o, ro), lse_err(torch, l, rl))}
+            rel = {"K3": tile_rel_err(torch, o, ro, FLASH_REF_FLOOR[dt])}
+            for mode, name in (("fused", "K4"), ("two_pass", "K5")):
+                g = fa.flash_attention_bwd_cuda(q, k, v, m, ro, rl, do, None,
+                                                True, None, 0, mode)
+                err[name] = max(max_err(a, b) for a, b in zip(g, ref))
+                rel[name] = max(tile_rel_err(torch, a, b, FLASH_REF_FLOOR[dt])
+                                for a, b in zip(g, ref))
+            torch.cuda.synchronize()
+            c = checked.setdefault(f"D={D}", {})[dt] = {
+                "max_abs_err": err, "tile_rel_err": rel,
+                "source": took(before, dtype, D, ("fwd",) + fa.BWD_MODES)}
+            if not (max(err.values()) <= FLASH_TOL[dt]
+                    and max(rel.values()) <= FLASH_REL_TOL[dt]):
+                fail(f"flash_head_dims: D {D}, T {FLASH_CHECKED_T}, {dt}: "
+                     f"{c}")
+            del q, k, v, do, m, o, l, ro, rl, ref, g
     # the head-dim-256 stack
     rng = np.random.RandomState(3)
     x = torch.from_numpy(rng.rand(WIDE_B, 64, WIDE_T).astype(
@@ -2238,42 +2305,40 @@ def phase_flash_head_dims(torch, np):
             and max(rel.values()) <= 1e-4):
         fail(f"flash_head_dims: head-dim-256 stack loss rel {loss_rel}, "
              f"grad rel {rel}")
-    net_b = build_wide_net(torch, "bfloat16")
-    reset_flash_launches(fa)
-    routes = dict(fa.flash_attention_fwd_cuda.route_launches)
-    losses = []
-    for _ in range(2):
-        net_b.fit(x, y)
-        losses.append(net_b.score())
-    torch.cuda.synchronize()
-    b_launches = flash_launches(fa)
-    wide_routes = {k: v - routes[k] for k, v in
-                   fa.flash_attention_fwd_cuda.route_launches.items()}
-    if b_launches != {"K3": 2, "K4": 2, "K5": 0} or \
-            wide_routes != {fa.SOURCE: 2, fa.SM90_SOURCE: 0} or \
-            not all(math.isfinite(v) for v in losses):
-        fail(f"flash_head_dims: bf16 fit launched {b_launches} on "
-             f"{wide_routes}, losses {losses}")
+    fits = {}
+    for mode, want in (("fused", {"K3": 2, "K4": 2, "K5": 0}),
+                       ("two_pass", {"K3": 2, "K4": 0, "K5": 4})):
+        prev = fa.configure(bwd=mode)
+        try:
+            net_b = build_wide_net(torch, "bfloat16")
+            reset_flash_launches(fa)
+            before = routes()
+            losses = []
+            for _ in range(2):
+                net_b.fit(x, y)
+                losses.append(net_b.score())
+            torch.cuda.synchronize()
+        finally:
+            fa.configure(bwd=prev[0])
+        b_launches = flash_launches(fa)
+        wide_routes = took(before, torch.bfloat16, WIDE_D_MODEL // WIDE_HEADS,
+                           ("fwd", mode, "fwd", mode))
+        if b_launches != want or not all(math.isfinite(v) for v in losses):
+            fail(f"flash_head_dims: bf16 fit ({mode}) launched "
+                 f"{b_launches} on {wide_routes}, losses {losses}")
+        fits[mode] = {"losses": losses, "launches": b_launches,
+                      "routes": wide_routes}
     res = {"phase": "flash_head_dims",
            "shape": {"B": TRAIN_B, "H": TRAIN_HEADS, "T": TRAIN_T,
                      "causal": True, "dtype": "bfloat16"},
-           "timed": timed,
+           "timed": timed, "checked": checked,
            "stack": {"layer": f"SelfAttentionLayer({WIDE_D_MODEL}, "
                               f"{WIDE_HEADS} heads, block {WIDE_BLOCK})",
                      "T": WIDE_T, "B": WIDE_B, "head_dim": 256,
                      "loss_rel_err": loss_rel, "grad_rel_err": rel,
                      "max_grad_rel_err": max(rel.values()),
                      "tolerance": 1e-4, "launches": launches,
-                     "bf16_fit_losses": losses,
-                     "bf16_fit_launches": b_launches,
-                     "bf16_fit_routes": wide_routes},
-           "d512": d512, "raises_above": fa.HEAD_DIMS[-1]}
-    try:
-        fa._kernel_head_dim(fa.HEAD_DIMS[-1] + 1)
-        fail("flash_head_dims: D 513 did not raise")
-    except ValueError as e:
-        if "queue 3" not in str(e):
-            fail(f"flash_head_dims: D 513 raised without naming queue 3: {e}")
+                     "bf16_fits": fits}}
     emit(res)
     return res
 

@@ -1,8 +1,8 @@
 // Flash attention for Hopper (sm_90a) in fp32: the forward (K3), the fused
 // backward (K4) and the two-pass backward (K5), on the CUDA cores (wmma
 // and wgmma have no fp32 product short of TF32, whose ~3 decimal digits
-// would miss the fp32 tolerance). Every bf16 kernel is
-// flash_attention_sm90.cu's (wgmma, TMA).
+// would miss the fp32 tolerance). bf16 runs on flash_attention_sm90.cu's
+// kernels (wgmma, TMA) where it has one and is widened to these elsewhere.
 //
 // Replaces the Pallas kernels of deeplearning4j_tpu/ops/flash_attention.py:
 //   - K3 `_call_fwd` (:448, body `_fwd_kernel` :123): online-softmax
@@ -54,9 +54,12 @@
 // conflicts. At D = 128 a backward CTA needs ~166 KB of dynamic shared
 // memory (above 48 KB it takes cudaFuncSetAttribute). At D 192 and 256
 // the tiles are 32 x 32 (a 2 x 2 micro-tile a thread; ~109 and ~142 KB);
-// these instances also run bf16 inputs of those head dims, which the
-// wrapper widens to fp32 (the wgmma kernels stop at D 128). At D 384 and
-// 512 the tiles are 16 x 16 (one score a thread), widened the same way.
+// these instances also run K4 in bf16 at those head dims, which the
+// wrapper widens to fp32 (K4's wgmma kernel stops at D 128). At D 384 and
+// 512 the tiles are 16 x 16 (one score a thread), widened the same way
+// for bf16. Above 512 (at D 1024 a 16-row backward CTA would need ~266 KB)
+// the head dim streams through shared memory in chunks (the *_wide_
+// kernels at the end).
 //
 // What bounds it on the H100, at the training shape in fp32 (B*H = 16, T
 // = 8192, D = 64, causal, 33,558,528 visible pairs per head): operations,
@@ -577,7 +580,7 @@ constexpr size_t bwd_smem() {
          sizeof(int) * BN;
 }
 
-// fp32 inputs only (bf16 at D <= 128 is flash_attention_sm90.cu's).
+// fp32 inputs only (the wrapper widens bf16 where no wgmma kernel runs).
 template <int D>
 int launch_fwd(const void* q, const void* k, const void* v, const int* km,
                void* o, float* lse, int B, int H, int Hk, Geometry g,
@@ -631,14 +634,304 @@ int launch_bwd(const void* q, const void* k, const void* v, const int* km,
   return (int)cudaGetLastError();
 }
 
+// ------------------------------------------------- head dims above 512
+// Any D that is a multiple of DCH (the wrapper zero-pads D up to one): the
+// head dim streams through shared memory in chunks of DCH columns over 16
+// x 16 tiles (one score a thread: query row ty, key tx), and every
+// accumulator that spans D lives in the CTA's own rows of the fp32 outputs
+// in device memory: o (the forward), dk and dv (the dk/dv kernel), dq (the
+// dq kernel). No other CTA touches those rows, so the CTA zeroes them
+// first and then reads, updates and writes them once a tile, as the
+// kernels above add one tile's partial sum at a time; K4's dq is added by
+// atomics, as at every head dim. Shared memory (~36 KB) and registers do
+// not depend on D, so no head dim is too large. Right, not fast: each tile
+// reads its q-side and key-side chunks again from L2 for every pass over
+// D, and the accumulators make a round trip through it.
+constexpr int DCH = 128;          // head-dim columns of a chunk
+constexpr int SB = 16;            // query rows and keys of a tile
+constexpr int CP = DCH + 1;       // padded stride of a row-major chunk
+constexpr int SP = SB + 1;        // padded stride of a transposed chunk
+
+// rows [row0, row0 + SB) x columns [c0, c0 + DCH) of a (T, D) matrix,
+// row-major (dst[r * CP + d]) or transposed (dst[d * SP + r]); rows past T
+// are zero
+template <bool TRANSPOSED>
+__device__ __forceinline__ void stage_chunk(float* dst, const float* src,
+                                            int row0, int c0, int T, int D) {
+  for (int e = threadIdx.x; e < SB * DCH; e += NT) {
+    const int r = e / DCH, d = e - r * DCH, row = row0 + r;
+    const float x = row < T ? src[(long)row * D + c0 + d] : 0.f;
+    dst[TRANSPOSED ? d * SP + r : r * CP + d] = x;
+  }
+}
+
+__global__ void __launch_bounds__(NT)
+flash_fwd_wide_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                      const float* __restrict__ v, const int* __restrict__ km,
+                      float* __restrict__ o, float* __restrict__ lse, int H,
+                      int Hk, int D, Geometry g, float scale) {
+  __shared__ float Qc[SB * CP], Kt[DCH * SP], Vc[SB * CP], Ps[SB * SP];
+  __shared__ int kms[SB];
+  const int i = gridDim.x - 1 - blockIdx.x;   // the longest causal rows first
+  const int bh = blockIdx.y, b = bh / H, h = bh - b * H;
+  const int kvrow = b * Hk + h / (H / Hk);
+  const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
+  const int T = g.T, q_lo = i * SB, qi = q_lo + ty, nch = D / DCH;
+  const float* qb = q + (long)bh * T * D;
+  const float* kb = k + (long)kvrow * T * D;
+  const float* vb = v + (long)kvrow * T * D;
+  float* orow = o + ((long)bh * T + qi) * D;  // row ty: columns tx + 16 e
+  if (qi < T)
+    for (int col = tx; col < D; col += 16) orow[col] = 0.f;
+  float m = DL4J_NEG_INF, l = 0.f;
+  int j0, j1;
+  key_tiles<SB, SB>(g, q_lo, &j0, &j1);
+  for (int j = j0; j < j1; ++j) {
+    const int k_lo = j * SB;
+    float s = 0.f;
+    for (int ch = 0; ch < nch; ++ch) {
+      __syncthreads();                  // the last chunk's readers are done
+      stage_chunk<false>(Qc, qb, q_lo, ch * DCH, T, D);
+      stage_chunk<true>(Kt, kb, k_lo, ch * DCH, T, D);
+      if (ch == 0) stage_key_ok<SB>(kms, km, b, k_lo, T);
+      __syncthreads();
+#pragma unroll 8
+      for (int d = 0; d < DCH; ++d) s += Qc[ty * CP + d] * Kt[d * SP + tx];
+    }
+    const bool ok = !tile_masked<SB, SB>(g, q_lo, k_lo, km != nullptr) ||
+                    visible(g, qi, k_lo + tx, kms[tx] != 0);
+    s = ok ? s * scale : DL4J_NEG_INF;
+    const float m_new = fmaxf(m, row_max(s));
+    const float p = ok ? expf(s - m_new) : 0.f;
+    const float alpha = expf(m - m_new);
+    l = l * alpha + row_sum(p);
+    m = m_new;
+    Ps[ty * SP + tx] = p;
+    for (int ch = 0; ch < nch; ++ch) {
+      __syncthreads();                  // Ps written, Vc's readers done
+      stage_chunk<false>(Vc, vb, k_lo, ch * DCH, T, D);
+      __syncthreads();
+      if (qi >= T) continue;
+#pragma unroll
+      for (int e = 0; e < DCH / 16; ++e) {
+        const int col = tx + 16 * e;
+        float t = 0.f;
+#pragma unroll
+        for (int c = 0; c < SB; ++c) t += Ps[ty * SP + c] * Vc[c * CP + col];
+        float* a = orow + ch * DCH + col;
+        *a = *a * alpha + t;
+      }
+    }
+  }
+  if (qi >= T) return;
+  const float inv = 1.f / fmaxf(l, 1e-30f);
+  for (int col = tx; col < D; col += 16) orow[col] *= inv;
+  if (tx == 0)
+    lse[(long)bh * T + qi] =
+        l > 0.f ? m + logf(fmaxf(l, 1e-30f)) : DL4J_NEG_INF;
+}
+
+// s = q.k and dp = dO.v of the pair (q_lo + ty, k_lo + tx) over every
+// chunk of the head dim
+__device__ __forceinline__ void wide_scores(
+    float* Qc, float* dOc, float* Kt, float* Vt, const float* qb,
+    const float* dob, const float* kb, const float* vb, int q_lo, int k_lo,
+    int T, int D, float* s, float* dp) {
+  const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
+  float a = 0.f, c = 0.f;
+  for (int ch = 0; ch < D / DCH; ++ch) {
+    __syncthreads();
+    stage_chunk<false>(Qc, qb, q_lo, ch * DCH, T, D);
+    stage_chunk<false>(dOc, dob, q_lo, ch * DCH, T, D);
+    stage_chunk<true>(Kt, kb, k_lo, ch * DCH, T, D);
+    stage_chunk<true>(Vt, vb, k_lo, ch * DCH, T, D);
+    __syncthreads();
+#pragma unroll 8
+    for (int d = 0; d < DCH; ++d) {
+      a += Qc[ty * CP + d] * Kt[d * SP + tx];
+      c += dOc[ty * CP + d] * Vt[d * SP + tx];
+    }
+  }
+  *s = a;
+  *dp = c;
+}
+
+// K4 (WITH_DQ: dq by atomics) and K5's dk/dv kernel at D > 512: one CTA
+// per 16 keys; dk and dv of key row k_lo + ty in the outputs' rows.
+template <bool WITH_DQ>
+__global__ void __launch_bounds__(NT)
+flash_bwd_kv_wide_kernel(const float* __restrict__ q,
+                         const float* __restrict__ k,
+                         const float* __restrict__ v,
+                         const int* __restrict__ km,
+                         const float* __restrict__ dout,
+                         const float* __restrict__ lse,
+                         const float* __restrict__ di, float* __restrict__ dq,
+                         float* __restrict__ dk, float* __restrict__ dv,
+                         int H, int D, Geometry g, float scale) {
+  __shared__ float Qc[SB * CP], dOc[SB * CP], Kt[DCH * SP], Vt[DCH * SP];
+  __shared__ float Ps[SB * SP], dSs[SB * SP], Ls[SB], Dis[SB];
+  __shared__ int kms[SB];
+  const int j = blockIdx.x;             // the most-visited key tiles first
+  const int bh = blockIdx.y, b = bh / H;
+  const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
+  const int T = g.T, k_lo = j * SB, kj = k_lo + ty, nch = D / DCH;
+  const long base = (long)bh * T * D;
+  float* dkrow = dk + base + (long)kj * D;
+  float* dvrow = dv + base + (long)kj * D;
+  if (kj < T)
+    for (int col = tx; col < D; col += 16) dkrow[col] = dvrow[col] = 0.f;
+  stage_key_ok<SB>(kms, km, b, k_lo, T);
+  int i0, i1;
+  query_tiles<SB, SB>(g, k_lo, &i0, &i1);
+  for (int i = i0; i < i1; ++i) {
+    const int q_lo = i * SB;
+    __syncthreads();
+    stage_rows<SB>(Ls, Dis, lse, di, (long)bh * T, q_lo, T);
+    float s, dp;
+    wide_scores(Qc, dOc, Kt, Vt, q + base, dout + base, k + base, v + base,
+                q_lo, k_lo, T, D, &s, &dp);
+    const bool ok = !tile_masked<SB, SB>(g, q_lo, k_lo, km != nullptr) ||
+                    visible(g, q_lo + ty, k_lo + tx, kms[tx] != 0);
+    const float p = ok ? expf(s * scale - Ls[ty]) : 0.f;
+    Ps[ty * SP + tx] = p;
+    dSs[ty * SP + tx] = p * (dp - Dis[ty]);
+    for (int ch = 0; ch < nch; ++ch) {
+      __syncthreads();                  // Ps, dSs written; readers done
+      stage_chunk<false>(Qc, q + base, q_lo, ch * DCH, T, D);
+      stage_chunk<false>(dOc, dout + base, q_lo, ch * DCH, T, D);
+      if (WITH_DQ) stage_chunk<true>(Kt, k + base, k_lo, ch * DCH, T, D);
+      __syncthreads();
+      if (kj < T) {
+        // dv += p^T dO, dk += ds^T q over this chunk (scale at the end)
+#pragma unroll
+        for (int e = 0; e < DCH / 16; ++e) {
+          const int col = tx + 16 * e;
+          float tv = 0.f, tk = 0.f;
+#pragma unroll
+          for (int r = 0; r < SB; ++r) {
+            tv += Ps[r * SP + ty] * dOc[r * CP + col];
+            tk += dSs[r * SP + ty] * Qc[r * CP + col];
+          }
+          dvrow[ch * DCH + col] += tv;
+          dkrow[ch * DCH + col] += tk;
+        }
+      }
+      if (WITH_DQ && q_lo + ty < T) {
+        // dq[q_lo + ty] += scale * ds k over this chunk
+        float* row = dq + base + (long)(q_lo + ty) * D + ch * DCH;
+#pragma unroll
+        for (int e = 0; e < DCH / 16; ++e) {
+          const int col = tx + 16 * e;
+          float t = 0.f;
+#pragma unroll
+          for (int c = 0; c < SB; ++c) t += dSs[ty * SP + c] * Kt[col * SP + c];
+          atomicAdd(row + col, scale * t);
+        }
+      }
+    }
+  }
+  if (kj < T)
+    for (int col = tx; col < D; col += 16) dkrow[col] *= scale;
+}
+
+// K5's dq kernel at D > 512: one CTA per 16 q rows; dq of row q_lo + ty
+// in the output's row.
+__global__ void __launch_bounds__(NT)
+flash_bwd_q_wide_kernel(const float* __restrict__ q,
+                        const float* __restrict__ k,
+                        const float* __restrict__ v,
+                        const int* __restrict__ km,
+                        const float* __restrict__ dout,
+                        const float* __restrict__ lse,
+                        const float* __restrict__ di, float* __restrict__ dq,
+                        int H, int D, Geometry g, float scale) {
+  __shared__ float Qc[SB * CP], dOc[SB * CP], Kt[DCH * SP], Vt[DCH * SP];
+  __shared__ float dSs[SB * SP], Ls[SB], Dis[SB];
+  __shared__ int kms[SB];
+  const int i = gridDim.x - 1 - blockIdx.x;
+  const int bh = blockIdx.y, b = bh / H;
+  const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
+  const int T = g.T, q_lo = i * SB, qi = q_lo + ty, nch = D / DCH;
+  const long base = (long)bh * T * D;
+  float* dqrow = dq + base + (long)qi * D;
+  if (qi < T)
+    for (int col = tx; col < D; col += 16) dqrow[col] = 0.f;
+  stage_rows<SB>(Ls, Dis, lse, di, (long)bh * T, q_lo, T);
+  int j0, j1;
+  key_tiles<SB, SB>(g, q_lo, &j0, &j1);
+  for (int j = j0; j < j1; ++j) {
+    const int k_lo = j * SB;
+    __syncthreads();                    // kms's readers are done
+    stage_key_ok<SB>(kms, km, b, k_lo, T);
+    float s, dp;
+    wide_scores(Qc, dOc, Kt, Vt, q + base, dout + base, k + base, v + base,
+                q_lo, k_lo, T, D, &s, &dp);
+    const bool ok = !tile_masked<SB, SB>(g, q_lo, k_lo, km != nullptr) ||
+                    visible(g, qi, k_lo + tx, kms[tx] != 0);
+    const float p = ok ? expf(s * scale - Ls[ty]) : 0.f;
+    dSs[ty * SP + tx] = p * (dp - Dis[ty]);
+    for (int ch = 0; ch < nch; ++ch) {
+      __syncthreads();                  // dSs written; Kt's readers done
+      stage_chunk<true>(Kt, k + base, k_lo, ch * DCH, T, D);
+      __syncthreads();
+      if (qi >= T) continue;
+#pragma unroll
+      for (int e = 0; e < DCH / 16; ++e) {
+        const int col = tx + 16 * e;
+        float t = 0.f;
+#pragma unroll
+        for (int c = 0; c < SB; ++c) t += dSs[ty * SP + c] * Kt[col * SP + c];
+        dqrow[ch * DCH + col] += scale * t;
+      }
+    }
+  }
+}
+
+int launch_fwd_wide(const void* q, const void* k, const void* v,
+                    const int* km, void* o, float* lse, int B, int H, int Hk,
+                    int D, Geometry g, float scale, cudaStream_t st) {
+  flash_fwd_wide_kernel<<<dim3((g.T + SB - 1) / SB, B * H), NT, 0, st>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k),
+      static_cast<const float*>(v), km, static_cast<float*>(o), lse, H, Hk,
+      D, g, scale);
+  return (int)cudaGetLastError();
+}
+
+int launch_bwd_wide(const void* q, const void* k, const void* v,
+                    const int* km, const void* dout, const float* lse,
+                    const float* di, float* dq, void* dk, void* dv, int B,
+                    int H, int D, Geometry g, int two_pass, float scale,
+                    cudaStream_t st) {
+  const float* q_ = static_cast<const float*>(q);
+  const float* k_ = static_cast<const float*>(k);
+  const float* v_ = static_cast<const float*>(v);
+  const float* do_ = static_cast<const float*>(dout);
+  float* dk_ = static_cast<float*>(dk);
+  float* dv_ = static_cast<float*>(dv);
+  const dim3 grid((g.T + SB - 1) / SB, B * H);
+  if (!two_pass) {
+    flash_bwd_kv_wide_kernel<true><<<grid, NT, 0, st>>>(
+        q_, k_, v_, km, do_, lse, di, dq, dk_, dv_, H, D, g, scale);
+    return (int)cudaGetLastError();
+  }
+  flash_bwd_q_wide_kernel<<<grid, NT, 0, st>>>(q_, k_, v_, km, do_, lse, di,
+                                               dq, H, D, g, scale);
+  const int err = (int)cudaGetLastError();
+  if (err) return err;
+  flash_bwd_kv_wide_kernel<false><<<grid, NT, 0, st>>>(
+      q_, k_, v_, km, do_, lse, di, nullptr, dk_, dv_, H, D, g, scale);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
-// dtype code 0 (float32) only: bf16 at D <= 128 runs on
-// flash_attention_sm90.cu's kernels, and the wrapper widens bf16 at D 192
-// to 512 to fp32 for these. Head dims 16, 32, 64, 128, 192, 256, 384,
-// 512. Return
-// a cudaError_t code (0 on success). They allocate nothing and do not
-// synchronize: the kernels launch on `stream`.
+// dtype code 0 (float32) only: the wrapper widens bf16 to fp32 for these
+// where flash_attention_sm90.cu has no kernel (K3 and K5 above D 256, K4
+// above 128). Head dims 16, 32, 64, 128, 192, 256, 384, 512 and every
+// multiple of DCH above 512. Return a cudaError_t code (0 on success).
+// They allocate nothing and do not synchronize: the kernels launch on
+// `stream`.
 #define DL4J_DISPATCH_D(FN, ...)                                   \
   {                                                                \
     if (D == 16) return FN<16>(__VA_ARGS__);                       \
@@ -661,6 +954,13 @@ extern "C" int dl4j_flash_fwd(const void* q, const void* k, const void* v,
   if (Hk <= 0 || H % Hk != 0) return (int)cudaErrorInvalidValue;
   if (dtype != 0) return (int)cudaErrorInvalidValue;
   const Geometry g{T, causal, window};
+  if (D > 512)
+    return D % DCH ? (int)cudaErrorInvalidValue
+                   : launch_fwd_wide(q, k, v,
+                                     static_cast<const int*>(key_mask), o,
+                                     static_cast<float*>(lse), B, H, Hk, D,
+                                     g, scale,
+                                     static_cast<cudaStream_t>(stream));
   DL4J_DISPATCH_D(launch_fwd, q, k, v,
                   static_cast<const int*>(key_mask), o,
                   static_cast<float*>(lse), B, H, Hk, g, scale,
@@ -676,6 +976,15 @@ extern "C" int dl4j_flash_bwd(const void* q, const void* k, const void* v,
   if (T <= 0 || B <= 0 || H <= 0) return 0;
   const Geometry g{T, causal, window};
   if (dtype != 0) return (int)cudaErrorInvalidValue;
+  if (D > 512)
+    return D % DCH ? (int)cudaErrorInvalidValue
+                   : launch_bwd_wide(q, k, v,
+                                     static_cast<const int*>(key_mask), dout,
+                                     static_cast<const float*>(lse),
+                                     static_cast<const float*>(di),
+                                     static_cast<float*>(dq), dk, dv, B, H, D,
+                                     g, two_pass, scale,
+                                     static_cast<cudaStream_t>(stream));
   DL4J_DISPATCH_D(launch_bwd, q, k, v,
                   static_cast<const int*>(key_mask), dout,
                   static_cast<const float*>(lse),

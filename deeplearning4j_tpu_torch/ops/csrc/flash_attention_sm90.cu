@@ -1,12 +1,14 @@
 // Flash attention on Hopper's wgmma and TMA (sm_90a) for bf16 inputs: the
-// forward (K3), both passes of the two-pass backward (K5) and the fused
-// backward (K4). fp32 inputs stay with flash_attention.cu.
+// forward (K3) and both passes of the two-pass backward (K5) at head dims
+// 16 to 256, and the fused backward (K4) up to 128. fp32 inputs, and K4
+// above 128, stay with flash_attention.cu.
 //
 // Replaces the Pallas kernels of deeplearning4j_tpu/ops/flash_attention.py:
 //   - flash_fwd_sm90_kernel: K3, `_call_fwd` (:448) with body `_fwd_kernel`
 //     (:123): the online-softmax forward, o and the row log-sum-exp L;
 //   - flash_dq_sm90_kernel: K5's dq pass, `_dq_kernel` (:262);
-//   - flash_dkv_sm90_kernel: K5's dk/dv pass, `_dkv_kernel` (:301);
+//   - flash_dkv_sm90_kernel: K5's dk/dv pass, `_dkv_kernel` (:301), and
+//     flash_dkv_wide_sm90_kernel, the same pass at D 192 and 256;
 //   - flash_bwd_fused_sm90_kernel: K4, `_fused_bwd_kernel` (:349): the
 //     dk/dv pass that also forms dq, one launch.
 // Layout: q (B*H, T, D), k/v (B*Hk, T, D) bf16 row-major; L and D_i
@@ -95,12 +97,19 @@
 // or reduction.
 //
 // Tiles: the forward takes 128 q rows per CTA and key tiles of 128 (D <=
-// 64) or 64 (D 128) keys; the dq pass 128 q rows and key tiles of the same
-// sizes; the dk/dv pass and K4 128 keys per CTA and q tiles of 64 (32 at D
-// 128, to keep dk, dv, S^T and dP^T in registers). TMA maps are 3-D (D, T,
-// rows), so a box that runs past T is zero-filled instead of reading the
-// next head; D 16/32/64 rows are one box with 32/64/128-byte swizzle, D
-// 128 is two 64-column boxes.
+// 64) or 64 (D 128 to 256) keys, a ring of three stages (two at D 256,
+// where three stages beside Q would take 256 KB); the dq pass 128 q rows
+// and key tiles of 128, 64 (D 128) or 32 keys (D 192/256: Q and dO stay
+// resident, 128 KB at D 256, and dq takes D / 2 registers a thread); the
+// dk/dv pass and K4 128 keys per CTA and q tiles of 64 (32 at D 128, to
+// keep dk, dv, S^T and dP^T in registers). At D 192 and 256 dk and dv of
+// 128 keys do not fit the register file: the wide dk/dv pass takes 64
+// keys a CTA and splits the head dim between its warpgroups (see
+// flash_dkv_wide_sm90_kernel). At D 256 the forward's O is 128 registers
+// a thread beside S (32) and P (16), under the consumers' 232. TMA maps
+// are 3-D (D, T, rows), so a box that runs past T is zero-filled instead
+// of reading the next head; D 16/32/64 rows are one box with
+// 32/64/128-byte swizzle, D 128 to 256 are 2 to 4 boxes of 64 columns.
 #include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -119,7 +128,6 @@ constexpr int NC = 128 * NCWG;           // consumer threads
 constexpr int NT = NC + 128;             // and a producer warpgroup
 constexpr int PRODUCER_REGS = 40;        // setmaxnreg: the producer gives
 constexpr int CONSUMER_REGS = 232;       // registers to the consumers
-constexpr int STAGES = 3;                // depth of the TMA ring
 constexpr int ROWS = 64 * NCWG;          // CTA rows: q (K3, dq), keys (dk/dv)
 
 // ------------------------------------------------------------- PTX helpers
@@ -184,7 +192,7 @@ template <int D>
 struct Box {
   static constexpr int COLS = D < 64 ? D : 64;
   static constexpr int RB = 2 * COLS;          // 32, 64 or 128 bytes
-  static constexpr int NBOX = D / COLS;        // 1, or 2 at D 128
+  static constexpr int NBOX = D / COLS;        // 1, or D / 64 from D 128
   static constexpr int SPB = RB / 32;          // k16 slices in a box row
   // wgmma descriptor layout: 1 = 128-byte, 2 = 64-byte, 3 = 32-byte swizzle
   static constexpr uint64_t LAYOUT = RB == 128 ? 1 : RB == 64 ? 2 : 3;
@@ -381,6 +389,112 @@ __device__ __forceinline__ void wgmma_rs<128>(float (&d)[64],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(acc));
 }
 
+template <>
+__device__ __forceinline__ void wgmma_rs<192>(float (&d)[96],
+                                             const uint32_t* a, uint64_t b,
+                                             int acc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %101, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n192k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7,"
+      "%8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23,"
+      "%24, %25, %26, %27, %28, %29, %30, %31,"
+      "%32, %33, %34, %35, %36, %37, %38, %39,"
+      "%40, %41, %42, %43, %44, %45, %46, %47,"
+      "%48, %49, %50, %51, %52, %53, %54, %55,"
+      "%56, %57, %58, %59, %60, %61, %62, %63,"
+      "%64, %65, %66, %67, %68, %69, %70, %71,"
+      "%72, %73, %74, %75, %76, %77, %78, %79,"
+      "%80, %81, %82, %83, %84, %85, %86, %87,"
+      "%88, %89, %90, %91, %92, %93, %94, %95"
+      "}, {%96, %97, %98, %99}, %100, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]),
+        "+f"(d[64]), "+f"(d[65]), "+f"(d[66]), "+f"(d[67]),
+        "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]),
+        "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]),
+        "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]),
+        "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]),
+        "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]),
+        "+f"(d[88]), "+f"(d[89]), "+f"(d[90]), "+f"(d[91]),
+        "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(acc));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_rs<256>(float (&d)[128],
+                                             const uint32_t* a, uint64_t b,
+                                             int acc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %133, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7,"
+      "%8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23,"
+      "%24, %25, %26, %27, %28, %29, %30, %31,"
+      "%32, %33, %34, %35, %36, %37, %38, %39,"
+      "%40, %41, %42, %43, %44, %45, %46, %47,"
+      "%48, %49, %50, %51, %52, %53, %54, %55,"
+      "%56, %57, %58, %59, %60, %61, %62, %63,"
+      "%64, %65, %66, %67, %68, %69, %70, %71,"
+      "%72, %73, %74, %75, %76, %77, %78, %79,"
+      "%80, %81, %82, %83, %84, %85, %86, %87,"
+      "%88, %89, %90, %91, %92, %93, %94, %95,"
+      "%96, %97, %98, %99, %100, %101, %102, %103,"
+      "%104, %105, %106, %107, %108, %109, %110, %111,"
+      "%112, %113, %114, %115, %116, %117, %118, %119,"
+      "%120, %121, %122, %123, %124, %125, %126, %127"
+      "}, {%128, %129, %130, %131}, %132, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]),
+        "+f"(d[64]), "+f"(d[65]), "+f"(d[66]), "+f"(d[67]),
+        "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]),
+        "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]),
+        "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]),
+        "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]),
+        "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]),
+        "+f"(d[88]), "+f"(d[89]), "+f"(d[90]), "+f"(d[91]),
+        "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95]),
+        "+f"(d[96]), "+f"(d[97]), "+f"(d[98]), "+f"(d[99]),
+        "+f"(d[100]), "+f"(d[101]), "+f"(d[102]), "+f"(d[103]),
+        "+f"(d[104]), "+f"(d[105]), "+f"(d[106]), "+f"(d[107]),
+        "+f"(d[108]), "+f"(d[109]), "+f"(d[110]), "+f"(d[111]),
+        "+f"(d[112]), "+f"(d[113]), "+f"(d[114]), "+f"(d[115]),
+        "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),
+        "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]),
+        "+f"(d[124]), "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(acc));
+}
+
 // d += A B over one k16 slice with both operands in shared memory and both
 // MN-major (wgmma's two transpose bits): A's M and B's N contiguous, K =
 // the rows of each tile. K4's dq product only.
@@ -443,7 +557,9 @@ __device__ __forceinline__ void wgmma_ss_t<64>(float (&d)[32], uint64_t a,
 // The two shapes every product of the three kernels takes, over the whole
 // k extent: d = A B^T with A rows [a_row0, a_row0 + 64) of an R-row tile
 // and B the N-row tile, both K-major, K = D ("SS"); d += A B with A the
-// m64 x K bf16 fragments in registers and B a K-row tile, N = D ("RS").
+// m64 x K bf16 fragments in registers and B a K-row tile, N = D ("RS"),
+// or N of its columns from the 64-column box at b (the dk/dv pass at D
+// 192 and 256, whose warpgroups split the head dim).
 template <int D, int R, int N>
 __device__ __forceinline__ void ss_product(float (&d)[N / 2], uint32_t a,
                                            int a_row0, uint32_t b) {
@@ -453,13 +569,13 @@ __device__ __forceinline__ void ss_product(float (&d)[N / 2], uint32_t a,
                 kk > 0);
 }
 
-template <int D, int K>
-__device__ __forceinline__ void rs_product(float (&d)[D / 2],
+template <int D, int K, int N = D>
+__device__ __forceinline__ void rs_product(float (&d)[N / 2],
                                            const uint32_t (&a)[K / 4],
                                            uint32_t b) {
 #pragma unroll
   for (int kk = 0; kk < K / 16; ++kk)
-    wgmma_rs<D>(d, a + 4 * kk, desc_mn<D, K>(b, kk), 1);
+    wgmma_rs<N>(d, a + 4 * kk, desc_mn<D, K>(b, kk), 1);
 }
 
 // ------------------------------------------------ K4's dq path
@@ -746,6 +862,9 @@ template <int D>
 struct FwdTiles {
   static constexpr int BM = ROWS;                 // q rows per CTA
   static constexpr int BN = D <= 64 ? 128 : 64;   // keys per tile
+  // depth of the K/V ring: Q and three stages of K and V are 256 KB at D
+  // 256, above a CTA's 227 KB
+  static constexpr int STAGES = D > 192 ? 2 : 3;
   static constexpr int QBYTES = BM * D * 2;
   static constexpr int KBYTES = BN * D * 2;
   static constexpr int K_OFF = QBYTES;
@@ -765,7 +884,7 @@ flash_fwd_sm90_kernel(const __grid_constant__ CUtensorMap tq,
                       float scale) {
   using C = FwdTiles<D>;
   using X = Box<D>;
-  constexpr int BM = C::BM, BN = C::BN;
+  constexpr int BM = C::BM, BN = C::BN, STAGES = C::STAGES;
   const int i = gridDim.x - 1 - blockIdx.x;   // the longest causal rows first
   const int bh = blockIdx.y, b = bh / H, h = bh - b * H;
   const int kvrow = b * Hk + h / (H / Hk);
@@ -919,7 +1038,11 @@ flash_fwd_sm90_kernel(const __grid_constant__ CUtensorMap tq,
 template <int D>
 struct DqTiles {
   static constexpr int BM = ROWS;                 // q rows per CTA
-  static constexpr int BN = D <= 64 ? 128 : 64;   // keys per tile
+  // keys per tile: above D 128, Q and dO resident (128 KB at D 256) leave
+  // room for three stages of 32 keys, and dq (D / 2 registers a thread)
+  // beside S, dP and dS of 32 keys fits the consumers' registers
+  static constexpr int BN = D <= 64 ? 128 : D <= 128 ? 64 : 32;
+  static constexpr int STAGES = 3;
   static constexpr int QBYTES = BM * D * 2;
   static constexpr int KBYTES = BN * D * 2;
   static constexpr int DO_OFF = QBYTES;
@@ -942,7 +1065,7 @@ flash_dq_sm90_kernel(const __grid_constant__ CUtensorMap tq,
                      int H, Geometry g, float scale) {
   using C = DqTiles<D>;
   using X = Box<D>;
-  constexpr int BM = C::BM, BN = C::BN;
+  constexpr int BM = C::BM, BN = C::BN, STAGES = C::STAGES;
   const int i = gridDim.x - 1 - blockIdx.x;
   const int bh = blockIdx.y, b = bh / H;
   const int T = g.T, q_lo = i * BM;
@@ -1088,6 +1211,7 @@ template <int D, bool DQ>
 struct DkvTiles {
   static constexpr int BK = ROWS;                 // keys per CTA
   static constexpr int BQ = D <= 64 ? 64 : 32;    // q rows per tile
+  static constexpr int STAGES = 3;
   static constexpr int KBYTES = BK * D * 2;
   static constexpr int QBYTES = BQ * D * 2;
   static constexpr int DSBYTES = DQ ? BK * BQ * 2 : 0;   // a dS^T tile
@@ -1103,6 +1227,46 @@ struct DkvTiles {
   static constexpr int SMEM = BAR_OFF + 8 * (1 + 2 * STAGES) + 1024;
 };
 
+// The producer warp of a dk/dv pass: K and V of the CTA's BK keys once
+// (on kvbar), then Q, dO, L log2(e) and D_i of each of the nt q tiles of
+// BQ rows from tile i0 on into the STAGES-deep ring.
+template <int D, int BK, int BQ, int STAGES>
+__device__ __forceinline__ void load_dkv_tiles(
+    const CUtensorMap& tq, const CUtensorMap& tk, const CUtensorMap& tv,
+    const CUtensorMap& tdo, bf16* Ks, bf16* Vs, bf16* Qs, bf16* dOs,
+    float* Ls, float* Dis, uint64_t* kvbar, uint64_t* full, uint64_t* empty,
+    const float* __restrict__ lse, const float* __restrict__ di, int i0,
+    int nt, int k_lo, int bh, int T) {
+  using X = Box<D>;
+  const int lane = threadIdx.x & 31;
+  if (lane == 0) {
+    mbar_expect_tx(kvbar, 2 * BK * D * 2);
+    for (int c = 0; c < X::NBOX; ++c) {
+      tma_load_3d(Ks + c * BK * X::COLS, &tk, kvbar, c * X::COLS, k_lo, bh);
+      tma_load_3d(Vs + c * BK * X::COLS, &tv, kvbar, c * X::COLS, k_lo, bh);
+    }
+  }
+  for (int n = 0; n < nt; ++n) {
+    const int s = n % STAGES, q_lo = (i0 + n) * BQ;
+    mbar_wait(&empty[s], ((n / STAGES) & 1) ^ 1);
+    for (int r = lane; r < BQ; r += 32) {
+      const int qi = q_lo + r;   // rows past T: 0 (their pairs are masked)
+      Ls[s * BQ + r] = qi < T ? lse[(long)bh * T + qi] * LOG2E : 0.f;
+      Dis[s * BQ + r] = qi < T ? di[(long)bh * T + qi] : 0.f;
+    }
+    __syncwarp();
+    if (lane == 0) {
+      mbar_expect_tx(&full[s], 2 * BQ * D * 2);
+      for (int c = 0; c < X::NBOX; ++c) {
+        tma_load_3d(Qs + s * BQ * D + c * BQ * X::COLS, &tq, &full[s],
+                    c * X::COLS, q_lo, bh);
+        tma_load_3d(dOs + s * BQ * D + c * BQ * X::COLS, &tdo, &full[s],
+                    c * X::COLS, q_lo, bh);
+      }
+    }
+  }
+}
+
 // The dk/dv pass (DQ false, K5's second kernel) and the fused backward
 // (DQ true, K4): the same walk over the q tiles that see the CTA's 128
 // keys; K4 also forms each tile's dq over its keys (DqPath) and adds it
@@ -1115,8 +1279,7 @@ __device__ __forceinline__ void dkv_pass(
     const float* __restrict__ di, bf16* __restrict__ dk,
     bf16* __restrict__ dv, int H, Geometry g, float scale) {
   using C = DkvTiles<D, DQ>;
-  using X = Box<D>;
-  constexpr int BK = C::BK, BQ = C::BQ;
+  constexpr int BK = C::BK, BQ = C::BQ, STAGES = C::STAGES;
   const int j = blockIdx.x;         // the most-visited key tiles first
   const int bh = blockIdx.y, b = bh / H;
   const int T = g.T, k_lo = j * BK;
@@ -1155,33 +1318,9 @@ __device__ __forceinline__ void dkv_pass(
         return;
       }
     if (threadIdx.x >= NC + 32) return;
-    const int lane = threadIdx.x & 31;
-    if (lane == 0) {
-      mbar_expect_tx(kvbar, 2 * C::KBYTES);
-      for (int c = 0; c < X::NBOX; ++c) {
-        tma_load_3d(Ks + c * BK * X::COLS, &tk, kvbar, c * X::COLS, k_lo, bh);
-        tma_load_3d(Vs + c * BK * X::COLS, &tv, kvbar, c * X::COLS, k_lo, bh);
-      }
-    }
-    for (int n = 0; n < nt; ++n) {
-      const int s = n % STAGES, q_lo = (i0 + n) * BQ;
-      mbar_wait(&empty[s], ((n / STAGES) & 1) ^ 1);
-      for (int r = lane; r < BQ; r += 32) {
-        const int qi = q_lo + r;   // rows past T: 0 (their pairs are masked)
-        Ls[s * BQ + r] = qi < T ? lse[(long)bh * T + qi] * LOG2E : 0.f;
-        Dis[s * BQ + r] = qi < T ? di[(long)bh * T + qi] : 0.f;
-      }
-      __syncwarp();
-      if (lane == 0) {
-        mbar_expect_tx(&full[s], 2 * C::QBYTES);
-        for (int c = 0; c < X::NBOX; ++c) {
-          tma_load_3d(Qs + s * BQ * D + c * BQ * X::COLS, &tq, &full[s],
-                   c * X::COLS, q_lo, bh);
-          tma_load_3d(dOs + s * BQ * D + c * BQ * X::COLS, &tdo, &full[s],
-                   c * X::COLS, q_lo, bh);
-        }
-      }
-    }
+    load_dkv_tiles<D, BK, BQ, STAGES>(tq, tk, tv, tdo, Ks, Vs, Qs, dOs, Ls,
+                                      Dis, kvbar, full, empty, lse, di, i0,
+                                      nt, k_lo, bh, T);
   } else {
     regs_inc<CONSUMER_REGS>();
     // consumer warpgroup wg: keys k_lo + 64 wg ..; this thread's keys kj0
@@ -1343,6 +1482,236 @@ flash_bwd_fused_sm90_kernel(const __grid_constant__ CUtensorMap tq,
   dkv_pass<D, true>(tq, tk, tv, tdo, tdq, km, lse, di, dk, dv, H, g, scale);
 }
 
+// ------------------------------- K5's dk/dv pass at D 192 and 256
+// dK and dV of 128 keys (2 x 128 x D fp32) would take the whole register
+// file at D 256. So a CTA takes 64 keys, and its two consumer warpgroups
+// split each q tile's work by role: warpgroup 0 forms S^T = K Q^T and P^T,
+// warpgroup 1 dP^T = V dO^T and dS^T = P^T (dP^T - D_i). They pass what
+// the other needs through shared memory: P^T in fp32, dS^T as its bf16 A
+// fragments, each laid out by thread (word e of thread t at e * 128 + t),
+// so that thread t of one warpgroup reads what thread t of the other wrote,
+// the same fragment positions, without bank conflicts. Then each holds dK
+// and dV of its own 64-column boxes of the head dim (two each at D 256;
+// two and one at D 192) and adds P^T dO and dS^T Q over them. S^T and
+// dP^T are formed once; dS^T is rounded where the other instances round
+// it, so the pass computes what theirs does.
+template <int D>
+struct DkvWideTiles {
+  static constexpr int BK = 64;                   // keys per CTA
+  static constexpr int BQ = 64;                   // q rows per tile
+  static constexpr int STAGES = D > 192 ? 2 : 3;
+  static constexpr int NB0 = (D / 64 + 1) / 2;    // boxes of warpgroup 0
+  static constexpr int KBYTES = BK * D * 2;
+  static constexpr int QBYTES = BQ * D * 2;
+  static constexpr int V_OFF = KBYTES;
+  static constexpr int Q_OFF = 2 * KBYTES;
+  static constexpr int DO_OFF = Q_OFF + STAGES * QBYTES;
+  static constexpr int XP_OFF = DO_OFF + STAGES * QBYTES;  // P^T, fp32
+  static constexpr int XD_OFF = XP_OFF + BK * BQ * 4;      // dS^T, bf16
+  static constexpr int L_OFF = XD_OFF + BK * BQ * 2;
+  static constexpr int DI_OFF = L_OFF + STAGES * BQ * 4;
+  static constexpr int BAR_OFF = DI_OFF + STAGES * BQ * 4;
+  static constexpr int SMEM = BAR_OFF + 8 * (1 + 2 * STAGES) + 1024;
+};
+
+// the exchange between the two roles (named barriers of all NC consumer
+// threads): P^T of a tile is in shared memory, then its dS^T
+constexpr int P_READY = 1, DS_READY = 2;
+
+// p = 2^(c s - L log2 e) of an m64 (keys) x BQ (queries) S^T tile in
+// place, masked as in dkv_p_ds
+template <bool MASKED, int BQ>
+__device__ __forceinline__ void dkv_p(float (&st)[BQ / 2], float c,
+                                      const float* L2q, const Geometry& g,
+                                      int q_lo, int kj0, const bool (&ko)[2],
+                                      int cq) {
+#pragma unroll
+  for (int e = 0; e < BQ / 2; e += 2) {
+    const int r = (e >> 1) & 1, col = 8 * (e >> 2) + cq;
+    const float2 L2 = *reinterpret_cast<const float2*>(L2q + col);
+#pragma unroll
+    for (int u = 0; u < 2; ++u) {
+      float x = fmaf(st[e + u], c, -(u ? L2.y : L2.x));
+      if (MASKED && !visible(g, q_lo + col + u, kj0 + 8 * r, ko[r]))
+        x = DL4J_NEG_INF;
+      st[e + u] = exp2_fast(x);
+    }
+  }
+}
+
+// Consumer warpgroup W of the wide dk/dv pass over the nt q tiles from i0
+// that see the CTA's 64 keys at k_lo.
+template <int D, int W>
+__device__ __forceinline__ void dkv_wide_role(
+    unsigned char* sm, int i0, int nt, int k_lo, int b,
+    const int* __restrict__ km, const Geometry& g, float scale,
+    bf16* __restrict__ dk, bf16* __restrict__ dv, long base) {
+  using C = DkvWideTiles<D>;
+  constexpr int BK = C::BK, BQ = C::BQ, STAGES = C::STAGES;
+  constexpr int NCOL = W == 0 ? 64 * C::NB0 : D - 64 * C::NB0;
+  constexpr int COL0 = W == 0 ? 0 : 64 * C::NB0;
+  constexpr int TILE = BQ * D * 2;             // bytes of a Q or dO stage
+  // the first of the warpgroup's boxes in a Q or dO stage
+  constexpr int AT = (COL0 / 64) * BQ * Box<D>::RB;
+  const int T = g.T;
+  const int tw = threadIdx.x & 127, lane = tw & 31, cq = 2 * (lane & 3);
+  const int kj0 = k_lo + 16 * (tw >> 5) + (lane >> 2);
+  const uint32_t ks = smem_u32(sm), vs = smem_u32(sm + C::V_OFF);
+  const uint32_t qs = smem_u32(sm + C::Q_OFF), dos = smem_u32(sm + C::DO_OFF);
+  const float* Ls = reinterpret_cast<const float*>(sm + C::L_OFF);
+  const float* Dis = reinterpret_cast<const float*>(sm + C::DI_OFF);
+  float2* xp = reinterpret_cast<float2*>(sm + C::XP_OFF);
+  uint32_t* xd = reinterpret_cast<uint32_t*>(sm + C::XD_OFF);
+  uint64_t* kvbar = reinterpret_cast<uint64_t*>(sm + C::BAR_OFF);
+  uint64_t* full = kvbar + 1;
+  uint64_t* empty = full + STAGES;
+  bool ko[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int kj = kj0 + 8 * r;
+    ko[r] = kj < T && (km == nullptr || km[(long)b * T + kj] != 0);
+  }
+  const float c = scale * LOG2E;
+  float dka[NCOL / 2], dva[NCOL / 2];
+  zero(dka);
+  zero(dva);
+  float x[BQ / 2];            // S^T (warpgroup 0) or dP^T (1) of a tile
+  uint32_t pa[BQ / 4], da[BQ / 4];
+  // P^T and dS^T of q tile n as A fragments in both warpgroups
+  auto exchange = [&](int n) {
+    const int s = n % STAGES, q_lo = (i0 + n) * BQ;
+    if constexpr (W == 0) {
+      if (tile_masked<BQ, BK>(g, q_lo, k_lo, km != nullptr))
+        dkv_p<true, BQ>(x, c, Ls + s * BQ, g, q_lo, kj0, ko, cq);
+      else
+        dkv_p<false, BQ>(x, c, Ls + s * BQ, g, q_lo, kj0, ko, cq);
+#pragma unroll
+      for (int e = 0; e < BQ / 2; e += 2)
+        xp[(e / 2) * 128 + tw] = make_float2(x[e], x[e + 1]);
+      pack_a<BQ>(x, pa);
+      named_arrive(P_READY, NC);
+      named_sync(DS_READY, NC);
+#pragma unroll
+      for (int e = 0; e < BQ / 4; ++e) da[e] = xd[e * 128 + tw];
+    } else {
+      const float* Dq = Dis + s * BQ;
+      named_sync(P_READY, NC);
+#pragma unroll
+      for (int e = 0; e < BQ / 2; e += 2) {
+        const float2 p = xp[(e / 2) * 128 + tw];
+        const float2 Di =
+            *reinterpret_cast<const float2*>(Dq + 8 * (e >> 2) + cq);
+        pa[e / 2] = pack_bf16(p.x, p.y);
+        da[e / 2] = pack_bf16(p.x * (x[e] - Di.x), p.y * (x[e + 1] - Di.y));
+        xd[(e / 2) * 128 + tw] = da[e / 2];
+      }
+      named_arrive(DS_READY, NC);
+    }
+  };
+  // Turn 0 forms the role's tile of q tile 0; turn t in [1, nt) dv += P^T
+  // dO, dk += dS^T Q over the warpgroup's columns of tile t - 1 and the
+  // role's tile of tile t; turn nt the last dv, dk. The exchange of tile t
+  // follows its product.
+  const uint32_t a0 = W == 0 ? ks : vs, b0 = W == 0 ? qs : dos;
+  mbar_wait(kvbar, 0);
+  wg_fence();
+  mbar_wait(&full[0], 0);
+  ss_product<D, BK, BQ>(x, a0, 0, b0);
+  wg_commit();
+  wg_wait<0>();
+  fence_regs(x);
+  exchange(0);
+  for (int t = 1; t < nt; ++t) {
+    const int sp = (t - 1) % STAGES, sn = t % STAGES;
+    wg_fence();
+    rs_product<D, BQ, NCOL>(dva, pa, dos + sp * TILE + AT);
+    rs_product<D, BQ, NCOL>(dka, da, qs + sp * TILE + AT);
+    mbar_wait(&full[sn], (t / STAGES) & 1);
+    ss_product<D, BK, BQ>(x, a0, 0, b0 + sn * TILE);
+    wg_commit();
+    wg_wait<0>();
+    fence_regs(x);
+    fence_regs(dva);
+    fence_regs(dka);
+    mbar_arrive(&empty[sp]);
+    exchange(t);
+  }
+  wg_fence();
+  rs_product<D, BQ, NCOL>(dva, pa, dos + ((nt - 1) % STAGES) * TILE + AT);
+  rs_product<D, BQ, NCOL>(dka, da, qs + ((nt - 1) % STAGES) * TILE + AT);
+  wg_commit();
+  wg_wait<0>();
+  fence_regs(dva);
+  fence_regs(dka);
+#pragma unroll
+  for (int e = 0; e < NCOL / 2; e += 2) {
+    const int kj = kj0 + 8 * ((e >> 1) & 1);
+    if (kj < T) {
+      const long off = base + (long)kj * D + COL0 + 8 * (e >> 2) + cq;
+      *reinterpret_cast<__nv_bfloat162*>(dk + off) =
+          __floats2bfloat162_rn(scale * dka[e], scale * dka[e + 1]);
+      *reinterpret_cast<__nv_bfloat162*>(dv + off) =
+          __floats2bfloat162_rn(dva[e], dva[e + 1]);
+    }
+  }
+}
+
+template <int D>
+__global__ void __launch_bounds__(NT, 1)
+flash_dkv_wide_sm90_kernel(const __grid_constant__ CUtensorMap tq,
+                           const __grid_constant__ CUtensorMap tk,
+                           const __grid_constant__ CUtensorMap tv,
+                           const __grid_constant__ CUtensorMap tdo,
+                           const int* __restrict__ km,
+                           const float* __restrict__ lse,
+                           const float* __restrict__ di,
+                           bf16* __restrict__ dk, bf16* __restrict__ dv,
+                           int H, Geometry g, float scale) {
+  using C = DkvWideTiles<D>;
+  constexpr int BK = C::BK, BQ = C::BQ, STAGES = C::STAGES;
+  const int j = blockIdx.x;         // the most-visited key tiles first
+  const int bh = blockIdx.y, b = bh / H;
+  const int T = g.T, k_lo = j * BK;
+
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* sm = align1024(smem_raw);
+  uint64_t* kvbar = reinterpret_cast<uint64_t*>(sm + C::BAR_OFF);
+  uint64_t* full = kvbar + 1;
+  uint64_t* empty = full + STAGES;
+  if (threadIdx.x == 0) {
+    mbar_init(kvbar, 1);
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], NC);
+    }
+    mbar_fence_init();
+  }
+  __syncthreads();
+  int i0, i1;
+  query_tiles<BQ, BK>(g, k_lo, &i0, &i1);
+  const int nt = i1 - i0;
+
+  if (threadIdx.x >= NC) {
+    regs_dec<PRODUCER_REGS>();
+    if (threadIdx.x >= NC + 32) return;
+    load_dkv_tiles<D, BK, BQ, STAGES>(
+        tq, tk, tv, tdo, reinterpret_cast<bf16*>(sm),
+        reinterpret_cast<bf16*>(sm + C::V_OFF),
+        reinterpret_cast<bf16*>(sm + C::Q_OFF),
+        reinterpret_cast<bf16*>(sm + C::DO_OFF),
+        reinterpret_cast<float*>(sm + C::L_OFF),
+        reinterpret_cast<float*>(sm + C::DI_OFF), kvbar, full, empty, lse,
+        di, i0, nt, k_lo, bh, T);
+  } else {
+    regs_inc<CONSUMER_REGS>();
+    const long base = (long)bh * T * D;
+    if (threadIdx.x < 128)
+      dkv_wide_role<D, 0>(sm, i0, nt, k_lo, b, km, g, scale, dk, dv, base);
+    else
+      dkv_wide_role<D, 1>(sm, i0, nt, k_lo, b, km, g, scale, dk, dv, base);
+  }
+}
+
 // ------------------------------------------------------------- host side
 // A 3-D map (D, T, rows) of a (rows, T, D) tensor of `elt`-byte elements
 // (bf16, or K4's fp32 dq), boxes of (cols, box_rows, 1) swizzled at the
@@ -1393,6 +1762,7 @@ int launch_fwd(const void* q, const void* k, const void* v, const int* km,
   if ((err = make_map<D>(&mq, q, g.T, B * H, C::BM))) return err;
   if ((err = make_map<D>(&mk, k, g.T, B * Hk, C::BN))) return err;
   if ((err = make_map<D>(&mv, v, g.T, B * Hk, C::BN))) return err;
+  static_assert(C::SMEM <= 232448, "one CTA's shared memory");
   auto kern = flash_fwd_sm90_kernel<D>;
   if ((err = prepare(kern, C::SMEM))) return err;
   dim3 grid((g.T + C::BM - 1) / C::BM, B * H);
@@ -1447,13 +1817,29 @@ int launch_bwd(const void* q, const void* k, const void* v, const int* km,
   if ((err = make_map<D>(&mdo, dout, g.T, B * H, Q::BM))) return err;
   if ((err = make_map<D>(&mk, k, g.T, B * H, Q::BN))) return err;
   if ((err = make_map<D>(&mv, v, g.T, B * H, Q::BN))) return err;
+  static_assert(Q::SMEM <= 232448, "one CTA's shared memory");
   auto kq = flash_dq_sm90_kernel<D>;
   if ((err = prepare(kq, Q::SMEM))) return err;
   kq<<<dim3((g.T + Q::BM - 1) / Q::BM, B * H), NT, Q::SMEM, st>>>(
       mq, mk, mv, mdo, km, lse, di, dq, H, g, scale);
   if ((err = (int)cudaGetLastError())) return err;
-  return launch_dkv<D, false>(q, k, v, km, dout, lse, di, nullptr, dk, dv, B,
-                              H, g, scale, st);
+  if constexpr (D <= 128) {
+    return launch_dkv<D, false>(q, k, v, km, dout, lse, di, nullptr, dk, dv,
+                                B, H, g, scale, st);
+  } else {
+    using K = DkvWideTiles<D>;
+    static_assert(K::SMEM <= 232448, "one CTA's shared memory");
+    if ((err = make_map<D>(&mq, q, g.T, B * H, K::BQ))) return err;
+    if ((err = make_map<D>(&mdo, dout, g.T, B * H, K::BQ))) return err;
+    if ((err = make_map<D>(&mk, k, g.T, B * H, K::BK))) return err;
+    if ((err = make_map<D>(&mv, v, g.T, B * H, K::BK))) return err;
+    auto kern = flash_dkv_wide_sm90_kernel<D>;
+    if ((err = prepare(kern, K::SMEM))) return err;
+    kern<<<dim3((g.T + K::BK - 1) / K::BK, B * H), NT, K::SMEM, st>>>(
+        mq, mk, mv, mdo, km, lse, di, static_cast<bf16*>(dk),
+        static_cast<bf16*>(dv), H, g, scale);
+    return (int)cudaGetLastError();
+  }
 }
 
 template <int D>
@@ -1465,18 +1851,34 @@ int launch_fused(const void* q, const void* k, const void* v, const int* km,
                              scale, st);
 }
 
+// the dk/dv pass's (DQ false) or K4's (DQ true) dynamic shared memory; -1
+// where K4 has no kernel
+template <int D, bool DQ>
+constexpr int dkv_smem() {
+  if constexpr (D <= 128)
+    return DkvTiles<D, DQ>::SMEM;
+  else
+    return DQ ? -1 : DkvWideTiles<D>::SMEM;
+}
+
 }  // namespace
 
-// bf16 only; head dims 16, 32, 64, 128. q, k, v, dout 16-byte aligned and
-// contiguous. Return a cudaError_t code, or kNoEncoder / kBadMap (0 on
-// success). They allocate nothing and do not synchronize: the kernels
-// launch on `stream`.
-#define DL4J_SM90_DISPATCH(FN, ...)                                \
+// bf16 only; head dims 16, 32, 64, 128, 192 and 256 (K4: up to 128). q,
+// k, v, dout 16-byte aligned and contiguous. Return a cudaError_t code, or
+// kNoEncoder / kBadMap (0 on success). They allocate nothing and do not
+// synchronize: the kernels launch on `stream`.
+#define DL4J_SM90_DISPATCH_TO_128(FN, ...)                         \
   {                                                                \
     if (D == 16) return FN<16>(__VA_ARGS__);                       \
     if (D == 32) return FN<32>(__VA_ARGS__);                       \
     if (D == 64) return FN<64>(__VA_ARGS__);                       \
     if (D == 128) return FN<128>(__VA_ARGS__);                     \
+  }
+#define DL4J_SM90_DISPATCH(FN, ...)                                \
+  {                                                                \
+    DL4J_SM90_DISPATCH_TO_128(FN, __VA_ARGS__)                     \
+    if (D == 192) return FN<192>(__VA_ARGS__);                     \
+    if (D == 256) return FN<256>(__VA_ARGS__);                     \
     return (int)cudaErrorInvalidValue;                             \
   }
 
@@ -1521,29 +1923,33 @@ extern "C" int dl4j_flash_sm90_bwd_fused(const void* q, const void* k,
                                          void* stream) {
   if (T <= 0 || B <= 0 || H <= 0) return 0;
   const Geometry g{T, causal, window};
-  DL4J_SM90_DISPATCH(launch_fused, q, k, v, static_cast<const int*>(key_mask),
-                     dout, static_cast<const float*>(lse),
-                     static_cast<const float*>(di), static_cast<float*>(dq),
-                     dk, dv, B, H, g, scale,
-                     static_cast<cudaStream_t>(stream));
+  DL4J_SM90_DISPATCH_TO_128(launch_fused, q, k, v,
+                            static_cast<const int*>(key_mask), dout,
+                            static_cast<const float*>(lse),
+                            static_cast<const float*>(di),
+                            static_cast<float*>(dq), dk, dv, B, H, g, scale,
+                            static_cast<cudaStream_t>(stream));
+  return (int)cudaErrorInvalidValue;
 }
 
 // Dynamic shared memory of a kernel: kind 0 the forward, 1 the dq pass, 2
 // the dk/dv pass, 3 the fused backward (K4); -1 for a head dim without
-// kernels or an unknown kind.
+// that kernel or an unknown kind.
 extern "C" int dl4j_flash_sm90_smem(int kind, int D) {
 #define DL4J_SM90_SMEM(DD)                                           \
   if (D == DD) {                                                     \
     if (kind == 0) return FwdTiles<DD>::SMEM;                        \
     if (kind == 1) return DqTiles<DD>::SMEM;                         \
-    if (kind == 2) return DkvTiles<DD, false>::SMEM;                 \
-    if (kind == 3) return DkvTiles<DD, true>::SMEM;                  \
+    if (kind == 2) return dkv_smem<DD, false>();                     \
+    if (kind == 3) return dkv_smem<DD, true>();                      \
     return -1;                                                       \
   }
   DL4J_SM90_SMEM(16)
   DL4J_SM90_SMEM(32)
   DL4J_SM90_SMEM(64)
   DL4J_SM90_SMEM(128)
+  DL4J_SM90_SMEM(192)
+  DL4J_SM90_SMEM(256)
 #undef DL4J_SM90_SMEM
   return -1;
 }

@@ -22,12 +22,13 @@ H heads in the forward (query head h reads kv head h // (H / Hk)); the
 grouped backward raises, as in the JAX package: the layer repeats k/v to
 full heads before the call, so training never reaches it.
 
-Kernels (CUDA C++ for sm_90a in two sources, chosen by dtype and head
-dim in `_route`: bf16 inputs at a kernel head dim up to 128 take
-`csrc/flash_attention_sm90.cu` (wgmma, TMA); fp32 inputs, and bf16 at
-192 to 512, the CUDA-core kernels of `csrc/flash_attention.cu` (bf16
-widened to fp32 before the launch, the outputs rounded back); each
-wrapper counts its launches per source in `.route_launches`):
+Kernels (CUDA C++ for sm_90a in two sources, chosen by dtype, kind and
+head dim in `_route`: bf16 K3 and K5 at a kernel head dim up to 256, and
+bf16 K4 up to 128, take `csrc/flash_attention_sm90.cu` (wgmma, TMA); fp32
+inputs at every head dim, and bf16 elsewhere (K3/K5 from 384, K4 from
+192), the CUDA-core kernels of `csrc/flash_attention.cu` (bf16 widened to
+fp32 before the launch, the outputs rounded back); each wrapper counts
+its launches per source in `.route_launches`):
 - K3 `flash_attention_fwd_cuda` replaces `_call_fwd` / `_fwd_kernel`;
 - K4 `flash_attention_bwd_cuda(..., bwd="fused")` replaces
   `_fused_bwd_kernel`: one kernel per key tile giving dk, dv and each
@@ -43,12 +44,15 @@ One `torch.autograd.Function` takes each direction through
 plain version. D_i = rowsum(dO * o) - dlse is a torch reduction outside
 the kernels, as it is an XLA reduction in the JAX package.
 
-Head dims: the kernels are built for D in HEAD_DIMS; the wrappers zero-pad
-any smaller D to the next of them (`padded_fwd`, `padded_bwd`) and cut the
-outputs back, with the scale of the true D. Padded columns add 0 to every
-score and every output, so the result is exact. D > 512 raises: at D
-1024 even a backward CTA of 16-row tiles needs ~266 KB of shared memory,
-above the 227 KB one CTA may hold.
+Head dims: the kernels are built for D in HEAD_DIMS, and above 512 for any
+multiple of WIDE_CHUNK (kernels that stream the head dim through shared
+memory in chunks of that many columns, with the accumulators in the
+outputs' rows in device memory: a 16-row backward CTA that held D 1024
+would need ~266 KB of shared memory, above one CTA's 227 KB). The
+wrappers zero-pad any other D to the next kernel head dim (`padded_fwd`,
+`padded_bwd`) and cut the outputs back, with the scale of the true D.
+Padded columns add 0 to every score and every output, so the result is
+exact. No head dim raises.
 
 Left out of the port: the TPU tile arguments `bq`/`bk` (the CUDA kernels
 pick their own tiles), the (B*H, nk, T, D) dq-partials buffer and its byte
@@ -73,7 +77,9 @@ SM90_SOURCE = "flash_attention_sm90.cu"  # bf16 K3, K4 and K5 (wgmma, TMA)
 SOURCES = (SOURCE, SM90_SOURCE)
 BWD_MODES = ("fused", "two_pass")
 HEAD_DIMS = (16, 32, 64, 128, 192, 256, 384, 512)   # of the kernels
-SM90_HEAD_DIMS = (16, 32, 64, 128)        # ... of the wgmma kernels
+WIDE_CHUNK = 128    # ... and above 512, every multiple of this
+SM90_HEAD_DIMS = (16, 32, 64, 128, 192, 256)   # of the wgmma K3 and K5
+SM90_FUSED_HEAD_DIMS = (16, 32, 64, 128)       # ... and of the wgmma K4
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 2}
 
 _CONFIG = {"bwd": os.environ.get("DL4J_TPU_FLASH_BWD", "fused")}
@@ -288,15 +294,17 @@ def flash_attention(q, k, v, mask=None, causal: bool = False,
 # ------------------------------------------------------------------ kernels
 def _route(dtype: torch.dtype, kind: str, D: int) -> str:
     """The source whose kernel takes a launch: `kind` "fwd" (K3), "fused"
-    (K4) or "two_pass" (K5), D the kernel head dim. bf16 up to D 128 runs
-    on the wgmma kernels of SM90_SOURCE; fp32, and bf16 at D 192 to 512
-    (widened to fp32), on SOURCE."""
+    (K4) or "two_pass" (K5), D the kernel head dim. bf16 runs on the wgmma
+    kernels of SM90_SOURCE where they exist (K3 and K5 up to D 256, K4 up
+    to 128); fp32, and bf16 elsewhere (widened to fp32), on SOURCE."""
     if kind not in ("fwd",) + BWD_MODES:
         raise ValueError(f"unknown flash kernel kind {kind!r}")
-    if D not in HEAD_DIMS:
-        raise ValueError(f"no flash kernel at head dim {D} ({HEAD_DIMS})")
-    return SM90_SOURCE if dtype == torch.bfloat16 and D in SM90_HEAD_DIMS \
-        else SOURCE
+    wide = D > HEAD_DIMS[-1] and D % WIDE_CHUNK == 0
+    if D not in HEAD_DIMS and not wide:
+        raise ValueError(f"no flash kernel at head dim {D} ({HEAD_DIMS}, "
+                         f"then multiples of {WIDE_CHUNK})")
+    sm90 = SM90_FUSED_HEAD_DIMS if kind == "fused" else SM90_HEAD_DIMS
+    return SM90_SOURCE if dtype == torch.bfloat16 and D in sm90 else SOURCE
 
 
 def _library(source: str):
@@ -350,14 +358,12 @@ def _check_cuda(what, q, k, v, mask, *more):
 
 
 def _kernel_head_dim(D: int) -> int:
-    """The smallest head dim of HEAD_DIMS that holds D; raises beyond."""
+    """The smallest kernel head dim that holds D: one of HEAD_DIMS, or
+    above them the next multiple of WIDE_CHUNK."""
     for d in HEAD_DIMS:
         if D <= d:
             return d
-    raise ValueError(f"head dim {D} > {HEAD_DIMS[-1]}: the flash-attention "
-                     f"kernels hold at most {HEAD_DIMS[-1]}: at D 1024 a "
-                     "backward CTA of 16-row tiles needs ~266 KB of shared "
-                     "memory, above one CTA's 227 KB (ROADMAP.md queue 3)")
+    return -(-D // WIDE_CHUNK) * WIDE_CHUNK
 
 
 def _pad_d(t: torch.Tensor, Dp: int) -> torch.Tensor:
@@ -409,7 +415,7 @@ def _raise_on(error_string, err, what):
 def flash_attention_fwd_cuda(q, k, v, mask=None, causal: bool = False,
                              scale=None, window: int = 0):
     """K3 on CUDA tensors; same contract as `flash_fwd_plain`, any head
-    dim up to 512. Launches on the current stream without a sync; counted
+    dim. Launches on the current stream without a sync; counted
     in `.launches` and, per source, in `.route_launches`."""
     _check_cuda("flash_attention_fwd", q, k, v, mask)
     return padded_fwd(_fwd_launch, q, k, v, mask, causal, scale, window)
@@ -455,7 +461,7 @@ def flash_attention_bwd_cuda(q, k, v, mask, o, lse, do, dlse=None,
     `flash_attention_bwd_cuda.fused_launches`) or K5 (bwd "two_pass": the
     dq kernel and the dk/dv kernel, counted in `.two_pass_launches`, two
     per call) on CUDA tensors; same contract as `flash_bwd_plain`, any
-    head dim up to 512. D_i is a torch reduction here, before the launch.
+    head dim. D_i is a torch reduction here, before the launch.
     Calls are also counted per source in `.route_launches`."""
     bwd = _resolve_bwd(bwd)
     _check_cuda("flash_attention_bwd", q, k, v, mask, o, lse, do)

@@ -1,17 +1,22 @@
-"""Flash attention at head dims above 128 (the port's K3, K4 and K5 up to D
-512), in float64 on the CPU.
+"""Flash attention at head dims above 128 (the port's K3, K4 and K5 at any
+head dim), in float64 on the CPU.
 
 The port's plain versions, alone and inside the head-dim padding the CUDA
-wrappers apply (`padded_fwd` / `padded_bwd`: 160 -> 192, 320 -> 384, 256
-and 512 as they are), against the JAX package's `flash_attention_lse`
-(its Pallas kernels in interpret mode, small tiles, compiled once by
-`jax.jit` through a module fixture), forward and the backward of both
-schedules, with a non-zero lse cotangent; tolerance 1e-10. Padding is
-exact. On the card D 192 to 512 run on the CUDA-core kernels of
-flash_attention.cu in both dtypes (bf16 widened to fp32): the route and
-the launches at those head dims run here against a recording stand-in
-library. D 513 raises.
+wrappers apply (`padded_fwd` / `padded_bwd`: 160 -> 192, 320 -> 384, 256,
+512, 640 and 1024 as they are, above 512 up to a multiple of 128),
+against the JAX package's `flash_attention_lse` (its Pallas kernels in
+interpret mode, small tiles, compiled once by `jax.jit` through a module
+fixture), forward and the backward of both schedules, with a non-zero lse
+cotangent; tolerance 1e-10. Padding is exact. On the card bf16 K3 and K5
+at D 192 and 256 run on the wgmma kernels of flash_attention_sm90.cu, K4
+there and everything above 256 on the CUDA-core kernels of
+flash_attention.cu (bf16 widened to fp32; above 512 the kernels that
+stream the head dim in chunks): the route and the launches at those head
+dims run here against a recording stand-in library. The kernels
+themselves are held against the plain versions on the card by
+chip_smoke.py (flash_head_dims and the kernel sweeps).
 """
+import re
 from types import SimpleNamespace
 
 import numpy as np
@@ -53,7 +58,8 @@ def jax_flash():
 
 CASES = [(160, True, 0, False), (160, False, 5, True), (256, True, 5, True),
          (256, False, 0, False), (320, True, 5, True), (320, False, 0, False),
-         (512, True, 0, True), (512, False, 5, False)]
+         (512, True, 0, True), (512, False, 5, False), (640, True, 5, True),
+         (1024, False, 0, False)]
 
 
 @pytest.mark.parametrize("D,causal,window,masked", CASES)
@@ -90,10 +96,12 @@ def test_plain_matches_jax_at_wide_head_dims(jax_flash, D, causal, window,
 
 @pytest.mark.parametrize("D,Dp", [(129, 192), (160, 192), (192, 192),
                                   (200, 256), (256, 256), (257, 384),
-                                  (320, 384), (400, 512), (512, 512)])
+                                  (320, 384), (400, 512), (512, 512),
+                                  (600, 640)])
 def test_wide_head_dims_pad_exactly(D, Dp):
-    """Above 128 the kernel head dim is 192, 256, 384 or 512; zero columns
-    add 0 to every score and output, at the scale of the true D."""
+    """Above 128 the kernel head dim is 192, 256, 384 or 512, and above 512
+    the next multiple of 128; zero columns add 0 to every score and
+    output, at the scale of the true D."""
     assert tfa._kernel_head_dim(D) == Dp
     q, k, v, do, dlse, m = (None if a is None else torch.from_numpy(a)
                             for a in _data(D, seed=1, masked=True))
@@ -109,27 +117,44 @@ def test_wide_head_dims_pad_exactly(D, Dp):
         torch.testing.assert_close(g, r, rtol=0, atol=ATOL)
 
 
-@pytest.mark.parametrize("D", [513, 768, 1024])
-def test_head_dims_above_512_raise_naming_queue_3(D):
-    with pytest.raises(ValueError, match=r"> 512.*ROADMAP.md queue 3"):
-        tfa._kernel_head_dim(D)
-    q = torch.zeros(1, 1, 4, D)
-    with pytest.raises(ValueError, match="queue 3"):
-        tfa.padded_fwd(tfa.flash_fwd_plain, q, q, q)
+@pytest.mark.parametrize("D,Dp", [(513, 640), (768, 768), (1024, 1024)])
+def test_head_dims_above_512_raise_naming_queue_3(D, Dp):
+    """Head dims above 512 raised until ROADMAP.md queue 3's fault was
+    repaired; now they pad to the next multiple of 128, and the padded
+    plain K3, K4 and K5 equal the unpadded ones."""
+    assert tfa._kernel_head_dim(D) == Dp
+    q, k, v, do, dlse, m = (torch.from_numpy(a)
+                            for a in _data(D, seed=D, masked=True))
+    o, lse = tfa.flash_fwd_plain(q, k, v, m, True, None, 4)
+    po, plse = tfa.padded_fwd(tfa.flash_fwd_plain, q, k, v, m, True, None,
+                              4)
+    assert po.shape == o.shape
+    torch.testing.assert_close(po, o, rtol=0, atol=ATOL)
+    torch.testing.assert_close(plse, lse, rtol=0, atol=ATOL)
+    for bwd in tfa.BWD_MODES:
+        ref = tfa.flash_bwd_plain(q, k, v, m, o, lse, do, dlse, True, None,
+                                  4, bwd)
+        got = tfa.padded_bwd(tfa.flash_bwd_plain, q, k, v, m, o, lse, do,
+                             dlse, True, None, 4, bwd)
+        for g, r in zip(got, ref):
+            assert g.shape == r.shape
+            torch.testing.assert_close(g, r, rtol=0, atol=ATOL)
 
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 @pytest.mark.parametrize("kind", ["fwd", "fused", "two_pass"])
 def test_route_by_head_dim(dtype, kind):
-    """bf16 takes the wgmma kernels up to D 128 and the CUDA-core kernels
-    at 192 to 512; fp32 always the CUDA-core kernels. Only kernel head
-    dims are routed."""
-    for D in tfa.HEAD_DIMS:
+    """bf16 K3 and K5 take the wgmma kernels up to D 256, bf16 K4 up to
+    128; above those, and fp32 at every D, the CUDA-core kernels. Only
+    kernel head dims are routed: HEAD_DIMS, then multiples of 128."""
+    top = 128 if kind == "fused" else 256
+    for D in tfa.HEAD_DIMS + (640, 1024, 1536):
         want = tfa.SM90_SOURCE if (dtype == torch.bfloat16
-                                   and D <= 128) else tfa.SOURCE
+                                   and D <= top) else tfa.SOURCE
         assert tfa._route(dtype, kind, D) == want
-    with pytest.raises(ValueError):
-        tfa._route(dtype, kind, 160)
+    for D in (160, 600, 1000):
+        with pytest.raises(ValueError):
+            tfa._route(dtype, kind, D)
 
 
 class _FakeFn:
@@ -186,21 +211,30 @@ def _bf16(D):
 
 @pytest.mark.parametrize("D", [192, 256, 384, 512])
 def test_wide_bf16_forward_launch_widens_to_the_fp32_kernel(fake_libs, D):
+    """bf16 K3 at D 192 and 256 launches the wgmma kernel on the bf16
+    tensors; at 384 and 512 the CUDA-core kernel on them widened to
+    fp32."""
     libs = fake_libs()
     q, k, v, _, m = _bf16(D)
     launches = tfa.flash_attention_fwd_cuda.launches
     routes = dict(tfa.flash_attention_fwd_cuda.route_launches)
     o, lse = tfa._fwd_launch(q, k, v, m, True, 0.125, 0)
-    assert list(libs) == [tfa.SOURCE]
-    ((name, args),) = libs[tfa.SOURCE].log
-    fn = getattr(libs[tfa.SOURCE], name)
-    assert name == "dl4j_flash_fwd" and len(args) == len(fn.argtypes)
-    assert args[6:14] == (B, H, H, T, D, 1, 0, 0)   # fp32 dtype code
+    source = tfa.SM90_SOURCE if D <= 256 else tfa.SOURCE
+    assert list(libs) == [source]
+    ((name, args),) = libs[source].log
+    fn = getattr(libs[source], name)
+    assert len(args) == len(fn.argtypes)
+    if source == tfa.SM90_SOURCE:
+        assert name == "dl4j_flash_sm90_fwd" and args[0] == q.data_ptr()
+        assert args[6:13] == (B, H, H, T, D, 1, 0)
+    else:
+        assert name == "dl4j_flash_fwd" and args[0] != q.data_ptr()
+        assert args[6:14] == (B, H, H, T, D, 1, 0, 0)   # fp32 dtype code
     assert args[-2:] == (0.125, 91)
     assert o.dtype == torch.bfloat16 and o.shape == q.shape
     assert lse.dtype == torch.float32 and lse.shape == (B, H, T)
     assert tfa.flash_attention_fwd_cuda.launches == launches + 1
-    routes[tfa.SOURCE] += 1
+    routes[source] += 1
     assert tfa.flash_attention_fwd_cuda.route_launches == routes
 
 
@@ -208,6 +242,9 @@ def test_wide_bf16_forward_launch_widens_to_the_fp32_kernel(fake_libs, D):
 @pytest.mark.parametrize("mode", ["fused", "two_pass"])
 def test_wide_bf16_backward_launch_widens_to_the_fp32_kernel(fake_libs, D,
                                                              mode):
+    """bf16 K5 at D 192 and 256 launches the wgmma kernels on the bf16
+    tensors; K4 there, and both at 384 and 512, the CUDA-core kernels on
+    them widened to fp32."""
     libs = fake_libs()
     q, k, v, do, m = _bf16(D)
     o = torch.zeros_like(q)
@@ -219,15 +256,54 @@ def test_wide_bf16_backward_launch_widens_to_the_fp32_kernel(fake_libs, D,
                                  4, mode)
     assert dq.dtype == dk.dtype == dv.dtype == torch.bfloat16
     assert dq.shape == dk.shape == dv.shape == q.shape
-    ((name, args),) = libs[tfa.SOURCE].log
-    assert name == "dl4j_flash_bwd"
-    assert args[10:18] == (B, H, T, D, 0, 4, 0, int(mode == "two_pass"))
     two = mode == "two_pass"
+    source = tfa.SM90_SOURCE if two and D <= 256 else tfa.SOURCE
+    assert list(libs) == [source]
+    ((name, args),) = libs[source].log
+    if source == tfa.SM90_SOURCE:
+        assert name == "dl4j_flash_sm90_bwd" and args[0] == q.data_ptr()
+        assert args[10:16] == (B, H, T, D, 0, 4)
+    else:
+        assert name == "dl4j_flash_bwd" and args[0] != q.data_ptr()
+        assert args[10:18] == (B, H, T, D, 0, 4, 0, int(two))
     assert (tfa.flash_attention_bwd_cuda.fused_launches,
             tfa.flash_attention_bwd_cuda.two_pass_launches) == (
         counts[0] + (not two), counts[1] + 2 * two)
-    routes[tfa.SOURCE] += 1
+    routes[source] += 1
     assert tfa.flash_attention_bwd_cuda.route_launches == routes
+
+
+@pytest.mark.parametrize("D,Dp", [(600, 640), (1024, 1024)])
+def test_head_dims_above_512_launch_the_fp32_kernels_padded(fake_libs, D,
+                                                            Dp):
+    """Above 512 both dtypes launch the CUDA-core kernels at the head dim
+    padded to a multiple of 128, the chunk those kernels stream D in (bf16
+    widened to fp32); the outputs come back at the true D in the input
+    dtype."""
+    src = (tfa.build.CSRC / tfa.SOURCE).read_text()
+    assert re.search(r"constexpr int DCH = (\d+);", src).group(1) == str(
+        tfa.WIDE_CHUNK)
+    libs = fake_libs()
+    for dtype in (torch.bfloat16, torch.float32):
+        q, k, v, do, m = (t.to(dtype) for t in _bf16(D))
+        o, lse = tfa.padded_fwd(tfa._fwd_launch, q, k, v, m, True, None, 3)
+        assert o.shape == q.shape and o.dtype == dtype
+        for mode in tfa.BWD_MODES:
+            grads = tfa.padded_bwd(tfa._bwd_launch, q, k, v, m, o, lse, do,
+                                   None, True, None, 3, mode)
+            assert all(g.shape == q.shape and g.dtype == dtype
+                       for g in grads)
+    assert list(libs) == [tfa.SOURCE]
+    log = libs[tfa.SOURCE].log
+    assert [name for name, _ in log] == [
+        "dl4j_flash_fwd", "dl4j_flash_bwd", "dl4j_flash_bwd"] * 2
+    scale = 1 / np.sqrt(D)
+    for name, args in log:
+        if name == "dl4j_flash_fwd":
+            assert args[6:14] == (B, H, H, T, Dp, 1, 3, 0)
+        else:
+            assert args[10:17] == (B, H, T, Dp, 1, 3, 0)
+        assert args[-2] == pytest.approx(scale, rel=1e-12)
 
 
 def test_bf16_at_128_still_takes_the_wgmma_kernel(fake_libs):
@@ -239,20 +315,36 @@ def test_bf16_at_128_still_takes_the_wgmma_kernel(fake_libs):
     assert name == "dl4j_flash_sm90_fwd" and args[0] == q.data_ptr()
 
 
-@pytest.mark.parametrize("D", [192, 256])
+@pytest.mark.parametrize("D", [192, 256, 640])
 def test_wide_failed_launch_raises_and_counts_nothing(fake_libs, D):
-    fake_libs(err=700)
+    """A launch the library refuses raises, names the library's error and
+    counts nothing: at D 192 and 256 K3 and K5 on the wgmma kernels (no
+    fallback to the CUDA-core ones), K4 on the CUDA-core kernel."""
+    libs = fake_libs(err=700)
     q, k, v, do, m = _bf16(D)
     before = (tfa.flash_attention_fwd_cuda.launches,
               dict(tfa.flash_attention_fwd_cuda.route_launches),
               tfa.flash_attention_bwd_cuda.fused_launches,
+              tfa.flash_attention_bwd_cuda.two_pass_launches,
               dict(tfa.flash_attention_bwd_cuda.route_launches))
-    with pytest.raises(RuntimeError, match="error 700 from dl4j_flash_"):
+    sm90 = D <= 256
+    with pytest.raises(RuntimeError, match="error 700 from dl4j_flash_" + (
+            "sm90_" if sm90 else "")):
         tfa._fwd_launch(q, k, v, m, True, 0.125, 0)
-    with pytest.raises(RuntimeError, match="error 700 from dl4j_flash_"):
-        tfa._bwd_launch(q, k, v, m, torch.zeros_like(q), torch.zeros(B, H, T),
-                        do, None, True, 0.125, 0, "fused")
+    for mode in tfa.BWD_MODES:
+        with pytest.raises(RuntimeError, match="error 700 from dl4j_flash_"
+                           + ("sm90_" if sm90 and mode == "two_pass"
+                              else "error")):
+            tfa._bwd_launch(q, k, v, m, torch.zeros_like(q),
+                            torch.zeros(B, H, T), do, None, True, 0.125, 0,
+                            mode)
+    assert {src: [name for name, _ in lib.log]
+            for src, lib in libs.items()} == (
+        {tfa.SM90_SOURCE: ["dl4j_flash_sm90_fwd", "dl4j_flash_sm90_bwd"],
+         tfa.SOURCE: ["dl4j_flash_bwd"]} if sm90 else
+        {tfa.SOURCE: ["dl4j_flash_fwd", "dl4j_flash_bwd", "dl4j_flash_bwd"]})
     assert (tfa.flash_attention_fwd_cuda.launches,
             tfa.flash_attention_fwd_cuda.route_launches,
             tfa.flash_attention_bwd_cuda.fused_launches,
+            tfa.flash_attention_bwd_cuda.two_pass_launches,
             tfa.flash_attention_bwd_cuda.route_launches) == before

@@ -32,6 +32,7 @@ from deeplearning4j_tpu.nn.conf.layers.feedforward import (DropoutLayer,
                                                            LossLayer)
 from deeplearning4j_tpu.nn.updater import updaters as jupd
 from deeplearning4j_tpu.ops.helpers import helpers_enabled_ctx
+from deeplearning4j_tpu.util.flat_params import flatten_params
 from deeplearning4j_tpu_torch import MultiLayerNetwork as TNet
 from deeplearning4j_tpu_torch.convert import (conf_from_json,
                                               opt_state_from_jax,
@@ -222,13 +223,25 @@ def test_loss_layer_scores_match_jax():
 
 
 # ---------------------------------------------------- flat views, gradients
+def _jax_gradient_and_score(net, x, y, fmask):
+    """The JAX network's gradient_and_score (value_and_grad of its
+    _loss_fn in training mode, gradients flattened) under one jax.jit:
+    called eagerly it compiles each op on its own, ~5x slower."""
+    f = jax.jit(jax.value_and_grad(net._loss_fn, has_aux=True),
+                static_argnums=(7,))
+    (loss, _), grads = f(net.params_tree, net.state_tree,
+                         jnp.asarray(x, net.dtype), jnp.asarray(y, net.dtype),
+                         fmask, None, None, True, None)
+    return flatten_params(grads), float(loss)
+
+
 def test_params_order_and_gradient_and_score_match_jax():
     net, tnet = _pair(jupd.Sgd(learning_rate=0.1))
     # JAX flattens each layer's dict by sorted key: b, w_k, w_o, w_q, w_v
     assert tnet.num_params() == net.num_params()
     _assert_params(net, tnet, tol=0)
     x, y, m = _data(masked=True)
-    jg, js = net.gradient_and_score(x, y, jnp.asarray(m))
+    jg, js = _jax_gradient_and_score(net, x, y, jnp.asarray(m))
     tg, ts = tnet.gradient_and_score(x, y, m)
     assert ts == pytest.approx(js, abs=TOL)
     np.testing.assert_allclose(tg.numpy(), np.asarray(jg), atol=TOL, rtol=0)
