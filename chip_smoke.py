@@ -8,18 +8,18 @@ Phases, each printing one JSON line; any failure exits non-zero:
 1. device   - CUDA present with compute capability (9, 0).
 2. build    - compile every CUDA kernel of the paths from the checkout's
               sources (one nvcc per source, all started together). For
-              each wgmma kernel of flash_attention_sm90.cu (K3 and K5's
-              dq pass at head dims 16 to 256, K5's dk/dv pass and K4 at
-              16/32/64/128, the wide dk/dv pass at 192/256): registers,
-              spill bytes and static shared memory from the -Xptxas -v
-              log, its dynamic shared memory, and the HGMMA, UTMALDG,
-              atomic and reduction (RED*, UBLKRED, UTMAREDG) instructions
-              in the SASS (cuobjdump -sass); fails if a kernel has no
-              HGMMA or no UTMALDG, has an atomic, has a reduction (K3, K5)
-              or none (K4, whose dq reductions are the only ones allowed),
-              or spills at D 64. The same for K10's bf16 kernel at each
-              load path, K7's cluster forward and cluster backward sweep
-              at H 64/128/256 and K7's bf16 dRW kernel, with their
+              each wgmma kernel of flash_attention_sm90.cu (K3 and K5's dq
+              pass at head dims 16 to 256, K5's dk/dv pass and K4 at
+              16/32/64/128, the wide dk/dv pass and K4's wide instance at
+              192/256): registers, spill bytes and static shared memory from
+              the -Xptxas -v log, its dynamic shared memory, and the HGMMA,
+              UTMALDG, atomic and reduction (RED*, UBLKRED, UTMAREDG)
+              instructions in the SASS (cuobjdump -sass); fails if a kernel
+              has no HGMMA or no UTMALDG, has an atomic, has a reduction (K3,
+              K5) or none (K4, whose dq reductions, all UTMAREDG, are the only
+              ones allowed), or spills at D 64. The same for K10's bf16 kernel
+              at each load path, K7's cluster forward and cluster backward
+              sweep at H 64/128/256 and K7's bf16 dRW kernel, with their
               UTMASTG, UBLKCP, cluster-barrier, LDGSTS and STAS (st.async)
               counts and the clusters the card holds at once; fails on no
               HGMMA, an atomic or a reduction, or a spill at a main-path
@@ -188,22 +188,24 @@ Phases, each printing one JSON line; any failure exits non-zero:
               dense plain versions on the same inputs, each against fp64;
               losses within 1e-4 of each other, every gradient of the
               kernel path within twice the dense path's own error.
-11a. flash_head_dims - K3, K4 and K5 at B*H 16, bf16, causal, D 128,
-              192 and 256 at T 8192 and D 512 and 1024 at T 1024:
-              CUDA-event times beside scaled_dot_product_attention forward
-              and backward, bounds, the source each took (bf16 K3 and K5
-              at D 128 to 256 on the wgmma kernels, K4 above 128 and
-              everything above 256 on the CUDA-core kernels, bf16
-              widened); K3 above 128 against the plain version; K3, K4 and
-              K5 at D 192, 256, 512, 640 and 1024, T 1024, masked, in bf16
-              and fp32 against the plain versions, each on the source
-              _route names. A head-dim-256 stack (SelfAttentionLayer(512,
-              2 heads, block 256) + RnnOutputLayer(16), T 1024, batch 2):
-              fp32 gradient_and_score through the kernels against the
-              dense plain versions in fp64 (1e-4), two bf16 fit steps
-              under the fused backward (1 K3 on flash_attention_sm90.cu +
-              1 K4 on flash_attention.cu each) and two under two_pass (1 K3
-              + 2 K5 each, all on flash_attention_sm90.cu).
+11a. flash_head_dims - K3, K4 and K5 at B*H 16, bf16, causal, D 128, 192 and
+              256 at T 8192 and D 512 and 1024 at T 1024: CUDA-event times
+              beside scaled_dot_product_attention forward and backward,
+              bounds, the source each took (bf16 K3, K4 and K5 at D 128 to 256
+              on the wgmma kernels, everything above 256 on the CUDA-core
+              kernels, bf16 widened); K3 above 128 against the plain version;
+              K3 and K5 two calls bitwise equal, and K4's dk and dv too; at D
+              192 and 256 K4's dk and dv bitwise equal to K5's (the same
+              tiles, q-tile order and products); K3, K4 and K5 at D 192, 256,
+              512, 640 and 1024, T 1024, masked, with a non-zero lse
+              cotangent, in bf16 and fp32 against the plain versions, each on
+              the source _route names. A head-dim-256 stack
+              (SelfAttentionLayer(512, 2 heads, block 256) +
+              RnnOutputLayer(16), T 1024, batch 2): fp32 gradient_and_score
+              through the kernels against the dense plain versions in fp64
+              (1e-4), two bf16 fit steps under the fused backward (1 K3 + 1 K4
+              each) and two under two_pass (1 K3 + 2 K5 each), all on
+              flash_attention_sm90.cu and none on flash_attention.cu.
 12. kernel  - each kernel against its plain PyTorch version on the card,
               then timed at the served shape (device time by CUDA-graph
               replay, with the merge in the launch and with it off; the
@@ -1328,9 +1330,9 @@ def flash_sweep():
     """(dtype, D, T, causal, window, masked) of the kernel sweeps; head
     dims 8, 48, 160, 320 and 600 are zero-padded to 16, 64, 192, 384 and
     640 inside the wrappers. The wide head dims run at T around the
-    32-row tiles of the CUDA-core kernels: bf16 K3 and K5 at 160 to 256 on
-    the wgmma kernels (K4 widened to fp32), bf16 above on the CUDA-core
-    kernels widened to fp32, fp32 on those at every D (above 512 the
+    32-row tiles of the CUDA-core kernels: bf16 K3, K4 and K5 at 160 to
+    256 on the wgmma kernels, bf16 above on the CUDA-core kernels widened
+    to fp32, fp32 on those at every D (above 512 the
     kernels that stream the head dim in chunks)."""
     for dt in ("float32", "bfloat16"):
         for D in (32, 64, 128):
@@ -1374,30 +1376,31 @@ def train_shape_case(torch, seed):
 # ------------------------------------------------ the wgmma kernels' build
 SM90_KINDS = {"flash_fwd_sm90_kernel": 0, "flash_dq_sm90_kernel": 1,
               "flash_dkv_sm90_kernel": 2, "flash_bwd_fused_sm90_kernel": 3,
-              "flash_dkv_wide_sm90_kernel": 2}
+              "flash_dkv_wide_sm90_kernel": 2,
+              "flash_bwd_fused_wide_sm90_kernel": 3}
 
 
 def sm90_instances(fa):
     """(kernel, D) of every wgmma flash instance: K3 and K5's dq pass at
-    each of fa.SM90_HEAD_DIMS, K5's dk/dv pass and K4 up to D 128 and the
-    wide dk/dv pass above."""
+    each of fa.SM90_HEAD_DIMS, K5's dk/dv pass and K4 up to D 128, and
+    the wide dk/dv pass and K4's wide instance above."""
     for D in fa.SM90_HEAD_DIMS:
         yield "flash_fwd_sm90_kernel", D
         yield "flash_dq_sm90_kernel", D
-        if D in fa.SM90_FUSED_HEAD_DIMS:
-            yield "flash_dkv_sm90_kernel", D
-            yield "flash_bwd_fused_sm90_kernel", D
-        else:
-            yield "flash_dkv_wide_sm90_kernel", D
-# K4 sums dq across CTAs by reductions in L2, and only K4 may
-SM90_REDUCING = ("flash_bwd_fused_sm90_kernel",)
+        wide = "_wide" if D > 128 else ""
+        yield f"flash_dkv{wide}_sm90_kernel", D
+        yield f"flash_bwd_fused{wide}_sm90_kernel", D
+# K4 sums dq across CTAs by TMA reductions in L2, and only K4 may
+SM90_REDUCING = ("flash_bwd_fused_sm90_kernel",
+                 "flash_bwd_fused_wide_sm90_kernel")
 ATOMIC_OPS = ("ATOM", "ATOMS", "ATOMG")
 REDUCE_OPS = ("UBLKRED", "UTMAREDG")          # and every RED* (RED, REDG)
 
 
 def sm90_kernel_key(name: str):
     """(kernel, D) of a mangled sm90 flash kernel name, else None."""
-    m = re.search(r"(flash_(?:fwd|dq|dkv|dkv_wide|bwd_fused)_sm90_kernel)"
+    m = re.search(r"(flash_(?:fwd|dq|dkv|dkv_wide|bwd_fused|bwd_fused_wide)"
+                  r"_sm90_kernel)"
                   r"ILi(\d+)EE", name)
     return (m.group(1), int(m.group(2))) if m else None
 
@@ -1524,9 +1527,10 @@ def sm90_build_report(built: dict) -> dict:
     """Per sm90 kernel: registers, spills, shared memory (static from
     ptxas, dynamic from the library) and the SASS counts. Fails when a
     kernel has no HGMMA or no UTMALDG, holds an atomic, holds a reduction
-    where none belongs (K3, K5) or none where its dq needs them (K4), or
-    spills at D 64. The D 192/256 instances (K3, K5's dq pass and the wide
-    dk/dv pass) report their registers and spills."""
+    where none belongs (K3, K5), none where its dq needs them (K4) or one
+    that is not a TMA reduction (UTMAREDG), or spills at D 64. The D
+    192/256 instances (K3, K5's dq pass, the wide dk/dv pass and K4's wide
+    instance) report their registers and spills."""
     from deeplearning4j_tpu_torch.ops import flash_attention as fa
     b = built[fa.SM90_SOURCE]
     lib = fa._library(fa.SM90_SOURCE)
@@ -1545,7 +1549,8 @@ def sm90_build_report(built: dict) -> dict:
                  "instructions in its SASS")
         if r["atomic"]:
             fail(f"{key}: {r['atomic']} atomic instructions in its SASS")
-        if bool(r["reduction"]) != (kern in SM90_REDUCING):
+        if bool(r["reduction"]) != (kern in SM90_REDUCING) or any(
+                not op.startswith("UTMAREDG") for op in r["reduction_ops"]):
             fail(f"{key}: {r['reduction']} reduction instructions in "
                  f"its SASS ({r['reduction_ops']})")
         if D == 64 and r.get("spill_stores", 1) != 0:
@@ -2141,22 +2146,23 @@ def build_wide_net(torch, compute_dtype):
 
 
 def phase_flash_head_dims(torch, np):
-    """K3, K4 and K5 at head dims above 128: bf16 K3 and K5 at D 192 and
+    """K3, K4 and K5 at head dims above 128: bf16 K3, K4 and K5 at D 192 and
     256 on the wgmma kernels, everything else on the CUDA-core kernels
     (bf16 widened to fp32; above 512 the kernels that stream the head dim
-    in chunks). At B*H 16, causal, bf16, each (D, T) of FLASH_TIMED:
-    CUDA-event times beside scaled_dot_product_attention forward and
-    backward (a yardstick, never the route), bounds, the source each call
-    took, and K3 against the plain version. At each D of FLASH_CHECKED_D
-    (T 1024, random key mask, bf16 and fp32): K3, K4 and K5 against the
-    plain versions, the backward from the plain forward's o and L, with
-    the source of each. Then a head-dim-256 SelfAttentionLayer stack at T
-    1024 > block 256: one gradient_and_score through the kernels in fp32
-    against the dense plain versions in fp64 (loss and every gradient
-    within 1e-4 relative, as train_oracle), two bf16 fit steps under the
-    fused backward (1 K3 on the wgmma kernel + 1 K4 on the CUDA-core
-    kernel a step) and two under two_pass (1 K3 + 2 K5 a step, all on the
-    wgmma kernels), every loss finite."""
+    in chunks). At B*H 16, causal, bf16, each (D, T) of FLASH_TIMED: CUDA-
+    event times beside scaled_dot_product_attention forward and backward (a
+    yardstick, never the route), bounds, the source each call took, K3
+    against the plain version, two calls of K3 and K5 bit for bit, and on
+    the wgmma kernels K4's dk and dv (at D 192/256 also equal to K5's, bit
+    for bit). At each D of FLASH_CHECKED_D (T 1024, random key mask, bf16
+    and fp32): K3, K4 and K5 against the plain versions, the backward from
+    the plain forward's o and L with a non-zero lse cotangent, with the
+    source of each. Then a head-dim-256 SelfAttentionLayer stack at T 1024
+    > block 256: one gradient_and_score through the kernels in fp32 against
+    the dense plain versions in fp64 (loss and every gradient within 1e-4
+    relative, as train_oracle), two bf16 fit steps under the fused backward
+    (1 K3 + 1 K4 a step) and two under two_pass (1 K3 + 2 K5 a step), all
+    on the wgmma kernels and none on flash_attention.cu, every loss finite."""
     from deeplearning4j_tpu_torch import MultiLayerNetwork
     from deeplearning4j_tpu_torch.nn.conf.configuration import \
         MultiLayerConfiguration
@@ -2205,6 +2211,21 @@ def phase_flash_head_dims(torch, np):
             fail(f"flash_head_dims D={D}: K3 or K5 differs between two "
                  "calls on the same inputs")
         row["bitwise_repeat"] = ["K3", "K5"]
+        if D <= 256:
+            # the wgmma K4 sums dk and dv in one CTA: two calls give the
+            # same bits, and at D 192/256 the bits of K5's wide dk/dv pass
+            g4 = fa.flash_attention_bwd_cuda(q, k, v, None, o, l, do, None,
+                                             True, None, 0, "fused")
+            if not all(torch.equal(a, b) for a, b in zip(g[0][1:], g4[1:])):
+                fail(f"flash_head_dims D={D}: K4's dk or dv differs "
+                     "between two calls on the same inputs")
+            row["bitwise_repeat"].append("K4 dk, dv")
+            row["k4_dk_dv_equal_k5"] = all(
+                torch.equal(a, b) for a, b in zip(g[0][1:], g[1][1:]))
+            if D > 128 and not row["k4_dk_dv_equal_k5"]:
+                fail(f"flash_head_dims D={D}: K4's dk or dv differs from "
+                     "K5's at the same inputs")
+            del g4
         del g, o2, l2, g2
         if D > 128:
             ro, rl = fa.flash_fwd_plain(q, k, v, None, True)
@@ -2253,11 +2274,14 @@ def phase_flash_head_dims(torch, np):
             before = routes()
             o, l = fa.flash_attention_fwd_cuda(q, k, v, m, True)
             ro, rl = fa.flash_fwd_plain(q, k, v, m, True)
-            ref = fa.flash_bwd_plain(q, k, v, m, ro, rl, do, None, True)
+            dlse = 0.3 * torch.randn(rl.shape, device="cuda",
+                                     generator=torch.Generator(
+                                         "cuda").manual_seed(D))
+            ref = fa.flash_bwd_plain(q, k, v, m, ro, rl, do, dlse, True)
             err = {"K3": max(max_err(o, ro), lse_err(torch, l, rl))}
             rel = {"K3": tile_rel_err(torch, o, ro, FLASH_REF_FLOOR[dt])}
             for mode, name in (("fused", "K4"), ("two_pass", "K5")):
-                g = fa.flash_attention_bwd_cuda(q, k, v, m, ro, rl, do, None,
+                g = fa.flash_attention_bwd_cuda(q, k, v, m, ro, rl, do, dlse,
                                                 True, None, 0, mode)
                 err[name] = max(max_err(a, b) for a, b in zip(g, ref))
                 rel[name] = max(tile_rel_err(torch, a, b, FLASH_REF_FLOOR[dt])
@@ -2270,7 +2294,7 @@ def phase_flash_head_dims(torch, np):
                     and max(rel.values()) <= FLASH_REL_TOL[dt]):
                 fail(f"flash_head_dims: D {D}, T {FLASH_CHECKED_T}, {dt}: "
                      f"{c}")
-            del q, k, v, do, m, o, l, ro, rl, ref, g
+            del q, k, v, do, m, o, l, ro, rl, dlse, ref, g
     # the head-dim-256 stack
     rng = np.random.RandomState(3)
     x = torch.from_numpy(rng.rand(WIDE_B, 64, WIDE_T).astype(
@@ -2323,7 +2347,8 @@ def phase_flash_head_dims(torch, np):
         b_launches = flash_launches(fa)
         wide_routes = took(before, torch.bfloat16, WIDE_D_MODEL // WIDE_HEADS,
                            ("fwd", mode, "fwd", mode))
-        if b_launches != want or not all(math.isfinite(v) for v in losses):
+        if b_launches != want or not all(math.isfinite(v) for v in losses) \
+                or any(fa.SOURCE in r for r in wide_routes.values()):
             fail(f"flash_head_dims: bf16 fit ({mode}) launched "
                  f"{b_launches} on {wide_routes}, losses {losses}")
         fits[mode] = {"losses": losses, "launches": b_launches,
@@ -4225,7 +4250,8 @@ def main() -> int:
         "wide_head_dims": {
             d: {"ms": r["ms"]["K4" if mode == "fused" else "K5"],
                 "library_ms": r["library_ms"]["bwd"],
-                "bound_ms": r["bound_ms"]["K4"], "source": r["source"]}
+                "bound_ms": r["bound_ms"]["K4"], "source": r["source"],
+                "k4_dk_dv_equal_k5": r.get("k4_dk_dv_equal_k5")}
             for d, r in wide["timed"].items()}}
         for mode, replaces in (
             ("fused", "deeplearning4j_tpu/ops/flash_attention.py:349"),

@@ -1,7 +1,7 @@
 // Flash attention on Hopper's wgmma and TMA (sm_90a) for bf16 inputs: the
-// forward (K3) and both passes of the two-pass backward (K5) at head dims
-// 16 to 256, and the fused backward (K4) up to 128. fp32 inputs, and K4
-// above 128, stay with flash_attention.cu.
+// forward (K3), both passes of the two-pass backward (K5) and the fused
+// backward (K4) at head dims 16 to 256. fp32 inputs stay with
+// flash_attention.cu.
 //
 // Replaces the Pallas kernels of deeplearning4j_tpu/ops/flash_attention.py:
 //   - flash_fwd_sm90_kernel: K3, `_call_fwd` (:448) with body `_fwd_kernel`
@@ -10,7 +10,9 @@
 //   - flash_dkv_sm90_kernel: K5's dk/dv pass, `_dkv_kernel` (:301), and
 //     flash_dkv_wide_sm90_kernel, the same pass at D 192 and 256;
 //   - flash_bwd_fused_sm90_kernel: K4, `_fused_bwd_kernel` (:349): the
-//     dk/dv pass that also forms dq, one launch.
+//     dk/dv pass that also forms dq, one launch, and
+//     flash_bwd_fused_wide_sm90_kernel, the wide dk/dv pass that also
+//     forms dq, at D 192 and 256.
 // Layout: q (B*H, T, D), k/v (B*Hk, T, D) bf16 row-major; L and D_i
 // (B*H, T) fp32; key mask (B, T) int32 or null; dq (B*H, T, D) fp32, dk/dv
 // bf16. Query head h reads kv row b*Hk + h / (H/Hk) (GQA, forward only).
@@ -104,16 +106,19 @@
 // dk/dv pass and K4 128 keys per CTA and q tiles of 64 (32 at D 128, to
 // keep dk, dv, S^T and dP^T in registers). At D 192 and 256 dk and dv of
 // 128 keys do not fit the register file: the wide dk/dv pass takes 64
-// keys a CTA and splits the head dim between its warpgroups (see
-// flash_dkv_wide_sm90_kernel). At D 256 the forward's O is 128 registers
-// a thread beside S (32) and P (16), under the consumers' 232. TMA maps
-// are 3-D (D, T, rows), so a box that runs past T is zero-filled instead
-// of reading the next head; D 16/32/64 rows are one box with
-// 32/64/128-byte swizzle, D 128 to 256 are 2 to 4 boxes of 64 columns.
+// keys a CTA and splits the head dim between its warpgroups, and K4 there
+// is the same pass with dq staged in 8 KB boxes (see wide_pass). At D 256
+// the forward's O is 128 registers a thread beside S (32) and P (16), under
+// the consumers' 232. TMA maps are 3-D (D, T, rows), so a box that runs
+// past T is zero-filled instead of reading the next head; D 16/32/64 rows
+// are one box with 32/64/128-byte swizzle, D 128 to 256 are 2 to 4 boxes
+// of 64 columns.
 #include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 #include "flash_common.cuh"
 #include "sm90_common.cuh"
@@ -1482,51 +1487,88 @@ flash_bwd_fused_sm90_kernel(const __grid_constant__ CUtensorMap tq,
   dkv_pass<D, true>(tq, tk, tv, tdo, tdq, km, lse, di, dk, dv, H, g, scale);
 }
 
-// ------------------------------- K5's dk/dv pass at D 192 and 256
+// ------------------------------- K5's dk/dv pass and K4 at D 192 and 256
 // dK and dV of 128 keys (2 x 128 x D fp32) would take the whole register
 // file at D 256. So a CTA takes 64 keys, and its two consumer warpgroups
 // split each q tile's work by role: warpgroup 0 forms S^T = K Q^T and P^T,
-// warpgroup 1 dP^T = V dO^T and dS^T = P^T (dP^T - D_i). They pass what
-// the other needs through shared memory: P^T in fp32, dS^T as its bf16 A
-// fragments, each laid out by thread (word e of thread t at e * 128 + t),
-// so that thread t of one warpgroup reads what thread t of the other wrote,
-// the same fragment positions, without bank conflicts. Then each holds dK
-// and dV of its own 64-column boxes of the head dim (two each at D 256;
-// two and one at D 192) and adds P^T dO and dS^T Q over them. S^T and
-// dP^T are formed once; dS^T is rounded where the other instances round
-// it, so the pass computes what theirs does.
-template <int D>
-struct DkvWideTiles {
+// warpgroup 1 dP^T = V dO^T and dS^T = P^T (dP^T - D_i). P^T (fp32) goes
+// from 0 to 1 in two halves through one 8 KB buffer, laid out by thread
+// (word e of thread t at e * 128 + t, so that thread t of one warpgroup
+// reads what thread t of the other wrote, without bank conflicts), which
+// then holds dS^T as a swizzled bf16 tile (store_ds) until the next tile's
+// P^T. Each warpgroup holds dK and dV of its own 64-column boxes of the
+// head dim (two each at D 256; two and one at D 192) and adds P^T dO (P^T
+// from registers, "RS") and dS^T Q (dS^T from the tile, K-major, "SS")
+// over them. S^T and dP^T are formed once; dS^T is rounded where the other
+// instances round it, so the pass computes what theirs does.
+//
+// K4 (DQ) is the same pass that also forms dq, in one launch: the same
+// tiles, q-tile order and products for dk and dv, so those come out as
+// K5's bit for bit. Beside them each warpgroup forms dq = dS K of the tile
+// over the CTA's keys for its own 64-column pieces of the head dim
+// (warpgroup 0 the first D / 128 of them), one piece (32 registers a
+// thread) at a time, both operands MN-major in shared memory as in DqPath,
+// and stages its scaled pieces as boxes of 64 q rows x 32 fp32 columns (8
+// KB) in a ring of its own (at D 256 one for warpgroup 0 and two for 1,
+// whose second piece is staged inside the exchange; two and three at D
+// 192), which a warp of the producer warpgroup hands to the TMA unit as
+// reduce-adds into the zeroed fp32 dq (dq_wide_writer). K, V and two
+// stages of Q and dO take 192 KB at D 256; the boxes leave K4 two stages
+// at D 192 too, where K5 keeps three. The staging of a piece waits on the
+// products in flight: the first piece of a tile is staged while the next
+// tile's S^T or dP^T product runs, the second where the other warpgroup
+// works (see `exchange`). On the H100 the dq products add no measurable
+// time to the pass; the staging (stores, proxy fences, handoffs) and the
+// reductions do, about as much as the pass itself at D 256
+// (experiments/torch_flash_k4_wide_ab.py times each).
+
+// The exchange between the two roles (named barriers of all NC consumer
+// threads): P_READY when a half of P^T is in the buffer, DS_READY when
+// dS^T is; X_FREE (warpgroup 1 to 0) once its products have read dS^T,
+// and again once it has read the first half of P^T. K4's staging handoff
+// of warpgroup w's box s: FULL when the warpgroup has written it, FREE
+// once the TMA unit has read it, each between the warpgroup and its dq
+// warp (WidePieces).
+constexpr int P_READY = 1, DS_READY = 2, X_FREE = 3, WQ_FULL = 4;
+
+template <int D, bool DQ>
+struct WideTiles {
   static constexpr int BK = 64;                   // keys per CTA
   static constexpr int BQ = 64;                   // q rows per tile
-  static constexpr int STAGES = D > 192 ? 2 : 3;
-  static constexpr int NB0 = (D / 64 + 1) / 2;    // boxes of warpgroup 0
+  static constexpr int STAGES = DQ || D > 192 ? 2 : 3;
+  static constexpr int NB = D / 64;               // 64-column boxes of D
+  static constexpr int NB0 = (NB + 1) / 2;        // dk/dv boxes of wg 0
+  static constexpr int NQ0 = NB / 2;              // dq pieces of wg 0
+  // K4's dq staging boxes of warpgroup 0 and 1
+  static constexpr int NSB0 = !DQ ? 0 : D > 192 ? 1 : 2;
+  static constexpr int NSB1 = !DQ ? 0 : D > 192 ? 2 : 3;
+  static constexpr int SBYTES = BQ * 32 * 4;      // a staging box
   static constexpr int KBYTES = BK * D * 2;
   static constexpr int QBYTES = BQ * D * 2;
   static constexpr int V_OFF = KBYTES;
   static constexpr int Q_OFF = 2 * KBYTES;
   static constexpr int DO_OFF = Q_OFF + STAGES * QBYTES;
-  static constexpr int XP_OFF = DO_OFF + STAGES * QBYTES;  // P^T, fp32
-  static constexpr int XD_OFF = XP_OFF + BK * BQ * 4;      // dS^T, bf16
-  static constexpr int L_OFF = XD_OFF + BK * BQ * 2;
+  // half of P^T (fp32), then dS^T (bf16)
+  static constexpr int XP_OFF = DO_OFF + STAGES * QBYTES;
+  static constexpr int SB_OFF = XP_OFF + BK * BQ * 2;      // staging boxes
+  static constexpr int L_OFF = SB_OFF + (NSB0 + NSB1) * SBYTES;
   static constexpr int DI_OFF = L_OFF + STAGES * BQ * 4;
   static constexpr int BAR_OFF = DI_OFF + STAGES * BQ * 4;
   static constexpr int SMEM = BAR_OFF + 8 * (1 + 2 * STAGES) + 1024;
+  // warpgroup 1's own barrier: all of it has read the second half of P^T
+  static constexpr int XP_READ = WQ_FULL + 2 * (NSB0 + NSB1);
+  static_assert(XP_READ <= 15, "named barriers 1 to 15");
 };
 
-// the exchange between the two roles (named barriers of all NC consumer
-// threads): P^T of a tile is in shared memory, then its dS^T
-constexpr int P_READY = 1, DS_READY = 2;
-
 // p = 2^(c s - L log2 e) of an m64 (keys) x BQ (queries) S^T tile in
-// place, masked as in dkv_p_ds
-template <bool MASKED, int BQ>
+// place, masked as in dkv_p_ds; the thread's elements [E0, E1) only
+template <bool MASKED, int BQ, int E0 = 0, int E1 = BQ / 2>
 __device__ __forceinline__ void dkv_p(float (&st)[BQ / 2], float c,
                                       const float* L2q, const Geometry& g,
                                       int q_lo, int kj0, const bool (&ko)[2],
                                       int cq) {
 #pragma unroll
-  for (int e = 0; e < BQ / 2; e += 2) {
+  for (int e = E0; e < E1; e += 2) {
     const int r = (e >> 1) & 1, col = 8 * (e >> 2) + cq;
     const float2 L2 = *reinterpret_cast<const float2*>(L2q + col);
 #pragma unroll
@@ -1539,29 +1581,99 @@ __device__ __forceinline__ void dkv_p(float (&st)[BQ / 2], float c,
   }
 }
 
-// Consumer warpgroup W of the wide dk/dv pass over the nt q tiles from i0
-// that see the CTA's 64 keys at k_lo.
+// K4's dq pieces of consumer warpgroup W: NPC 64-column pieces from PC0;
+// its NSB staging boxes from box B0, with the named barriers FULL + s and
+// FREE + s of box s
 template <int D, int W>
-__device__ __forceinline__ void dkv_wide_role(
+struct WidePieces {
+  using C = WideTiles<D, true>;
+  static constexpr int NPC = W == 0 ? C::NQ0 : C::NB - C::NQ0;
+  static constexpr int PC0 = W == 0 ? 0 : C::NQ0;
+  static constexpr int NSB = W == 0 ? C::NSB0 : C::NSB1;
+  static constexpr int B0 = W == 0 ? 0 : C::NSB0;
+  static constexpr int FULL = WQ_FULL + B0;
+  static constexpr int FREE = WQ_FULL + C::NSB0 + C::NSB1 + B0;
+  static_assert(NPC == 1 || NPC == 2, "one or two dq pieces a tile");
+};
+
+// columns [32 H, 32 H + 32) of a thread's m64 x 64 dq piece (rows q),
+// scaled, into an fp32 staging box (64 rows of 128 bytes, swizzled at
+// 128, as a TMA box): pair (row r0 + 8 r, column 8 j + cq) at chunk 2 (j %
+// 4) + cq / 4 of its row
+template <int H>
+__device__ __forceinline__ void stage_dq_box(unsigned char* box,
+                                             const float (&d)[32],
+                                             float scale, int tw, int cq) {
+  const int r0 = 16 * (tw >> 5) + ((tw & 31) >> 2);
+  unsigned char* base = box + r0 * 128 + 4 * (cq & 2);
+  const uint32_t x = swizzle_term<128>(r0), c4 = cq >> 2;
+#pragma unroll
+  for (int e = 16 * H; e < 16 * H + 16; e += 2)
+    *reinterpret_cast<float2*>(base + 8 * 128 * ((e >> 1) & 1) +
+                               (((2 * ((e >> 2) & 3) + c4) ^ x) << 4)) =
+        make_float2(scale * d[e], scale * d[e + 1]);
+}
+
+// The dq warp of consumer warpgroup W: for each of its staged boxes, in
+// the order the warpgroup writes them (q tile, piece, box), waits for it
+// to be full, has the TMA unit add it into dq, and hands the box back once
+// the reduction has read it.
+template <int D, int W>
+__device__ __forceinline__ void dq_wide_writer(const CUtensorMap& tdq,
+                                               unsigned char* sb, int i0,
+                                               int nt, int bh) {
+  using C = WideTiles<D, true>;
+  using P = WidePieces<D, W>;
+  constexpr int NSB = P::NSB;
+  const bool lead = (threadIdx.x & 31) == 0;
+  const int uses = 2 * P::NPC * nt;
+  int j = 0;
+  for (int n = 0; n < nt; ++n)
+#pragma unroll
+    for (int pc = 0; pc < P::NPC; ++pc)
+#pragma unroll
+      for (int h = 0; h < 2; ++h, ++j) {
+        const int s = j % NSB;
+        named_sync(P::FULL + s, DQ_HANDOFF);
+        if (lead) {
+          tma_reduce_add(sb + s * C::SBYTES, &tdq,
+                         64 * (P::PC0 + pc) + 32 * h, (i0 + n) * C::BQ, bh);
+          bulk_commit();
+          bulk_wait_read<0>();
+        }
+        __syncwarp();
+        if (j + NSB < uses) named_arrive(P::FREE + s, DQ_HANDOFF);
+      }
+}
+
+// Consumer warpgroup W of the wide pass (K4's if DQ) over the nt q tiles
+// from i0 that see the CTA's 64 keys at k_lo.
+template <int D, int W, bool DQ>
+__device__ __forceinline__ void wide_role(
     unsigned char* sm, int i0, int nt, int k_lo, int b,
     const int* __restrict__ km, const Geometry& g, float scale,
     bf16* __restrict__ dk, bf16* __restrict__ dv, long base) {
-  using C = DkvWideTiles<D>;
-  constexpr int BK = C::BK, BQ = C::BQ, STAGES = C::STAGES;
+  using C = WideTiles<D, DQ>;
+  using P = WidePieces<D, W>;
+  constexpr int BK = C::BK, BQ = C::BQ, STAGES = C::STAGES, NSB = P::NSB;
   constexpr int NCOL = W == 0 ? 64 * C::NB0 : D - 64 * C::NB0;
   constexpr int COL0 = W == 0 ? 0 : 64 * C::NB0;
   constexpr int TILE = BQ * D * 2;             // bytes of a Q or dO stage
   // the first of the warpgroup's boxes in a Q or dO stage
   constexpr int AT = (COL0 / 64) * BQ * Box<D>::RB;
+  constexpr int HALF = BQ / 4;                 // P^T floats in a half
+  constexpr bool TWO = DQ && P::NPC == 2;      // a second dq piece a tile
   const int T = g.T;
   const int tw = threadIdx.x & 127, lane = tw & 31, cq = 2 * (lane & 3);
-  const int kj0 = k_lo + 16 * (tw >> 5) + (lane >> 2);
+  const int row = 16 * (tw >> 5) + (lane >> 2);
+  const int kj0 = k_lo + row;
   const uint32_t ks = smem_u32(sm), vs = smem_u32(sm + C::V_OFF);
   const uint32_t qs = smem_u32(sm + C::Q_OFF), dos = smem_u32(sm + C::DO_OFF);
+  const uint32_t dss = smem_u32(sm + C::XP_OFF);
   const float* Ls = reinterpret_cast<const float*>(sm + C::L_OFF);
   const float* Dis = reinterpret_cast<const float*>(sm + C::DI_OFF);
   float2* xp = reinterpret_cast<float2*>(sm + C::XP_OFF);
-  uint32_t* xd = reinterpret_cast<uint32_t*>(sm + C::XD_OFF);
+  unsigned char* sb = sm + C::SB_OFF + P::B0 * C::SBYTES;
   uint64_t* kvbar = reinterpret_cast<uint64_t*>(sm + C::BAR_OFF);
   uint64_t* full = kvbar + 1;
   uint64_t* empty = full + STAGES;
@@ -1572,46 +1684,103 @@ __device__ __forceinline__ void dkv_wide_role(
     ko[r] = kj < T && (km == nullptr || km[(long)b * T + kj] != 0);
   }
   const float c = scale * LOG2E;
-  float dka[NCOL / 2], dva[NCOL / 2];
+  float dka[NCOL / 2], dva[NCOL / 2], dqa[DQ ? 32 : 1];
   zero(dka);
   zero(dva);
+  zero(dqa);
   float x[BQ / 2];            // S^T (warpgroup 0) or dP^T (1) of a tile
-  uint32_t pa[BQ / 4], da[BQ / 4];
-  // P^T and dS^T of q tile n as A fragments in both warpgroups
-  auto exchange = [&](int n) {
+  uint32_t pa[BQ / 4];
+  int use = 0;                // staging boxes written so far
+  auto stage_box = [&](auto h) {
+    const int s = use % NSB;
+    if (use >= NSB) named_sync(P::FREE + s, DQ_HANDOFF);
+    stage_dq_box<decltype(h)::value>(sb + s * C::SBYTES, dqa, scale, tw, cq);
+    fence_async_smem();
+    named_arrive(P::FULL + s, DQ_HANDOFF);
+    ++use;
+  };
+  auto stage_piece = [&] {
+    if constexpr (DQ) {
+      stage_box(std::integral_constant<int, 0>());
+      stage_box(std::integral_constant<int, 1>());
+    }
+  };
+  // dqa = dS K over the CTA's keys, columns of the warpgroup's piece pc
+  auto dq_piece = [&](int pc) {
+    if constexpr (DQ) {
+      const uint32_t kb = ks + (P::PC0 + pc) * BK * 128;
+#pragma unroll
+      for (int kk = 0; kk < BK / 16; ++kk)
+        wgmma_ss_t<64>(dqa, desc_mn<64, BK>(dss, kk),
+                       desc_mn<64, BK>(kb, kk), kk > 0);
+    }
+  };
+  // dv += P^T dO, dk += dS^T Q over the warpgroup's columns of stage s
+  auto dkv_products = [&](int s) {
+    rs_product<D, BQ, NCOL>(dva, pa, dos + s * TILE + AT);
+#pragma unroll
+    for (int kk = 0; kk < BQ / 16; ++kk)
+      wgmma_tn<NCOL>(dka, desc_k<BQ, BK>(dss, 0, kk),
+                     desc_mn<D, BQ>(qs + s * TILE + AT, kk), 1);
+  };
+  // P^T and dS^T of q tile n: P^T as A fragments in both warpgroups, dS^T
+  // in the shared buffer; `pending` stages what is left of the previous
+  // tile's dq where the other warpgroup works: warpgroup 1 while 0 forms
+  // P^T, warpgroup 0 once the exchange is done, while 1's next products
+  // run
+  auto exchange = [&](int n, bool pending) {
     const int s = n % STAGES, q_lo = (i0 + n) * BQ;
     if constexpr (W == 0) {
-      if (tile_masked<BQ, BK>(g, q_lo, k_lo, km != nullptr))
-        dkv_p<true, BQ>(x, c, Ls + s * BQ, g, q_lo, kj0, ko, cq);
+      const bool masked = tile_masked<BQ, BK>(g, q_lo, k_lo, km != nullptr);
+      if (masked)
+        dkv_p<true, BQ, 0, HALF>(x, c, Ls + s * BQ, g, q_lo, kj0, ko, cq);
       else
-        dkv_p<false, BQ>(x, c, Ls + s * BQ, g, q_lo, kj0, ko, cq);
+        dkv_p<false, BQ, 0, HALF>(x, c, Ls + s * BQ, g, q_lo, kj0, ko, cq);
+      named_sync(X_FREE, NC);
 #pragma unroll
-      for (int e = 0; e < BQ / 2; e += 2)
+      for (int e = 0; e < HALF; e += 2)
         xp[(e / 2) * 128 + tw] = make_float2(x[e], x[e + 1]);
+      named_arrive(P_READY, NC);
+      if (masked)
+        dkv_p<true, BQ, HALF>(x, c, Ls + s * BQ, g, q_lo, kj0, ko, cq);
+      else
+        dkv_p<false, BQ, HALF>(x, c, Ls + s * BQ, g, q_lo, kj0, ko, cq);
       pack_a<BQ>(x, pa);
+      named_sync(X_FREE, NC);
+#pragma unroll
+      for (int e = HALF; e < BQ / 2; e += 2)
+        xp[((e - HALF) / 2) * 128 + tw] = make_float2(x[e], x[e + 1]);
       named_arrive(P_READY, NC);
       named_sync(DS_READY, NC);
-#pragma unroll
-      for (int e = 0; e < BQ / 4; ++e) da[e] = xd[e * 128 + tw];
+      if (pending) stage_piece();
     } else {
       const float* Dq = Dis + s * BQ;
-      named_sync(P_READY, NC);
+      uint32_t da[BQ / 4];
+      named_arrive(X_FREE, NC);
+      if (pending) stage_piece();
 #pragma unroll
       for (int e = 0; e < BQ / 2; e += 2) {
-        const float2 p = xp[(e / 2) * 128 + tw];
+        if (e % HALF == 0) {
+          if (e) named_arrive(X_FREE, NC);
+          named_sync(P_READY, NC);
+        }
+        const float2 p = xp[((e % HALF) / 2) * 128 + tw];
         const float2 Di =
             *reinterpret_cast<const float2*>(Dq + 8 * (e >> 2) + cq);
         pa[e / 2] = pack_bf16(p.x, p.y);
         da[e / 2] = pack_bf16(p.x * (x[e] - Di.x), p.y * (x[e + 1] - Di.y));
-        xd[(e / 2) * 128 + tw] = da[e / 2];
       }
-      named_arrive(DS_READY, NC);
+      named_sync(C::XP_READ, 128);
+      store_ds<BQ>(sm + C::XP_OFF, da, row, cq);
+      fence_async_smem();
+      // a sync, not an arrive: this warpgroup's own products read the tile
+      // next, so every one of its warps must have written its part
+      named_sync(DS_READY, NC);
     }
   };
-  // Turn 0 forms the role's tile of q tile 0; turn t in [1, nt) dv += P^T
-  // dO, dk += dS^T Q over the warpgroup's columns of tile t - 1 and the
-  // role's tile of tile t; turn nt the last dv, dk. The exchange of tile t
-  // follows its product.
+  // Turn 0 forms the role's tile of q tile 0; turn t in [1, nt) the dk,
+  // dv (and dq) products of tile t - 1 and the role's tile of tile t;
+  // turn nt the last ones. The exchange of tile t follows its product.
   const uint32_t a0 = W == 0 ? ks : vs, b0 = W == 0 ? qs : dos;
   mbar_wait(kvbar, 0);
   wg_fence();
@@ -1620,29 +1789,49 @@ __device__ __forceinline__ void dkv_wide_role(
   wg_commit();
   wg_wait<0>();
   fence_regs(x);
-  exchange(0);
+  exchange(0, false);
   for (int t = 1; t < nt; ++t) {
     const int sp = (t - 1) % STAGES, sn = t % STAGES;
     wg_fence();
-    rs_product<D, BQ, NCOL>(dva, pa, dos + sp * TILE + AT);
-    rs_product<D, BQ, NCOL>(dka, da, qs + sp * TILE + AT);
+    dkv_products(sp);
+    dq_piece(0);
+    wg_commit();
     mbar_wait(&full[sn], (t / STAGES) & 1);
     ss_product<D, BK, BQ>(x, a0, 0, b0 + sn * TILE);
     wg_commit();
-    wg_wait<0>();
-    fence_regs(x);
+    wg_wait<1>();
     fence_regs(dva);
     fence_regs(dka);
+    fence_regs(dqa);
     mbar_arrive(&empty[sp]);
-    exchange(t);
+    stage_piece();
+    if constexpr (TWO) {
+      wg_fence();
+      dq_piece(1);
+      wg_commit();
+    }
+    wg_wait<0>();
+    fence_regs(x);
+    fence_regs(dqa);
+    exchange(t, TWO);
   }
   wg_fence();
-  rs_product<D, BQ, NCOL>(dva, pa, dos + ((nt - 1) % STAGES) * TILE + AT);
-  rs_product<D, BQ, NCOL>(dka, da, qs + ((nt - 1) % STAGES) * TILE + AT);
+  dkv_products((nt - 1) % STAGES);
+  dq_piece(0);
   wg_commit();
   wg_wait<0>();
   fence_regs(dva);
   fence_regs(dka);
+  fence_regs(dqa);
+  stage_piece();
+  if constexpr (TWO) {
+    wg_fence();
+    dq_piece(1);
+    wg_commit();
+    wg_wait<0>();
+    fence_regs(dqa);
+    stage_piece();
+  }
 #pragma unroll
   for (int e = 0; e < NCOL / 2; e += 2) {
     const int kj = kj0 + 8 * ((e >> 1) & 1);
@@ -1656,18 +1845,16 @@ __device__ __forceinline__ void dkv_wide_role(
   }
 }
 
-template <int D>
-__global__ void __launch_bounds__(NT, 1)
-flash_dkv_wide_sm90_kernel(const __grid_constant__ CUtensorMap tq,
-                           const __grid_constant__ CUtensorMap tk,
-                           const __grid_constant__ CUtensorMap tv,
-                           const __grid_constant__ CUtensorMap tdo,
-                           const int* __restrict__ km,
-                           const float* __restrict__ lse,
-                           const float* __restrict__ di,
-                           bf16* __restrict__ dk, bf16* __restrict__ dv,
-                           int H, Geometry g, float scale) {
-  using C = DkvWideTiles<D>;
+// The wide dk/dv pass (DQ false, K5's second kernel) and K4 (DQ true) at
+// D 192/256: one CTA per 64 keys.
+template <int D, bool DQ>
+__device__ __forceinline__ void wide_pass(
+    const CUtensorMap& tq, const CUtensorMap& tk, const CUtensorMap& tv,
+    const CUtensorMap& tdo, const CUtensorMap& tdq,
+    const int* __restrict__ km, const float* __restrict__ lse,
+    const float* __restrict__ di, bf16* __restrict__ dk,
+    bf16* __restrict__ dv, int H, Geometry g, float scale) {
+  using C = WideTiles<D, DQ>;
   constexpr int BK = C::BK, BQ = C::BQ, STAGES = C::STAGES;
   const int j = blockIdx.x;         // the most-visited key tiles first
   const int bh = blockIdx.y, b = bh / H;
@@ -1692,8 +1879,17 @@ flash_dkv_wide_sm90_kernel(const __grid_constant__ CUtensorMap tq,
   const int nt = i1 - i0;
 
   if (threadIdx.x >= NC) {
+    // producer warpgroup: warp 0 loads; in K4 warps 1 and 2 hand the dq
+    // boxes of consumer warpgroups 0 and 1 to the TMA unit
     regs_dec<PRODUCER_REGS>();
-    if (threadIdx.x >= NC + 32) return;
+    const int warp = (threadIdx.x - NC) >> 5;
+    if constexpr (DQ) {
+      unsigned char* sb = sm + C::SB_OFF;
+      if (warp == 1) dq_wide_writer<D, 0>(tdq, sb, i0, nt, bh);
+      if (warp == 2)
+        dq_wide_writer<D, 1>(tdq, sb + C::NSB0 * C::SBYTES, i0, nt, bh);
+    }
+    if (warp != 0) return;
     load_dkv_tiles<D, BK, BQ, STAGES>(
         tq, tk, tv, tdo, reinterpret_cast<bf16*>(sm),
         reinterpret_cast<bf16*>(sm + C::V_OFF),
@@ -1706,10 +1902,39 @@ flash_dkv_wide_sm90_kernel(const __grid_constant__ CUtensorMap tq,
     regs_inc<CONSUMER_REGS>();
     const long base = (long)bh * T * D;
     if (threadIdx.x < 128)
-      dkv_wide_role<D, 0>(sm, i0, nt, k_lo, b, km, g, scale, dk, dv, base);
+      wide_role<D, 0, DQ>(sm, i0, nt, k_lo, b, km, g, scale, dk, dv, base);
     else
-      dkv_wide_role<D, 1>(sm, i0, nt, k_lo, b, km, g, scale, dk, dv, base);
+      wide_role<D, 1, DQ>(sm, i0, nt, k_lo, b, km, g, scale, dk, dv, base);
   }
+}
+
+template <int D>
+__global__ void __launch_bounds__(NT, 1)
+flash_dkv_wide_sm90_kernel(const __grid_constant__ CUtensorMap tq,
+                           const __grid_constant__ CUtensorMap tk,
+                           const __grid_constant__ CUtensorMap tv,
+                           const __grid_constant__ CUtensorMap tdo,
+                           const int* __restrict__ km,
+                           const float* __restrict__ lse,
+                           const float* __restrict__ di,
+                           bf16* __restrict__ dk, bf16* __restrict__ dv,
+                           int H, Geometry g, float scale) {
+  wide_pass<D, false>(tq, tk, tv, tdo, tq, km, lse, di, dk, dv, H, g, scale);
+}
+
+template <int D>
+__global__ void __launch_bounds__(NT, 1)
+flash_bwd_fused_wide_sm90_kernel(const __grid_constant__ CUtensorMap tq,
+                                 const __grid_constant__ CUtensorMap tk,
+                                 const __grid_constant__ CUtensorMap tv,
+                                 const __grid_constant__ CUtensorMap tdo,
+                                 const __grid_constant__ CUtensorMap tdq,
+                                 const int* __restrict__ km,
+                                 const float* __restrict__ lse,
+                                 const float* __restrict__ di,
+                                 bf16* __restrict__ dk, bf16* __restrict__ dv,
+                                 int H, Geometry g, float scale) {
+  wide_pass<D, true>(tq, tk, tv, tdo, tdq, km, lse, di, dk, dv, H, g, scale);
 }
 
 // ------------------------------------------------------------- host side
@@ -1771,14 +1996,36 @@ int launch_fwd(const void* q, const void* k, const void* v, const int* km,
   return (int)cudaGetLastError();
 }
 
-// The dk/dv pass (DQ false) or K4 (DQ true, dq into the zeroed buffer):
-// one CTA per 128 keys.
+// the dk/dv pass's (DQ false) or K4's (DQ true) tiles: 128 keys a CTA up to
+// D 128, the wide pass's 64 above
+template <int D, bool DQ>
+using DkvTilesOf =
+    std::conditional_t<(D <= 128), DkvTiles<D, DQ>, WideTiles<D, DQ>>;
+
+template <int D>
+auto dkv_kernel() {
+  if constexpr (D <= 128)
+    return flash_dkv_sm90_kernel<D>;
+  else
+    return flash_dkv_wide_sm90_kernel<D>;
+}
+
+template <int D>
+auto fused_kernel() {
+  if constexpr (D <= 128)
+    return flash_bwd_fused_sm90_kernel<D>;
+  else
+    return flash_bwd_fused_wide_sm90_kernel<D>;
+}
+
+// The dk/dv pass (DQ false) or K4 (DQ true, dq into the zeroed buffer).
 template <int D, bool DQ>
 int launch_dkv(const void* q, const void* k, const void* v, const int* km,
                const void* dout, const float* lse, const float* di,
                float* dq, void* dk, void* dv, int B, int H, Geometry g,
                float scale, cudaStream_t st) {
-  using K = DkvTiles<D, DQ>;
+  using K = DkvTilesOf<D, DQ>;
+  static_assert(K::SMEM <= 232448, "one CTA's shared memory");
   CUtensorMap mq, mk, mv, mdo;
   int err;
   if ((err = make_map<D>(&mq, q, g.T, B * H, K::BQ))) return err;
@@ -1790,13 +2037,13 @@ int launch_dkv(const void* q, const void* k, const void* v, const int* km,
     CUtensorMap mdq;
     if ((err = make_map(&mdq, dq, D, g.T, B * H, DqBox<D>::COLS, K::BQ, 4)))
       return err;
-    auto kern = flash_bwd_fused_sm90_kernel<D>;
+    auto kern = fused_kernel<D>();
     if ((err = prepare(kern, K::SMEM))) return err;
     kern<<<grid, NT, K::SMEM, st>>>(mq, mk, mv, mdo, mdq, km, lse, di,
                                     static_cast<bf16*>(dk),
                                     static_cast<bf16*>(dv), H, g, scale);
   } else {
-    auto kern = flash_dkv_sm90_kernel<D>;
+    auto kern = dkv_kernel<D>();
     if ((err = prepare(kern, K::SMEM))) return err;
     kern<<<grid, NT, K::SMEM, st>>>(mq, mk, mv, mdo, km, lse, di,
                                     static_cast<bf16*>(dk),
@@ -1823,25 +2070,11 @@ int launch_bwd(const void* q, const void* k, const void* v, const int* km,
   kq<<<dim3((g.T + Q::BM - 1) / Q::BM, B * H), NT, Q::SMEM, st>>>(
       mq, mk, mv, mdo, km, lse, di, dq, H, g, scale);
   if ((err = (int)cudaGetLastError())) return err;
-  if constexpr (D <= 128) {
-    return launch_dkv<D, false>(q, k, v, km, dout, lse, di, nullptr, dk, dv,
-                                B, H, g, scale, st);
-  } else {
-    using K = DkvWideTiles<D>;
-    static_assert(K::SMEM <= 232448, "one CTA's shared memory");
-    if ((err = make_map<D>(&mq, q, g.T, B * H, K::BQ))) return err;
-    if ((err = make_map<D>(&mdo, dout, g.T, B * H, K::BQ))) return err;
-    if ((err = make_map<D>(&mk, k, g.T, B * H, K::BK))) return err;
-    if ((err = make_map<D>(&mv, v, g.T, B * H, K::BK))) return err;
-    auto kern = flash_dkv_wide_sm90_kernel<D>;
-    if ((err = prepare(kern, K::SMEM))) return err;
-    kern<<<dim3((g.T + K::BK - 1) / K::BK, B * H), NT, K::SMEM, st>>>(
-        mq, mk, mv, mdo, km, lse, di, static_cast<bf16*>(dk),
-        static_cast<bf16*>(dv), H, g, scale);
-    return (int)cudaGetLastError();
-  }
+  return launch_dkv<D, false>(q, k, v, km, dout, lse, di, nullptr, dk, dv, B,
+                              H, g, scale, st);
 }
 
+// K4: one launch
 template <int D>
 int launch_fused(const void* q, const void* k, const void* v, const int* km,
                  const void* dout, const float* lse, const float* di,
@@ -1851,32 +2084,24 @@ int launch_fused(const void* q, const void* k, const void* v, const int* km,
                              scale, st);
 }
 
-// the dk/dv pass's (DQ false) or K4's (DQ true) dynamic shared memory; -1
-// where K4 has no kernel
+// the dk/dv pass's (DQ false) or K4's (DQ true) dynamic shared memory
 template <int D, bool DQ>
 constexpr int dkv_smem() {
-  if constexpr (D <= 128)
-    return DkvTiles<D, DQ>::SMEM;
-  else
-    return DQ ? -1 : DkvWideTiles<D>::SMEM;
+  return DkvTilesOf<D, DQ>::SMEM;
 }
 
 }  // namespace
 
-// bf16 only; head dims 16, 32, 64, 128, 192 and 256 (K4: up to 128). q,
-// k, v, dout 16-byte aligned and contiguous. Return a cudaError_t code, or
+// bf16 only; head dims 16, 32, 64, 128, 192 and 256. q, k, v, dout
+// 16-byte aligned and contiguous. Return a cudaError_t code, or
 // kNoEncoder / kBadMap (0 on success). They allocate nothing and do not
 // synchronize: the kernels launch on `stream`.
-#define DL4J_SM90_DISPATCH_TO_128(FN, ...)                         \
+#define DL4J_SM90_DISPATCH(FN, ...)                                \
   {                                                                \
     if (D == 16) return FN<16>(__VA_ARGS__);                       \
     if (D == 32) return FN<32>(__VA_ARGS__);                       \
     if (D == 64) return FN<64>(__VA_ARGS__);                       \
     if (D == 128) return FN<128>(__VA_ARGS__);                     \
-  }
-#define DL4J_SM90_DISPATCH(FN, ...)                                \
-  {                                                                \
-    DL4J_SM90_DISPATCH_TO_128(FN, __VA_ARGS__)                     \
     if (D == 192) return FN<192>(__VA_ARGS__);                     \
     if (D == 256) return FN<256>(__VA_ARGS__);                     \
     return (int)cudaErrorInvalidValue;                             \
@@ -1923,13 +2148,11 @@ extern "C" int dl4j_flash_sm90_bwd_fused(const void* q, const void* k,
                                          void* stream) {
   if (T <= 0 || B <= 0 || H <= 0) return 0;
   const Geometry g{T, causal, window};
-  DL4J_SM90_DISPATCH_TO_128(launch_fused, q, k, v,
-                            static_cast<const int*>(key_mask), dout,
-                            static_cast<const float*>(lse),
-                            static_cast<const float*>(di),
-                            static_cast<float*>(dq), dk, dv, B, H, g, scale,
-                            static_cast<cudaStream_t>(stream));
-  return (int)cudaErrorInvalidValue;
+  DL4J_SM90_DISPATCH(launch_fused, q, k, v, static_cast<const int*>(key_mask),
+                     dout, static_cast<const float*>(lse),
+                     static_cast<const float*>(di), static_cast<float*>(dq),
+                     dk, dv, B, H, g, scale,
+                     static_cast<cudaStream_t>(stream));
 }
 
 // Dynamic shared memory of a kernel: kind 0 the forward, 1 the dq pass, 2

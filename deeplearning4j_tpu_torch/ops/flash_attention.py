@@ -22,13 +22,13 @@ H heads in the forward (query head h reads kv head h // (H / Hk)); the
 grouped backward raises, as in the JAX package: the layer repeats k/v to
 full heads before the call, so training never reaches it.
 
-Kernels (CUDA C++ for sm_90a in two sources, chosen by dtype, kind and
-head dim in `_route`: bf16 K3 and K5 at a kernel head dim up to 256, and
-bf16 K4 up to 128, take `csrc/flash_attention_sm90.cu` (wgmma, TMA); fp32
-inputs at every head dim, and bf16 elsewhere (K3/K5 from 384, K4 from
-192), the CUDA-core kernels of `csrc/flash_attention.cu` (bf16 widened to
-fp32 before the launch, the outputs rounded back); each wrapper counts
-its launches per source in `.route_launches`):
+Kernels (CUDA C++ for sm_90a in two sources, chosen by dtype and head
+dim in `_route`: bf16 K3, K4 and K5 at a kernel head dim up to 256 take
+`csrc/flash_attention_sm90.cu` (wgmma, TMA); fp32 inputs at every head
+dim, and bf16 from 384, the CUDA-core kernels of
+`csrc/flash_attention.cu` (bf16 widened to fp32 before the launch, the
+outputs rounded back); each wrapper counts its launches per source in
+`.route_launches`):
 - K3 `flash_attention_fwd_cuda` replaces `_call_fwd` / `_fwd_kernel`;
 - K4 `flash_attention_bwd_cuda(..., bwd="fused")` replaces
   `_fused_bwd_kernel`: one kernel per key tile giving dk, dv and each
@@ -78,8 +78,7 @@ SOURCES = (SOURCE, SM90_SOURCE)
 BWD_MODES = ("fused", "two_pass")
 HEAD_DIMS = (16, 32, 64, 128, 192, 256, 384, 512)   # of the kernels
 WIDE_CHUNK = 128    # ... and above 512, every multiple of this
-SM90_HEAD_DIMS = (16, 32, 64, 128, 192, 256)   # of the wgmma K3 and K5
-SM90_FUSED_HEAD_DIMS = (16, 32, 64, 128)       # ... and of the wgmma K4
+SM90_HEAD_DIMS = (16, 32, 64, 128, 192, 256)   # of the wgmma K3, K4, K5
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 2}
 
 _CONFIG = {"bwd": os.environ.get("DL4J_TPU_FLASH_BWD", "fused")}
@@ -295,16 +294,16 @@ def flash_attention(q, k, v, mask=None, causal: bool = False,
 def _route(dtype: torch.dtype, kind: str, D: int) -> str:
     """The source whose kernel takes a launch: `kind` "fwd" (K3), "fused"
     (K4) or "two_pass" (K5), D the kernel head dim. bf16 runs on the wgmma
-    kernels of SM90_SOURCE where they exist (K3 and K5 up to D 256, K4 up
-    to 128); fp32, and bf16 elsewhere (widened to fp32), on SOURCE."""
+    kernels of SM90_SOURCE up to D 256; fp32, and bf16 above (widened to
+    fp32), on SOURCE."""
     if kind not in ("fwd",) + BWD_MODES:
         raise ValueError(f"unknown flash kernel kind {kind!r}")
     wide = D > HEAD_DIMS[-1] and D % WIDE_CHUNK == 0
     if D not in HEAD_DIMS and not wide:
         raise ValueError(f"no flash kernel at head dim {D} ({HEAD_DIMS}, "
                          f"then multiples of {WIDE_CHUNK})")
-    sm90 = SM90_FUSED_HEAD_DIMS if kind == "fused" else SM90_HEAD_DIMS
-    return SM90_SOURCE if dtype == torch.bfloat16 and D in sm90 else SOURCE
+    return SM90_SOURCE if dtype == torch.bfloat16 and D in SM90_HEAD_DIMS \
+        else SOURCE
 
 
 def _library(source: str):

@@ -14,16 +14,10 @@ are timed by CUDA-graph replay in turns (each variant, then each again in
 reverse order), and every variant's output must equal the package's bit for
 bit. Prints one JSON object: {case: {variant: [ms, ms]}}.
 """
-import ctypes
-import importlib.util
 import json
 import os
-import shutil
-import sys
-from pathlib import Path
 
-REPO = Path(__file__).resolve().parents[1]
-sys.path.insert(0, str(REPO))
+import _ab  # puts the repo on sys.path
 
 import torch  # noqa: E402
 
@@ -43,34 +37,8 @@ VARIANTS = {
 SOURCES = (da.SOURCE, da.CONTIGUOUS_SOURCE)
 
 
-def load_chip_smoke():
-    spec = importlib.util.spec_from_file_location(
-        "chip_smoke", REPO / "chip_smoke.py")
-    mod = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(mod)
-    return mod
-
-
-def build_variant(name, edits):
-    csrc = REPO / "_scratch" / f"merge_{name}"
-    shutil.rmtree(csrc, ignore_errors=True)
-    shutil.copytree(build.CSRC, csrc)
-    for fname, old, new in edits:
-        text = (csrc / fname).read_text()
-        if old not in text:
-            raise SystemExit(f"{name}: {old!r} not in {fname}")
-        (csrc / fname).write_text(text.replace(old, new))
-    real = (build.CSRC, build.BUILD_DIR)
-    build.CSRC, build.BUILD_DIR = csrc, csrc / "_build"
-    try:
-        return {s: ctypes.CDLL(b["path"])
-                for s, b in build.build(SOURCES).items()}
-    finally:
-        build.CSRC, build.BUILD_DIR = real
-
-
 def use(libs):
-    build._LOADED.update(libs)
+    _ab.use(libs)
     da._library()
     da._contiguous_library()
 
@@ -78,10 +46,10 @@ def use(libs):
 def main():
     if not torch.cuda.is_available():
         raise SystemExit("needs a CUDA card")
-    cs = load_chip_smoke()
+    cs = _ab.load_chip_smoke()
     libs = {"package": {s: build.load(s) for s in SOURCES}}
     for name, edits in VARIANTS.items():
-        libs[name] = build_variant(name, edits)
+        libs[name] = _ab.build_variant(f"merge_{name}", SOURCES, edits)
     order = list(libs) + list(libs)[::-1]
     S, Hk, G, D, bs, bps, visible = cs.served_shape()
     cases = {}

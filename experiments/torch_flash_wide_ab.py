@@ -19,15 +19,10 @@ K5 must hold chip_smoke.py's bf16 flash limits against the plain version.
 Prints one JSON object: {case: {variant: [ms, ms]}}.
 """
 import ctypes
-import importlib.util
 import json
 import os
-import shutil
-import sys
-from pathlib import Path
 
-REPO = Path(__file__).resolve().parents[1]
-sys.path.insert(0, str(REPO))
+import _ab  # puts the repo on sys.path
 
 import torch  # noqa: E402
 
@@ -41,9 +36,8 @@ SWITCH = [
     ("  kq<<<dim3((g.T + Q::BM - 1) / Q::BM, B * H), NT, Q::SMEM, st>>>(",
      "  if (g_probe_mode != 2)\n"
      "  kq<<<dim3((g.T + Q::BM - 1) / Q::BM, B * H), NT, Q::SMEM, st>>>("),
-    ("  if constexpr (D <= 128) {\n    return launch_dkv<D, false>",
-     "  if (g_probe_mode == 1) return 0;\n"
-     "  if constexpr (D <= 128) {\n    return launch_dkv<D, false>"),
+    ("  return launch_dkv<D, false>(",
+     "  if (g_probe_mode == 1) return 0;\n  return launch_dkv<D, false>("),
 ]
 VARIANTS = {
     "package": [],
@@ -56,39 +50,18 @@ VARIANTS = {
 MODES = {"K5": 0, "K5_dq_pass": 1, "K5_dkv_pass": 2}
 
 
-def load_chip_smoke():
-    spec = importlib.util.spec_from_file_location(
-        "chip_smoke", REPO / "chip_smoke.py")
-    mod = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(mod)
-    return mod
-
-
 def build_variant(name, edits):
-    csrc = REPO / "_scratch" / f"flash_wide_{name}"
-    shutil.rmtree(csrc, ignore_errors=True)
-    shutil.copytree(build.CSRC, csrc)
-    path = csrc / fa.SM90_SOURCE
-    text = path.read_text()
-    for old, new in SWITCH + edits:
-        if old not in text:
-            raise SystemExit(f"{name}: {old!r} not in {fa.SM90_SOURCE}")
-        text = text.replace(old, new, 1)
-    path.write_text(text + '\nextern "C" void probe_set_mode(int m) '
-                    '{ g_probe_mode = m; }\n')
-    real = (build.CSRC, build.BUILD_DIR)
-    build.CSRC, build.BUILD_DIR = csrc, csrc / "_build"
-    try:
-        lib = ctypes.CDLL(build.build([fa.SM90_SOURCE])[fa.SM90_SOURCE][
-            "path"])
-    finally:
-        build.CSRC, build.BUILD_DIR = real
+    lib = _ab.build_variant(
+        f"flash_wide_{name}", [fa.SM90_SOURCE],
+        [(fa.SM90_SOURCE, old, new) for old, new in SWITCH + edits],
+        {fa.SM90_SOURCE: '\nextern "C" void probe_set_mode(int m) '
+                         '{ g_probe_mode = m; }\n'})[fa.SM90_SOURCE]
     lib.probe_set_mode.argtypes = [ctypes.c_int]
     return lib
 
 
 def use(lib, mode=0):
-    build._LOADED[fa.SM90_SOURCE] = lib
+    _ab.use({fa.SM90_SOURCE: lib})
     fa._library(fa.SM90_SOURCE)
     lib.probe_set_mode(mode)
 
@@ -96,7 +69,7 @@ def use(lib, mode=0):
 def main():
     if not torch.cuda.is_available():
         raise SystemExit("needs a CUDA card")
-    cs = load_chip_smoke()
+    cs = _ab.load_chip_smoke()
     libs = {name: build_variant(name, edits)
             for name, edits in VARIANTS.items()}
     order = list(libs) + list(libs)[::-1]

@@ -13,6 +13,8 @@ from deeplearning4j_tpu.nn.activations import get_activation as jax_act
 from deeplearning4j_tpu_torch.common.enums import Activation
 from deeplearning4j_tpu_torch.nn.activations import get_activation
 
+torch.set_num_threads(1)    # small CPU tensors: one thread per test process
+
 TOL = 1e-12
 KINKS = [-6.0, -3.0, -1.0, 0.0, 1.0, 3.0, 6.0]
 

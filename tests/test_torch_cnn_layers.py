@@ -40,6 +40,8 @@ from deeplearning4j_tpu_torch.nn.conf.input_type import \
 from deeplearning4j_tpu_torch.nn.conf.layers.base import BaseLayerConf
 from test_torch_graph import _init_from_port
 
+torch.set_num_threads(1)    # small CPU tensors: one thread per test process
+
 TOL = 1e-10
 
 

@@ -39,6 +39,8 @@ from deeplearning4j_tpu.ops.helpers import enable_helpers
 from deeplearning4j_tpu_torch.ops import conv_fused as tcf
 from test_torch_graph import _batch, _jax_gradient_and_score, _mini, _port
 
+torch.set_num_threads(1)    # small CPU tensors: one thread per test process
+
 TOL = 1e-10
 GRAD_TOL = 1e-9
 

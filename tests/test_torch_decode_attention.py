@@ -23,6 +23,8 @@ from deeplearning4j_tpu.ops.decode_attention import (
 from deeplearning4j_tpu_torch.ops import build, helpers
 from deeplearning4j_tpu_torch.ops import decode_attention as tda
 
+torch.set_num_threads(1)    # small CPU tensors: one thread per test process
+
 ATOL = 1e-10
 
 

@@ -32,6 +32,8 @@ from deeplearning4j_tpu.ops.decode_attention import (
     flash_decode_attention as jax_flash)
 from deeplearning4j_tpu_torch.ops import decode_attention as tda
 
+torch.set_num_threads(1)    # small CPU tensors: one thread per test process
+
 ATOL = 1e-10
 S, HK, D = 3, 2, 8
 # the JAX partition for each L: its Pallas kernel, not its dense fallback

@@ -35,6 +35,8 @@ from deeplearning4j_tpu.ops.decode_attention import (
     flash_decode_attention_spec_paged as jax_flash_spec)
 from deeplearning4j_tpu_torch.ops import decode_attention as tda
 
+torch.set_num_threads(1)    # small CPU tensors: one thread per test process
+
 ATOL = 1e-10
 S, HK, D, BPS = 3, 2, 8, 12
 

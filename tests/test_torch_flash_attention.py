@@ -22,6 +22,8 @@ from deeplearning4j_tpu.ops import flash_attention as jfa
 from deeplearning4j_tpu_torch.ops import flash_attention as tfa
 from deeplearning4j_tpu_torch.ops import helpers
 
+torch.set_num_threads(1)    # small CPU tensors: one thread per test process
+
 ATOL = 1e-10
 BLK = 8
 

@@ -7,12 +7,12 @@ wrappers apply (`padded_fwd` / `padded_bwd`: 160 -> 192, 320 -> 384, 256,
 against the JAX package's `flash_attention_lse` (its Pallas kernels in
 interpret mode, small tiles, compiled once by `jax.jit` through a module
 fixture), forward and the backward of both schedules, with a non-zero lse
-cotangent; tolerance 1e-10. Padding is exact. On the card bf16 K3 and K5
-at D 192 and 256 run on the wgmma kernels of flash_attention_sm90.cu, K4
-there and everything above 256 on the CUDA-core kernels of
-flash_attention.cu (bf16 widened to fp32; above 512 the kernels that
-stream the head dim in chunks): the route and the launches at those head
-dims run here against a recording stand-in library. The kernels
+cotangent; tolerance 1e-10. Padding is exact. On the card bf16 K3, K4 and
+K5 at D 192 and 256 run on the wgmma kernels of flash_attention_sm90.cu,
+everything above 256 on the CUDA-core kernels of flash_attention.cu (bf16
+widened to fp32; above 512 the kernels that stream the head dim in
+chunks): the route and the launches at those head dims run here against
+a recording stand-in library. The kernels
 themselves are held against the plain versions on the card by
 chip_smoke.py (flash_head_dims and the kernel sweeps).
 """
@@ -28,6 +28,8 @@ import torch
 
 from deeplearning4j_tpu.ops import flash_attention as jfa
 from deeplearning4j_tpu_torch.ops import flash_attention as tfa
+
+torch.set_num_threads(1)    # small CPU tensors: one thread per test process
 
 ATOL = 1e-10
 BLK = 8
@@ -144,13 +146,12 @@ def test_head_dims_above_512_raise_naming_queue_3(D, Dp):
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 @pytest.mark.parametrize("kind", ["fwd", "fused", "two_pass"])
 def test_route_by_head_dim(dtype, kind):
-    """bf16 K3 and K5 take the wgmma kernels up to D 256, bf16 K4 up to
-    128; above those, and fp32 at every D, the CUDA-core kernels. Only
-    kernel head dims are routed: HEAD_DIMS, then multiples of 128."""
-    top = 128 if kind == "fused" else 256
+    """bf16 K3, K4 and K5 take the wgmma kernels up to D 256; above, and
+    fp32 at every D, the CUDA-core kernels. Only kernel head dims are
+    routed: HEAD_DIMS, then multiples of 128."""
     for D in tfa.HEAD_DIMS + (640, 1024, 1536):
         want = tfa.SM90_SOURCE if (dtype == torch.bfloat16
-                                   and D <= top) else tfa.SOURCE
+                                   and D <= 256) else tfa.SOURCE
         assert tfa._route(dtype, kind, D) == want
     for D in (160, 600, 1000):
         with pytest.raises(ValueError):
@@ -240,11 +241,10 @@ def test_wide_bf16_forward_launch_widens_to_the_fp32_kernel(fake_libs, D):
 
 @pytest.mark.parametrize("D", [192, 256, 384, 512])
 @pytest.mark.parametrize("mode", ["fused", "two_pass"])
-def test_wide_bf16_backward_launch_widens_to_the_fp32_kernel(fake_libs, D,
-                                                             mode):
-    """bf16 K5 at D 192 and 256 launches the wgmma kernels on the bf16
-    tensors; K4 there, and both at 384 and 512, the CUDA-core kernels on
-    them widened to fp32."""
+def test_wide_bf16_backward_launch_source(fake_libs, D, mode):
+    """bf16 K4 and K5 at D 192 and 256 launch the wgmma kernels on the
+    bf16 tensors; at 384 and 512 the CUDA-core kernels on them widened to
+    fp32."""
     libs = fake_libs()
     q, k, v, do, m = _bf16(D)
     o = torch.zeros_like(q)
@@ -257,11 +257,13 @@ def test_wide_bf16_backward_launch_widens_to_the_fp32_kernel(fake_libs, D,
     assert dq.dtype == dk.dtype == dv.dtype == torch.bfloat16
     assert dq.shape == dk.shape == dv.shape == q.shape
     two = mode == "two_pass"
-    source = tfa.SM90_SOURCE if two and D <= 256 else tfa.SOURCE
+    source = tfa.SM90_SOURCE if D <= 256 else tfa.SOURCE
     assert list(libs) == [source]
     ((name, args),) = libs[source].log
     if source == tfa.SM90_SOURCE:
-        assert name == "dl4j_flash_sm90_bwd" and args[0] == q.data_ptr()
+        assert name == ("dl4j_flash_sm90_bwd" if two
+                        else "dl4j_flash_sm90_bwd_fused")
+        assert args[0] == q.data_ptr()
         assert args[10:16] == (B, H, T, D, 0, 4)
     else:
         assert name == "dl4j_flash_bwd" and args[0] != q.data_ptr()
@@ -318,8 +320,8 @@ def test_bf16_at_128_still_takes_the_wgmma_kernel(fake_libs):
 @pytest.mark.parametrize("D", [192, 256, 640])
 def test_wide_failed_launch_raises_and_counts_nothing(fake_libs, D):
     """A launch the library refuses raises, names the library's error and
-    counts nothing: at D 192 and 256 K3 and K5 on the wgmma kernels (no
-    fallback to the CUDA-core ones), K4 on the CUDA-core kernel."""
+    counts nothing: at D 192 and 256 K3, K4 and K5 on the wgmma kernels
+    (no fallback to the CUDA-core ones)."""
     libs = fake_libs(err=700)
     q, k, v, do, m = _bf16(D)
     before = (tfa.flash_attention_fwd_cuda.launches,
@@ -333,15 +335,14 @@ def test_wide_failed_launch_raises_and_counts_nothing(fake_libs, D):
         tfa._fwd_launch(q, k, v, m, True, 0.125, 0)
     for mode in tfa.BWD_MODES:
         with pytest.raises(RuntimeError, match="error 700 from dl4j_flash_"
-                           + ("sm90_" if sm90 and mode == "two_pass"
-                              else "error")):
+                           + ("sm90_" if sm90 else "error")):
             tfa._bwd_launch(q, k, v, m, torch.zeros_like(q),
                             torch.zeros(B, H, T), do, None, True, 0.125, 0,
                             mode)
     assert {src: [name for name, _ in lib.log]
             for src, lib in libs.items()} == (
-        {tfa.SM90_SOURCE: ["dl4j_flash_sm90_fwd", "dl4j_flash_sm90_bwd"],
-         tfa.SOURCE: ["dl4j_flash_bwd"]} if sm90 else
+        {tfa.SM90_SOURCE: ["dl4j_flash_sm90_fwd", "dl4j_flash_sm90_bwd_fused",
+                           "dl4j_flash_sm90_bwd"]} if sm90 else
         {tfa.SOURCE: ["dl4j_flash_fwd", "dl4j_flash_bwd", "dl4j_flash_bwd"]})
     assert (tfa.flash_attention_fwd_cuda.launches,
             tfa.flash_attention_fwd_cuda.route_launches,

@@ -46,6 +46,8 @@ from deeplearning4j_tpu_torch.convert import (graph_conf_from_json,
 from deeplearning4j_tpu_torch.models import ResNet50
 from deeplearning4j_tpu_torch.nn.graph import vertices as tv
 
+torch.set_num_threads(1)    # small CPU tensors: one thread per test process
+
 TOL = 1e-9
 
 

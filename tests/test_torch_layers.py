@@ -27,6 +27,8 @@ from deeplearning4j_tpu_torch import SelfAttentionLayer as TorchAttn
 from deeplearning4j_tpu_torch.convert import conf_from_json, params_from_jax
 from deeplearning4j_tpu_torch.nn.conf.layers.base import BaseLayerConf
 
+torch.set_num_threads(1)    # small CPU tensors: one thread per test process
+
 ATOL = 1e-10
 V = 13
 

@@ -33,6 +33,8 @@ from deeplearning4j_tpu_torch.datasets.dataset import DataSet as TDataSet
 from deeplearning4j_tpu_torch.models import TextGenerationLSTM as TTextGen
 from deeplearning4j_tpu_torch.util.flat_params import tree_leaves
 
+torch.set_num_threads(1)    # small CPU tensors: one thread per test process
+
 NET_TOL = 1e-9
 V, TN, BN, HN = 5, 12, 4, 16
 

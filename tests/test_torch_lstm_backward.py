@@ -28,6 +28,8 @@ import torch
 from deeplearning4j_tpu.ops.lstm_scan_fused import graves_lstm_scan_pallas
 from deeplearning4j_tpu_torch.ops import lstm_scan_fused as ts
 
+torch.set_num_threads(1)    # small CPU tensors: one thread per test process
+
 TOL = 1e-10
 NAMES = ("dxw", "drw", "dpi", "dpf", "dpo", "dh0", "dc0")
 

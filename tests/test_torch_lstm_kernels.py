@@ -38,6 +38,8 @@ from deeplearning4j_tpu.ops.pallas_kernels import (graves_gates_pallas,
 from deeplearning4j_tpu_torch.ops import lstm_gates as tg
 from deeplearning4j_tpu_torch.ops import lstm_scan_fused as ts
 
+torch.set_num_threads(1)    # small CPU tensors: one thread per test process
+
 TOL = 1e-10
 H = 8
 

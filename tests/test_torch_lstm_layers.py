@@ -23,6 +23,8 @@ from deeplearning4j_tpu.nn.conf.layers import recurrent as jrec
 from deeplearning4j_tpu.ops.helpers import helpers_enabled_ctx
 from deeplearning4j_tpu_torch.nn.conf.layers.base import BaseLayerConf
 
+torch.set_num_threads(1)    # small CPU tensors: one thread per test process
+
 LAYER_TOL = 1e-10
 B, N_IN, T = 3, 3, 6
 

@@ -31,6 +31,8 @@ from deeplearning4j_tpu_torch.util.flat_params import flatten_params
 from test_torch_parallel_wrapper import (TOL, _data, _graph, _mlp,
                                          _wrappers, assert_matches)
 
+torch.set_num_threads(1)    # small CPU tensors: one thread per test process
+
 
 @pytest.fixture
 def jax_jit_shard_map(monkeypatch):

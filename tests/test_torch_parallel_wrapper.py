@@ -41,6 +41,8 @@ from deeplearning4j_tpu_torch.parallel import (BasicGradientsAccumulator,
                                                make_mesh)
 from deeplearning4j_tpu_torch.util.flat_params import flatten_params
 
+torch.set_num_threads(1)    # small CPU tensors: one thread per test process
+
 TOL = 1e-10
 
 

@@ -31,6 +31,8 @@ from deeplearning4j_tpu_torch.serving.kv_cache import (advance_lengths,
                                                        append_token)
 from deeplearning4j_tpu_torch.serving.policy import SchedulingPolicy
 
+torch.set_num_threads(1)    # small CPU tensors: one thread per test process
+
 V = 13
 
 

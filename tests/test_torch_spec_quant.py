@@ -61,6 +61,8 @@ from deeplearning4j_tpu_torch.serving import spec as tspec
 
 from tests.test_torch_serving import P1, P2, _nets, _oracle_logprobs
 
+torch.set_num_threads(1)    # small CPU tensors: one thread per test process
+
 ATOL = 1e-10
 REPETITIVE = [1, 2, 3, 4, 1, 2, 3, 4, 1, 2, 3, 4, 1, 2]
 PROMPTS = [REPETITIVE, [5, 4, 3], [2, 2, 7, 1, 2, 2, 7, 1, 2, 2]]

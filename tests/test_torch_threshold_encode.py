@@ -36,6 +36,8 @@ from deeplearning4j_tpu_torch.convert import (conf_from_json,
 from deeplearning4j_tpu_torch.ops import threshold_encode as te
 from deeplearning4j_tpu_torch.parallel import accumulation as tacc
 
+torch.set_num_threads(1)    # small CPU tensors: one thread per test process
+
 TOL = 1e-10
 _INT = {np.float64: (np.int64, torch.int64), np.float32: (np.int32,
                                                          torch.int32)}

@@ -43,6 +43,8 @@ from deeplearning4j_tpu_torch.nn.conf.layers.base import apply_dropout
 from deeplearning4j_tpu_torch.nn.updater import updaters as tupd
 from deeplearning4j_tpu_torch.util.flat_params import tree_leaves
 
+torch.set_num_threads(1)    # small CPU tensors: one thread per test process
+
 TOL = 1e-9
 V, T, B = 5, 12, 2
 
