@@ -1330,10 +1330,11 @@ def flash_sweep():
     """(dtype, D, T, causal, window, masked) of the kernel sweeps; head
     dims 8, 48, 160, 320 and 600 are zero-padded to 16, 64, 192, 384 and
     640 inside the wrappers. The wide head dims run at T around the
-    32-row tiles of the CUDA-core kernels: bf16 K3, K4 and K5 at 160 to
-    256 on the wgmma kernels, bf16 above on the CUDA-core kernels widened
-    to fp32, fp32 on those at every D (above 512 the
-    kernels that stream the head dim in chunks)."""
+    32-row tiles of the CUDA-core kernels: bf16 K3 and K5 at 160 to 512
+    and K4 at 160 to 256 on the wgmma kernels, bf16 K4 at 320 and 512 and
+    every bf16 kernel above on the CUDA-core kernels widened to fp32, fp32
+    on those at every D (above 512 the kernels that stream the head dim in
+    chunks)."""
     for dt in ("float32", "bfloat16"):
         for D in (32, 64, 128):
             for T in (1, 63, 64, 65, 200, 1000):
@@ -1353,17 +1354,19 @@ def flash_sweep():
 
 
 # head dims above 128 (320 pads to 384, 600 to 640), and the timings: (D,
-# T) at B*H 16, the training T up to D 256, T 1024 at D 512 and 1024
+# T) at B*H 16, the training T up to D 512, T 1024 at D 384, 512 and 1024
 FLASH_WIDE_D = (160, 192, 256, 320, 512, 600)
-FLASH_TIMED = ((128, TRAIN_T), (192, TRAIN_T), (256, TRAIN_T), (512, 1024),
-               (1024, 1024))
+FLASH_TIMED = ((128, TRAIN_T), (192, TRAIN_T), (256, TRAIN_T), (384, 1024),
+               (384, TRAIN_T), (512, 1024), (512, TRAIN_T), (1024, 1024))
 # flash_head_dims holds K3, K4 and K5 against the plain versions at these
 # head dims (T 1024, B*H 16, a random key mask, both dtypes)
-FLASH_CHECKED_D, FLASH_CHECKED_T = (192, 256, 512, 640, 1024), 1024
-# the head-dim-256 stack of flash_head_dims: SelfAttentionLayer(512, 2
-# heads, causal, block 256) + RnnOutputLayer, T 1024, batch 2
+FLASH_CHECKED_D, FLASH_CHECKED_T = (192, 256, 384, 512, 640, 1024), 1024
+# the stacks of flash_head_dims: SelfAttentionLayer(d_model, 2 heads,
+# causal, block 256) + RnnOutputLayer, T 1024, batch 2; d_model 512 (head
+# dim 256) and WIDE512_D_MODEL (head dim 512)
 WIDE_B, WIDE_T, WIDE_D_MODEL, WIDE_HEADS, WIDE_BLOCK, WIDE_CLASSES = \
     2, 1024, 512, 2, 256, 16
+WIDE512_D_MODEL = 1024
 
 
 def train_shape_case(torch, seed):
@@ -1377,19 +1380,25 @@ def train_shape_case(torch, seed):
 SM90_KINDS = {"flash_fwd_sm90_kernel": 0, "flash_dq_sm90_kernel": 1,
               "flash_dkv_sm90_kernel": 2, "flash_bwd_fused_sm90_kernel": 3,
               "flash_dkv_wide_sm90_kernel": 2,
-              "flash_bwd_fused_wide_sm90_kernel": 3}
+              "flash_bwd_fused_wide_sm90_kernel": 3,
+              "flash_fwd_split_sm90_kernel": 0,
+              "flash_dq_split_sm90_kernel": 1,
+              "flash_dkv_split_sm90_kernel": 2}
 
 
 def sm90_instances(fa):
-    """(kernel, D) of every wgmma flash instance: K3 and K5's dq pass at
-    each of fa.SM90_HEAD_DIMS, K5's dk/dv pass and K4 up to D 128, and
-    the wide dk/dv pass and K4's wide instance above."""
-    for D in fa.SM90_HEAD_DIMS:
-        yield "flash_fwd_sm90_kernel", D
-        yield "flash_dq_sm90_kernel", D
-        wide = "_wide" if D > 128 else ""
+    """(kernel, D) of every wgmma flash instance: K3 and K5's dq pass up
+    to D 256, K5's dk/dv pass and K4 up to D 128, the wide dk/dv pass and
+    K4's wide instance at 192/256, and the split K3, dq and dk/dv passes
+    at 384/512 (no K4 there: fa.SM90_MAX_D)."""
+    for D in fa.HEAD_DIMS:
+        split = "_split" if D > 256 else ""
+        yield f"flash_fwd{split}_sm90_kernel", D
+        yield f"flash_dq{split}_sm90_kernel", D
+        wide = split or ("_wide" if D > 128 else "")
         yield f"flash_dkv{wide}_sm90_kernel", D
-        yield f"flash_bwd_fused{wide}_sm90_kernel", D
+        if D <= fa.SM90_MAX_D["fused"]:
+            yield f"flash_bwd_fused{wide}_sm90_kernel", D
 # K4 sums dq across CTAs by TMA reductions in L2, and only K4 may
 SM90_REDUCING = ("flash_bwd_fused_sm90_kernel",
                  "flash_bwd_fused_wide_sm90_kernel")
@@ -1399,8 +1408,8 @@ REDUCE_OPS = ("UBLKRED", "UTMAREDG")          # and every RED* (RED, REDG)
 
 def sm90_kernel_key(name: str):
     """(kernel, D) of a mangled sm90 flash kernel name, else None."""
-    m = re.search(r"(flash_(?:fwd|dq|dkv|dkv_wide|bwd_fused|bwd_fused_wide)"
-                  r"_sm90_kernel)"
+    m = re.search(r"(flash_(?:fwd|dq|dkv|dkv_wide|bwd_fused|bwd_fused_wide"
+                  r"|fwd_split|dq_split|dkv_split)_sm90_kernel)"
                   r"ILi(\d+)EE", name)
     return (m.group(1), int(m.group(2))) if m else None
 
@@ -1530,7 +1539,8 @@ def sm90_build_report(built: dict) -> dict:
     where none belongs (K3, K5), none where its dq needs them (K4) or one
     that is not a TMA reduction (UTMAREDG), or spills at D 64. The D
     192/256 instances (K3, K5's dq pass, the wide dk/dv pass and K4's wide
-    instance) report their registers and spills."""
+    instance) and the D 384/512 split instances (K3, K5's dq and dk/dv
+    passes; no K4 there) report their registers and spills."""
     from deeplearning4j_tpu_torch.ops import flash_attention as fa
     b = built[fa.SM90_SOURCE]
     lib = fa._library(fa.SM90_SOURCE)
@@ -2124,10 +2134,10 @@ def phase_train_oracle(torch, np):
     return res
 
 
-def build_wide_net(torch, compute_dtype):
-    """One causal SelfAttentionLayer(512, 2 heads: head dim 256, block 256)
-    + RnnOutputLayer(16, SOFTMAX), Sgd(1e-3), XAVIER, seed 7, on the card;
-    at T 1024 > block it runs flash attention."""
+def build_wide_net(torch, compute_dtype, d_model=WIDE_D_MODEL):
+    """One causal SelfAttentionLayer(d_model, 2 heads: head dim d_model / 2,
+    block 256) + RnnOutputLayer(16, SOFTMAX), Sgd(1e-3), XAVIER, seed 7, on
+    the card; at T 1024 > block it runs flash attention."""
     from deeplearning4j_tpu_torch import (Activation, InputType,
                                           MultiLayerNetwork,
                                           NeuralNetConfiguration,
@@ -2137,7 +2147,7 @@ def build_wide_net(torch, compute_dtype):
     b = (NeuralNetConfiguration.Builder().seed(7)
          .weight_init(WeightInit.XAVIER).updater(Sgd(learning_rate=1e-3))
          .compute_dtype(compute_dtype).list())
-    b.layer(SelfAttentionLayer(n_out=WIDE_D_MODEL, n_heads=WIDE_HEADS,
+    b.layer(SelfAttentionLayer(n_out=d_model, n_heads=WIDE_HEADS,
                                causal=True, block_size=WIDE_BLOCK))
     b.layer(RnnOutputLayer(n_out=WIDE_CLASSES,
                            activation=Activation.SOFTMAX))
@@ -2146,10 +2156,11 @@ def build_wide_net(torch, compute_dtype):
 
 
 def phase_flash_head_dims(torch, np):
-    """K3, K4 and K5 at head dims above 128: bf16 K3, K4 and K5 at D 192 and
-    256 on the wgmma kernels, everything else on the CUDA-core kernels
-    (bf16 widened to fp32; above 512 the kernels that stream the head dim
-    in chunks). At B*H 16, causal, bf16, each (D, T) of FLASH_TIMED: CUDA-
+    """K3, K4 and K5 at head dims above 128: bf16 K3 and K5 at D 192 to 512
+    and bf16 K4 at 192 and 256 on the wgmma kernels (at 384 and 512 the
+    split kernels), everything else on the CUDA-core kernels (bf16 widened
+    to fp32; above 512 the kernels that stream the head dim in chunks). At
+    B*H 16, causal, bf16, each (D, T) of FLASH_TIMED: CUDA-
     event times beside scaled_dot_product_attention forward and backward (a
     yardstick, never the route), bounds, the source each call took, K3
     against the plain version, two calls of K3 and K5 bit for bit, and on
@@ -2162,7 +2173,10 @@ def phase_flash_head_dims(torch, np):
     the dense plain versions in fp64 (loss and every gradient within 1e-4
     relative, as train_oracle), two bf16 fit steps under the fused backward
     (1 K3 + 1 K4 a step) and two under two_pass (1 K3 + 2 K5 a step), all
-    on the wgmma kernels and none on flash_attention.cu, every loss finite."""
+    on the wgmma kernels and none on flash_attention.cu, every loss finite;
+    and the same bf16 fit steps on a head-dim-512 stack (d_model
+    WIDE512_D_MODEL): two_pass only on the wgmma kernels, fused with K3
+    there and K4 on flash_attention.cu."""
     from deeplearning4j_tpu_torch import MultiLayerNetwork
     from deeplearning4j_tpu_torch.nn.conf.configuration import \
         MultiLayerConfiguration
@@ -2329,30 +2343,44 @@ def phase_flash_head_dims(torch, np):
             and max(rel.values()) <= 1e-4):
         fail(f"flash_head_dims: head-dim-256 stack loss rel {loss_rel}, "
              f"grad rel {rel}")
+    # two bf16 fit steps a schedule on each stack; the sources each
+    # schedule must take (2 calls a direction): at head dim 256 only the
+    # wgmma kernels; at 512 K3 and K5 there, K4 on flash_attention.cu
     fits = {}
-    for mode, want in (("fused", {"K3": 2, "K4": 2, "K5": 0}),
-                       ("two_pass", {"K3": 2, "K4": 0, "K5": 4})):
-        prev = fa.configure(bwd=mode)
-        try:
-            net_b = build_wide_net(torch, "bfloat16")
-            reset_flash_launches(fa)
-            before = routes()
-            losses = []
-            for _ in range(2):
-                net_b.fit(x, y)
-                losses.append(net_b.score())
-            torch.cuda.synchronize()
-        finally:
-            fa.configure(bwd=prev[0])
-        b_launches = flash_launches(fa)
-        wide_routes = took(before, torch.bfloat16, WIDE_D_MODEL // WIDE_HEADS,
-                           ("fwd", mode, "fwd", mode))
-        if b_launches != want or not all(math.isfinite(v) for v in losses) \
-                or any(fa.SOURCE in r for r in wide_routes.values()):
-            fail(f"flash_head_dims: bf16 fit ({mode}) launched "
-                 f"{b_launches} on {wide_routes}, losses {losses}")
-        fits[mode] = {"losses": losses, "launches": b_launches,
-                      "routes": wide_routes}
+    sm90, cuda_core = {fa.SM90_SOURCE: 2}, {fa.SOURCE: 2}
+    for d_model, sources in (
+            (WIDE_D_MODEL, {"fused": {"fwd": sm90, "bwd": sm90},
+                            "two_pass": {"fwd": sm90, "bwd": sm90}}),
+            (WIDE512_D_MODEL, {"fused": {"fwd": sm90, "bwd": cuda_core},
+                               "two_pass": {"fwd": sm90, "bwd": sm90}})):
+        head_dim = d_model // WIDE_HEADS
+        for mode, want in (("fused", {"K3": 2, "K4": 2, "K5": 0}),
+                           ("two_pass", {"K3": 2, "K4": 0, "K5": 4})):
+            prev = fa.configure(bwd=mode)
+            try:
+                net_b = build_wide_net(torch, "bfloat16", d_model)
+                reset_flash_launches(fa)
+                before = routes()
+                losses = []
+                for _ in range(2):
+                    net_b.fit(x, y)
+                    losses.append(net_b.score())
+                torch.cuda.synchronize()
+            finally:
+                fa.configure(bwd=prev[0])
+            b_launches = flash_launches(fa)
+            wide_routes = took(before, torch.bfloat16, head_dim,
+                               ("fwd", mode, "fwd", mode))
+            if b_launches != want or not all(math.isfinite(v)
+                                             for v in losses) \
+                    or wide_routes != sources[mode]:
+                fail(f"flash_head_dims: bf16 fit at head dim {head_dim} "
+                     f"({mode}) launched {b_launches} on {wide_routes} "
+                     f"(expected {sources[mode]}), losses {losses}")
+            fits[f"head_dim={head_dim} {mode}"] = {
+                "losses": losses, "launches": b_launches,
+                "routes": wide_routes}
+            del net_b
     res = {"phase": "flash_head_dims",
            "shape": {"B": TRAIN_B, "H": TRAIN_HEADS, "T": TRAIN_T,
                      "causal": True, "dtype": "bfloat16"},
@@ -2360,6 +2388,9 @@ def phase_flash_head_dims(torch, np):
            "stack": {"layer": f"SelfAttentionLayer({WIDE_D_MODEL}, "
                               f"{WIDE_HEADS} heads, block {WIDE_BLOCK})",
                      "T": WIDE_T, "B": WIDE_B, "head_dim": 256,
+                     "head_dim_512_layer": f"SelfAttentionLayer("
+                                           f"{WIDE512_D_MODEL}, {WIDE_HEADS} "
+                                           "heads)",
                      "loss_rel_err": loss_rel, "grad_rel_err": rel,
                      "max_grad_rel_err": max(rel.values()),
                      "tolerance": 1e-4, "launches": launches,

@@ -53,13 +53,13 @@
 // so the shared-memory reads of the inner loops are free of bank
 // conflicts. At D = 128 a backward CTA needs ~166 KB of dynamic shared
 // memory (above 48 KB it takes cudaFuncSetAttribute). At D 192 and 256
-// the tiles are 32 x 32 (a 2 x 2 micro-tile a thread; ~109 and ~142 KB);
-// these instances also run K4 in bf16 at those head dims, which the
-// wrapper widens to fp32 (K4's wgmma kernel stops at D 128). At D 384 and
-// 512 the tiles are 16 x 16 (one score a thread), widened the same way
-// for bf16. Above 512 (at D 1024 a 16-row backward CTA would need ~266 KB)
-// the head dim streams through shared memory in chunks (the *_wide_
-// kernels at the end).
+// the tiles are 32 x 32 (a 2 x 2 micro-tile a thread; ~109 and ~142 KB).
+// At D 384 and 512 the tiles are 16 x 16 (one score a thread); these
+// instances also run bf16 K4 at those two head dims, which the wrapper
+// widens to fp32 (K4's wgmma kernel stops at D 256, where K3's and K5's
+// go on to 512). Above 512 (at D 1024 a 16-row backward CTA would need
+// ~266 KB) the head dim streams through shared memory in chunks (the
+// *_wide_ kernels at the end).
 //
 // What bounds it on the H100, at the training shape in fp32 (B*H = 16, T
 // = 8192, D = 64, causal, 33,558,528 visible pairs per head): operations,

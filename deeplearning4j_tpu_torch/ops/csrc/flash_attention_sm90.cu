@@ -1,14 +1,17 @@
 // Flash attention on Hopper's wgmma and TMA (sm_90a) for bf16 inputs: the
-// forward (K3), both passes of the two-pass backward (K5) and the fused
-// backward (K4) at head dims 16 to 256. fp32 inputs stay with
-// flash_attention.cu.
+// forward (K3) and both passes of the two-pass backward (K5) at head dims
+// 16 to 512, and the fused backward (K4) at 16 to 256. fp32 inputs, and
+// bf16 K4 at 384 and 512, stay with flash_attention.cu.
 //
 // Replaces the Pallas kernels of deeplearning4j_tpu/ops/flash_attention.py:
 //   - flash_fwd_sm90_kernel: K3, `_call_fwd` (:448) with body `_fwd_kernel`
-//     (:123): the online-softmax forward, o and the row log-sum-exp L;
-//   - flash_dq_sm90_kernel: K5's dq pass, `_dq_kernel` (:262);
-//   - flash_dkv_sm90_kernel: K5's dk/dv pass, `_dkv_kernel` (:301), and
-//     flash_dkv_wide_sm90_kernel, the same pass at D 192 and 256;
+//     (:123): the online-softmax forward, o and the row log-sum-exp L, and
+//     flash_fwd_split_sm90_kernel, the same at D 384 and 512;
+//   - flash_dq_sm90_kernel: K5's dq pass, `_dq_kernel` (:262), and
+//     flash_dq_split_sm90_kernel at D 384 and 512;
+//   - flash_dkv_sm90_kernel: K5's dk/dv pass, `_dkv_kernel` (:301),
+//     flash_dkv_wide_sm90_kernel, the same pass at D 192 and 256, and
+//     flash_dkv_split_sm90_kernel at D 384 and 512;
 //   - flash_bwd_fused_sm90_kernel: K4, `_fused_bwd_kernel` (:349): the
 //     dk/dv pass that also forms dq, one launch, and
 //     flash_bwd_fused_wide_sm90_kernel, the wide dk/dv pass that also
@@ -109,10 +112,11 @@
 // keys a CTA and splits the head dim between its warpgroups, and K4 there
 // is the same pass with dq staged in 8 KB boxes (see wide_pass). At D 256
 // the forward's O is 128 registers a thread beside S (32) and P (16), under
-// the consumers' 232. TMA maps are 3-D (D, T, rows), so a box that runs
-// past T is zero-filled instead of reading the next head; D 16/32/64 rows
-// are one box with 32/64/128-byte swizzle, D 128 to 256 are 2 to 4 boxes
-// of 64 columns.
+// the consumers' 232. At D 384 and 512 the split kernels take 64 rows a
+// CTA and split the head dim between the warpgroups (see their section).
+// TMA maps are 3-D (D, T, rows), so a box that runs past T is zero-filled
+// instead of reading the next head; D 16/32/64 rows are one box with
+// 32/64/128-byte swizzle, D 128 to 512 are 2 to 8 boxes of 64 columns.
 #include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -245,6 +249,19 @@ __device__ __forceinline__ void wgmma_rs<16>(float (&d)[8],
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
         "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(acc));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_ss<16>(float (&d)[8], uint64_t a,
+                                             uint64_t b, int acc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %10, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7"
+      "}, %8, %9, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
+      : "l"(a), "l"(b), "r"(acc));
 }
 
 template <>
@@ -862,6 +879,48 @@ __device__ __forceinline__ void dkv_p_ds(const float (&st)[BQ / 2],
   }
 }
 
+// The producer warp of K3 or the dq pass: the CTA's BM rows of Q (and of
+// dO if tdo is given) once on qbar, then K, V and the key-ok flags of each
+// of the nt key tiles of BN keys from tile j0 on into the STAGES-deep
+// ring; k/v rows of head row `kvrow`.
+template <int D, int BM, int BN, int STAGES>
+__device__ __forceinline__ void load_q_tiles(
+    const CUtensorMap& tq, const CUtensorMap* tdo, const CUtensorMap& tk,
+    const CUtensorMap& tv, bf16* Qs, bf16* dOs, bf16* Ks, bf16* Vs,
+    int* kms, uint64_t* qbar, uint64_t* full, uint64_t* empty,
+    const int* __restrict__ km, int j0, int nt, int q_lo, int bh, int kvrow,
+    int b, int T) {
+  using X = Box<D>;
+  const int lane = threadIdx.x & 31;
+  if (lane == 0) {
+    mbar_expect_tx(qbar, (tdo ? 2 : 1) * BM * D * 2);
+    for (int c = 0; c < X::NBOX; ++c) {
+      tma_load_3d(Qs + c * BM * X::COLS, &tq, qbar, c * X::COLS, q_lo, bh);
+      if (tdo)
+        tma_load_3d(dOs + c * BM * X::COLS, tdo, qbar, c * X::COLS, q_lo,
+                    bh);
+    }
+  }
+  for (int n = 0; n < nt; ++n) {
+    const int s = n % STAGES, k_lo = (j0 + n) * BN;
+    mbar_wait(&empty[s], ((n / STAGES) & 1) ^ 1);
+    for (int c = lane; c < BN; c += 32) {
+      const int kj = k_lo + c;
+      kms[s * BN + c] = kj < T && (km == nullptr || km[(long)b * T + kj] != 0);
+    }
+    __syncwarp();
+    if (lane == 0) {
+      mbar_expect_tx(&full[s], 2 * BN * D * 2);
+      for (int c = 0; c < X::NBOX; ++c) {
+        tma_load_3d(Ks + s * BN * D + c * BN * X::COLS, &tk, &full[s],
+                    c * X::COLS, k_lo, kvrow);
+        tma_load_3d(Vs + s * BN * D + c * BN * X::COLS, &tv, &full[s],
+                    c * X::COLS, k_lo, kvrow);
+      }
+    }
+  }
+}
+
 // ------------------------------------------------------------------ K3
 template <int D>
 struct FwdTiles {
@@ -888,7 +947,6 @@ flash_fwd_sm90_kernel(const __grid_constant__ CUtensorMap tq,
                       float* __restrict__ lse, int H, int Hk, Geometry g,
                       float scale) {
   using C = FwdTiles<D>;
-  using X = Box<D>;
   constexpr int BM = C::BM, BN = C::BN, STAGES = C::STAGES;
   const int i = gridDim.x - 1 - blockIdx.x;   // the longest causal rows first
   const int bh = blockIdx.y, b = bh / H, h = bh - b * H;
@@ -922,31 +980,9 @@ flash_fwd_sm90_kernel(const __grid_constant__ CUtensorMap tq,
     // key-ok flags of each tile
     regs_dec<PRODUCER_REGS>();
     if (threadIdx.x >= NC + 32) return;
-    const int lane = threadIdx.x & 31;
-    if (lane == 0) {
-      mbar_expect_tx(qbar, C::QBYTES);
-      for (int c = 0; c < X::NBOX; ++c)
-        tma_load_3d(Qs + c * BM * X::COLS, &tq, qbar, c * X::COLS, q_lo, bh);
-    }
-    for (int n = 0; n < nt; ++n) {
-      const int s = n % STAGES, k_lo = (j0 + n) * BN;
-      mbar_wait(&empty[s], ((n / STAGES) & 1) ^ 1);
-      for (int c = lane; c < BN; c += 32) {
-        const int kj = k_lo + c;
-        kms[s * BN + c] =
-            kj < T && (km == nullptr || km[(long)b * T + kj] != 0);
-      }
-      __syncwarp();
-      if (lane == 0) {
-        mbar_expect_tx(&full[s], 2 * C::KBYTES);
-        for (int c = 0; c < X::NBOX; ++c) {
-          tma_load_3d(Ks + s * BN * D + c * BN * X::COLS, &tk, &full[s],
-                   c * X::COLS, k_lo, kvrow);
-          tma_load_3d(Vs + s * BN * D + c * BN * X::COLS, &tv, &full[s],
-                   c * X::COLS, k_lo, kvrow);
-        }
-      }
-    }
+    load_q_tiles<D, BM, BN, STAGES>(tq, nullptr, tk, tv, Qs, nullptr, Ks, Vs,
+                                    kms, qbar, full, empty, km, j0, nt, q_lo,
+                                    bh, kvrow, b, T);
   } else {
     regs_inc<CONSUMER_REGS>();
     // consumer warpgroup wg: q rows q_lo + 64 wg ..; this thread's rows
@@ -1069,7 +1105,6 @@ flash_dq_sm90_kernel(const __grid_constant__ CUtensorMap tq,
                      const float* __restrict__ di, float* __restrict__ dq,
                      int H, Geometry g, float scale) {
   using C = DqTiles<D>;
-  using X = Box<D>;
   constexpr int BM = C::BM, BN = C::BN, STAGES = C::STAGES;
   const int i = gridDim.x - 1 - blockIdx.x;
   const int bh = blockIdx.y, b = bh / H;
@@ -1103,33 +1138,9 @@ flash_dq_sm90_kernel(const __grid_constant__ CUtensorMap tq,
     // the key-ok flags of each tile
     regs_dec<PRODUCER_REGS>();
     if (threadIdx.x >= NC + 32) return;
-    const int lane = threadIdx.x & 31;
-    if (lane == 0) {
-      mbar_expect_tx(qbar, 2 * C::QBYTES);
-      for (int c = 0; c < X::NBOX; ++c) {
-        tma_load_3d(Qs + c * BM * X::COLS, &tq, qbar, c * X::COLS, q_lo, bh);
-        tma_load_3d(dOs + c * BM * X::COLS, &tdo, qbar, c * X::COLS, q_lo, bh);
-      }
-    }
-    for (int n = 0; n < nt; ++n) {
-      const int s = n % STAGES, k_lo = (j0 + n) * BN;
-      mbar_wait(&empty[s], ((n / STAGES) & 1) ^ 1);
-      for (int c = lane; c < BN; c += 32) {
-        const int kj = k_lo + c;
-        kms[s * BN + c] =
-            kj < T && (km == nullptr || km[(long)b * T + kj] != 0);
-      }
-      __syncwarp();
-      if (lane == 0) {
-        mbar_expect_tx(&full[s], 2 * C::KBYTES);
-        for (int c = 0; c < X::NBOX; ++c) {
-          tma_load_3d(Ks + s * BN * D + c * BN * X::COLS, &tk, &full[s],
-                   c * X::COLS, k_lo, bh);
-          tma_load_3d(Vs + s * BN * D + c * BN * X::COLS, &tv, &full[s],
-                   c * X::COLS, k_lo, bh);
-        }
-      }
-    }
+    load_q_tiles<D, BM, BN, STAGES>(tq, &tdo, tk, tv, Qs, dOs, Ks, Vs, kms,
+                                    qbar, full, empty, km, j0, nt, q_lo, bh,
+                                    bh, b, T);
   } else {
     regs_inc<CONSUMER_REGS>();
     const int wg = threadIdx.x >> 7, tw = threadIdx.x & 127;
@@ -1234,8 +1245,9 @@ struct DkvTiles {
 
 // The producer warp of a dk/dv pass: K and V of the CTA's BK keys once
 // (on kvbar), then Q, dO, L log2(e) and D_i of each of the nt q tiles of
-// BQ rows from tile i0 on into the STAGES-deep ring.
-template <int D, int BK, int BQ, int STAGES>
+// BQ rows from tile i0 on into the STAGES-deep ring, SWEEPS times over
+// (the split pass walks the q tiles twice).
+template <int D, int BK, int BQ, int STAGES, int SWEEPS = 1>
 __device__ __forceinline__ void load_dkv_tiles(
     const CUtensorMap& tq, const CUtensorMap& tk, const CUtensorMap& tv,
     const CUtensorMap& tdo, bf16* Ks, bf16* Vs, bf16* Qs, bf16* dOs,
@@ -1251,8 +1263,9 @@ __device__ __forceinline__ void load_dkv_tiles(
       tma_load_3d(Vs + c * BK * X::COLS, &tv, kvbar, c * X::COLS, k_lo, bh);
     }
   }
-  for (int n = 0; n < nt; ++n) {
-    const int s = n % STAGES, q_lo = (i0 + n) * BQ;
+  for (int n = 0; n < SWEEPS * nt; ++n) {
+    const int s = n % STAGES;
+    const int q_lo = (i0 + (SWEEPS == 1 ? n : n % nt)) * BQ;
     mbar_wait(&empty[s], ((n / STAGES) & 1) ^ 1);
     for (int r = lane; r < BQ; r += 32) {
       const int qi = q_lo + r;   // rows past T: 0 (their pairs are masked)
@@ -1937,6 +1950,650 @@ flash_bwd_fused_wide_sm90_kernel(const __grid_constant__ CUtensorMap tq,
   wide_pass<D, true>(tq, tk, tv, tdo, tdq, km, lse, di, dk, dv, H, g, scale);
 }
 
+// ------------------------------ K3 and K5 at D 384 and 512: the split kernels
+// Why the designs above do not stretch to D 384 and 512. A CTA has 232,448
+// bytes of shared memory and an SM 64K registers; the consumers get
+// CONSUMER_REGS (232) a thread; wgmma's M is 64 rows per warpgroup. At D
+// 512 the O (or dq) accumulator of 64 rows is 64 x 512 fp32: 256 registers
+// a thread if one warpgroup holds it. A 64-row bf16 tile of Q, K, V or dO
+// is 64 KB. dK and dV of 64 keys are 256 KB of fp32, the whole register
+// file. So FwdTiles (128 q rows, each warpgroup holding all of D), DqTiles
+// and WideTiles (each warpgroup holding dK and dV of half the boxes, over
+// 64 keys) do not carry over.
+//
+// The split kernels give each CTA 64 rows (q rows in K3 and the dq pass,
+// keys in the dk/dv pass) and split the head dim between the two consumer
+// warpgroups: warpgroup w holds the accumulator's columns [w D/2, (w + 1)
+// D/2) (O, dq, dV then dK: 128 registers a thread at D 512, 96 at 384)
+// and forms each score product over its half of D only ("SS", K = D/2).
+// The two partials of S (and dP, or S^T and dP^T) go through a shared
+// exchange laid out by thread (float2 j of thread t at j * 128 + t, so
+// thread t of one warpgroup reads what thread t of the other wrote,
+// without bank conflicts): two slots used in turn behind one named barrier
+// (X_SYNC) a tile, or, where shared memory holds one slot, that slot behind
+// two. Each warpgroup adds the other's partial to its own: a +
+// b = b + a exactly, so both hold the same bits of the full scores and run
+// the same softmax or dS, and every output is written once by one thread:
+// no atomic, no reduction, bit for bit repeatable. The accumulating
+// product takes the warpgroup's half of the streamed tile's columns ("RS",
+// N = D/2: 256 or 192).
+//   - K3 (flash_fwd_split_sm90_kernel): Q resident (64 KB at D 512), K and
+//     V stream at 64 keys in one stage (D 512) or 32 in three (384);
+//     O_w += P V_w.
+//   - K5's dq pass (flash_dq_split_sm90_kernel): Q and dO resident (128
+//     KB), K and V stream at 32 keys in one stage (D 512) or 16 in three
+//     (384); dS = p (dP - D_i) rounded to bf16 as everywhere, dq_w += dS
+//     K_w.
+//   - K5's dk/dv pass (flash_dkv_split_sm90_kernel): K and V resident, Q
+//     and dO stream at 32 q rows in one stage (D 512) or two (384), and
+//     the CTA walks its q tiles twice:
+//     first dV_w += P^T dO_w (S^T exchanged), written out, then dK_w +=
+//     dS^T Q_w (S^T and dP^T exchanged) in the same registers. The products
+//     are 5 where one sweep would do 4 (S^T twice), but one accumulator of
+//     128 registers is live where dK and dV together would not fit.
+// Every walk with two stages or more overlaps the accumulating product of
+// tile t - 1 with the score products, exchange and register pass of tile
+// t (split_walk). What bounds them: shared memory, in size and in reads.
+// At D 512 the resident operand and one stage take 192 KB and the
+// exchange's one slot 32 KB, so the loads of a tile wait for the products
+// of the one before. The score products read their A operand (Q, dO, K or
+// V rows) from shared memory for every tile: 2 KB a k16 step, beside 0.5
+// to 2 KB of B for 8 to 32 clocks of tensor work at N 16 to 64, where the
+// SM reads 128 bytes a clock: the larger N, the nearer the tensor rate.
+
+// The exchange's barrier: all NC consumer threads, once (twice with one
+// slot) a tile.
+constexpr int X_SYNC = 1;
+
+// With ON, a shared-memory address the compiler cannot carry from one
+// product to the next: the descriptors built from it are recomputed at
+// each product instead of held in registers across the walk. At D 512 the
+// resident operand's and the one-stage ring's are loop-invariant; held,
+// they spill (60 to 548 bytes) and K5 took 20.0 ms against 16.0-16.3 (B*H
+// 16, T 8192, causal, on an H100 80GB HBM3 at 700 W); at D 384 nothing
+// spills and recomputing them cost K5 5% there
+// (experiments/torch_flash_split_ab.py, "opaque_other").
+template <bool ON>
+__device__ __forceinline__ uint32_t opaque(uint32_t a) {
+  if constexpr (ON) asm volatile("" : "+r"(a));
+  return a;
+}
+
+// the m64 x N partial d of this thread to its place in the exchange, and
+// the other warpgroup's partial of the same elements added to it
+template <int N>
+__device__ __forceinline__ void put_partial(float* x, const float (&d)[N / 2],
+                                            int tw) {
+  float2* p = reinterpret_cast<float2*>(x);
+#pragma unroll
+  for (int e = 0; e < N / 2; e += 2)
+    p[(e / 2) * 128 + tw] = make_float2(d[e], d[e + 1]);
+}
+template <int N>
+__device__ __forceinline__ void add_partial(float (&d)[N / 2], const float* x,
+                                            int tw) {
+  const float2* p = reinterpret_cast<const float2*>(x);
+#pragma unroll
+  for (int e = 0; e < N / 2; e += 2) {
+    const float2 o = p[(e / 2) * 128 + tw];
+    d[e] += o.x;
+    d[e + 1] += o.y;
+  }
+}
+
+// Exchange n of NP partials (a, and b if NP is 2) of m64 x N accumulators:
+// slot n % XSLOTS of `xs` holds [warpgroup][partial] blocks of N / 2 x 128
+// floats. With two slots, exchange n + 2 writes a slot the other warpgroup
+// finished reading before it reached the barrier of exchange n + 1.
+template <int N, int NP, int XSLOTS>
+__device__ __forceinline__ void exchange(float* xs, int n, int wg, int tw,
+                                         float (&a)[N / 2],
+                                         float (&b)[N / 2]) {
+  constexpr int PART = N / 2 * 128;
+  float* slot = xs + (n % XSLOTS) * NCWG * NP * PART;
+  put_partial<N>(slot + wg * NP * PART, a, tw);
+  if constexpr (NP == 2) put_partial<N>(slot + (wg * NP + 1) * PART, b, tw);
+  named_sync(X_SYNC, NC);
+  const float* other = slot + (wg ^ 1) * NP * PART;
+  add_partial<N>(a, other, tw);
+  if constexpr (NP == 2) add_partial<N>(b, other + PART, tw);
+  if constexpr (XSLOTS == 1) named_sync(X_SYNC, NC);
+}
+
+// The walk of a split kernel's consumer warpgroup over nt streamed tiles,
+// whose ring slots start at n0: turn 0 forms the scores of tile 0 (ss);
+// turn t in [1, nt) the scores of tile t and the accumulating product of
+// tile t - 1 (acc), with the exchange and register pass of tile t (pass)
+// running while the latter is in flight, and `pack` (A fragments of the
+// next accumulating product) once it is done; the last turn the last
+// accumulating product. Every ring slot is handed back. With one stage the
+// slot of tile t - 1 must be free before tile t loads, so nothing
+// overlaps. No product is issued under a condition (ptxas would serialize
+// the products).
+template <int STAGES, class SS, class ACC, class PASS, class PACK>
+__device__ __forceinline__ void split_walk(int nt, int n0, uint64_t* full,
+                                           uint64_t* empty, SS ss, ACC acc,
+                                           PASS pass, PACK pack) {
+  wg_fence();
+  mbar_wait(&full[n0 % STAGES], (n0 / STAGES) & 1);
+  ss(n0 % STAGES);
+  wg_commit();
+  wg_wait<0>();
+  pass(0);
+  pack(0);
+  for (int t = 1; t < nt; ++t) {
+    const int n = n0 + t, sp = (n - 1) % STAGES, sn = n % STAGES;
+    wg_fence();
+    if constexpr (STAGES == 1) {
+      acc(sp);
+      wg_commit();
+      wg_wait<0>();
+      mbar_arrive(&empty[sp]);
+      wg_fence();
+      mbar_wait(&full[sn], (n / STAGES) & 1);
+      ss(sn);
+      wg_commit();
+      wg_wait<0>();
+      pass(t);
+    } else {
+      mbar_wait(&full[sn], (n / STAGES) & 1);
+      ss(sn);
+      wg_commit();
+      acc(sp);
+      wg_commit();
+      wg_wait<1>();
+      pass(t);
+      wg_wait<0>();
+      mbar_arrive(&empty[sp]);
+    }
+    pack(t);
+  }
+  const int sl = (n0 + nt - 1) % STAGES;
+  wg_fence();
+  acc(sl);
+  wg_commit();
+  wg_wait<0>();
+  mbar_arrive(&empty[sl]);
+}
+
+// shared-memory offset (bytes) of warpgroup wg's first 64-column box in a
+// tile of R rows at D: its columns start at box wg (D / 2) / 64
+template <int D, int R>
+__device__ __forceinline__ uint32_t half_off(int wg) {
+  return wg * (D / 128) * R * 128;
+}
+
+// Tiles (experiments/torch_flash_split_ab.py chose them): at D 512 the
+// ring holds one stage and the exchange one slot beside the resident
+// operand, and the larger tile of that one stage measured faster than
+// smaller tiles in more stages (fewer barriers a key, score products with
+// a larger N); at D 384, except for the dk/dv pass, smaller tiles in three
+// stages with two slots measured faster.
+template <int D>
+struct SplitFwdTiles {
+  static constexpr int BM = 64;                 // q rows per CTA
+  static constexpr int BN = D > 384 ? 64 : 32;  // keys per tile
+  static constexpr int STAGES = D > 384 ? 1 : 3;
+  static constexpr int XSLOTS = D > 384 ? 1 : 2;
+  static constexpr bool OPAQUE = D > 384;       // see opaque
+  static constexpr int QBYTES = BM * D * 2;
+  static constexpr int KBYTES = BN * D * 2;
+  static constexpr int K_OFF = QBYTES;
+  static constexpr int V_OFF = K_OFF + STAGES * KBYTES;
+  static constexpr int X_OFF = V_OFF + STAGES * KBYTES;
+  static constexpr int KM_OFF = X_OFF + XSLOTS * NCWG * BM * BN * 4;
+  static constexpr int BAR_OFF = KM_OFF + STAGES * BN * 4;
+  static constexpr int SMEM = BAR_OFF + 8 * (1 + 2 * STAGES) + 1024;
+};
+
+template <int D>
+__global__ void __launch_bounds__(NT, 1)
+flash_fwd_split_sm90_kernel(const __grid_constant__ CUtensorMap tq,
+                            const __grid_constant__ CUtensorMap tk,
+                            const __grid_constant__ CUtensorMap tv,
+                            const int* __restrict__ km,
+                            bf16* __restrict__ o, float* __restrict__ lse,
+                            int H, int Hk, Geometry g, float scale) {
+  using C = SplitFwdTiles<D>;
+  constexpr int BM = C::BM, BN = C::BN, STAGES = C::STAGES, DH = D / 2;
+  const int i = gridDim.x - 1 - blockIdx.x;   // the longest causal rows first
+  const int bh = blockIdx.y, b = bh / H, h = bh - b * H;
+  const int kvrow = b * Hk + h / (H / Hk);
+  const int T = g.T, q_lo = i * BM;
+
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* sm = align1024(smem_raw);
+  bf16* Ks = reinterpret_cast<bf16*>(sm + C::K_OFF);
+  bf16* Vs = reinterpret_cast<bf16*>(sm + C::V_OFF);
+  int* kms = reinterpret_cast<int*>(sm + C::KM_OFF);
+  uint64_t* qbar = reinterpret_cast<uint64_t*>(sm + C::BAR_OFF);
+  uint64_t* full = qbar + 1;
+  uint64_t* empty = full + STAGES;
+  if (threadIdx.x == 0) {
+    mbar_init(qbar, 1);
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], NC);
+    }
+    mbar_fence_init();
+  }
+  __syncthreads();
+  int j0, j1;
+  key_tiles<BM, BN>(g, q_lo, &j0, &j1);
+  const int nt = j1 - j0;
+
+  if (threadIdx.x >= NC) {
+    regs_dec<PRODUCER_REGS>();
+    if (threadIdx.x >= NC + 32) return;
+    load_q_tiles<D, BM, BN, STAGES>(
+        tq, nullptr, tk, tv, reinterpret_cast<bf16*>(sm), nullptr, Ks, Vs,
+        kms, qbar, full, empty, km, j0, nt, q_lo, bh, kvrow, b, T);
+  } else {
+    regs_inc<CONSUMER_REGS>();
+    // consumer warpgroup wg: all 64 q rows, O's columns [wg DH, wg DH +
+    // DH); this thread's rows qi0 and qi0 + 8
+    const int wg = threadIdx.x >> 7, tw = threadIdx.x & 127;
+    const int lane = tw & 31, cq = 2 * (lane & 3);
+    const int qi0 = q_lo + 16 * (tw >> 5) + (lane >> 2);
+    const uint32_t qs = smem_u32(sm) + half_off<D, BM>(wg);
+    const uint32_t ks = smem_u32(Ks) + half_off<D, BN>(wg);
+    const uint32_t vs = smem_u32(Vs) + half_off<D, BN>(wg);
+    float* xs = reinterpret_cast<float*>(sm + C::X_OFF);
+    constexpr int TILE = BN * D * 2;            // bytes of a K or V stage
+    const float c = scale * LOG2E;
+    float acc[DH / 2];
+    zero(acc);
+    float m[2] = {DL4J_NEG_INF, DL4J_NEG_INF}, l[2] = {0.f, 0.f};
+    float sc[BN / 2], al[2];
+    uint32_t pa[BN / 4];
+    const auto at = [](uint32_t a) { return opaque<C::OPAQUE>(a); };
+    mbar_wait(qbar, 0);
+    split_walk<STAGES>(
+        nt, 0, full, empty,
+        [&](int s) {
+          ss_product<DH, BM, BN>(sc, at(qs), 0, at(ks + s * TILE));
+        },
+        [&](int s) { rs_product<D, BN, DH>(acc, pa, at(vs + s * TILE)); },
+        [&](int t) {
+          // S = the two partials, then p = 2^(S - m) over it in place
+          fence_regs(sc);
+          exchange<BN, 1, C::XSLOTS>(xs, t, wg, tw, sc, sc);
+          const int k_lo = (j0 + t) * BN;
+          const int* kmk = kms + (t % STAGES) * BN;
+          if (tile_masked<BM, BN>(g, q_lo, k_lo, km != nullptr))
+            online_softmax<true, BN>(sc, m, l, al, c, g, qi0, k_lo, kmk, cq);
+          else
+            online_softmax<false, BN>(sc, m, l, al, c, g, qi0, k_lo, kmk,
+                                      cq);
+        },
+        [&](int) {
+          // O of the tiles before t to the new running max (0 at t = 0)
+          fence_regs(acc);
+#pragma unroll
+          for (int e = 0; e < DH / 2; ++e) acc[e] *= al[(e >> 1) & 1];
+          pack_a<BN>(sc, pa);
+        });
+    fence_regs(acc);
+    bf16* ob = o + (long)bh * T * D + wg * DH;
+#pragma unroll
+    for (int e = 0; e < DH / 2; e += 2) {
+      const int r = (e >> 1) & 1, qi = qi0 + 8 * r;
+      const float inv = 1.f / fmaxf(l[r], 1e-30f);
+      if (qi < T)
+        *reinterpret_cast<__nv_bfloat162*>(ob + (long)qi * D + 8 * (e >> 2) +
+                                           cq) =
+            __floats2bfloat162_rn(acc[e] * inv, acc[e + 1] * inv);
+    }
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      // L = m + log l, with m back from log2 units
+      if (wg == 0 && (lane & 3) == 0 && qi0 + 8 * r < T)
+        lse[(long)bh * T + qi0 + 8 * r] =
+            l[r] > 0.f ? m[r] * LN2 + logf(fmaxf(l[r], 1e-30f))
+                       : DL4J_NEG_INF;
+    }
+  }
+}
+
+template <int D>
+struct SplitDqTiles {
+  static constexpr int BM = 64;                 // q rows per CTA
+  static constexpr int BN = D > 384 ? 32 : 16;  // keys per tile
+  static constexpr int STAGES = D > 384 ? 1 : 3;
+  static constexpr int XSLOTS = D > 384 ? 1 : 2;
+  static constexpr bool OPAQUE = D > 384;
+  static constexpr int QBYTES = BM * D * 2;
+  static constexpr int KBYTES = BN * D * 2;
+  static constexpr int DO_OFF = QBYTES;
+  static constexpr int K_OFF = 2 * QBYTES;
+  static constexpr int V_OFF = K_OFF + STAGES * KBYTES;
+  static constexpr int X_OFF = V_OFF + STAGES * KBYTES;
+  static constexpr int KM_OFF = X_OFF + XSLOTS * NCWG * 2 * BM * BN * 4;
+  static constexpr int BAR_OFF = KM_OFF + STAGES * BN * 4;
+  static constexpr int SMEM = BAR_OFF + 8 * (1 + 2 * STAGES) + 1024;
+};
+
+// dS = p (dP - D_i) of an m64 x BN tile of the dq pass in place of the
+// scores (fp32; the caller rounds it to bf16 A fragments), p = 2^(c s - L
+// log2 e) as in dq_ds
+template <bool MASKED, int BN>
+__device__ __forceinline__ void dq_ds_fp32(float (&sc)[BN / 2],
+                                           const float (&dp)[BN / 2],
+                                           float c, const float (&L2)[2],
+                                           const float (&Dr)[2],
+                                           const Geometry& g, int qi0,
+                                           int k_lo, const int* kmk, int cq) {
+#pragma unroll
+  for (int e = 0; e < BN / 2; ++e) {
+    const int r = (e >> 1) & 1, col = 8 * (e >> 2) + cq + (e & 1);
+    float x = fmaf(sc[e], c, -L2[r]);
+    if (MASKED && !visible(g, qi0 + 8 * r, k_lo + col, kmk[col] != 0))
+      x = DL4J_NEG_INF;
+    sc[e] = exp2_fast(x) * (dp[e] - Dr[r]);
+  }
+}
+
+template <int D>
+__global__ void __launch_bounds__(NT, 1)
+flash_dq_split_sm90_kernel(const __grid_constant__ CUtensorMap tq,
+                           const __grid_constant__ CUtensorMap tk,
+                           const __grid_constant__ CUtensorMap tv,
+                           const __grid_constant__ CUtensorMap tdo,
+                           const int* __restrict__ km,
+                           const float* __restrict__ lse,
+                           const float* __restrict__ di,
+                           float* __restrict__ dq, int H, Geometry g,
+                           float scale) {
+  using C = SplitDqTiles<D>;
+  constexpr int BM = C::BM, BN = C::BN, STAGES = C::STAGES, DH = D / 2;
+  const int i = gridDim.x - 1 - blockIdx.x;
+  const int bh = blockIdx.y, b = bh / H;
+  const int T = g.T, q_lo = i * BM;
+
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* sm = align1024(smem_raw);
+  bf16* Ks = reinterpret_cast<bf16*>(sm + C::K_OFF);
+  bf16* Vs = reinterpret_cast<bf16*>(sm + C::V_OFF);
+  int* kms = reinterpret_cast<int*>(sm + C::KM_OFF);
+  uint64_t* qbar = reinterpret_cast<uint64_t*>(sm + C::BAR_OFF);
+  uint64_t* full = qbar + 1;
+  uint64_t* empty = full + STAGES;
+  if (threadIdx.x == 0) {
+    mbar_init(qbar, 1);
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], NC);
+    }
+    mbar_fence_init();
+  }
+  __syncthreads();
+  int j0, j1;
+  key_tiles<BM, BN>(g, q_lo, &j0, &j1);
+  const int nt = j1 - j0;
+
+  if (threadIdx.x >= NC) {
+    regs_dec<PRODUCER_REGS>();
+    if (threadIdx.x >= NC + 32) return;
+    load_q_tiles<D, BM, BN, STAGES>(
+        tq, &tdo, tk, tv, reinterpret_cast<bf16*>(sm),
+        reinterpret_cast<bf16*>(sm + C::DO_OFF), Ks, Vs, kms, qbar, full,
+        empty, km, j0, nt, q_lo, bh, bh, b, T);
+  } else {
+    regs_inc<CONSUMER_REGS>();
+    const int wg = threadIdx.x >> 7, tw = threadIdx.x & 127;
+    const int lane = tw & 31, cq = 2 * (lane & 3);
+    const int qi0 = q_lo + 16 * (tw >> 5) + (lane >> 2);
+    float L2[2], Dr[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int qi = qi0 + 8 * r;   // rows past T: 0 (they are masked)
+      L2[r] = qi < T ? lse[(long)bh * T + qi] * LOG2E : 0.f;
+      Dr[r] = qi < T ? di[(long)bh * T + qi] : 0.f;
+    }
+    const uint32_t qs = smem_u32(sm) + half_off<D, BM>(wg);
+    const uint32_t dos = smem_u32(sm + C::DO_OFF) + half_off<D, BM>(wg);
+    const uint32_t ks = smem_u32(Ks) + half_off<D, BN>(wg);
+    const uint32_t vs = smem_u32(Vs) + half_off<D, BN>(wg);
+    float* xs = reinterpret_cast<float*>(sm + C::X_OFF);
+    constexpr int TILE = BN * D * 2;
+    const float c = scale * LOG2E;
+    float acc[DH / 2];
+    zero(acc);
+    float sc[BN / 2], dp[BN / 2];
+    uint32_t da[BN / 4];
+    const auto at = [](uint32_t a) { return opaque<C::OPAQUE>(a); };
+    mbar_wait(qbar, 0);
+    split_walk<STAGES>(
+        nt, 0, full, empty,
+        [&](int s) {
+          ss_product<DH, BM, BN>(sc, at(qs), 0, at(ks + s * TILE));
+          ss_product<DH, BM, BN>(dp, at(dos), 0, at(vs + s * TILE));
+        },
+        [&](int s) { rs_product<D, BN, DH>(acc, da, at(ks + s * TILE)); },
+        [&](int t) {
+          fence_regs(sc);
+          fence_regs(dp);
+          exchange<BN, 2, C::XSLOTS>(xs, t, wg, tw, sc, dp);
+          const int k_lo = (j0 + t) * BN;
+          const int* kmk = kms + (t % STAGES) * BN;
+          if (tile_masked<BM, BN>(g, q_lo, k_lo, km != nullptr))
+            dq_ds_fp32<true, BN>(sc, dp, c, L2, Dr, g, qi0, k_lo, kmk, cq);
+          else
+            dq_ds_fp32<false, BN>(sc, dp, c, L2, Dr, g, qi0, k_lo, kmk, cq);
+        },
+        [&](int) {
+          fence_regs(acc);
+          pack_a<BN>(sc, da);
+        });
+    fence_regs(acc);
+    float* dqb = dq + (long)bh * T * D + wg * DH;
+#pragma unroll
+    for (int e = 0; e < DH / 2; e += 2) {
+      const int qi = qi0 + 8 * ((e >> 1) & 1);
+      if (qi < T)
+        *reinterpret_cast<float2*>(dqb + (long)qi * D + 8 * (e >> 2) + cq) =
+            make_float2(scale * acc[e], scale * acc[e + 1]);
+    }
+  }
+}
+
+// K5's dk/dv pass at D 384/512 (DQ false). DQ true is K4's: the same two
+// sweeps with dq formed from dS^T in the second, which the split pass does
+// not build yet (K4 there runs on flash_attention.cu).
+template <int D, bool DQ>
+struct SplitDkvTiles {
+  static_assert(!DQ, "K4 at D 384/512 has no split kernel");
+  static constexpr int BK = 64;                 // keys per CTA
+  static constexpr int BQ = 32;                 // q rows per tile
+  static constexpr int STAGES = D > 384 ? 1 : 2;
+  static constexpr int XSLOTS = 1;
+  static constexpr bool OPAQUE = D > 384;
+  static constexpr int KBYTES = BK * D * 2;
+  static constexpr int QBYTES = BQ * D * 2;
+  static constexpr int V_OFF = KBYTES;
+  static constexpr int Q_OFF = 2 * KBYTES;
+  static constexpr int DO_OFF = Q_OFF + STAGES * QBYTES;
+  static constexpr int X_OFF = DO_OFF + STAGES * QBYTES;
+  static constexpr int L_OFF = X_OFF + XSLOTS * NCWG * 2 * BK * BQ * 4;
+  static constexpr int DI_OFF = L_OFF + STAGES * BQ * 4;
+  static constexpr int BAR_OFF = DI_OFF + STAGES * BQ * 4;
+  static constexpr int SMEM = BAR_OFF + 8 * (1 + 2 * STAGES) + 1024;
+};
+
+// dS^T = P^T (dP^T - D_i) of an m64 (keys) x BQ (queries) tile in place of
+// S^T (fp32), p as in dkv_p; L2 = L log2(e) and D_i by column from shared
+// memory
+template <bool MASKED, int BQ>
+__device__ __forceinline__ void dkv_ds_fp32(float (&st)[BQ / 2],
+                                            const float (&dpt)[BQ / 2],
+                                            float c, const float* L2q,
+                                            const float* Dq,
+                                            const Geometry& g, int q_lo,
+                                            int kj0, const bool (&ko)[2],
+                                            int cq) {
+#pragma unroll
+  for (int e = 0; e < BQ / 2; e += 2) {
+    const int r = (e >> 1) & 1, col = 8 * (e >> 2) + cq;
+    const float2 L2 = *reinterpret_cast<const float2*>(L2q + col);
+    const float2 Di = *reinterpret_cast<const float2*>(Dq + col);
+#pragma unroll
+    for (int u = 0; u < 2; ++u) {
+      float x = fmaf(st[e + u], c, -(u ? L2.y : L2.x));
+      if (MASKED && !visible(g, q_lo + col + u, kj0 + 8 * r, ko[r]))
+        x = DL4J_NEG_INF;
+      st[e + u] = exp2_fast(x) * (dpt[e + u] - (u ? Di.y : Di.x));
+    }
+  }
+}
+
+template <int D, bool DQ>
+__device__ __forceinline__ void split_dkv_pass(
+    const CUtensorMap& tq, const CUtensorMap& tk, const CUtensorMap& tv,
+    const CUtensorMap& tdo, const int* __restrict__ km,
+    const float* __restrict__ lse, const float* __restrict__ di,
+    bf16* __restrict__ dk, bf16* __restrict__ dv, int H, Geometry g,
+    float scale) {
+  using C = SplitDkvTiles<D, DQ>;
+  constexpr int BK = C::BK, BQ = C::BQ, STAGES = C::STAGES, DH = D / 2;
+  const int j = blockIdx.x;         // the most-visited key tiles first
+  const int bh = blockIdx.y, b = bh / H;
+  const int T = g.T, k_lo = j * BK;
+
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* sm = align1024(smem_raw);
+  const float* Ls = reinterpret_cast<const float*>(sm + C::L_OFF);
+  const float* Dis = reinterpret_cast<const float*>(sm + C::DI_OFF);
+  uint64_t* kvbar = reinterpret_cast<uint64_t*>(sm + C::BAR_OFF);
+  uint64_t* full = kvbar + 1;
+  uint64_t* empty = full + STAGES;
+  if (threadIdx.x == 0) {
+    mbar_init(kvbar, 1);
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], NC);
+    }
+    mbar_fence_init();
+  }
+  __syncthreads();
+  int i0, i1;
+  query_tiles<BQ, BK>(g, k_lo, &i0, &i1);
+  const int nt = i1 - i0;
+
+  if (threadIdx.x >= NC) {
+    regs_dec<PRODUCER_REGS>();
+    if (threadIdx.x >= NC + 32) return;
+    load_dkv_tiles<D, BK, BQ, STAGES, 2>(
+        tq, tk, tv, tdo, reinterpret_cast<bf16*>(sm),
+        reinterpret_cast<bf16*>(sm + C::V_OFF),
+        reinterpret_cast<bf16*>(sm + C::Q_OFF),
+        reinterpret_cast<bf16*>(sm + C::DO_OFF),
+        reinterpret_cast<float*>(sm + C::L_OFF),
+        reinterpret_cast<float*>(sm + C::DI_OFF), kvbar, full, empty, lse,
+        di, i0, nt, k_lo, bh, T);
+  } else {
+    regs_inc<CONSUMER_REGS>();
+    // consumer warpgroup wg: all 64 keys (rows), the columns [wg DH, wg DH
+    // + DH) of dV, then of dK; this thread's keys kj0 and kj0 + 8
+    const int wg = threadIdx.x >> 7, tw = threadIdx.x & 127;
+    const int lane = tw & 31, cq = 2 * (lane & 3);
+    const int kj0 = k_lo + 16 * (tw >> 5) + (lane >> 2);
+    bool ko[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int kj = kj0 + 8 * r;
+      ko[r] = kj < T && (km == nullptr || km[(long)b * T + kj] != 0);
+    }
+    const uint32_t ks = smem_u32(sm) + half_off<D, BK>(wg);
+    const uint32_t vs = smem_u32(sm + C::V_OFF) + half_off<D, BK>(wg);
+    const uint32_t qs = smem_u32(sm + C::Q_OFF) + half_off<D, BQ>(wg);
+    const uint32_t dos = smem_u32(sm + C::DO_OFF) + half_off<D, BQ>(wg);
+    float* xs = reinterpret_cast<float*>(sm + C::X_OFF);
+    constexpr int TILE = BQ * D * 2;            // bytes of a Q or dO stage
+    const float c = scale * LOG2E;
+    const bool has_km = km != nullptr;
+    float acc[DH / 2];                          // dV_w, then dK_w
+    float st[BQ / 2], dpt[BQ / 2];
+    uint32_t pa[BQ / 4];
+    const auto at = [](uint32_t a) { return opaque<C::OPAQUE>(a); };
+    // this thread's part of dV or dK (scaled by `sc`) in bf16
+    auto store = [&](bf16* out, float sc) {
+      fence_regs(acc);
+#pragma unroll
+      for (int e = 0; e < DH / 2; e += 2) {
+        const int kj = kj0 + 8 * ((e >> 1) & 1);
+        if (kj < T)
+          *reinterpret_cast<__nv_bfloat162*>(
+              out + ((long)bh * T + kj) * D + wg * DH + 8 * (e >> 2) + cq) =
+              __floats2bfloat162_rn(sc * acc[e], sc * acc[e + 1]);
+      }
+    };
+    mbar_wait(kvbar, 0);
+    // sweep 1, ring slots 0 ..: S^T, P^T, dV_w += P^T dO_w
+    zero(acc);
+    split_walk<STAGES>(
+        nt, 0, full, empty,
+        [&](int s) {
+          ss_product<DH, BK, BQ>(st, at(ks), 0, at(qs + s * TILE));
+        },
+        [&](int s) { rs_product<D, BQ, DH>(acc, pa, at(dos + s * TILE)); },
+        [&](int t) {
+          fence_regs(st);
+          exchange<BQ, 1, C::XSLOTS>(xs, t, wg, tw, st, st);
+          const int s = t % STAGES, q_lo = (i0 + t) * BQ;
+          if (tile_masked<BQ, BK>(g, q_lo, k_lo, has_km))
+            dkv_p<true, BQ>(st, c, Ls + s * BQ, g, q_lo, kj0, ko, cq);
+          else
+            dkv_p<false, BQ>(st, c, Ls + s * BQ, g, q_lo, kj0, ko, cq);
+        },
+        [&](int) {
+          fence_regs(acc);
+          pack_a<BQ>(st, pa);
+        });
+    store(dv, 1.f);
+    // sweep 2, ring slots nt ..: S^T, dP^T, dS^T, dK_w += dS^T Q_w
+    zero(acc);
+    split_walk<STAGES>(
+        nt, nt, full, empty,
+        [&](int s) {
+          ss_product<DH, BK, BQ>(st, at(ks), 0, at(qs + s * TILE));
+          ss_product<DH, BK, BQ>(dpt, at(vs), 0, at(dos + s * TILE));
+        },
+        [&](int s) { rs_product<D, BQ, DH>(acc, pa, at(qs + s * TILE)); },
+        [&](int t) {
+          fence_regs(st);
+          fence_regs(dpt);
+          exchange<BQ, 2, C::XSLOTS>(xs, nt + t, wg, tw, st, dpt);
+          const int s = (nt + t) % STAGES, q_lo = (i0 + t) * BQ;
+          if (tile_masked<BQ, BK>(g, q_lo, k_lo, has_km))
+            dkv_ds_fp32<true, BQ>(st, dpt, c, Ls + s * BQ, Dis + s * BQ, g,
+                                  q_lo, kj0, ko, cq);
+          else
+            dkv_ds_fp32<false, BQ>(st, dpt, c, Ls + s * BQ, Dis + s * BQ, g,
+                                   q_lo, kj0, ko, cq);
+        },
+        [&](int) {
+          fence_regs(acc);
+          pack_a<BQ>(st, pa);
+        });
+    store(dk, scale);
+  }
+}
+
+template <int D>
+__global__ void __launch_bounds__(NT, 1)
+flash_dkv_split_sm90_kernel(const __grid_constant__ CUtensorMap tq,
+                            const __grid_constant__ CUtensorMap tk,
+                            const __grid_constant__ CUtensorMap tv,
+                            const __grid_constant__ CUtensorMap tdo,
+                            const int* __restrict__ km,
+                            const float* __restrict__ lse,
+                            const float* __restrict__ di,
+                            bf16* __restrict__ dk, bf16* __restrict__ dv,
+                            int H, Geometry g, float scale) {
+  split_dkv_pass<D, false>(tq, tk, tv, tdo, km, lse, di, dk, dv, H, g,
+                           scale);
+}
+
 // ------------------------------------------------------------- host side
 // A 3-D map (D, T, rows) of a (rows, T, D) tensor of `elt`-byte elements
 // (bf16, or K4's fp32 dq), boxes of (cols, box_rows, 1) swizzled at the
@@ -1977,18 +2634,42 @@ int prepare(K kern, int smem) {
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
 }
 
+// K3's and the dq pass's tiles and kernels: 128 q rows a CTA up to D 256,
+// the split kernels' 64 above
+template <int D>
+using FwdTilesOf =
+    std::conditional_t<(D <= 256), FwdTiles<D>, SplitFwdTiles<D>>;
+template <int D>
+using DqTilesOf = std::conditional_t<(D <= 256), DqTiles<D>, SplitDqTiles<D>>;
+
+template <int D>
+auto fwd_kernel() {
+  if constexpr (D <= 256)
+    return flash_fwd_sm90_kernel<D>;
+  else
+    return flash_fwd_split_sm90_kernel<D>;
+}
+
+template <int D>
+auto dq_kernel() {
+  if constexpr (D <= 256)
+    return flash_dq_sm90_kernel<D>;
+  else
+    return flash_dq_split_sm90_kernel<D>;
+}
+
 template <int D>
 int launch_fwd(const void* q, const void* k, const void* v, const int* km,
                void* o, float* lse, int B, int H, int Hk, Geometry g,
                float scale, cudaStream_t st) {
-  using C = FwdTiles<D>;
+  using C = FwdTilesOf<D>;
   CUtensorMap mq, mk, mv;
   int err;
   if ((err = make_map<D>(&mq, q, g.T, B * H, C::BM))) return err;
   if ((err = make_map<D>(&mk, k, g.T, B * Hk, C::BN))) return err;
   if ((err = make_map<D>(&mv, v, g.T, B * Hk, C::BN))) return err;
   static_assert(C::SMEM <= 232448, "one CTA's shared memory");
-  auto kern = flash_fwd_sm90_kernel<D>;
+  auto kern = fwd_kernel<D>();
   if ((err = prepare(kern, C::SMEM))) return err;
   dim3 grid((g.T + C::BM - 1) / C::BM, B * H);
   kern<<<grid, NT, C::SMEM, st>>>(mq, mk, mv, km, static_cast<bf16*>(o), lse,
@@ -1997,17 +2678,20 @@ int launch_fwd(const void* q, const void* k, const void* v, const int* km,
 }
 
 // the dk/dv pass's (DQ false) or K4's (DQ true) tiles: 128 keys a CTA up to
-// D 128, the wide pass's 64 above
+// D 128, the wide pass's 64 at D 192/256, the split pass's 64 above
 template <int D, bool DQ>
-using DkvTilesOf =
-    std::conditional_t<(D <= 128), DkvTiles<D, DQ>, WideTiles<D, DQ>>;
+using DkvTilesOf = std::conditional_t<
+    (D <= 128), DkvTiles<D, DQ>,
+    std::conditional_t<(D <= 256), WideTiles<D, DQ>, SplitDkvTiles<D, DQ>>>;
 
 template <int D>
 auto dkv_kernel() {
   if constexpr (D <= 128)
     return flash_dkv_sm90_kernel<D>;
-  else
+  else if constexpr (D <= 256)
     return flash_dkv_wide_sm90_kernel<D>;
+  else
+    return flash_dkv_split_sm90_kernel<D>;
 }
 
 template <int D>
@@ -2057,7 +2741,7 @@ int launch_bwd(const void* q, const void* k, const void* v, const int* km,
                const void* dout, const float* lse, const float* di,
                float* dq, void* dk, void* dv, int B, int H, Geometry g,
                float scale, cudaStream_t st) {
-  using Q = DqTiles<D>;
+  using Q = DqTilesOf<D>;
   CUtensorMap mq, mk, mv, mdo;
   int err;
   if ((err = make_map<D>(&mq, q, g.T, B * H, Q::BM))) return err;
@@ -2065,7 +2749,7 @@ int launch_bwd(const void* q, const void* k, const void* v, const int* km,
   if ((err = make_map<D>(&mk, k, g.T, B * H, Q::BN))) return err;
   if ((err = make_map<D>(&mv, v, g.T, B * H, Q::BN))) return err;
   static_assert(Q::SMEM <= 232448, "one CTA's shared memory");
-  auto kq = flash_dq_sm90_kernel<D>;
+  auto kq = dq_kernel<D>();
   if ((err = prepare(kq, Q::SMEM))) return err;
   kq<<<dim3((g.T + Q::BM - 1) / Q::BM, B * H), NT, Q::SMEM, st>>>(
       mq, mk, mv, mdo, km, lse, di, dq, H, g, scale);
@@ -2074,26 +2758,35 @@ int launch_bwd(const void* q, const void* k, const void* v, const int* km,
                               H, g, scale, st);
 }
 
-// K4: one launch
+// K4: one launch, up to D 256
 template <int D>
 int launch_fused(const void* q, const void* k, const void* v, const int* km,
                  const void* dout, const float* lse, const float* di,
                  float* dq, void* dk, void* dv, int B, int H, Geometry g,
                  float scale, cudaStream_t st) {
-  return launch_dkv<D, true>(q, k, v, km, dout, lse, di, dq, dk, dv, B, H, g,
-                             scale, st);
+  if constexpr (D > 256)
+    return (int)cudaErrorInvalidValue;
+  else
+    return launch_dkv<D, true>(q, k, v, km, dout, lse, di, dq, dk, dv, B, H,
+                               g, scale, st);
 }
 
-// the dk/dv pass's (DQ false) or K4's (DQ true) dynamic shared memory
-template <int D, bool DQ>
-constexpr int dkv_smem() {
-  return DkvTilesOf<D, DQ>::SMEM;
+// Dynamic shared memory of kernel `kind` (as dl4j_flash_sm90_smem) at D;
+// -1 where D has no such kernel
+template <int D>
+constexpr int smem_of(int kind) {
+  if (kind == 0) return FwdTilesOf<D>::SMEM;
+  if (kind == 1) return DqTilesOf<D>::SMEM;
+  if (kind == 2) return DkvTilesOf<D, false>::SMEM;
+  if constexpr (D <= 256)
+    if (kind == 3) return DkvTilesOf<D, true>::SMEM;
+  return -1;
 }
 
 }  // namespace
 
-// bf16 only; head dims 16, 32, 64, 128, 192 and 256. q, k, v, dout
-// 16-byte aligned and contiguous. Return a cudaError_t code, or
+// bf16 only; head dims 16, 32, 64, 128, 192, 256, 384 and 512 (K4 to 256).
+// q, k, v, dout 16-byte aligned and contiguous. Return a cudaError_t code, or
 // kNoEncoder / kBadMap (0 on success). They allocate nothing and do not
 // synchronize: the kernels launch on `stream`.
 #define DL4J_SM90_DISPATCH(FN, ...)                                \
@@ -2104,6 +2797,8 @@ constexpr int dkv_smem() {
     if (D == 128) return FN<128>(__VA_ARGS__);                     \
     if (D == 192) return FN<192>(__VA_ARGS__);                     \
     if (D == 256) return FN<256>(__VA_ARGS__);                     \
+    if (D == 384) return FN<384>(__VA_ARGS__);                     \
+    if (D == 512) return FN<512>(__VA_ARGS__);                     \
     return (int)cudaErrorInvalidValue;                             \
   }
 
@@ -2137,8 +2832,9 @@ extern "C" int dl4j_flash_sm90_bwd(const void* q, const void* k,
                      static_cast<cudaStream_t>(stream));
 }
 
-// K4: the fused backward, one launch; dq (fp32) must be zero on entry and
-// receives the sum of every key tile's reductions.
+// K4: the fused backward, one launch (D up to 256; cudaErrorInvalidValue
+// above); dq (fp32) must be zero on entry and receives the sum of every key
+// tile's reductions.
 extern "C" int dl4j_flash_sm90_bwd_fused(const void* q, const void* k,
                                          const void* v, const void* key_mask,
                                          const void* dout, const void* lse,
@@ -2157,23 +2853,13 @@ extern "C" int dl4j_flash_sm90_bwd_fused(const void* q, const void* k,
 
 // Dynamic shared memory of a kernel: kind 0 the forward, 1 the dq pass, 2
 // the dk/dv pass, 3 the fused backward (K4); -1 for a head dim without
-// that kernel or an unknown kind.
+// that kernel (K4 above 256) or an unknown kind.
 extern "C" int dl4j_flash_sm90_smem(int kind, int D) {
-#define DL4J_SM90_SMEM(DD)                                           \
-  if (D == DD) {                                                     \
-    if (kind == 0) return FwdTiles<DD>::SMEM;                        \
-    if (kind == 1) return DqTiles<DD>::SMEM;                         \
-    if (kind == 2) return dkv_smem<DD, false>();                     \
-    if (kind == 3) return dkv_smem<DD, true>();                      \
-    return -1;                                                       \
+  switch (D) {
+    case 16: case 32: case 64: case 128: case 192: case 256: case 384:
+    case 512:
+      DL4J_SM90_DISPATCH(smem_of, kind);
   }
-  DL4J_SM90_SMEM(16)
-  DL4J_SM90_SMEM(32)
-  DL4J_SM90_SMEM(64)
-  DL4J_SM90_SMEM(128)
-  DL4J_SM90_SMEM(192)
-  DL4J_SM90_SMEM(256)
-#undef DL4J_SM90_SMEM
   return -1;
 }
 

@@ -6,6 +6,7 @@ experiments/torch_*_ab.py scripts, which hold their variants' edits."""
 import ctypes
 import importlib.util
 import shutil
+import subprocess
 import sys
 from pathlib import Path
 
@@ -52,6 +53,31 @@ def build_variant(tag, sources, edits, tail=None):
                 for s, b in build.build(sources).items()}
     finally:
         build.CSRC, build.BUILD_DIR = real
+
+
+def build_variants(source, variants):
+    """{tag: library} of `source` built from edited_copy(tag, edits) for
+    each (tag, edits) of `variants`, one nvcc each, all started together
+    (the compiler's output kept beside each library as .log); fails naming
+    a variant whose build fails."""
+    procs = []
+    for tag, edits in variants.items():
+        csrc = edited_copy(tag, edits)
+        out = csrc / "_build" / f"{Path(source).stem}.so"
+        out.parent.mkdir(parents=True, exist_ok=True)
+        cmd = [build.nvcc(), *build.NVCC_FLAGS, "-o", str(out),
+               str(csrc / source)]
+        procs.append((tag, out, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+            text=True)))
+    libs = {}
+    for tag, out, proc in procs:
+        log, _ = proc.communicate()
+        if proc.returncode != 0:
+            raise SystemExit(f"{tag}: nvcc failed:\n{log[-4000:]}")
+        out.with_suffix(".log").write_text(log)
+        libs[tag] = ctypes.CDLL(str(out))
+    return libs
 
 
 def use(libs):

@@ -10,8 +10,9 @@ paths, all trees at once; then the trees run in turns (the list, then the
 list reversed), each in a process of its own that imports its own package
 and its own chip_smoke.py: the long-context training step and the serve
 of chip_smoke.py (phase_train, phase_serve, which check their own
-outputs), and K4 and K5 at B*H 16, T 8192, causal, bf16, head dims 192 and
-256, timed by CUDA events (the whole call, with its torch work). Prints
+outputs), and K3, K4 and K5 at B*H 16, T 8192, causal, bf16, head dims
+64, 128, 192 and 256, timed by CUDA events (the whole call, with its
+torch work). Prints
 one JSON object: {"device": ..., "trees": [...], "values": {case: {tree:
 [value, value]}}}.
 """
@@ -49,11 +50,13 @@ def child(root: Path, build_only: bool) -> None:
     res = {"long-context fused ms/step": train["ms_per_step"],
            "long-context two_pass ms/step": train["two_pass"]["ms_per_step"],
            "serve tok/s": serve["tokens_per_s"]}
-    for D in (192, 256):
+    for D in (64, 128, 192, 256):
         q, k, v, do, _ = cs.flash_case(torch, cs.TRAIN_B, cs.TRAIN_HEADS,
                                        cs.TRAIN_HEADS, cs.TRAIN_T, D,
                                        torch.bfloat16, False, seed=4545 + D)
         o, lse = fa.flash_fwd_plain(q, k, v, None, True)
+        res[f"D={D} K3 ms"] = cs.event_ms(
+            torch, lambda: fa.flash_attention_fwd_cuda(q, k, v, None, True))
         for case, mode in (("K4", "fused"), ("K5", "two_pass")):
             res[f"D={D} {case} ms"] = cs.event_ms(
                 torch, lambda: fa.flash_attention_bwd_cuda(
