@@ -188,24 +188,25 @@ Phases, each printing one JSON line; any failure exits non-zero:
               dense plain versions on the same inputs, each against fp64;
               losses within 1e-4 of each other, every gradient of the
               kernel path within twice the dense path's own error.
-11a. flash_head_dims - K3, K4 and K5 at B*H 16, bf16, causal, D 128, 192 and
-              256 at T 8192 and D 512 and 1024 at T 1024: CUDA-event times
+11a. flash_head_dims - K3, K4 and K5 at B*H 16, bf16, causal, D 128 to 512
+              at T 8192 and D 384, 512 and 1024 at T 1024: CUDA-event times
               beside scaled_dot_product_attention forward and backward,
-              bounds, the source each took (bf16 K3, K4 and K5 at D 128 to 256
-              on the wgmma kernels, everything above 256 on the CUDA-core
-              kernels, bf16 widened); K3 above 128 against the plain version;
-              K3 and K5 two calls bitwise equal, and K4's dk and dv too; at D
-              192 and 256 K4's dk and dv bitwise equal to K5's (the same
-              tiles, q-tile order and products); K3, K4 and K5 at D 192, 256,
-              512, 640 and 1024, T 1024, masked, with a non-zero lse
-              cotangent, in bf16 and fp32 against the plain versions, each on
-              the source _route names. A head-dim-256 stack
+              bounds, the source each took (bf16 K3, K4 and K5 at D 128 to 512
+              on the wgmma kernels, above 512 on the CUDA-core kernels, bf16
+              widened); K3 above 128 against the plain version; K3 and K5
+              two calls bitwise equal, and K4's dk and dv too; above D 128
+              K4's dk and dv bitwise equal to K5's (the same tiles, q-tile
+              order and products); K3, K4 and K5 at D 192, 256, 384, 512,
+              640 and 1024, T 1024, masked, with a non-zero lse cotangent,
+              in bf16 and fp32 against the plain versions, each on the
+              source _route names. A head-dim-256 stack
               (SelfAttentionLayer(512, 2 heads, block 256) +
               RnnOutputLayer(16), T 1024, batch 2): fp32 gradient_and_score
               through the kernels against the dense plain versions in fp64
               (1e-4), two bf16 fit steps under the fused backward (1 K3 + 1 K4
-              each) and two under two_pass (1 K3 + 2 K5 each), all on
-              flash_attention_sm90.cu and none on flash_attention.cu.
+              each) and two under two_pass (1 K3 + 2 K5 each); the same bf16
+              steps on a head-dim-512 stack; all on flash_attention_sm90.cu
+              and none on flash_attention.cu.
 12. kernel  - each kernel against its plain PyTorch version on the card,
               then timed at the served shape (device time by CUDA-graph
               replay, with the merge in the launch and with it off; the
@@ -1330,11 +1331,10 @@ def flash_sweep():
     """(dtype, D, T, causal, window, masked) of the kernel sweeps; head
     dims 8, 48, 160, 320 and 600 are zero-padded to 16, 64, 192, 384 and
     640 inside the wrappers. The wide head dims run at T around the
-    32-row tiles of the CUDA-core kernels: bf16 K3 and K5 at 160 to 512
-    and K4 at 160 to 256 on the wgmma kernels, bf16 K4 at 320 and 512 and
-    every bf16 kernel above on the CUDA-core kernels widened to fp32, fp32
-    on those at every D (above 512 the kernels that stream the head dim in
-    chunks)."""
+    32-row tiles of the CUDA-core kernels: bf16 K3, K4 and K5 at 160 to
+    512 on the wgmma kernels, every bf16 kernel above on the CUDA-core
+    kernels widened to fp32, fp32 on those at every D (above 512 the
+    kernels that stream the head dim in chunks)."""
     for dt in ("float32", "bfloat16"):
         for D in (32, 64, 128):
             for T in (1, 63, 64, 65, 200, 1000):
@@ -1383,25 +1383,26 @@ SM90_KINDS = {"flash_fwd_sm90_kernel": 0, "flash_dq_sm90_kernel": 1,
               "flash_bwd_fused_wide_sm90_kernel": 3,
               "flash_fwd_split_sm90_kernel": 0,
               "flash_dq_split_sm90_kernel": 1,
-              "flash_dkv_split_sm90_kernel": 2}
+              "flash_dkv_split_sm90_kernel": 2,
+              "flash_bwd_fused_split_sm90_kernel": 3}
 
 
 def sm90_instances(fa):
     """(kernel, D) of every wgmma flash instance: K3 and K5's dq pass up
     to D 256, K5's dk/dv pass and K4 up to D 128, the wide dk/dv pass and
     K4's wide instance at 192/256, and the split K3, dq and dk/dv passes
-    at 384/512 (no K4 there: fa.SM90_MAX_D)."""
+    and K4's split instance at 384/512."""
     for D in fa.HEAD_DIMS:
         split = "_split" if D > 256 else ""
         yield f"flash_fwd{split}_sm90_kernel", D
         yield f"flash_dq{split}_sm90_kernel", D
         wide = split or ("_wide" if D > 128 else "")
         yield f"flash_dkv{wide}_sm90_kernel", D
-        if D <= fa.SM90_MAX_D["fused"]:
-            yield f"flash_bwd_fused{wide}_sm90_kernel", D
+        yield f"flash_bwd_fused{wide}_sm90_kernel", D
 # K4 sums dq across CTAs by TMA reductions in L2, and only K4 may
 SM90_REDUCING = ("flash_bwd_fused_sm90_kernel",
-                 "flash_bwd_fused_wide_sm90_kernel")
+                 "flash_bwd_fused_wide_sm90_kernel",
+                 "flash_bwd_fused_split_sm90_kernel")
 ATOMIC_OPS = ("ATOM", "ATOMS", "ATOMG")
 REDUCE_OPS = ("UBLKRED", "UTMAREDG")          # and every RED* (RED, REDG)
 
@@ -1409,7 +1410,8 @@ REDUCE_OPS = ("UBLKRED", "UTMAREDG")          # and every RED* (RED, REDG)
 def sm90_kernel_key(name: str):
     """(kernel, D) of a mangled sm90 flash kernel name, else None."""
     m = re.search(r"(flash_(?:fwd|dq|dkv|dkv_wide|bwd_fused|bwd_fused_wide"
-                  r"|fwd_split|dq_split|dkv_split)_sm90_kernel)"
+                  r"|fwd_split|dq_split|dkv_split|bwd_fused_split)"
+                  r"_sm90_kernel)"
                   r"ILi(\d+)EE", name)
     return (m.group(1), int(m.group(2))) if m else None
 
@@ -1540,7 +1542,7 @@ def sm90_build_report(built: dict) -> dict:
     that is not a TMA reduction (UTMAREDG), or spills at D 64. The D
     192/256 instances (K3, K5's dq pass, the wide dk/dv pass and K4's wide
     instance) and the D 384/512 split instances (K3, K5's dq and dk/dv
-    passes; no K4 there) report their registers and spills."""
+    passes, K4's split instance) report their registers and spills."""
     from deeplearning4j_tpu_torch.ops import flash_attention as fa
     b = built[fa.SM90_SOURCE]
     lib = fa._library(fa.SM90_SOURCE)
@@ -2156,15 +2158,15 @@ def build_wide_net(torch, compute_dtype, d_model=WIDE_D_MODEL):
 
 
 def phase_flash_head_dims(torch, np):
-    """K3, K4 and K5 at head dims above 128: bf16 K3 and K5 at D 192 to 512
-    and bf16 K4 at 192 and 256 on the wgmma kernels (at 384 and 512 the
-    split kernels), everything else on the CUDA-core kernels (bf16 widened
-    to fp32; above 512 the kernels that stream the head dim in chunks). At
-    B*H 16, causal, bf16, each (D, T) of FLASH_TIMED: CUDA-
+    """K3, K4 and K5 at head dims above 128: bf16 K3, K4 and K5 at D 192 to
+    512 on the wgmma kernels (at 384 and 512 the split kernels),
+    everything else on the CUDA-core kernels (bf16 widened to fp32; above
+    512 the kernels that stream the head dim in chunks). At B*H 16, causal,
+    bf16, each (D, T) of FLASH_TIMED: CUDA-
     event times beside scaled_dot_product_attention forward and backward (a
     yardstick, never the route), bounds, the source each call took, K3
     against the plain version, two calls of K3 and K5 bit for bit, and on
-    the wgmma kernels K4's dk and dv (at D 192/256 also equal to K5's, bit
+    the wgmma kernels K4's dk and dv (above D 128 also equal to K5's, bit
     for bit). At each D of FLASH_CHECKED_D (T 1024, random key mask, bf16
     and fp32): K3, K4 and K5 against the plain versions, the backward from
     the plain forward's o and L with a non-zero lse cotangent, with the
@@ -2175,8 +2177,7 @@ def phase_flash_head_dims(torch, np):
     (1 K3 + 1 K4 a step) and two under two_pass (1 K3 + 2 K5 a step), all
     on the wgmma kernels and none on flash_attention.cu, every loss finite;
     and the same bf16 fit steps on a head-dim-512 stack (d_model
-    WIDE512_D_MODEL): two_pass only on the wgmma kernels, fused with K3
-    there and K4 on flash_attention.cu."""
+    WIDE512_D_MODEL), also only on the wgmma kernels."""
     from deeplearning4j_tpu_torch import MultiLayerNetwork
     from deeplearning4j_tpu_torch.nn.conf.configuration import \
         MultiLayerConfiguration
@@ -2225,9 +2226,10 @@ def phase_flash_head_dims(torch, np):
             fail(f"flash_head_dims D={D}: K3 or K5 differs between two "
                  "calls on the same inputs")
         row["bitwise_repeat"] = ["K3", "K5"]
-        if D <= 256:
+        if D <= fa.SM90_MAX_D:
             # the wgmma K4 sums dk and dv in one CTA: two calls give the
-            # same bits, and at D 192/256 the bits of K5's wide dk/dv pass
+            # same bits, and above D 128 the bits of K5's dk/dv pass (the
+            # wide pass at 192/256, the split pass at 384/512)
             g4 = fa.flash_attention_bwd_cuda(q, k, v, None, o, l, do, None,
                                              True, None, 0, "fused")
             if not all(torch.equal(a, b) for a, b in zip(g[0][1:], g4[1:])):
@@ -2239,6 +2241,15 @@ def phase_flash_head_dims(torch, np):
             if D > 128 and not row["k4_dk_dv_equal_k5"]:
                 fail(f"flash_head_dims D={D}: K4's dk or dv differs from "
                      "K5's at the same inputs")
+            # K4's dq (summed by reduce-adds across the CTAs) against K5's
+            # dq pass, which the plain version holds at T 1024
+            row["k4_dq_vs_k5"] = [max_err(g[0][0], g[1][0]), tile_rel_err(
+                torch, g[0][0], g[1][0], FLASH_REF_FLOOR["bfloat16"])]
+            if not (row["k4_dq_vs_k5"][0] <= FLASH_TOL["bfloat16"] and
+                    row["k4_dq_vs_k5"][1] <= FLASH_REL_TOL["bfloat16"]):
+                fail(f"flash_head_dims D={D}, T={T}: K4's dq vs K5's: max "
+                     "abs err, tile rel err "
+                     f"{row['k4_dq_vs_k5']}")
             del g4
         del g, o2, l2, g2
         if D > 128:
@@ -2343,16 +2354,12 @@ def phase_flash_head_dims(torch, np):
             and max(rel.values()) <= 1e-4):
         fail(f"flash_head_dims: head-dim-256 stack loss rel {loss_rel}, "
              f"grad rel {rel}")
-    # two bf16 fit steps a schedule on each stack; the sources each
-    # schedule must take (2 calls a direction): at head dim 256 only the
-    # wgmma kernels; at 512 K3 and K5 there, K4 on flash_attention.cu
+    # two bf16 fit steps a schedule on each stack; each schedule must take
+    # only the wgmma kernels (2 calls a direction), at head dim 256 and at
+    # 512, none flash_attention.cu
     fits = {}
-    sm90, cuda_core = {fa.SM90_SOURCE: 2}, {fa.SOURCE: 2}
-    for d_model, sources in (
-            (WIDE_D_MODEL, {"fused": {"fwd": sm90, "bwd": sm90},
-                            "two_pass": {"fwd": sm90, "bwd": sm90}}),
-            (WIDE512_D_MODEL, {"fused": {"fwd": sm90, "bwd": cuda_core},
-                               "two_pass": {"fwd": sm90, "bwd": sm90}})):
+    sources = {"fwd": {fa.SM90_SOURCE: 2}, "bwd": {fa.SM90_SOURCE: 2}}
+    for d_model in (WIDE_D_MODEL, WIDE512_D_MODEL):
         head_dim = d_model // WIDE_HEADS
         for mode, want in (("fused", {"K3": 2, "K4": 2, "K5": 0}),
                            ("two_pass", {"K3": 2, "K4": 0, "K5": 4})):
@@ -2373,10 +2380,10 @@ def phase_flash_head_dims(torch, np):
                                ("fwd", mode, "fwd", mode))
             if b_launches != want or not all(math.isfinite(v)
                                              for v in losses) \
-                    or wide_routes != sources[mode]:
+                    or wide_routes != sources:
                 fail(f"flash_head_dims: bf16 fit at head dim {head_dim} "
                      f"({mode}) launched {b_launches} on {wide_routes} "
-                     f"(expected {sources[mode]}), losses {losses}")
+                     f"(expected {sources}), losses {losses}")
             fits[f"head_dim={head_dim} {mode}"] = {
                 "losses": losses, "launches": b_launches,
                 "routes": wide_routes}

@@ -54,12 +54,10 @@
 // conflicts. At D = 128 a backward CTA needs ~166 KB of dynamic shared
 // memory (above 48 KB it takes cudaFuncSetAttribute). At D 192 and 256
 // the tiles are 32 x 32 (a 2 x 2 micro-tile a thread; ~109 and ~142 KB).
-// At D 384 and 512 the tiles are 16 x 16 (one score a thread); these
-// instances also run bf16 K4 at those two head dims, which the wrapper
-// widens to fp32 (K4's wgmma kernel stops at D 256, where K3's and K5's
-// go on to 512). Above 512 (at D 1024 a 16-row backward CTA would need
-// ~266 KB) the head dim streams through shared memory in chunks (the
-// *_wide_ kernels at the end).
+// At D 384 and 512 the tiles are 16 x 16 (one score a thread). Above 512
+// (at D 1024 a 16-row backward CTA would need ~266 KB) the head dim
+// streams through shared memory in chunks (the *_wide_ kernels at the
+// end).
 //
 // What bounds it on the H100, at the training shape in fp32 (B*H = 16, T
 // = 8192, D = 64, causal, 33,558,528 visible pairs per head): operations,
@@ -927,8 +925,7 @@ int launch_bwd_wide(const void* q, const void* k, const void* v,
 }  // namespace
 
 // dtype code 0 (float32) only: the wrapper widens bf16 to fp32 for these
-// where flash_attention_sm90.cu has no kernel (K3 and K5 above D 256, K4
-// above 128). Head dims 16, 32, 64, 128, 192, 256, 384, 512 and every
+// where flash_attention_sm90.cu has no kernel (above D 512). Head dims 16, 32, 64, 128, 192, 256, 384, 512 and every
 // multiple of DCH above 512. Return a cudaError_t code (0 on success).
 // They allocate nothing and do not synchronize: the kernels launch on
 // `stream`.

@@ -1,7 +1,7 @@
 // Flash attention on Hopper's wgmma and TMA (sm_90a) for bf16 inputs: the
-// forward (K3) and both passes of the two-pass backward (K5) at head dims
-// 16 to 512, and the fused backward (K4) at 16 to 256. fp32 inputs, and
-// bf16 K4 at 384 and 512, stay with flash_attention.cu.
+// forward (K3), both passes of the two-pass backward (K5) and the fused
+// backward (K4) at head dims 16 to 512. fp32 inputs stay with
+// flash_attention.cu.
 //
 // Replaces the Pallas kernels of deeplearning4j_tpu/ops/flash_attention.py:
 //   - flash_fwd_sm90_kernel: K3, `_call_fwd` (:448) with body `_fwd_kernel`
@@ -13,9 +13,10 @@
 //     flash_dkv_wide_sm90_kernel, the same pass at D 192 and 256, and
 //     flash_dkv_split_sm90_kernel at D 384 and 512;
 //   - flash_bwd_fused_sm90_kernel: K4, `_fused_bwd_kernel` (:349): the
-//     dk/dv pass that also forms dq, one launch, and
+//     dk/dv pass that also forms dq, one launch,
 //     flash_bwd_fused_wide_sm90_kernel, the wide dk/dv pass that also
-//     forms dq, at D 192 and 256.
+//     forms dq, at D 192 and 256, and flash_bwd_fused_split_sm90_kernel,
+//     the split dk/dv pass that also forms dq, at D 384 and 512.
 // Layout: q (B*H, T, D), k/v (B*Hk, T, D) bf16 row-major; L and D_i
 // (B*H, T) fp32; key mask (B, T) int32 or null; dq (B*H, T, D) fp32, dk/dv
 // bf16. Query head h reads kv row b*Hk + h / (H/Hk) (GQA, forward only).
@@ -113,7 +114,8 @@
 // is the same pass with dq staged in 8 KB boxes (see wide_pass). At D 256
 // the forward's O is 128 registers a thread beside S (32) and P (16), under
 // the consumers' 232. At D 384 and 512 the split kernels take 64 rows a
-// CTA and split the head dim between the warpgroups (see their section).
+// CTA and split the head dim between the warpgroups, and K4 there is the
+// split dk/dv pass with dq staged in 8 KB pieces (see their section).
 // TMA maps are 3-D (D, T, rows), so a box that runs past T is zero-filled
 // instead of reading the next head; D 16/32/64 rows are one box with
 // 32/64/128-byte swizzle, D 128 to 512 are 2 to 8 boxes of 64 columns.
@@ -672,6 +674,31 @@ struct DqBox {
   static constexpr int BYTES = DqPath<D>::BQ * D * 4;
 };
 
+// MH m64 x 32 pieces of dq^T (rows: 64 head-dim columns a piece; columns:
+// the 32 q rows of a tile) of a thread, scaled, into fp32 staging boxes of
+// 32 q rows x 32 columns (128-byte rows, swizzled at 128, as TMA reads
+// them): element (row 8 i + cq + u, column 64 mh + col, col = r0 + 8 rr)
+// goes to box (64 mh + col) / 32, byte 4 (col % 32) of the row; rows vary
+// along q here, so the swizzle term does too
+template <int MH>
+__device__ __forceinline__ void stage_dq_t(unsigned char* tile,
+                                           const float (&d)[16 * MH],
+                                           float scale, int tw, int cq) {
+  constexpr int BOX = 32 * 128;
+  const int r0 = 16 * (tw >> 5) + ((tw & 31) >> 2);
+#pragma unroll
+  for (int e = 0; e < 16; ++e) {
+    const int row = 8 * (e >> 2) + cq + (e & 1);
+    const int col = r0 + 8 * ((e >> 1) & 1);
+    const uint32_t off = row * 128 + 4 * (col % 32);
+#pragma unroll
+    for (int mh = 0; mh < MH; ++mh)
+      *reinterpret_cast<float*>(tile + ((64 * mh + col) / 32) * BOX +
+                                (off ^ (swizzle_term<128>(row) << 4))) =
+          scale * d[16 * mh + e];
+  }
+}
+
 // scale d of one q tile into the fp32 staging tile of its (q rows x D)
 // block (DqBox: boxes of COLS columns, swizzled at RB): pairs of head-dim
 // columns for D <= 64, single elements at D 128 (whose accumulator is
@@ -682,10 +709,10 @@ __device__ __forceinline__ void stage_dq(unsigned char* tile,
                                          float scale, int tw, int cq) {
   using Y = DqBox<D>;
   constexpr int BQ = DqPath<D>::BQ, BOX = BQ * Y::RB;
-  const int r0 = 16 * (tw >> 5) + ((tw & 31) >> 2);
   if constexpr (D <= 64) {
     // pair (row r0 + 8 rr, column 8 j + cq): box 8 j / COLS, byte 32 (j %
     // (COLS / 8)) + 4 cq of the row, so chunk 2 (j % (COLS / 8)) + cq / 4
+    const int r0 = 16 * (tw >> 5) + ((tw & 31) >> 2);
     unsigned char* base = tile + r0 * Y::RB + 4 * (cq & 2);
     const uint32_t x = swizzle_term<Y::RB>(r0), c4 = cq >> 2;
 #pragma unroll
@@ -698,21 +725,8 @@ __device__ __forceinline__ void stage_dq(unsigned char* tile,
           make_float2(scale * d[e], scale * d[e + 1]);
     }
   } else {
-    // element (row 8 i + cq + u, column 64 mh + col, col = r0 + 8 rr):
-    // box (64 mh + col) / COLS, byte 4 (col % COLS) of the row; rows vary
-    // along q here, so the swizzle term does too
-#pragma unroll
-    for (int e = 0; e < BQ / 2; ++e) {
-      const int row = 8 * (e >> 2) + cq + (e & 1);
-      const int col = r0 + 8 * ((e >> 1) & 1);
-      const uint32_t off = row * Y::RB + 4 * (col % Y::COLS);
-#pragma unroll
-      for (int mh = 0; mh < 2; ++mh)
-        *reinterpret_cast<float*>(
-            tile + ((64 * mh + col) / Y::COLS) * BOX +
-            (off ^ (swizzle_term<Y::RB>(row) << 4))) =
-            scale * d[mh * BQ / 2 + e];
-    }
+    static_assert(BQ == 32 && Y::COLS == 32, "dq^T in 32-column boxes");
+    stage_dq_t<2>(tile, d, scale, tw, cq);
   }
 }
 
@@ -1950,7 +1964,7 @@ flash_bwd_fused_wide_sm90_kernel(const __grid_constant__ CUtensorMap tq,
   wide_pass<D, true>(tq, tk, tv, tdo, tdq, km, lse, di, dk, dv, H, g, scale);
 }
 
-// ------------------------------ K3 and K5 at D 384 and 512: the split kernels
+// ------------------------- K3, K4 and K5 at D 384 and 512: the split kernels
 // Why the designs above do not stretch to D 384 and 512. A CTA has 232,448
 // bytes of shared memory and an SM 64K registers; the consumers get
 // CONSUMER_REGS (232) a thread; wgmma's M is 64 rows per warpgroup. At D
@@ -1971,12 +1985,12 @@ flash_bwd_fused_wide_sm90_kernel(const __grid_constant__ CUtensorMap tq,
 // thread t of one warpgroup reads what thread t of the other wrote,
 // without bank conflicts): two slots used in turn behind one named barrier
 // (X_SYNC) a tile, or, where shared memory holds one slot, that slot behind
-// two. Each warpgroup adds the other's partial to its own: a +
-// b = b + a exactly, so both hold the same bits of the full scores and run
-// the same softmax or dS, and every output is written once by one thread:
-// no atomic, no reduction, bit for bit repeatable. The accumulating
-// product takes the warpgroup's half of the streamed tile's columns ("RS",
-// N = D/2: 256 or 192).
+// two. Each warpgroup adds the other's partial to its own: a + b = b + a
+// exactly, so both hold the same bits of the full scores and run the same
+// softmax or dS, and every output but K4's dq is written once by one
+// thread: no atomic, no reduction, bit for bit repeatable. The
+// accumulating product takes the warpgroup's half of the streamed tile's
+// columns ("RS", N = D/2: 256 or 192).
 //   - K3 (flash_fwd_split_sm90_kernel): Q resident (64 KB at D 512), K and
 //     V stream at 64 keys in one stage (D 512) or 32 in three (384);
 //     O_w += P V_w.
@@ -1991,6 +2005,8 @@ flash_bwd_fused_wide_sm90_kernel(const __grid_constant__ CUtensorMap tq,
 //     dS^T Q_w (S^T and dP^T exchanged) in the same registers. The products
 //     are 5 where one sweep would do 4 (S^T twice), but one accumulator of
 //     128 registers is live where dK and dV together would not fit.
+//   - K4 (flash_bwd_fused_split_sm90_kernel): that pass with dq formed in
+//     its second sweep and reduce-added by TMA (see split_dkv_pass).
 // Every walk with two stages or more overlaps the accumulating product of
 // tile t - 1 with the score products, exchange and register pass of tile
 // t (split_walk). What bounds them: shared memory, in size and in reads.
@@ -2066,14 +2082,22 @@ __device__ __forceinline__ void exchange(float* xs, int n, int wg, int tw,
 // tile t - 1 (acc), with the exchange and register pass of tile t (pass)
 // running while the latter is in flight, and `pack` (A fragments of the
 // next accumulating product) once it is done; the last turn the last
-// accumulating product. Every ring slot is handed back. With one stage the
-// slot of tile t - 1 must be free before tile t loads, so nothing
-// overlaps. No product is issued under a condition (ptxas would serialize
-// the products).
-template <int STAGES, class SS, class ACC, class PASS, class PACK>
+// accumulating product. `post` (K4's dq of tile t - 1) runs once the
+// accumulating product of tile t - 1 is done and its ring slot handed
+// back, before `pack` of tile t. Every ring slot is handed back. With one
+// stage the slot of tile t - 1 must be free before tile t loads, so
+// nothing overlaps but `post` with that load. No product is issued under
+// a condition (ptxas would serialize the products).
+struct NoPost {
+  __device__ __forceinline__ void operator()(int) const {}
+};
+
+template <int STAGES, class SS, class ACC, class PASS, class PACK,
+          class POST = NoPost>
 __device__ __forceinline__ void split_walk(int nt, int n0, uint64_t* full,
                                            uint64_t* empty, SS ss, ACC acc,
-                                           PASS pass, PACK pack) {
+                                           PASS pass, PACK pack,
+                                           POST post = {}) {
   wg_fence();
   mbar_wait(&full[n0 % STAGES], (n0 / STAGES) & 1);
   ss(n0 % STAGES);
@@ -2089,6 +2113,7 @@ __device__ __forceinline__ void split_walk(int nt, int n0, uint64_t* full,
       wg_commit();
       wg_wait<0>();
       mbar_arrive(&empty[sp]);
+      post(t - 1);
       wg_fence();
       mbar_wait(&full[sn], (n / STAGES) & 1);
       ss(sn);
@@ -2105,6 +2130,7 @@ __device__ __forceinline__ void split_walk(int nt, int n0, uint64_t* full,
       pass(t);
       wg_wait<0>();
       mbar_arrive(&empty[sp]);
+      post(t - 1);
     }
     pack(t);
   }
@@ -2114,6 +2140,7 @@ __device__ __forceinline__ void split_walk(int nt, int n0, uint64_t* full,
   wg_commit();
   wg_wait<0>();
   mbar_arrive(&empty[sl]);
+  post(nt - 1);
 }
 
 // shared-memory offset (bytes) of warpgroup wg's first 64-column box in a
@@ -2397,12 +2424,46 @@ flash_dq_split_sm90_kernel(const __grid_constant__ CUtensorMap tq,
   }
 }
 
-// K5's dk/dv pass at D 384/512 (DQ false). DQ true is K4's: the same two
-// sweeps with dq formed from dS^T in the second, which the split pass does
-// not build yet (K4 there runs on flash_attention.cu).
+// K5's dk/dv pass at D 384/512 (DQ false) and K4 there (DQ true): the same
+// two sweeps, tiles, q-tile order and products for dk and dv, so that
+// K4's dk and dv are K5's bit for bit; K4 also forms dq in sweep 2.
+//
+// K4's dq: dq of a q tile sums scale dS K over every key, that is over the
+// CTAs of the head. After the exchange of sweep 2 both warpgroups hold the
+// same bits of dS^T (64 keys x 32 q, rounded to bf16 where K5 rounds it,
+// the values dK's product takes); each writes it to a swizzled bf16 tile
+// of its own, forms dq^T (its D/2 head-dim columns x 32 q) = K_w^T dS^T
+// one 64-column piece at a time (m64n32, 16 registers: A = the resident
+// K box read MN-major, B = the dS^T tile, as DqPath at D 128), and stages
+// each piece, scaled, as two fp32 boxes of 32 q rows x 32 columns for a
+// warp of the producer warpgroup (dq_split_writer), which hands them to
+// the TMA unit as reduce-adds into the zeroed fp32 dq, as the wide pass
+// does. Each warpgroup's pieces go through one piece slot of 8 KB (a FULL
+// and a FREE named barrier). The products and the staging of tile t run
+// once dK's product of tile t is done and its ring slot handed back, so
+// with one stage they overlap the load of tile t + 1.
+//
+// Shared memory sets where the dS^T tile and the slots live. K5's pass
+// takes 230,680 of a CTA's 232,448 bytes at D 512 (K and V 128 KB, one
+// stage of Q and dO 64 KB, the exchange slot 32 KB, as sweep 2 exchanges
+// S^T and dP^T at once, sweep 1 only S^T) and 230,952 at D 384 (two
+// stages): under 2 KB beside it, and a dS^T tile is 4 KB and a piece
+// slot 8 KB. So K4's sweep 2 exchanges S^T, then dP^T, through a 16 KB
+// slot (the same sums a + b, so dk and dv keep their bits), which frees
+// 16 KB: 8 KB for the two warpgroups' dS^T tiles, and each warpgroup's 8
+// KB part of the slot is its piece slot between exchanges, handed back
+// (FREE) before the warpgroup writes its next partial. K4 keeps K5's
+// stages, 222,488 bytes at D 512 and 222,760 at D 384. Measured on an
+// H100 80GB HBM3 at 700 W (B*H 16, causal, T 8192; PERF.md), K4
+// at D 512 takes 12.7 ms against K5's 16.0: the dq products add nothing
+// measurable, the staging ~0.8 ms and the reduce-adds (~17 GB into a 268
+// MB dq) ~1.3. Exchanging both partials at once with the dS^T tile in the
+// slot (one stage needed: with two the next exchange would run before
+// the dq of the tile before) ties at D 512 and is 7% slower at D 384,
+// where it spills, as is one stage alone there
+// (experiments/torch_flash_split_ab.py k4).
 template <int D, bool DQ>
 struct SplitDkvTiles {
-  static_assert(!DQ, "K4 at D 384/512 has no split kernel");
   static constexpr int BK = 64;                 // keys per CTA
   static constexpr int BQ = 32;                 // q rows per tile
   static constexpr int STAGES = D > 384 ? 1 : 2;
@@ -2410,14 +2471,34 @@ struct SplitDkvTiles {
   static constexpr bool OPAQUE = D > 384;
   static constexpr int KBYTES = BK * D * 2;
   static constexpr int QBYTES = BQ * D * 2;
+  static constexpr int PART = BK * BQ * 4;      // a partial of S^T or dP^T
+  // a warpgroup's part of the exchange slot: two partials in K5, one in
+  // K4, where it is also the warpgroup's piece slot
+  static constexpr int XWG = (DQ ? 1 : 2) * PART;
+  // K4: dq pieces of 64 columns a warpgroup, a piece (two boxes) and a
+  // dS^T tile
+  static constexpr int NPC = D / 128;
+  static constexpr int PIECE = BQ * 64 * 4;
+  static constexpr int DSBYTES = BK * BQ * 2;
+  static_assert(PIECE <= XWG, "a piece fits a warpgroup's part");
   static constexpr int V_OFF = KBYTES;
   static constexpr int Q_OFF = 2 * KBYTES;
   static constexpr int DO_OFF = Q_OFF + STAGES * QBYTES;
   static constexpr int X_OFF = DO_OFF + STAGES * QBYTES;
-  static constexpr int L_OFF = X_OFF + XSLOTS * NCWG * 2 * BK * BQ * 4;
+  static constexpr int DS_OFF = X_OFF + XSLOTS * NCWG * XWG;
+  static constexpr int L_OFF = DS_OFF + (DQ ? NCWG * DSBYTES : 0);
   static constexpr int DI_OFF = L_OFF + STAGES * BQ * 4;
   static constexpr int BAR_OFF = DI_OFF + STAGES * BQ * 4;
   static constexpr int SMEM = BAR_OFF + 8 * (1 + 2 * STAGES) + 1024;
+  // K4's named barriers beside X_SYNC: DS_READY + w once warpgroup w has
+  // written its dS^T tile; FULL + w once it has staged a piece, FREE + w
+  // once the TMA unit has read it
+  static constexpr int DS_READY = 2, FULL = 4, FREE = 6;
+
+  // the piece slot of warpgroup w
+  __device__ static unsigned char* slot(unsigned char* sm, int w) {
+    return sm + X_OFF + w * XWG;
+  }
 };
 
 // dS^T = P^T (dP^T - D_i) of an m64 (keys) x BQ (queries) tile in place of
@@ -2446,13 +2527,42 @@ __device__ __forceinline__ void dkv_ds_fp32(float (&st)[BQ / 2],
   }
 }
 
+// K4's dq warp of consumer warpgroup w: for each q tile of sweep 2 and
+// each of the warpgroup's pieces, in the order the warpgroup stages them,
+// waits for the piece slot to be full, has the TMA unit add its two boxes
+// into dq, and hands the slot back once they are read (except after the
+// last piece, for which nothing waits).
+template <int D>
+__device__ __forceinline__ void dq_split_writer(const CUtensorMap& tdq,
+                                                unsigned char* sm, int w,
+                                                int i0, int nt, int bh) {
+  using C = SplitDkvTiles<D, true>;
+  const bool lead = (threadIdx.x & 31) == 0;
+  const int uses = C::NPC * nt;
+  for (int j = 0; j < uses; ++j) {
+    const int n = j / C::NPC, pc = j % C::NPC;
+    named_sync(C::FULL + w, DQ_HANDOFF);
+    if (lead) {
+      const unsigned char* p = C::slot(sm, w);
+#pragma unroll
+      for (int h = 0; h < 2; ++h)
+        tma_reduce_add(p + h * (C::PIECE / 2), &tdq,
+                       w * (D / 2) + 64 * pc + 32 * h, (i0 + n) * C::BQ, bh);
+      bulk_commit();
+      bulk_wait_read<0>();
+    }
+    __syncwarp();
+    if (j + 1 < uses) named_arrive(C::FREE + w, DQ_HANDOFF);
+  }
+}
+
 template <int D, bool DQ>
 __device__ __forceinline__ void split_dkv_pass(
     const CUtensorMap& tq, const CUtensorMap& tk, const CUtensorMap& tv,
-    const CUtensorMap& tdo, const int* __restrict__ km,
-    const float* __restrict__ lse, const float* __restrict__ di,
-    bf16* __restrict__ dk, bf16* __restrict__ dv, int H, Geometry g,
-    float scale) {
+    const CUtensorMap& tdo, const CUtensorMap& tdq,
+    const int* __restrict__ km, const float* __restrict__ lse,
+    const float* __restrict__ di, bf16* __restrict__ dk,
+    bf16* __restrict__ dv, int H, Geometry g, float scale) {
   using C = SplitDkvTiles<D, DQ>;
   constexpr int BK = C::BK, BQ = C::BQ, STAGES = C::STAGES, DH = D / 2;
   const int j = blockIdx.x;         // the most-visited key tiles first
@@ -2480,8 +2590,15 @@ __device__ __forceinline__ void split_dkv_pass(
   const int nt = i1 - i0;
 
   if (threadIdx.x >= NC) {
+    // producer warpgroup: warp 0 loads; in K4 warps 1 and 2 hand the dq
+    // pieces of consumer warpgroups 0 and 1 to the TMA unit
     regs_dec<PRODUCER_REGS>();
-    if (threadIdx.x >= NC + 32) return;
+    const int warp = (threadIdx.x - NC) >> 5;
+    if constexpr (DQ) {
+      if (warp == 1 || warp == 2)
+        dq_split_writer<D>(tdq, sm, warp - 1, i0, nt, bh);
+    }
+    if (warp != 0) return;
     load_dkv_tiles<D, BK, BQ, STAGES, 2>(
         tq, tk, tv, tdo, reinterpret_cast<bf16*>(sm),
         reinterpret_cast<bf16*>(sm + C::V_OFF),
@@ -2493,10 +2610,11 @@ __device__ __forceinline__ void split_dkv_pass(
   } else {
     regs_inc<CONSUMER_REGS>();
     // consumer warpgroup wg: all 64 keys (rows), the columns [wg DH, wg DH
-    // + DH) of dV, then of dK; this thread's keys kj0 and kj0 + 8
+    // + DH) of dV, then of dK (and of dq); this thread's keys kj0 and kj0
+    // + 8
     const int wg = threadIdx.x >> 7, tw = threadIdx.x & 127;
     const int lane = tw & 31, cq = 2 * (lane & 3);
-    const int kj0 = k_lo + 16 * (tw >> 5) + (lane >> 2);
+    const int row = 16 * (tw >> 5) + (lane >> 2), kj0 = k_lo + row;
     bool ko[2];
 #pragma unroll
     for (int r = 0; r < 2; ++r) {
@@ -2527,6 +2645,52 @@ __device__ __forceinline__ void split_dkv_pass(
               __floats2bfloat162_rn(sc * acc[e], sc * acc[e + 1]);
       }
     };
+    // K4: this warpgroup's dS^T tile; `pending` while its piece slot is
+    // with the dq warp and not yet seen back
+    unsigned char* dsp = sm + C::DS_OFF + wg * C::DSBYTES;
+    const uint32_t dss = smem_u32(dsp);
+    bool pending = false;
+    // the piece slot back from the dq warp before this warpgroup writes it
+    auto take = [&]() {
+      if constexpr (DQ) {
+        if (pending) named_sync(C::FREE + wg, DQ_HANDOFF);
+        pending = false;
+      }
+    };
+    auto stage = [&](const float (&d)[16]) {
+      if constexpr (DQ) {
+        take();
+        stage_dq_t<1>(C::slot(sm, wg), d, scale, tw, cq);
+        fence_async_smem();
+        named_arrive(C::FULL + wg, DQ_HANDOFF);
+        pending = true;
+      }
+    };
+    // dq^T of q tile t over the CTA's keys, piece by piece, each staged
+    // while the next is multiplied
+    auto dq_tile = [&](int) {
+      if constexpr (DQ) {
+        float dqa[2][BQ / 2];
+#pragma unroll
+        for (int pc = 0; pc < C::NPC; ++pc) {
+          wg_fence();
+#pragma unroll
+          for (int kk = 0; kk < BK / 16; ++kk)
+            wgmma_ss_t<BQ>(dqa[pc & 1],
+                           desc_mn<D, BK>(at(ks + pc * BK * 128), kk),
+                           desc_mn<BQ, BK>(dss, kk), kk > 0);
+          wg_commit();
+          if (pc > 0) {
+            wg_wait<1>();
+            fence_regs(dqa[(pc - 1) & 1]);
+            stage(dqa[(pc - 1) & 1]);
+          }
+        }
+        wg_wait<0>();
+        fence_regs(dqa[(C::NPC - 1) & 1]);
+        stage(dqa[(C::NPC - 1) & 1]);
+      }
+    };
     mbar_wait(kvbar, 0);
     // sweep 1, ring slots 0 ..: S^T, P^T, dV_w += P^T dO_w
     zero(acc);
@@ -2550,7 +2714,8 @@ __device__ __forceinline__ void split_dkv_pass(
           pack_a<BQ>(st, pa);
         });
     store(dv, 1.f);
-    // sweep 2, ring slots nt ..: S^T, dP^T, dS^T, dK_w += dS^T Q_w
+    // sweep 2, ring slots nt ..: S^T, dP^T, dS^T, dK_w += dS^T Q_w (and
+    // in K4 dq of each tile)
     zero(acc);
     split_walk<STAGES>(
         nt, nt, full, empty,
@@ -2562,7 +2727,13 @@ __device__ __forceinline__ void split_dkv_pass(
         [&](int t) {
           fence_regs(st);
           fence_regs(dpt);
-          exchange<BQ, 2, C::XSLOTS>(xs, nt + t, wg, tw, st, dpt);
+          take();   // the piece slot is this warpgroup's part of the slot
+          if constexpr (DQ) {
+            exchange<BQ, 1, C::XSLOTS>(xs, nt + t, wg, tw, st, st);
+            exchange<BQ, 1, C::XSLOTS>(xs, nt + t, wg, tw, dpt, dpt);
+          } else {
+            exchange<BQ, 2, C::XSLOTS>(xs, nt + t, wg, tw, st, dpt);
+          }
           const int s = (nt + t) % STAGES, q_lo = (i0 + t) * BQ;
           if (tile_masked<BQ, BK>(g, q_lo, k_lo, has_km))
             dkv_ds_fp32<true, BQ>(st, dpt, c, Ls + s * BQ, Dis + s * BQ, g,
@@ -2574,7 +2745,16 @@ __device__ __forceinline__ void split_dkv_pass(
         [&](int) {
           fence_regs(acc);
           pack_a<BQ>(st, pa);
-        });
+          if constexpr (DQ) {
+            // with two stages the dq products of the tile before may still
+            // read the tile in another warp of this warpgroup
+            if constexpr (STAGES > 1) named_sync(C::DS_READY + wg, 128);
+            store_ds<BQ>(dsp, pa, row, cq);
+            fence_async_smem();
+            named_sync(C::DS_READY + wg, 128);
+          }
+        },
+        dq_tile);
     store(dk, scale);
   }
 }
@@ -2590,8 +2770,25 @@ flash_dkv_split_sm90_kernel(const __grid_constant__ CUtensorMap tq,
                             const float* __restrict__ di,
                             bf16* __restrict__ dk, bf16* __restrict__ dv,
                             int H, Geometry g, float scale) {
-  split_dkv_pass<D, false>(tq, tk, tv, tdo, km, lse, di, dk, dv, H, g,
+  split_dkv_pass<D, false>(tq, tk, tv, tdo, tq, km, lse, di, dk, dv, H, g,
                            scale);
+}
+
+template <int D>
+__global__ void __launch_bounds__(NT, 1)
+flash_bwd_fused_split_sm90_kernel(const __grid_constant__ CUtensorMap tq,
+                                  const __grid_constant__ CUtensorMap tk,
+                                  const __grid_constant__ CUtensorMap tv,
+                                  const __grid_constant__ CUtensorMap tdo,
+                                  const __grid_constant__ CUtensorMap tdq,
+                                  const int* __restrict__ km,
+                                  const float* __restrict__ lse,
+                                  const float* __restrict__ di,
+                                  bf16* __restrict__ dk,
+                                  bf16* __restrict__ dv, int H, Geometry g,
+                                  float scale) {
+  split_dkv_pass<D, true>(tq, tk, tv, tdo, tdq, km, lse, di, dk, dv, H, g,
+                          scale);
 }
 
 // ------------------------------------------------------------- host side
@@ -2698,8 +2895,10 @@ template <int D>
 auto fused_kernel() {
   if constexpr (D <= 128)
     return flash_bwd_fused_sm90_kernel<D>;
-  else
+  else if constexpr (D <= 256)
     return flash_bwd_fused_wide_sm90_kernel<D>;
+  else
+    return flash_bwd_fused_split_sm90_kernel<D>;
 }
 
 // The dk/dv pass (DQ false) or K4 (DQ true, dq into the zeroed buffer).
@@ -2758,17 +2957,14 @@ int launch_bwd(const void* q, const void* k, const void* v, const int* km,
                               H, g, scale, st);
 }
 
-// K4: one launch, up to D 256
+// K4: one launch
 template <int D>
 int launch_fused(const void* q, const void* k, const void* v, const int* km,
                  const void* dout, const float* lse, const float* di,
                  float* dq, void* dk, void* dv, int B, int H, Geometry g,
                  float scale, cudaStream_t st) {
-  if constexpr (D > 256)
-    return (int)cudaErrorInvalidValue;
-  else
-    return launch_dkv<D, true>(q, k, v, km, dout, lse, di, dq, dk, dv, B, H,
-                               g, scale, st);
+  return launch_dkv<D, true>(q, k, v, km, dout, lse, di, dq, dk, dv, B, H, g,
+                             scale, st);
 }
 
 // Dynamic shared memory of kernel `kind` (as dl4j_flash_sm90_smem) at D;
@@ -2778,14 +2974,13 @@ constexpr int smem_of(int kind) {
   if (kind == 0) return FwdTilesOf<D>::SMEM;
   if (kind == 1) return DqTilesOf<D>::SMEM;
   if (kind == 2) return DkvTilesOf<D, false>::SMEM;
-  if constexpr (D <= 256)
-    if (kind == 3) return DkvTilesOf<D, true>::SMEM;
+  if (kind == 3) return DkvTilesOf<D, true>::SMEM;
   return -1;
 }
 
 }  // namespace
 
-// bf16 only; head dims 16, 32, 64, 128, 192, 256, 384 and 512 (K4 to 256).
+// bf16 only; head dims 16, 32, 64, 128, 192, 256, 384 and 512.
 // q, k, v, dout 16-byte aligned and contiguous. Return a cudaError_t code, or
 // kNoEncoder / kBadMap (0 on success). They allocate nothing and do not
 // synchronize: the kernels launch on `stream`.
@@ -2832,9 +3027,8 @@ extern "C" int dl4j_flash_sm90_bwd(const void* q, const void* k,
                      static_cast<cudaStream_t>(stream));
 }
 
-// K4: the fused backward, one launch (D up to 256; cudaErrorInvalidValue
-// above); dq (fp32) must be zero on entry and receives the sum of every key
-// tile's reductions.
+// K4: the fused backward, one launch; dq (fp32) must be zero on entry and
+// receives the sum of every key tile's reductions.
 extern "C" int dl4j_flash_sm90_bwd_fused(const void* q, const void* k,
                                          const void* v, const void* key_mask,
                                          const void* dout, const void* lse,
@@ -2852,8 +3046,8 @@ extern "C" int dl4j_flash_sm90_bwd_fused(const void* q, const void* k,
 }
 
 // Dynamic shared memory of a kernel: kind 0 the forward, 1 the dq pass, 2
-// the dk/dv pass, 3 the fused backward (K4); -1 for a head dim without
-// that kernel (K4 above 256) or an unknown kind.
+// the dk/dv pass, 3 the fused backward (K4); -1 for another head dim or an
+// unknown kind.
 extern "C" int dl4j_flash_sm90_smem(int kind, int D) {
   switch (D) {
     case 16: case 32: case 64: case 128: case 192: case 256: case 384:

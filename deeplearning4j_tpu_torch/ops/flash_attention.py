@@ -23,13 +23,13 @@ grouped backward raises, as in the JAX package: the layer repeats k/v to
 full heads before the call, so training never reaches it.
 
 Kernels (CUDA C++ for sm_90a in two sources, chosen by dtype, kind and
-head dim in `_route`: bf16 K3 and K5 at a kernel head dim up to 512, and
-bf16 K4 up to 256, take `csrc/flash_attention_sm90.cu` (wgmma, TMA; at
-384 and 512 the split kernels, whose two warpgroups share the head dim);
-fp32 inputs at every head dim, bf16 above 512, and bf16 K4 at 384 and 512,
-the CUDA-core kernels of `csrc/flash_attention.cu` (bf16 widened to fp32
-before the launch, the outputs rounded back); each wrapper counts its
-launches per source in `.route_launches`):
+head dim in `_route`: bf16 K3, K4 and K5 at a kernel head dim up to 512
+take `csrc/flash_attention_sm90.cu` (wgmma, TMA; at 384 and 512 the split
+kernels, whose two warpgroups share the head dim); fp32 inputs at every
+head dim, and bf16 above 512, the CUDA-core kernels of
+`csrc/flash_attention.cu` (bf16 widened to fp32 before the launch, the
+outputs rounded back); each wrapper counts its launches per source in
+`.route_launches`):
 - K3 `flash_attention_fwd_cuda` replaces `_call_fwd` / `_fwd_kernel`;
 - K4 `flash_attention_bwd_cuda(..., bwd="fused")` replaces
   `_fused_bwd_kernel`: one kernel per key tile giving dk, dv and each
@@ -46,7 +46,7 @@ plain version. D_i = rowsum(dO * o) - dlse is a torch reduction outside
 the kernels, as it is an XLA reduction in the JAX package.
 
 Head dims: the kernels are built for D in HEAD_DIMS (the wgmma kernels of
-K3 and K5 for all of them, K4's up to 256: SM90_MAX_D), and the fp32
+K3, K4 and K5 for all of them: SM90_MAX_D), and the fp32
 kernels above 512 for any multiple of WIDE_CHUNK (kernels that stream the
 head dim through shared memory in chunks of that many columns, with the
 accumulators in the outputs' rows in device memory: a 16-row backward CTA
@@ -80,8 +80,8 @@ SOURCES = (SOURCE, SM90_SOURCE)
 BWD_MODES = ("fused", "two_pass")
 HEAD_DIMS = (16, 32, 64, 128, 192, 256, 384, 512)   # of the kernels
 WIDE_CHUNK = 128    # ... and above 512, every multiple of this
-# the largest kernel head dim of the wgmma kernels, by kind (K3, K4, K5)
-SM90_MAX_D = {"fwd": 512, "fused": 256, "two_pass": 512}
+# the largest kernel head dim of the wgmma kernels (K3, K4 and K5)
+SM90_MAX_D = 512
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 2}
 
 _CONFIG = {"bwd": os.environ.get("DL4J_TPU_FLASH_BWD", "fused")}
@@ -297,16 +297,16 @@ def flash_attention(q, k, v, mask=None, causal: bool = False,
 def _route(dtype: torch.dtype, kind: str, D: int) -> str:
     """The source whose kernel takes a launch: `kind` "fwd" (K3), "fused"
     (K4) or "two_pass" (K5), D the kernel head dim. bf16 runs on the wgmma
-    kernels of SM90_SOURCE up to SM90_MAX_D[kind]; fp32, and bf16 above
+    kernels of SM90_SOURCE up to SM90_MAX_D; fp32, and bf16 above
     (widened to fp32), on SOURCE."""
-    if kind not in SM90_MAX_D:
+    if kind not in ("fwd",) + BWD_MODES:
         raise ValueError(f"unknown flash kernel kind {kind!r}")
     wide = D > HEAD_DIMS[-1] and D % WIDE_CHUNK == 0
     if D not in HEAD_DIMS and not wide:
         raise ValueError(f"no flash kernel at head dim {D} ({HEAD_DIMS}, "
                          f"then multiples of {WIDE_CHUNK})")
     return SM90_SOURCE if dtype == torch.bfloat16 and D in HEAD_DIMS \
-        and D <= SM90_MAX_D[kind] else SOURCE
+        and D <= SM90_MAX_D else SOURCE
 
 
 def _library(source: str):

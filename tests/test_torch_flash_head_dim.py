@@ -7,8 +7,8 @@ wrappers apply (`padded_fwd` / `padded_bwd`: 160 -> 192, 320 -> 384, 256,
 against the JAX package's `flash_attention_lse` (its Pallas kernels in
 interpret mode, small tiles, compiled once by `jax.jit` through a module
 fixture), forward and the backward of both schedules, with a non-zero lse
-cotangent; tolerance 1e-10. Padding is exact. On the card bf16 K3 and K5
-at D 192 to 512 and bf16 K4 at D 192 and 256 run on the wgmma kernels of
+cotangent; tolerance 1e-10. Padding is exact. On the card bf16 K3, K4
+and K5 at D 192 to 512 run on the wgmma kernels of
 flash_attention_sm90.cu, the rest on the CUDA-core kernels of
 flash_attention.cu (bf16 widened to fp32; above 512 the kernels that
 stream the head dim in chunks): the route and the launches at those head
@@ -143,21 +143,20 @@ def test_head_dims_above_512_raise_naming_queue_3(D, Dp):
             torch.testing.assert_close(g, r, rtol=0, atol=ATOL)
 
 
-# the largest head dim of each kind's wgmma kernel: K3 and K5 to 512, K4
-# to 256
-SM90_MAX_D = {"fwd": 512, "two_pass": 512, "fused": 256}
+# the largest head dim of the wgmma kernels of K3, K4 and K5
+SM90_MAX_D = 512
 
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 @pytest.mark.parametrize("kind", ["fwd", "fused", "two_pass"])
 def test_route_by_head_dim(dtype, kind):
-    """bf16 K3 and K5 take the wgmma kernels up to D 512, bf16 K4 up to
-    256; above, and fp32 at every D, the CUDA-core kernels. Only kernel
-    head dims are routed: HEAD_DIMS, then multiples of 128."""
+    """bf16 K3, K4 and K5 take the wgmma kernels up to D 512; above, and
+    fp32 at every D, the CUDA-core kernels. Only kernel head dims are
+    routed: HEAD_DIMS, then multiples of 128."""
     assert tfa.SM90_MAX_D == SM90_MAX_D
     for D in tfa.HEAD_DIMS + (640, 1024, 1536):
         want = tfa.SM90_SOURCE if (dtype == torch.bfloat16
-                                   and D <= SM90_MAX_D[kind]) else tfa.SOURCE
+                                   and D <= SM90_MAX_D) else tfa.SOURCE
         assert tfa._route(dtype, kind, D) == want
     for D in (160, 600, 1000):
         with pytest.raises(ValueError):
@@ -244,9 +243,10 @@ def test_wide_bf16_forward_launch_source(fake_libs, D):
 @pytest.mark.parametrize("D", [192, 256, 384, 512])
 @pytest.mark.parametrize("mode", ["fused", "two_pass"])
 def test_wide_bf16_backward_launch_source(fake_libs, D, mode):
-    """bf16 K5 at D 192 to 512 and K4 at 192 and 256 launch the wgmma
-    kernels on the bf16 tensors; K4 at 384 and 512 the CUDA-core kernel on
-    them widened to fp32."""
+    """bf16 K4 and K5 at D 192 to 512 launch the wgmma kernels on the bf16
+    tensors themselves, one launch a call counted under its schedule (K4
+    at 384 and 512 the split kernel, which until then was the CUDA-core
+    kernel on them widened to fp32)."""
     libs = fake_libs()
     q, k, v, do, m = _bf16(D)
     o = torch.zeros_like(q)
@@ -259,17 +259,16 @@ def test_wide_bf16_backward_launch_source(fake_libs, D, mode):
     assert dq.dtype == dk.dtype == dv.dtype == torch.bfloat16
     assert dq.shape == dk.shape == dv.shape == q.shape
     two = mode == "two_pass"
-    source = tfa.SM90_SOURCE if two or D <= 256 else tfa.SOURCE
+    source = tfa.SM90_SOURCE
     assert list(libs) == [source]
     ((name, args),) = libs[source].log
-    if source == tfa.SM90_SOURCE:
-        assert name == ("dl4j_flash_sm90_bwd" if two
-                        else "dl4j_flash_sm90_bwd_fused")
-        assert args[0] == q.data_ptr()
-        assert args[10:16] == (B, H, T, D, 0, 4)
-    else:
-        assert name == "dl4j_flash_bwd" and args[0] != q.data_ptr()
-        assert args[10:18] == (B, H, T, D, 0, 4, 0, int(two))
+    fn = getattr(libs[source], name)
+    assert len(args) == len(fn.argtypes)
+    assert name == ("dl4j_flash_sm90_bwd" if two
+                    else "dl4j_flash_sm90_bwd_fused")
+    assert args[0] == q.data_ptr() and args[4] == do.data_ptr()
+    assert args[10:16] == (B, H, T, D, 0, 4)
+    assert args[-2:] == (0.25, 91)
     assert (tfa.flash_attention_bwd_cuda.fused_launches,
             tfa.flash_attention_bwd_cuda.two_pass_launches) == (
         counts[0] + (not two), counts[1] + 2 * two)
@@ -319,12 +318,12 @@ def test_bf16_at_128_still_takes_the_wgmma_kernel(fake_libs):
     assert name == "dl4j_flash_sm90_fwd" and args[0] == q.data_ptr()
 
 
-@pytest.mark.parametrize("D", [192, 256, 512, 640])
+@pytest.mark.parametrize("D", [192, 256, 384, 512, 640])
 def test_wide_failed_launch_raises_and_counts_nothing(fake_libs, D):
     """A launch the library refuses raises, names the library's error and
-    counts nothing: at D 192 and 256 K3, K4 and K5 on the wgmma kernels,
-    at 512 K3 and K5 on them and K4 on the CUDA-core one (no fallback
-    from one library to the other)."""
+    counts nothing: at D 192 to 512 K3, K4 and K5 on the wgmma kernels,
+    at 640 on the CUDA-core ones (no fallback from one library to the
+    other)."""
     libs = fake_libs(err=700)
     q, k, v, do, m = _bf16(D)
     before = (tfa.flash_attention_fwd_cuda.launches,
@@ -332,22 +331,19 @@ def test_wide_failed_launch_raises_and_counts_nothing(fake_libs, D):
               tfa.flash_attention_bwd_cuda.fused_launches,
               tfa.flash_attention_bwd_cuda.two_pass_launches,
               dict(tfa.flash_attention_bwd_cuda.route_launches))
-    def sm90(kind):
-        return D <= SM90_MAX_D[kind]
-
+    sm90 = D <= SM90_MAX_D
     with pytest.raises(RuntimeError, match="error 700 from dl4j_flash_" + (
-            "sm90_" if sm90("fwd") else "")):
+            "sm90_" if sm90 else "")):
         tfa._fwd_launch(q, k, v, m, True, 0.125, 0)
     for mode in tfa.BWD_MODES:
         with pytest.raises(RuntimeError, match="error 700 from dl4j_flash_"
-                           + ("sm90_" if sm90(mode) else "error")):
+                           + ("sm90_" if sm90 else "error")):
             tfa._bwd_launch(q, k, v, m, torch.zeros_like(q),
                             torch.zeros(B, H, T), do, None, True, 0.125, 0,
                             mode)
     want = {}
-    for kind, name in (("fwd", "fwd"), ("fused", "bwd_fused"),
-                       ("two_pass", "bwd")):
-        if sm90(kind):
+    for name in ("fwd", "bwd_fused", "bwd"):
+        if sm90:
             want.setdefault(tfa.SM90_SOURCE, []).append(
                 f"dl4j_flash_sm90_{name}")
         else:
