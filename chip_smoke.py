@@ -66,32 +66,39 @@ Phases, each printing one JSON line; any failure exits non-zero:
               its plain version, bit for bit (NaN by its bit pattern):
               fp32, bf16 and fp64, n 1/127/128/1000/4097/2^20+3 and
               25,583,592 (the flat ResNet50 gradient), t 1e-3/1e-5/0.37,
-              residual zero and non-zero, and per dtype a case with
-              entries at +-t, one ulp either side, NaN, +-inf and -0.0;
-              every message in {-t, 0, t}; n 0 launches nothing. Then fp32
-              timed by CUDA events: the flat gradient, and the per-step
-              sum over ResNet50's 214 parameter tensors (also by CUDA-graph
-              replay), beside the plain version and the bound.
+              residual zero and non-zero, per dtype a case with entries at
+              +-t, one ulp either side, NaN, +-inf and -0.0, and lists of
+              views at offsets that leave the update and the residual
+              aligned alike or not (the 16-byte path with scalar heads, and
+              the scalar path); every message in {-t, 0, t}; n 0 launches
+              nothing. Then fp32 timed by CUDA events: the flat gradient,
+              and a step's encode of ResNet50's 214 parameter tensors
+              (views into one flat buffer) as one list call and as 214
+              one-tensor calls (host loop, and by CUDA-graph replay), both
+              bit for bit equal to the plain version, beside it and the
+              bound.
 2e. train_parallel_resnet50 - the JAX bench's config 5 (bench.py
               bench_parallel_wrapper): the ResNet50 of 2b through
               ParallelWrapper on make_mesh(1) in SHARED_GRADIENTS with
               threshold 1e-3: fit_on_device(steps=5, sync=False) after a
               warm step (images/s, ms/step and its ratio to 2b's, peak
               memory, the share of elements sent in a captured step;
-              exactly one K11 launch per parameter tensor and 36 K10
-              launches a step; a profile of two steps); two fit(x, y)
+              exactly one K11 launch (over the 214 parameter tensors)
+              and 36 K10 launches a step; a profile of two steps); two
+              fit(x, y)
               steps in AVERAGING (no K11), two in CUSTOM with
               EncodedGradientsAccumulator(1e-3) and two
               ComputationGraph.fit steps with set_gradients_accumulator
               (one K11 launch a step over 25,583,592 elements each); every
               loss finite.
 2f. parallel_oracle - K11 on the captured step's per-tensor updates and
-              residuals bitwise against the plain version; then an fp64 MLP
+              residuals, one list call, bitwise against the plain version;
+              then an fp64 MLP
               and an fp64 graph with a BatchNormalization at workers 2 and
               4 on the card repeated in the mesh: replicas bitwise
               identical after every SHARED_GRADIENTS and CUSTOM step and
-              every AVERAGING window, K11 launches = replicas x parameter
-              tensors a SHARED_GRADIENTS step (replicas a CUSTOM step), and
+              every AVERAGING window, K11 launches = replicas a
+              SHARED_GRADIENTS step and a CUSTOM step, and
               on the MLP CUSTOM with a BasicGradientsAccumulator and
               Sgd(0.1) within 1e-10 of one fit_batch of the whole batch.
 3. kernel_lstm_scan - K7 (the Graves-LSTM scan, forward and backward)
@@ -118,10 +125,14 @@ Phases, each printing one JSON line; any failure exits non-zero:
               sweep and its dRW kernel apart, beside cuDNN's backward at
               the same H and the bounds.
 4. kernel_lstm_gates - K8 (peephole cell) and K9 (plain cell), forward
-              and backward, against their plain versions; then timed at
-              (B 8192, H 256, bf16), K9 beside PyTorch's fused LSTM cell
-              (aten._thnn_fused_lstm_cell and its backward, gates
-              permuted; a yardstick only).
+              and backward, against their plain versions, on the 16-byte
+              path and (H 100 in bf16, gates at an odd element offset in
+              both dtypes) the scalar path, each of which must have run;
+              K8's peephole gradients in the peepholes' dtype and its
+              backward bitwise equal over two calls; then timed at (B
+              8192, H 256, bf16), forward and backward apart, K9 beside
+              PyTorch's fused LSTM cell (aten._thnn_fused_lstm_cell and
+              its backward, gates permuted; a yardstick only).
 5. train_lstm - the zoo TextGenerationLSTM at the bench's width
               (bench.py bench_graves_lstm: GravesLSTM(256) x 2 +
               RnnOutputLayer(47), tBPTT 50, RmsProp(0.01), l2 1e-3,
@@ -1635,6 +1646,89 @@ def new_build_report(built: dict) -> dict:
     return report
 
 
+# K8/K9's and K11's instances on the main paths (bf16 cells on 16-byte
+# rows, fp32 encoding): no spill, and 16-byte loads and stores
+GATES_ENCODE_MAIN = ("gates_fwd_kernel<bf16.8.1>", "gates_fwd_kernel<bf16.8.0>",
+                     "gates_bwd_kernel<bf16.8.8.1>",
+                     "gates_bwd_kernel<bf16.8.8.0>",
+                     "threshold_encode_kernel<f32.f32>")
+_SASS_DTYPE = {"13__nv_bfloat16": "bf16", "f": "f32", "d": "f64"}
+
+
+def gates_encode_kernel_key(name: str):
+    """(kernel, template arguments) of a mangled K8/K9 or K11 kernel name:
+    gates_fwd_kernel<dtype.V.peep>, gates_bwd_kernel<dtype.V.CV.peep>,
+    threshold_encode_kernel<dtype.compute dtype>, else None."""
+    m = re.search(r"(gates_(?:fwd|bwd)_kernel)I(13__nv_bfloat16|f)"
+                  r"((?:Li\d+E)+)Lb([01])E", name)
+    if m:
+        ints = re.findall(r"Li(\d+)E", m.group(3))
+        return m.group(1), ".".join([_SASS_DTYPE[m.group(2)], *ints,
+                                     m.group(4)])
+    m = re.search(r"(threshold_encode_kernel)I(13__nv_bfloat16|f|d)(f|d)E",
+                  name)
+    return (m.group(1), f"{_SASS_DTYPE[m.group(2)]}."
+            f"{_SASS_DTYPE[m.group(3)]}") if m else None
+
+
+def access_counts(lib_path: str, kernel_key) -> dict:
+    """Global loads and stores of 16 bytes (LDG/STG .128) and narrower,
+    and atomics, of each kernel that `kernel_key` names in the SASS."""
+    sass = subprocess.run([cuobjdump(), "-sass", lib_path],
+                          capture_output=True, text=True, timeout=300)
+    if sass.returncode != 0:
+        fail(f"cuobjdump -sass failed: {sass.stderr[-2000:]}")
+    out, cur = {}, None
+    for ln in sass.stdout.splitlines():
+        m = re.search(r"Function : (\S+)", ln)
+        if m:
+            key = kernel_key(m.group(1))
+            cur = None if key is None else f"{key[0]}<{key[1]}>"
+            if cur:
+                out[cur] = dict.fromkeys(("LDG.128", "LDG", "STG.128", "STG",
+                                          "atomic"), 0)
+            continue
+        m = re.match(r"\s*/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\w+\s+)?"
+                     r"([A-Z][\w.]*)", ln)
+        if cur is None or not m:
+            continue
+        full = m.group(1)
+        op = full.split(".")[0]
+        if op in ("LDG", "STG"):
+            out[cur][op + (".128" if ".128" in full else "")] += 1
+        elif op in ATOMIC_OPS or op.startswith("RED"):
+            out[cur]["atomic"] += 1
+    return out
+
+
+def gates_encode_build_report(built: dict) -> dict:
+    """K8/K9's (lstm_gates.cu) and K11's (threshold_encode.cu) instances:
+    registers, spills, static shared memory, and SASS counts of 16-byte and
+    narrower global loads and stores and of atomics. Fails when an
+    instance of GATES_ENCODE_MAIN spills or moves no 16-byte vector, or
+    when an atomic sits anywhere but K8's backward (its ticket)."""
+    from deeplearning4j_tpu_torch.ops import lstm_gates as tg
+    from deeplearning4j_tpu_torch.ops import threshold_encode as te
+    report = {}
+    for source in (tg.SOURCE, te.SOURCE):
+        b = built[source]
+        regs = ptxas_kernels(b["log"], gates_encode_kernel_key)
+        counts = access_counts(b["path"], gates_encode_kernel_key)
+        for key in sorted(regs):
+            report[key] = dict(regs[key], **counts.get(key, {}))
+    for key in GATES_ENCODE_MAIN:
+        r = report.get(key)
+        if r is None or r.get("spill_stores", 1) or not (
+                r.get("LDG.128") and r.get("STG.128")):
+            fail(f"{key}: missing, spilling or without 16-byte accesses: "
+                 f"{r}")
+    for key, r in report.items():
+        if r.get("atomic") and not (key.startswith("gates_bwd_kernel")
+                                    and key.endswith(".1>")):
+            fail(f"{key}: {r['atomic']} atomics")
+    return report
+
+
 # K1/K2's instances flash_decode_paged_kernel<q, pool, vec> (dtype codes 0
 # fp32, 1 fp16, 2 bf16, 3 int8; vec 1: 16-byte cp.async rows), and those of
 # the served pools (bf16 and int8, bf16 queries); tensor-core products
@@ -2878,37 +2972,77 @@ def k9_library(torch, tg, gates, c, dc, dh) -> dict:
             "max_abs_err_vs_plain": err}
 
 
+def odd_gates(torch, args):
+    """`args` with the gates moved to a view one element into an
+    allocation of their own: not 16-byte aligned, so the kernels take
+    their scalar path."""
+    g = args[0]
+    buf = torch.empty(g.numel() + 1, dtype=g.dtype, device=g.device)
+    buf[1:].copy_(g.reshape(-1))
+    return (buf[1:].view(g.shape),) + tuple(args[1:])
+
+
 def phase_kernel_lstm_gates(torch):
     """K8 and K9 (forward and backward) against their plain versions: fp32
-    and bf16, H 32/64/256/512, B 1/3/65/8192; then the char-RNN step
-    shape (B 8192, H 256, bf16), device time by CUDA-graph replay beside
-    the plain versions, and K9 beside PyTorch's fused LSTM cell
-    (k9_library). No single library call computes the peephole cell (K8):
-    its library_ms is null."""
+    and bf16, H 32/64/100/256/512, B 1/3/65/8192, and the gates at an odd
+    element offset at H 100 and 256, B 3 and 8192; each output in the
+    plain version's dtype (dpi/dpf/dpo in the peepholes'), and each
+    wrapper's 16-byte and scalar paths both run (H 100 in bf16 and the odd
+    gates take the scalar path). K8's backward gives the same bits in two
+    calls (B 8192, H 256, bf16 and fp32). Then the char-RNN step shape (B
+    8192, H 256, bf16), forward and backward apart, device time by
+    CUDA-graph replay beside the plain versions and the bounds, and K9
+    beside PyTorch's fused LSTM cell (k9_library). No single library call
+    computes the peephole cell (K8): its library_ms is null."""
     from deeplearning4j_tpu_torch.ops import lstm_gates as tg
+    wrappers = (tg.graves_gates_cuda, tg.graves_gates_bwd_cuda,
+                tg.lstm_gates_cuda, tg.lstm_gates_bwd_cuda)
+    for fn in wrappers:
+        fn.path_launches = dict.fromkeys(tg.PATHS, 0)
     worst = {}
     worst_abs = {}
     n_cases = 0
     for dt in ("float32", "bfloat16"):
         dtype = getattr(torch, dt)
-        for H in (32, 64, 256, 512):
-            for B in (1, 3, 65, 8192):
-                args = gates_case(torch, B, H, dtype, seed=n_cases)
-                for peep, name in ((True, "graves_gates"),
-                                   (False, "lstm_gates")):
-                    kf, kb, pf_, pb = gates_calls(tg, peep, args)
-                    torch.cuda.synchronize()
-                    for i, (k, p) in enumerate(zip(kf + kb, pf_ + pb)):
-                        e = rel_err(torch, k, p, 1e-3)
-                        key = f"{name}_{dt}"
-                        if not (math.isfinite(e) and e <= GATES_REL_TOL[dt]):
-                            fail(f"kernel_lstm_gates {name} {dt} H={H} "
-                                 f"B={B} output {i}: rel err {e} > "
-                                 f"{GATES_REL_TOL[dt]}")
-                        worst[key] = max(worst.get(key, 0.0), e)
-                        worst_abs[key] = max(worst_abs.get(key, 0.0),
-                                             max_err(k, p))
-                n_cases += 1
+        todo = [(H, B, False) for H in (32, 64, 100, 256, 512)
+                for B in (1, 3, 65, 8192)] + [
+            (H, B, True) for H in (100, 256) for B in (3, 8192)]
+        for H, B, odd in todo:
+            args = gates_case(torch, B, H, dtype, seed=n_cases)
+            if odd:
+                args = odd_gates(torch, args)
+            for peep, name in ((True, "graves_gates"),
+                               (False, "lstm_gates")):
+                kf, kb, pf_, pb = gates_calls(tg, peep, args)
+                torch.cuda.synchronize()
+                for i, (k, p) in enumerate(zip(kf + kb, pf_ + pb)):
+                    e = rel_err(torch, k, p, 1e-3)
+                    key = f"{name}_{dt}"
+                    if not (math.isfinite(e) and e <= GATES_REL_TOL[dt]) \
+                            or k.dtype != p.dtype or k.shape != p.shape:
+                        fail(f"kernel_lstm_gates {name} {dt} H={H} "
+                             f"B={B} odd={odd} output {i}: rel err {e} > "
+                             f"{GATES_REL_TOL[dt]} or {k.dtype} "
+                             f"{tuple(k.shape)} against {p.dtype} "
+                             f"{tuple(p.shape)}")
+                    worst[key] = max(worst.get(key, 0.0), e)
+                    worst_abs[key] = max(worst_abs.get(key, 0.0),
+                                         max_err(k, p))
+            n_cases += 1
+    paths = {fn.__name__: dict(fn.path_launches) for fn in wrappers}
+    if any(0 in v.values() for v in paths.values()):
+        fail(f"kernel_lstm_gates: a path never ran: {paths}")
+    repeat = {}
+    for dt in ("bfloat16", "float32"):
+        g, c, pi, pf, po, dc, dh = gates_case(torch, LSTM_B, LSTM_H,
+                                              getattr(torch, dt), seed=778)
+        a = tg.graves_gates_bwd_cuda(g, c, pi, pf, po, dc, dh)
+        b = tg.graves_gates_bwd_cuda(g, c, pi, pf, po, dc, dh)
+        torch.cuda.synchronize()
+        repeat[dt] = all(bits_equal(torch, x, y) for x, y in zip(a, b))
+    if not all(repeat.values()):
+        fail(f"kernel_lstm_gates: K8's backward differs between two calls "
+             f"{repeat}")
     args = gates_case(torch, LSTM_B, LSTM_H, torch.bfloat16, seed=777)
     gates, c, pi, pf, po, dc, dh = args
     ms, plain_ms, bounds = {}, {}, {}
@@ -2931,6 +3065,7 @@ def phase_kernel_lstm_gates(torch):
                         for k in ("fwd", "bwd")}
     library = k9_library(torch, tg, gates, c, dc, dh)
     res = {"phase": "kernel_lstm_gates", "cases": n_cases,
+           "path_launches": paths, "k8_bwd_bitwise_repeat": repeat,
            "rel_err": worst, "max_abs_err": worst_abs,
            "tolerance": GATES_REL_TOL,
            "shape": {"B": LSTM_B, "H": LSTM_H, "dtype": "bfloat16"},
@@ -2962,6 +3097,9 @@ def reset_lstm_launches(ts, tg) -> None:
                tg.graves_gates_cuda, tg.graves_gates_bwd_cuda,
                tg.lstm_gates_cuda, tg.lstm_gates_bwd_cuda):
         fn.launches = 0
+    for fn in (tg.graves_gates_cuda, tg.graves_gates_bwd_cuda,
+               tg.lstm_gates_cuda, tg.lstm_gates_bwd_cuda):
+        fn.path_launches = dict.fromkeys(tg.PATHS, 0)
     ts.graves_lstm_scan_fwd_cuda.variant_launches = dict.fromkeys(
         ts.FWD_VARIANTS, 0)
     ts.graves_lstm_scan_bwd_cuda.variant_launches = dict.fromkeys(
@@ -3082,7 +3220,12 @@ def phase_train_lstm(torch, np):
         if got != want:
             fail(f"train_lstm masked {layer}: launches {got}, expected "
                  f"{want}")
+        wrap = (tg.graves_gates_cuda, tg.graves_gates_bwd_cuda) \
+            if key == "K8" else (tg.lstm_gates_cuda, tg.lstm_gates_bwd_cuda)
         masked[layer] = {"loss": loss, "launches": got,
+                         "path_launches": {
+                             f"{key}_{d}": dict(fn.path_launches)
+                             for d, fn in zip(("fwd", "bwd"), wrap)},
                          "ms": (time.perf_counter() - t0) * 1e3}
         del mnet
     all_losses = list(warm) + losses + fit_losses + [
@@ -3724,8 +3867,8 @@ def phase_resnet_oracle(torch, np):
 # ------------------------------------------------------ gradient sharing
 # The JAX bench's config 5 (bench.py bench_parallel_wrapper): the
 # ResNet50 above (b256, bf16 over fp32) through ParallelWrapper in
-# SHARED_GRADIENTS with threshold 1e-3 on make_mesh(1). K11 encodes each
-# parameter tensor's update once per replica per step.
+# SHARED_GRADIENTS with threshold 1e-3 on make_mesh(1). K11 encodes every
+# parameter tensor's update in one launch per replica per step.
 PW_THRESHOLD = 1e-3
 THRESH_NS = (1, 127, 128, 1000, 4097, 2 ** 20 + 3, 25_583_592)
 THRESH_TS = (1e-3, 1e-5, 0.37)
@@ -3771,16 +3914,33 @@ def resnet_leaf_shapes(net):
     return [tuple(t.shape) for t in tree_leaves(net.params_tree)]
 
 
+def threshold_views(torch, n, dtype, t, offsets, g):
+    """(update, residual) of n elements as views `offsets` elements into
+    allocations of their own (threshold_case's values)."""
+    pair = threshold_case(torch, n, dtype, t, True, g)
+    out = []
+    for a, o in zip(pair, offsets):
+        buf = torch.empty(n + o, dtype=dtype, device="cuda")
+        buf[o:].copy_(a)
+        out.append(buf[o:])
+    return out
+
+
 def phase_kernel_threshold(torch):
     """K11 against threshold_encode_plain on the card, bitwise: fp32, bf16
     and fp64, n in THRESH_NS, t in THRESH_TS, residual zero and non-zero,
-    and per dtype an edge case (+-t, one ulp either side, NaN, +-inf,
-    -0.0); every message in {-t, 0, t}; n 0 launches nothing. Then timed
-    by CUDA events in fp32: the flat ResNet50 gradient (25,583,592
-    elements) and the per-step sum over ResNet50's 214 parameter tensors
-    (host loop, and its device time by CUDA-graph replay), beside the
-    plain version and the bound."""
+    per dtype an edge case (+-t, one ulp either side, NaN, +-inf, -0.0)
+    and one list call over views at offsets (update, residual) (0, 0),
+    (1, 1), (3, 3) (the 16-byte path, scalar heads and tails) and (1, 2),
+    (0, 1) (scalar) for n 1, 127, 4097 and 2^20 + 3; every message in {-t,
+    0, t}; n 0 launches nothing. Then timed by CUDA events in fp32: the
+    flat ResNet50 gradient (25,583,592 elements), and one step's encode of
+    ResNet50's 214 parameter tensors (views into one flat buffer) as one
+    list call and as 214 one-tensor calls (the host loop, and its device
+    time by CUDA-graph replay), both bit for bit equal to the plain
+    version, beside it and the bound."""
     from deeplearning4j_tpu_torch.ops import threshold_encode as te
+    k11 = te.threshold_encode_list_cuda
     g = torch.Generator(device="cuda").manual_seed(0)
     cases, bad = 0, []
     sent = {}
@@ -3810,14 +3970,27 @@ def phase_kernel_threshold(torch):
                 sent[f"{dt}_t{t}"] = (m != 0).sum().item() / n
             cases += 1
             del u, r, m, nr, pm, pr
-    before = te.threshold_encode_cuda.launches
+        pairs = [threshold_views(torch, n, dtype, 1e-3, offs, g)
+                 for n in (1, 127, 4097, 2 ** 20 + 3)
+                 for offs in ((0, 0), (1, 1), (3, 3), (1, 2), (0, 1))]
+        before = k11.launches
+        ms, nrs = k11([u for u, _ in pairs], [r for _, r in pairs], 1e-3)
+        pms, prs = te.threshold_encode_list_plain(
+            [u for u, _ in pairs], [r for _, r in pairs], 1e-3)
+        torch.cuda.synchronize()
+        if k11.launches != before + 1 or not all(
+                bits_equal(torch, a, b) for a, b in zip(ms + nrs, pms + prs)):
+            bad.append(f"{dt} list of views at offsets")
+        cases += len(pairs)
+        del pairs, ms, nrs, pms, prs
+    before = k11.launches
     e = torch.zeros(0, device="cuda")
     empty = te.threshold_encode_cuda(e, e, 1e-3)
-    if te.threshold_encode_cuda.launches != before or empty[0].numel():
+    if k11.launches != before or empty[0].numel():
         bad.append("n = 0 launched or returned elements")
     if bad:
         fail(f"kernel_threshold: K11 differs from its plain version: {bad}")
-    # timing, fp32: the flat gradient, then the per-leaf step
+    # timing, fp32: the flat gradient, then the step's parameter tensors
     from deeplearning4j_tpu_torch.models import ResNet50
     shapes = resnet_leaf_shapes(ResNet50(num_labels=RESNET_CLASSES).init(
         device="cpu"))
@@ -3830,19 +4003,37 @@ def phase_kernel_threshold(torch):
         u, r, PW_THRESHOLD), iters=50)
     flat_plain_ms = event_ms(torch, lambda: te.threshold_encode_plain(
         u, r, PW_THRESHOLD), iters=10)
-    us = list(torch.split(u, [math.prod(s) for s in shapes]))
-    rs = list(torch.split(r, [math.prod(s) for s in shapes]))
-    us = [a.view(s) for a, s in zip(us, shapes)]
-    rs = [a.view(s) for a, s in zip(rs, shapes)]
+    sizes = [math.prod(s) for s in shapes]
+    us = [a.view(s) for a, s in zip(torch.split(u, sizes), shapes)]
+    rs = [a.view(s) for a, s in zip(torch.split(r, sizes), shapes)]
 
-    def leaves(fn):
-        return lambda: [fn(a.reshape(-1), b.reshape(-1), PW_THRESHOLD)
-                        for a, b in zip(us, rs)]
-    step_ms = event_ms(torch, leaves(te.threshold_encode_cuda), iters=20)
-    step_graph_ms = graph_ms(torch, leaves(te.threshold_encode_cuda),
-                             reps=2, iters=10)
-    step_plain_ms = event_ms(torch, leaves(te.threshold_encode_plain),
-                             iters=5)
+    def one_list():
+        return k11(us, rs, PW_THRESHOLD)
+
+    def per_tensor():
+        out = [te.threshold_encode_cuda(a, b, PW_THRESHOLD)
+               for a, b in zip(us, rs)]
+        return [m for m, _ in out], [e for _, e in out]
+    pms, prs = te.threshold_encode_list_plain(us, rs, PW_THRESHOLD)
+    before = k11.launches
+    for call, want in ((one_list, 1), (per_tensor, len(shapes))):
+        ms, nrs = call()
+        torch.cuda.synchronize()
+        if not all(bits_equal(torch, a, b)
+                   for a, b in zip(ms + nrs, pms + prs)):
+            fail(f"kernel_threshold: the step's tensors by {call.__name__} "
+                 "differ from the plain version")
+        if k11.launches - before != want:
+            fail(f"kernel_threshold: {call.__name__} made "
+                 f"{k11.launches - before} launches, expected {want}")
+        before = k11.launches
+    del pms, prs, ms, nrs
+    step_ms = event_ms(torch, one_list, iters=20)
+    step_graph_ms = graph_ms(torch, one_list, reps=2, iters=10)
+    tensor_ms = event_ms(torch, per_tensor, iters=20)
+    tensor_graph_ms = graph_ms(torch, per_tensor, reps=2, iters=10)
+    step_plain_ms = event_ms(torch, lambda: te.threshold_encode_list_plain(
+        us, rs, PW_THRESHOLD), iters=5)
     # bytes bound it: update and residual read, message and residual
     # written; a few operations an element, far below the card's rate
     bound_ms = 4 * n * 4 / HBM_BYTES_PER_S * 1e3
@@ -3852,11 +4043,13 @@ def phase_kernel_threshold(torch):
            "sent_share_at_25583592": sent, "leaves": len(shapes),
            "elements": n, "flat_ms": flat_ms, "flat_plain_ms": flat_plain_ms,
            "ms": step_ms, "graph_ms": step_graph_ms,
+           "per_tensor_ms": tensor_ms, "per_tensor_graph_ms": tensor_graph_ms,
            "plain_ms": step_plain_ms, "bound_ms": bound_ms,
            "bound_by": "bytes",
            "per": f"one ResNet50 step: {len(shapes)} fp32 parameter "
-                  f"tensors, threshold {PW_THRESHOLD} (flat_*: one call on "
-                  "the flat gradient)"}
+                  f"tensors, threshold {PW_THRESHOLD}: ms / graph_ms one "
+                  "list call (one launch), per_tensor_* one call a tensor; "
+                  "flat_*: one call on the flat gradient"}
     emit(res)
     return res
 
@@ -3889,7 +4082,7 @@ def phase_train_parallel_resnet50(torch, np, train_resnet):
     through ParallelWrapper on make_mesh(1) in SHARED_GRADIENTS, threshold
     1e-3. fit_on_device(steps=5, sync=False) after a warm step: images/s,
     ms/step and its ratio to train_resnet50's, peak memory, exactly one
-    K11 launch per parameter tensor and 36 K10 launches a step, the share
+    K11 launch (over the parameter tensors) and 36 K10 launches a step, the share
     of elements sent (from one captured step), a profile of two steps
     (top kernels, idle share). Then two fit(x, y) steps in
     AVERAGING (no K11), two in CUSTOM with EncodedGradientsAccumulator(1e-3)
@@ -3900,7 +4093,7 @@ def phase_train_parallel_resnet50(torch, np, train_resnet):
     from deeplearning4j_tpu_torch.ops import threshold_encode as te
     from deeplearning4j_tpu_torch.parallel import (
         EncodedGradientsAccumulator, TrainingMode)
-    k10, k11 = cf.conv1x1_stats_cuda, te.threshold_encode_cuda
+    k10, k11 = cf.conv1x1_stats_cuda, te.threshold_encode_list_cuda
     net = resnet_net("bfloat16")
     x, y = resnet_data(torch, np, RESNET_B)
     leaves = len(resnet_leaf_shapes(net))
@@ -3956,9 +4149,10 @@ def phase_train_parallel_resnet50(torch, np, train_resnet):
                                   for v in s["losses"]]
     if not all(math.isfinite(v) for v in all_losses):
         fail(f"train_parallel_resnet50: non-finite loss {all_losses}")
-    if launches != {"K10": RESNET_PAIRS * steps, "K11": leaves * steps}:
+    if launches != {"K10": RESNET_PAIRS * steps, "K11": steps}:
         fail(f"train_parallel_resnet50: launches {launches} in {steps} "
-             f"steps, expected {RESNET_PAIRS} K10 and {leaves} K11 a step")
+             f"steps, expected {RESNET_PAIRS} K10 and 1 K11 (over {leaves} "
+             "tensors) a step")
     want = {TrainingMode.AVERAGING: (2 * RESNET_PAIRS, 0, None),
             TrainingMode.CUSTOM: (2 * RESNET_PAIRS, 2, n_params),
             "graph_accumulator": (2 * RESNET_PAIRS, 2, n_params)}
@@ -4034,11 +4228,11 @@ def replicas_identical(torch, pw, opt: bool) -> bool:
 
 def phase_parallel_oracle(torch, np, capture):
     """K11 on the captured full-width step's per-tensor updates and
-    residuals, bitwise against the plain version. Then the fp64 MLP and
-    graph of small_nets at workers 2 and 4 on the card repeated in the
-    mesh: replicas bitwise identical after every SHARED_GRADIENTS and
-    CUSTOM step and after every AVERAGING window; K11 launches = replicas x
-    parameter tensors a SHARED_GRADIENTS step and replicas a CUSTOM step;
+    residuals, one list call, bitwise against the plain version. Then the
+    fp64 MLP and graph of small_nets at workers 2 and 4 on the card
+    repeated in the mesh: replicas bitwise identical after every
+    SHARED_GRADIENTS and CUSTOM step and after every AVERAGING window; K11
+    launches = replicas a SHARED_GRADIENTS step and a CUSTOM step;
     on the MLP, CUSTOM with a BasicGradientsAccumulator and Sgd(0.1)
     within 1e-10 of one fit_batch of the whole batch."""
     from deeplearning4j_tpu_torch.nn.updater.updaters import Sgd
@@ -4046,21 +4240,25 @@ def phase_parallel_oracle(torch, np, capture):
     from deeplearning4j_tpu_torch.parallel import (
         BasicGradientsAccumulator, EncodedGradientsAccumulator, Mesh,
         ParallelWrapper, TrainingMode)
-    from deeplearning4j_tpu_torch.util.flat_params import tree_leaves
     upds, resid = capture
     bad = []
+    k11 = te.threshold_encode_list_cuda
     with torch.no_grad():
-        for i, (u, r) in enumerate(zip(upds, resid)):
-            m, nr = te.threshold_encode_cuda(u, r, PW_THRESHOLD)
-            pm, pr = te.threshold_encode_plain(u, r, PW_THRESHOLD)
-            if not (bits_equal(torch, m, pm) and bits_equal(torch, nr, pr)):
+        before = k11.launches
+        ms, nrs = k11(upds, resid, PW_THRESHOLD)
+        if k11.launches != before + 1:
+            bad.append(f"captured step: {k11.launches - before} launches")
+        pms, prs = te.threshold_encode_list_plain(upds, resid, PW_THRESHOLD)
+        for i, u in enumerate(upds):
+            if not (bits_equal(torch, ms[i], pms[i])
+                    and bits_equal(torch, nrs[i], prs[i])):
                 bad.append(f"captured tensor {i} {tuple(u.shape)}")
+        del ms, nrs, pms, prs
     captured = len(upds)
     del upds, resid, capture
     rng = np.random.RandomState(0)
     x = torch.from_numpy(rng.randn(16, 5)).cuda()
     y = torch.from_numpy(np.eye(3)[rng.randint(0, 3, 16)]).cuda()
-    k11 = te.threshold_encode_cuda
     runs = {}
     for name, make in small_nets(torch):
         for R in (2, 4):
@@ -4069,7 +4267,6 @@ def phase_parallel_oracle(torch, np, capture):
                                 (TrainingMode.CUSTOM, 2),
                                 (TrainingMode.AVERAGING, 4)):
                 net = make()
-                n_leaves = len(tree_leaves(net.params_tree))
                 acc = EncodedGradientsAccumulator(parties=R) \
                     if mode == TrainingMode.CUSTOM else None
                 pw = ParallelWrapper(net, mesh=mesh, training_mode=mode,
@@ -4083,7 +4280,7 @@ def phase_parallel_oracle(torch, np, capture):
                     if mode != TrainingMode.AVERAGING or (s + 1) % 2 == 0:
                         same.append(replicas_identical(
                             torch, pw, mode != TrainingMode.SHARED_GRADIENTS))
-                want = {TrainingMode.SHARED_GRADIENTS: R * n_leaves,
+                want = {TrainingMode.SHARED_GRADIENTS: R,
                         TrainingMode.CUSTOM: R,
                         TrainingMode.AVERAGING: 0}[mode]
                 key = f"{name}_R{R}_{mode}"
@@ -4166,15 +4363,16 @@ def main() -> int:
     sm90 = sm90_build_report(built)
     new_kernels = new_build_report(built)
     decode_kernels = decode_build_report(built)
+    gates_encode = gates_encode_build_report(built)
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
           "sm90_kernels": sm90, "k10_k7_kernels": new_kernels,
-          "k1_k2_kernels": decode_kernels,
+          "k1_k2_kernels": decode_kernels, "k8_k9_k11_kernels": gates_encode,
           "kernels": list(KERNEL_WRAPPERS) + [
               "flash_attention_fwd_cuda", "flash_attention_bwd_cuda",
               "graves_lstm_scan_fwd_cuda", "graves_lstm_scan_bwd_cuda",
               "graves_gates_cuda", "graves_gates_bwd_cuda",
               "lstm_gates_cuda", "lstm_gates_bwd_cuda",
-              "conv1x1_stats_cuda", "threshold_encode_cuda"],
+              "conv1x1_stats_cuda", "threshold_encode_list_cuda"],
           "sources": {s: {"seconds": b["seconds"],
                           "ptxas": [ln.strip() for ln in b["log"].splitlines()
                                     if "registers" in ln or "smem" in ln]}
@@ -4336,7 +4534,12 @@ def main() -> int:
         "library_ms": None if kgates["library_ms"][name] is None else
         sum(kgates["library_ms"][name].values()),
         "ms_fwd_bwd": [kgates["ms"][name]["fwd"],
-                       kgates["ms"][name]["bwd"]]}
+                       kgates["ms"][name]["bwd"]],
+        "bound_ms_fwd_bwd": [kgates["bound_ms"][name]["fwd"],
+                             kgates["bound_ms"][name]["bwd"]],
+        "status": "redesigned: 16-byte rows, backward in one launch"
+        if k == "K8" else "K8's template without the peepholes",
+        "path_launches": train_lstm["masked"][layer]["path_launches"]}
         for name, k, layer, line in (
             ("graves_gates", "K8", "GravesLSTM", 226),
             ("lstm_gates", "K9", "LSTM", 93))] + [{
@@ -4367,6 +4570,9 @@ def main() -> int:
         "ms": kthresh["ms"], "plain_ms": kthresh["plain_ms"],
         "bound_ms": kthresh["bound_ms"], "bound_by": kthresh["bound_by"],
         "library_ms": None, "graph_ms": kthresh["graph_ms"],
+        "status": "redesigned: one launch a list of tensors",
+        "per_tensor_ms": kthresh["per_tensor_ms"],
+        "per_tensor_graph_ms": kthresh["per_tensor_graph_ms"],
         "flat_ms": kthresh["flat_ms"],
         "flat_plain_ms": kthresh["flat_plain_ms"], "per": kthresh["per"],
         "oracle_captured_bitwise": pw_oracle["captured_bitwise"]}]})

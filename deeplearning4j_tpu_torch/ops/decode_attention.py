@@ -40,7 +40,7 @@ import ctypes
 
 import torch
 
-from deeplearning4j_tpu_torch.ops import build
+from deeplearning4j_tpu_torch.ops import build, helpers
 from deeplearning4j_tpu_torch.ops.helpers import register_helper
 
 NEG_INF = -1e30
@@ -292,7 +292,7 @@ def _launch(q, kp, vp, block_tables, visible, scale, window, k_scale,
     out = torch.empty_like(q) if merge else None
     lib = _library()
     stream = torch.cuda.current_stream(q.device).cuda_stream
-    tickets = _tickets(S * Hk, q.device, stream, lib)
+    tickets = helpers.tickets(_TICKETS, S * Hk, q.device, stream, lib)
     err = lib.dl4j_flash_decode_paged(
         q.data_ptr(), kp.data_ptr(), vp.data_ptr(),
         k_scale.data_ptr() if quantized else None,
@@ -437,21 +437,7 @@ def contiguous_partials_plain(q, kc, vc, visible, scale, window: int = 0,
     return o * any_[..., None], l_p
 
 
-_TICKETS = {}
-
-
-def _tickets(n: int, device, stream: int, lib) -> torch.Tensor:
-    """Zeroed int32 tickets for K6's merge, at least n. Every launch puts
-    the tickets it takes back to 0, so one buffer serves the calls of a
-    stream in order: one per (device, stream), and one per CUDA graph
-    capture, zeroed by a memset at its first call in the graph. Buffers
-    are kept, since a captured graph goes on using its own."""
-    key = (device, stream, lib.dl4j_capture_id(stream))
-    bufs = _TICKETS.setdefault(key, [])
-    if not bufs or bufs[-1].numel() < n:
-        bufs.append(torch.zeros(max(n, 64), dtype=torch.int32,
-                                device=device))
-    return bufs[-1]
+_TICKETS = {}          # K1, K2 and K6's tickets (`helpers.tickets`)
 
 
 def _contiguous_library():
@@ -505,7 +491,7 @@ def _contiguous_launch(q, kc, vc, visible, scale, window, merge: bool):
     out = torch.empty_like(q)
     lib = _contiguous_library()
     stream = torch.cuda.current_stream(q.device).cuda_stream
-    tickets = _tickets(S * Hk, q.device, stream, lib)
+    tickets = helpers.tickets(_TICKETS, S * Hk, q.device, stream, lib)
     err = lib.dl4j_flash_decode_contiguous(
         q.data_ptr(), kc.data_ptr(), vc.data_ptr(), vis.data_ptr(),
         o_p.data_ptr(), l_p.data_ptr(), tickets.data_ptr(), out.data_ptr(),

@@ -37,3 +37,19 @@ def helper_for(op_name: str, plain: Callable, like: torch.Tensor) -> Callable:
 
 def registered_helpers() -> Dict[str, Callable]:
     return dict(_REGISTRY)
+
+
+def tickets(table: dict, n: int, device, stream: int, lib) -> torch.Tensor:
+    """Zeroed int32 tickets, at least n, for a kernel whose last CTA of a
+    group reduces the group's partials (K1, K2, K6, K8's backward). Every
+    launch puts the tickets it takes back to 0, so one buffer serves the
+    calls of a stream in order: `table` (the caller's) keeps one per
+    (device, stream), and one per CUDA graph capture (`lib.dl4j_capture_id`),
+    zeroed by a memset at its first call in the graph. Buffers are kept,
+    since a captured graph goes on using its own."""
+    key = (device, stream, lib.dl4j_capture_id(stream))
+    bufs = table.setdefault(key, [])
+    if not bufs or bufs[-1].numel() < n:
+        bufs.append(torch.zeros(max(n, 64), dtype=torch.int32,
+                                device=device))
+    return bufs[-1]

@@ -21,9 +21,14 @@ Kernels (`csrc/lstm_gates.cu`, CUDA C++ for sm_90a, fp32 and bf16):
 - K9 `lstm_gates_cuda` / `lstm_gates_bwd_cuda` replace
   `lstm_gates_pallas` (:93);
 - K8 `graves_gates_cuda` / `graves_gates_bwd_cuda` replace
-  `graves_gates_pallas` (:226). K8's backward writes per-block fp32
-  partials of dpi/dpf/dpo that a torch sum reduces here.
-Each wrapper counts its launches in `.launches`.
+  `graves_gates_pallas` (:226). K8's backward is one launch: its last CTA
+  of each column block sums the row blocks' fp32 partials of dpi/dpf/dpo
+  in a fixed order and writes them in the peepholes' dtype, with tickets
+  kept per stream and per CUDA graph capture (`helpers.tickets`).
+Each takes 16-byte rows where H is a multiple of 16 bytes' elements and
+every pointer is 16-byte aligned, else the scalar path of the same
+template (`vector_path`). Each wrapper counts its launches in `.launches`
+and, by path, in `.path_launches`.
 """
 from __future__ import annotations
 
@@ -31,7 +36,7 @@ import ctypes
 
 import torch
 
-from deeplearning4j_tpu_torch.ops import build
+from deeplearning4j_tpu_torch.ops import build, helpers
 from deeplearning4j_tpu_torch.ops.helpers import helper_for, register_helper
 
 SOURCE = "lstm_gates.cu"
@@ -151,28 +156,47 @@ def graves_gates(gates, c, pi, pf, po):
 
 
 # ------------------------------------------------------------------ kernels
+_TICKETS = {}          # K8's backward tickets (`helpers.tickets`)
+PATHS = ("vector", "scalar")
+
+
 def _library():
     lib = build.load(SOURCE)
     if lib.dl4j_lstm_gates_fwd.argtypes is None:
-        # fwd: gates, c, pi, pf, po, c_new, h_new, B, H, dtype, stream
+        # fwd: gates, c, pi, pf, po, c_new, h_new, B, H, dtype, vec, stream
         lib.dl4j_lstm_gates_fwd.argtypes = [ctypes.c_void_p] * 7 + [
-            ctypes.c_int] * 3 + [ctypes.c_void_p]
+            ctypes.c_int] * 4 + [ctypes.c_void_p]
         # bwd: gates, c, pi, pf, po, dc, dh, dgates, dcprev, partials,
-        #      B, H, dtype, stream
-        lib.dl4j_lstm_gates_bwd.argtypes = [ctypes.c_void_p] * 10 + [
-            ctypes.c_int] * 3 + [ctypes.c_void_p]
+        #      tickets, dp, B, H, dtype, vec, stream
+        lib.dl4j_lstm_gates_bwd.argtypes = [ctypes.c_void_p] * 12 + [
+            ctypes.c_int] * 4 + [ctypes.c_void_p]
         lib.dl4j_lstm_gates_blocks.argtypes = [ctypes.c_int]
+        lib.dl4j_lstm_gates_tickets.argtypes = [ctypes.c_int]
         for fn in (lib.dl4j_lstm_gates_fwd, lib.dl4j_lstm_gates_bwd,
-                   lib.dl4j_lstm_gates_blocks):
+                   lib.dl4j_lstm_gates_blocks, lib.dl4j_lstm_gates_tickets):
             fn.restype = ctypes.c_int
+        lib.dl4j_capture_id.argtypes = [ctypes.c_void_p]
+        lib.dl4j_capture_id.restype = ctypes.c_ulonglong
         lib.dl4j_lstm_gates_error_string.argtypes = [ctypes.c_int]
         lib.dl4j_lstm_gates_error_string.restype = ctypes.c_char_p
     return lib
 
 
-def _check(what, gates, c, *more):
+def vector_path(H: int, tensors) -> bool:
+    """True where the kernels take 16-byte rows: H a multiple of the
+    elements in 16 bytes and every tensor's data 16-byte aligned (the
+    outputs are fresh allocations, so aligned)."""
+    elt = tensors[0].element_size()
+    return H % (16 // elt) == 0 and all(t.data_ptr() % 16 == 0
+                                        for t in tensors)
+
+
+def _on_card(what, gates):
     if gates.device.type != "cuda":
         raise ValueError(f"{what} runs on CUDA tensors only")
+
+
+def _check(what, gates, c, *more):
     if gates.dtype not in _DTYPE_CODE:
         raise TypeError(f"{what}: dtype {gates.dtype} has no kernel on the "
                         "card (float32, bfloat16)")
@@ -198,78 +222,88 @@ def _ptr(t):
     return None if t is None else t.data_ptr()
 
 
-def _gates_fwd_cuda(what, gates, c, peep):
+def _count(wrapper, vec):
+    wrapper.launches += 1
+    wrapper.path_launches[PATHS[0 if vec else 1]] += 1
+
+
+def _gates_fwd_launch(wrapper, what, gates, c, peep):
     B, H = _check(what, gates, c, *peep)
     gates, c = gates.contiguous(), c.contiguous()
     peep = [p.contiguous() for p in peep]
     c_new, h_new = torch.empty_like(c), torch.empty_like(c)
+    vec = vector_path(H, [gates, c, *peep])
     lib = _library()
     pi, pf, po = peep if peep else (None, None, None)
     _launch(lib, lib.dl4j_lstm_gates_fwd, what, gates.data_ptr(),
             c.data_ptr(), _ptr(pi), _ptr(pf), _ptr(po), c_new.data_ptr(),
-            h_new.data_ptr(), B, H, _DTYPE_CODE[gates.dtype],
+            h_new.data_ptr(), B, H, _DTYPE_CODE[gates.dtype], int(vec),
             torch.cuda.current_stream(gates.device).cuda_stream)
+    _count(wrapper, vec)
     return c_new, h_new
 
 
-def _gates_bwd_cuda(what, gates, c, peep, dc_new, dh):
+def _gates_bwd_launch(wrapper, what, gates, c, peep, dc_new, dh):
     B, H = _check(what, gates, c, *peep, dc_new, dh)
     gates, c = gates.contiguous(), c.contiguous()
     dc_new, dh = dc_new.contiguous(), dh.contiguous()
     peep = [p.contiguous() for p in peep]
     dgates, dc_prev = torch.empty_like(gates), torch.empty_like(c)
+    vec = vector_path(H, [gates, c, dc_new, dh, *peep])
     lib = _library()
-    partials = None
+    stream = torch.cuda.current_stream(gates.device).cuda_stream
+    pi, pf, po = peep if peep else (None, None, None)
+    partials = tickets = dp = None
     if peep:
         partials = torch.empty((3, lib.dl4j_lstm_gates_blocks(B), H),
                                dtype=torch.float32, device=gates.device)
-    pi, pf, po = peep if peep else (None, None, None)
+        tickets = helpers.tickets(_TICKETS, lib.dl4j_lstm_gates_tickets(H),
+                                  gates.device, stream, lib)
+        dp = torch.empty((3, H), dtype=pi.dtype, device=gates.device)
     _launch(lib, lib.dl4j_lstm_gates_bwd, what, gates.data_ptr(),
             c.data_ptr(), _ptr(pi), _ptr(pf), _ptr(po), dc_new.data_ptr(),
             dh.data_ptr(), dgates.data_ptr(), dc_prev.data_ptr(),
-            _ptr(partials), B, H, _DTYPE_CODE[gates.dtype],
-            torch.cuda.current_stream(gates.device).cuda_stream)
+            _ptr(partials), _ptr(tickets), _ptr(dp), B, H,
+            _DTYPE_CODE[gates.dtype], int(vec), stream)
+    _count(wrapper, vec)
     if not peep:
         return dgates, dc_prev
-    dp = partials.sum(1)                      # (3, H) fp32, over the blocks
-    return (dgates, dc_prev, dp[0].to(pi.dtype), dp[1].to(pf.dtype),
-            dp[2].to(po.dtype))
+    return dgates, dc_prev, dp[0], dp[1], dp[2]
 
 
 def lstm_gates_cuda(gates, c):
     """K9 forward on CUDA tensors; same contract as `lstm_gates_plain`."""
-    out = _gates_fwd_cuda("lstm_gates", gates, c, [])
-    lstm_gates_cuda.launches += 1
-    return out
+    _on_card("lstm_gates", gates)
+    return _gates_fwd_launch(lstm_gates_cuda, "lstm_gates", gates, c, [])
 
 
 def lstm_gates_bwd_cuda(gates, c, dc_new, dh):
     """K9 backward on CUDA tensors; same contract as
     `lstm_gates_bwd_plain`."""
-    out = _gates_bwd_cuda("lstm_gates_bwd", gates, c, [], dc_new, dh)
-    lstm_gates_bwd_cuda.launches += 1
-    return out
+    _on_card("lstm_gates_bwd", gates)
+    return _gates_bwd_launch(lstm_gates_bwd_cuda, "lstm_gates_bwd", gates,
+                             c, [], dc_new, dh)
 
 
 def graves_gates_cuda(gates, c, pi, pf, po):
     """K8 forward on CUDA tensors; same contract as `graves_gates_plain`."""
-    out = _gates_fwd_cuda("graves_gates", gates, c, [pi, pf, po])
-    graves_gates_cuda.launches += 1
-    return out
+    _on_card("graves_gates", gates)
+    return _gates_fwd_launch(graves_gates_cuda, "graves_gates", gates, c,
+                             [pi, pf, po])
 
 
 def graves_gates_bwd_cuda(gates, c, pi, pf, po, dc_new, dh):
-    """K8 backward on CUDA tensors; same contract as
-    `graves_gates_bwd_plain`."""
-    out = _gates_bwd_cuda("graves_gates_bwd", gates, c, [pi, pf, po],
-                          dc_new, dh)
-    graves_gates_bwd_cuda.launches += 1
-    return out
+    """K8 backward on CUDA tensors, one launch; same contract as
+    `graves_gates_bwd_plain` (dpi/dpf/dpo in the peepholes' dtype)."""
+    _on_card("graves_gates_bwd", gates)
+    return _gates_bwd_launch(graves_gates_bwd_cuda, "graves_gates_bwd",
+                             gates, c, [pi, pf, po], dc_new, dh)
 
 
 for _fn in (lstm_gates_cuda, lstm_gates_bwd_cuda, graves_gates_cuda,
             graves_gates_bwd_cuda):
     _fn.launches = 0
+    _fn.path_launches = dict.fromkeys(PATHS, 0)
 register_helper("lstm_gates_fwd")(lstm_gates_cuda)
 register_helper("lstm_gates_bwd")(lstm_gates_bwd_cuda)
 register_helper("graves_gates_fwd")(graves_gates_cuda)

@@ -8,13 +8,14 @@ stored update to a sparse {-t, 0, +t} message and keeps what it did not
 send in a per-worker residual (Strom-style 1-bit SGD). As in the JAX
 package, the exchange is synchronous: no staleness.
 
-`threshold_encode` dispatches by device, as the JAX package's dispatches
-through its helper seam: on the card every input goes through K11
-(`ops/threshold_encode.py`), flattened to 1-D where it is not (the function
-is elementwise, so it is the same function), where the JAX package takes
-its Pallas kernel for 1-D inputs with its helpers on and its inline form
-otherwise; the port runs its kernel on every device, as it does K10. On
-the CPU it runs the plain version.
+`threshold_encode_list` dispatches by device, as the JAX package's encoder
+dispatches through its helper seam: on the card a list of tensors (a
+data-parallel step's parameter tensors, or the flat gradient of
+`EncodedGradientsAccumulator`) is one K11 launch
+(`ops/threshold_encode.py`), where the JAX package takes its Pallas kernel
+for 1-D inputs with its helpers on and its inline form otherwise; the port
+runs its kernel on every device, as it does K10. On the CPU each tensor
+runs the plain version. `threshold_encode` is the one-tensor case.
 """
 from __future__ import annotations
 
@@ -22,17 +23,25 @@ import torch
 
 from deeplearning4j_tpu_torch.ops.helpers import helper_for
 from deeplearning4j_tpu_torch.ops.threshold_encode import \
-    threshold_encode_plain
+    threshold_encode_list_plain
+
+
+def threshold_encode_list(updates, residuals, threshold: float):
+    """Quantize each update + residual to {-t, 0, +t}; the remainders stay
+    in the residuals. Returns ([message], [new_residual]), each in its
+    update's shape; one K11 launch on the card."""
+    if not updates:
+        return [], []
+    encode = helper_for("threshold_encode", threshold_encode_list_plain,
+                        updates[0])
+    return encode(updates, residuals, float(threshold))
 
 
 def threshold_encode(update: torch.Tensor, residual: torch.Tensor,
                      threshold: float):
-    """Quantize update + residual to {-t, 0, +t}; the remainder stays in
-    the residual. Returns (message, new_residual) in the update's shape."""
-    encode = helper_for("threshold_encode", threshold_encode_plain, update)
-    msg, res = encode(update.reshape(-1), residual.reshape(-1),
-                      float(threshold))
-    return msg.reshape(update.shape), res.reshape(update.shape)
+    """`threshold_encode_list` of one tensor: (message, new_residual)."""
+    msgs, res = threshold_encode_list([update], [residual], threshold)
+    return msgs[0], res[0]
 
 
 def sum_in_order(xs):

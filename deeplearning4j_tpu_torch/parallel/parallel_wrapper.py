@@ -9,9 +9,10 @@ order, replica 0 first, so that repeated runs are bitwise equal. Each
 replica takes its contiguous shard of the batch.
 
 - SHARED_GRADIENTS (the default): each replica applies its own updater to
-  its gradients, encodes each parameter's update with its own residual
-  (`threshold_encode`: one K11 launch per parameter tensor per replica per
-  step on the card), the messages are summed across replicas, and every
+  its gradients, encodes every parameter tensor's update with its own
+  residual (`threshold_encode_list` over the leaves in tree order: one K11
+  launch per replica per step on the card), the messages are summed
+  across replicas, and every
   replica subtracts the sum from its params. The float leaves of the layer
   state (BatchNormalization's running statistics) are averaged.
 - AVERAGING: the replicas step independently; every `averaging_frequency`
@@ -41,11 +42,12 @@ from deeplearning4j_tpu_torch.nn.graph.computation_graph import \
     ComputationGraph
 from deeplearning4j_tpu_torch.nn.multilayer import (_apply_updates,
                                                     _compute_updates)
-from deeplearning4j_tpu_torch.parallel.accumulation import (sum_in_order,
-                                                         threshold_encode)
+from deeplearning4j_tpu_torch.parallel.accumulation import (
+    sum_in_order, threshold_encode_list)
 from deeplearning4j_tpu_torch.parallel.mesh import Mesh, make_mesh
 from deeplearning4j_tpu_torch.util.flat_params import (flatten_params,
-                                                       tree_map,
+                                                       tree_leaves, tree_map,
+                                                       tree_unflatten,
                                                        unflatten_params)
 
 
@@ -212,14 +214,11 @@ class ParallelWrapper:
                     upds, self._opt[r] = _compute_updates(
                         layers, updaters, grads, self._opt[r],
                         self._params[r], step)
-                    msg, res = [], []
-                    for u_l, r_l in zip(upds, self._residual[r]):
-                        pairs = {k: threshold_encode(u_l[k], r_l[k], thr)
-                                 for k in u_l}
-                        msg.append({k: m for k, (m, _) in pairs.items()})
-                        res.append({k: e for k, (_, e) in pairs.items()})
-                    msgs.append(msg)
-                    self._residual[r] = res
+                    msg, res = threshold_encode_list(
+                        tree_leaves(upds), tree_leaves(self._residual[r]),
+                        thr)
+                    msgs.append(tree_unflatten(upds, msg))
+                    self._residual[r] = tree_unflatten(upds, res)
             with torch.no_grad():
                 agg = tree_map(lambda *ms: sum_in_order(ms), msgs[0],
                                *msgs[1:])

@@ -57,15 +57,10 @@ def flatten_params(params: Any) -> torch.Tensor:
     return torch.cat([l.reshape(-1) for l in leaves])
 
 
-def unflatten_params(template: Any, flat: torch.Tensor) -> Any:
-    """Inverse of `flatten_params` given a nest of the same structure and
-    shapes; each leaf keeps the template's dtype and device."""
-    leaves = tree_leaves(template)
-    n_total = sum(l.numel() for l in leaves)
-    if flat.shape[0] != n_total:
-        raise ValueError(f"Flat vector length {flat.shape[0]} != params "
-                         f"size {n_total}")
-    it = iter(torch.split(flat, [l.numel() for l in leaves]))
+def tree_unflatten(template: Any, leaves: List[torch.Tensor]) -> Any:
+    """The nest of `template`'s structure holding `leaves` in
+    `tree_leaves`' order (the inverse of `tree_leaves`)."""
+    it = iter(leaves)
 
     def rebuild(node):
         if node is None:
@@ -75,9 +70,22 @@ def unflatten_params(template: Any, flat: torch.Tensor) -> Any:
             return {k: done[k] for k in node}
         if isinstance(node, (list, tuple)):
             return type(node)(rebuild(x) for x in node)
-        return next(it).reshape(node.shape).to(node.device, node.dtype,
-                                               copy=True)
+        return next(it)
     return rebuild(template)
+
+
+def unflatten_params(template: Any, flat: torch.Tensor) -> Any:
+    """Inverse of `flatten_params` given a nest of the same structure and
+    shapes; each leaf keeps the template's dtype and device."""
+    leaves = tree_leaves(template)
+    n_total = sum(l.numel() for l in leaves)
+    if flat.shape[0] != n_total:
+        raise ValueError(f"Flat vector length {flat.shape[0]} != params "
+                         f"size {n_total}")
+    parts = torch.split(flat, [l.numel() for l in leaves])
+    return tree_unflatten(template, [
+        p.reshape(l.shape).to(l.device, l.dtype, copy=True)
+        for p, l in zip(parts, leaves)])
 
 
 def num_params(params: Any) -> int:
