@@ -279,6 +279,34 @@ Phases, each printing one JSON line; any failure exits non-zero:
               float full recompute. Fails on a count mismatch or a
               non-finite row only (int8 exactness is held by the kernel
               phase and the CPU tests).
+19. kv_pressure - the serve phase's model and traffic stepped
+              synchronously (the overlapped drain can livelock when every
+              admission preempts) on a 200-block pool that wave 2
+              overflows, with kv_evict="lru": preemption by recompute, by
+              synchronous swap, and by asynchronous swap through a host
+              pool of 1.5 requests into a disk tier under tempfile; the
+              last again on the int8 pool. Each mode preempts at least 4
+              times; swap and int8 resumes give the unpressured run's
+              tokens; the disk tier demotes and promotes; K1 launches
+              equal 2 x the decode steps, which cover every resumed
+              request's positions. Half the pool timed device->host and
+              back as the engine moves it and over the bare link. fp32
+              twins of recompute and of swap through disk with
+              capture_logprobs: a divergence from the unpressured stream
+              only at a top-2 gap < 1e-5, rows within 2e-3 of the full
+              recompute. A second turn extending the first turn's prompt
+              and output hits the radix tree (prefix_radix, radix_ttl),
+              whose idle iterations then drain it; a prefix store saved at
+              shutdown restores 512 tokens into a fresh engine; both give
+              a cold run's tokens (the same gap rule) and rows within
+              2e-3. Then spec_decode on the serve traffic with the
+              asynchronous swap through the disk tier: the unpressured spec
+              run's tokens, K2 launched and K1 not at all, counts zeroed
+              just before the window. The spill directories are removed at
+              the end. Preemptions by mode, swap bytes, GB/s, preempt stall,
+              tokens/s against unpressured, host syncs per token, disk
+              demotions and radix hit blocks, beside the card's name and
+              power limit.
 
 Then the kernels line (K1-K11), the card's name and power limit as
 nvidia-smi gives them, and finally {"ok": true, "device": {...}}. Exits
@@ -1118,6 +1146,346 @@ def phase_int8_serve(torch, np, serve):
     out["fp32_max_abs_logprob_diff_vs_float_recompute"] = max(
         oracle_rows(torch, np, net, p, r) for p, r in zip(prompts, results))
     emit(out)
+    return out
+
+
+# -------------------------------------------------------------- kv pressure
+# wave 1 (4 requests of 48 blocks of 16 positions) and 8 blocks more
+PRESSURE_BLOCKS = 4 * (PROMPT + NEW_TOKENS) // 16 \
+    + (PROMPT + NEW_TOKENS) // 16 // 6
+
+
+def spill_bytes(kv_elt: int, positions: int = PROMPT + NEW_TOKENS) -> int:
+    """A host-pool cap of one and a half requests' KV blocks (16 positions
+    a block, both layers; an int8 block adds its fp32 scales): one victim
+    stays in pinned memory, the next demotes the older one to disk."""
+    per_block = 16 * 2 * KV_HEADS * (D_MODEL // HEADS) * 2 * kv_elt \
+        + (2 * KV_HEADS * 4 * 2 if kv_elt == 1 else 0)
+    return per_block * -(-positions // 16) * 3 // 2
+
+
+def resumed_positions(results) -> list:
+    """Per preempted result: the positions it decoded after its last
+    resume (the resumed-token count is on its swap_in / resume prefill
+    event)."""
+    out = []
+    for r in results:
+        resumes = [e["resumed_tokens"] for e in r.timeline
+                   if "resumed_tokens" in e]
+        if resumes:
+            out.append(len(r.tokens) - resumes[-1])
+    return out
+
+
+def pressured_serve(torch, np, net, **kw):
+    """serve_traffic on a pool that wave 2 overflows, stepped
+    synchronously (the overlapped drain can livelock under preemption);
+    returns (engine, results, wall, launches, summary)."""
+    eng = new_engine(torch, net, overlap=False, **kw)
+    results, wall, launches, _ = serve_traffic(torch, np, eng)
+    st = eng.stats()
+    steps = eng.metrics.get("serving.chunk_k").sum
+    stall = eng.metrics.get("serving.kv.preempt_stall_ms")
+    k1 = launches["flash_decode_attention_paged"]
+    k2 = launches["flash_decode_attention_spec_paged"]
+    resumed = resumed_positions(results)
+    n_layers = len(eng.decoder.attn_idx)
+    if eng.spec_decode:
+        if k2 <= 0 or k1 != 0:
+            fail(f"kv_pressure spec: K2 launches {k2} (must be > 0), K1 "
+                 f"launches {k1} (must be 0: every decode step verifies "
+                 "through K2)")
+    elif k1 != n_layers * steps:
+        fail(f"kv_pressure: {k1} K1 launches for {steps} decode steps of "
+             f"{n_layers} layers")
+    elif resumed and k1 < n_layers * max(resumed):
+        fail(f"kv_pressure: {k1} K1 launches cannot cover {max(resumed)} "
+             "resumed positions")
+    summary = {
+        "tokens_per_s": MAX_SEQS * NEW_TOKENS / wall, "wall_s": wall,
+        "host_syncs": st["host_syncs"],
+        "host_syncs_per_token": st["host_syncs_per_token"],
+        "preemptions": st["kv_preemptions"],
+        "by_mode": {"recompute": st["kv_evictions_recompute"],
+                    "swap": st["kv_evictions_swap"]},
+        "swap_out_bytes": st["kv_swap_out_bytes"],
+        "swap_in_bytes": st["kv_swap_in_bytes"],
+        "harvests": st["kv_swap_harvests"],
+        "disk_demotions": st["kv_disk_demotions"],
+        "disk_promotions": st["kv_disk_promotions"],
+        "measured_swap_gbps": st["kv_measured_swap_gbps"],
+        "preempt_stall_ms": {"count": stall.count,
+                             "mean": stall.sum / max(1, stall.count),
+                             "p50": stall.quantile(0.5),
+                             "max": stall.quantile(1.0)},
+        "decode_steps": k2 // n_layers if eng.spec_decode else steps,
+        "k1_launches": k1, "k2_launches": k2,
+        "resumed_requests": len(resumed),
+        "resumed_positions": sum(resumed),
+        "max_resumed_positions": max(resumed, default=0)}
+    return eng, results, wall, launches, summary
+
+
+def fp32_pressure_oracle(torch, np, net, mode: str, disk_dir=None) -> dict:
+    """The fp32 model with capture_logprobs on 4 requests of 128 prompt
+    tokens and 64 new ones, on a pool that holds two: the stream against
+    the unpressured run (a divergence only at a top-2 gap < 1e-5) and
+    every captured row against the full recompute (2e-3)."""
+    from deeplearning4j_tpu_torch.serving import Request, ServingEngine
+    rng = np.random.RandomState(4)
+    prompts = [rng.randint(0, VOCAB, 128).tolist() for _ in range(4)]
+    runs = {}
+    for name, kw in (("unpressured", {}),
+                     ("pressured", dict(
+                         kv_blocks=2 * 12 + 6, kv_evict="lru",
+                         kv_evict_mode=mode, kv_swap_async=True,
+                         kv_swap_bytes=spill_bytes(4, 192) if disk_dir
+                         else 1 << 30, kv_disk=disk_dir))):
+        eng = ServingEngine(net, max_seqs=4, max_len=MAX_LEN,
+                            capture_logprobs=True, device="cuda", **kw)
+        runs[name] = (eng, eng.generate([Request(p, max_new_tokens=64)
+                                         for p in prompts]))
+    worst, diverged = 0.0, []
+    for p, r_p, r_u in zip(prompts, runs["pressured"][1],
+                           runs["unpressured"][1]):
+        worst = max(worst, oracle_rows(torch, np, net, p, r_p))
+        d = first_divergence(r_p.tokens, r_u.tokens)
+        if d is not None:
+            top2 = np.sort(r_u.logprobs[d])[-2:]
+            gap = float(top2[1] - top2[0])
+            diverged.append({"position": d, "top2_gap": gap})
+            if not gap < 1e-5:
+                fail(f"kv_pressure fp32 {mode}: the stream diverges from the "
+                     f"unpressured run at token {d}, top-2 gap {gap}")
+    if not worst <= 2e-3:
+        fail(f"kv_pressure fp32 {mode}: max abs err {worst} > 2e-3")
+    st = runs["pressured"][0].stats()
+    if st["kv_preemptions"] < 1:
+        fail(f"kv_pressure fp32 {mode}: nothing was preempted")
+    return {"preemptions": st["kv_preemptions"], "max_abs_err": worst,
+            "atol": 2e-3, "divergences": diverged,
+            "disk_demotions": st["kv_disk_demotions"],
+            "disk_promotions": st["kv_disk_promotions"]}
+
+
+def swap_bandwidth(torch, eng) -> dict:
+    """Half the pool's blocks moved as the engine moves a victim: gather +
+    device->host copy into fresh pinned memory + wait, and restore +
+    synchronize, by the host clock (the second of two rounds); then the
+    link alone: the gathered blocks copied into preallocated pinned
+    memory and back, by CUDA events (mean of 5); the host time of each of
+    four pinned allocations of those sizes; and the host time of one
+    upload of those block ids as the engine makes it (`block_index`) and
+    through a fresh pinned buffer, each behind ~10 ms of queued device
+    work (an upload that waited for the stream would take that long)."""
+    from deeplearning4j_tpu_torch.serving import kv_cache as kvc
+    cache = eng.decoder.cache
+    blocks = list(range(cache.num_blocks // 2))
+    nbytes = len(blocks) * cache.block_bytes
+    out = {"bytes": nbytes}
+    for _ in range(2):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        host = [kvc.host_value(p)
+                for p in kvc.gather_blocks_host(cache.state, blocks)]
+        t1 = time.perf_counter()
+        kvc.restore_blocks(cache.state, blocks, host[0], host[1])
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        out["d2h_gbps"] = nbytes / (t1 - t0) / 1e9
+        out["h2d_gbps"] = nbytes / (t2 - t1) / 1e9
+    dev = kvc.gather_blocks(cache.state, blocks)
+    pinned = [torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+              for t in dev]
+    for name, copy in (("link_d2h_gbps", lambda: [
+            h.copy_(d, non_blocking=True) for h, d in zip(pinned, dev)]),
+                       ("link_h2d_gbps", lambda: [
+            d.copy_(h, non_blocking=True) for h, d in zip(pinned, dev)])):
+        out[name] = nbytes / (time_ms(torch, copy, iters=5, warmup=2)
+                              * 1e-3) / 1e9
+    fresh, out["pinned_alloc_ms"] = [], []
+    for t in dev * 2:        # the caching host allocator may serve some
+        t0 = time.perf_counter()
+        fresh.append(torch.empty(t.shape, dtype=t.dtype, pin_memory=True))
+        out["pinned_alloc_ms"].append((time.perf_counter() - t0) * 1e3)
+    cuda = cache.state.k.device
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    torch.cuda._sleep(20_000_000)
+    torch.cuda.synchronize()
+    out["queued_work_ms"] = (time.perf_counter() - t0) * 1e3
+    for name, upload in (
+            ("index_upload_ms", lambda: kvc.block_index(blocks, cuda)),
+            ("index_upload_pinned_ms", lambda: torch.tensor(
+                blocks).pin_memory().to(cuda, non_blocking=True))):
+        torch.cuda._sleep(20_000_000)
+        t0 = time.perf_counter()
+        upload()
+        out[name] = (time.perf_counter() - t0) * 1e3
+        torch.cuda.synchronize()
+    return out
+
+
+def radix_store_leg(torch, np, net, spill) -> dict:
+    """fp32: a second turn extending the first turn's prompt and output
+    hits the radix tree; a store saved at shutdown (under the directory
+    `spill`) restores blocks into a fresh engine; both give a cold run's
+    tokens (or diverge only at a top-2 gap < 1e-5) with rows within 2e-3
+    of the full recompute."""
+    from deeplearning4j_tpu_torch.serving import Request, ServingEngine
+    rng = np.random.RandomState(6)
+    turn1 = rng.randint(0, VOCAB, PROMPT).tolist()
+
+    def engine(**kw):
+        return ServingEngine(net, max_seqs=2, max_len=MAX_LEN,
+                             capture_logprobs=True, device="cuda", **kw)
+
+    def check(name, prompt, res, cold):
+        err = oracle_rows(torch, np, net, prompt, res)
+        d = first_divergence(res.tokens, cold.tokens)
+        gap = None
+        if d is not None:
+            top2 = np.sort(cold.logprobs[d])[-2:]
+            gap = float(top2[1] - top2[0])
+            if not gap < 1e-5:
+                fail(f"kv_pressure {name}: diverges from the cold run at "
+                     f"token {d}, top-2 gap {gap}")
+        if not err <= 2e-3:
+            fail(f"kv_pressure {name}: max abs err {err} > 2e-3")
+        return {"identical_to_cold": d is None, "top2_gap": gap,
+                "max_abs_err": err}
+
+    out = {}
+    eng = engine(prefix_radix=True, radix_ttl=64)
+    r1 = eng.generate([Request(turn1, max_new_tokens=64)])[0]
+    turn2 = turn1 + r1.tokens + rng.randint(0, VOCAB, 8).tolist()
+    reset_launches()
+    r2 = eng.generate([Request(turn2, max_new_tokens=64)])[0]
+    k1 = read_launches()["flash_decode_attention_paged"]
+    cold2 = engine().generate([Request(turn2, max_new_tokens=64)])[0]
+    st = eng.stats()
+    bs = eng.decoder.cache.block_size
+    if r2.shared_prefix_tokens < PROMPT - bs:
+        fail(f"kv_pressure radix: turn 2 shared {r2.shared_prefix_tokens} "
+             "tokens")
+    for _ in range(66):                 # idle iterations past the TTL
+        eng.step()
+    drained = eng.stats()
+    if drained["kv_blocks_cached"] or not drained["kv_ttl_expired_blocks"]:
+        fail(f"kv_pressure radix: the TTL drained nothing ({drained})")
+    out["radix"] = {"hit_blocks": r2.shared_prefix_tokens // bs,
+                    "shared_tokens": r2.shared_prefix_tokens,
+                    "blocks_cached": st["kv_blocks_cached"],
+                    "ttl_expired_blocks": drained["kv_ttl_expired_blocks"],
+                    "k1_launches": k1, **check("radix", turn2, r2, cold2)}
+    path = os.path.join(spill, "prefixes.npz")
+    e1 = engine(prefix_store=path)
+    e1.generate([Request(turn1, max_new_tokens=8)])
+    e1.shutdown()
+    e2 = engine(prefix_store=path)
+    reset_launches()
+    r3 = e2.generate([Request(turn1 + [1, 2, 3], max_new_tokens=64)])[0]
+    k1 = read_launches()["flash_decode_attention_paged"]
+    cold3 = engine().generate([Request(turn1 + [1, 2, 3],
+                                       max_new_tokens=64)])[0]
+    st = e2.stats()
+    if st["prefix_store_hits"] < 1:
+        fail("kv_pressure store: the restarted engine restored nothing")
+    out["store"] = {"loaded_blocks": e2.prefix_store.n_entries,
+                    "restored_tokens": st["prefix_store_tokens"],
+                    "file_bytes": os.path.getsize(path),
+                    "k1_launches": k1, **check("store", turn1 + [1, 2, 3], r3, cold3)}
+    return out
+
+
+def phase_kv_pressure(torch, np, smi):
+    """Serving under KV pressure: the serve phase's model and traffic on a
+    pool wave 2 overflows, preempting by recompute, by synchronous swap,
+    and by asynchronous swap through a small host pool into a disk tier;
+    the same on the int8 pool; the fp32 oracle of recompute and swap; the
+    radix tree and the persistent prefix store."""
+    import shutil
+    import tempfile
+    net = build_net(torch, "float32")
+    spill = tempfile.mkdtemp()
+    try:
+        out = kv_pressure_runs(torch, np, smi, net, spill)
+    finally:
+        shutil.rmtree(spill, ignore_errors=True)
+    emit(out)
+    return out
+
+
+def kv_pressure_runs(torch, np, smi, net, spill) -> dict:
+    """phase_kv_pressure's runs, spilling under the directory `spill`."""
+    ref_eng = new_engine(torch, net, overlap=False)
+    ref, ref_wall, _, _ = serve_traffic(torch, np, ref_eng)
+    ref_tokens = [r.tokens for r in ref]
+    out = {"phase": "kv_pressure", "card": smi,
+           "kv_blocks": PRESSURE_BLOCKS,
+           "unpressured": {"tokens_per_s": MAX_SEQS * NEW_TOKENS / ref_wall,
+                           "host_syncs_per_token":
+                           ref_eng.stats()["host_syncs_per_token"]}}
+    configs = (
+        ("recompute", dict(kv_evict_mode="recompute")),
+        ("swap_sync", dict(kv_evict_mode="swap", kv_swap_async=False,
+                           kv_swap_bytes=1 << 30)),
+        ("swap_async_disk", dict(kv_evict_mode="swap", kv_swap_async=True,
+                                 kv_swap_bytes=spill_bytes(2),
+                                 kv_disk=os.path.join(spill, "bf16"))))
+    for name, kw in configs:
+        eng, res, _, _, summary = pressured_serve(
+            torch, np, net, kv_blocks=PRESSURE_BLOCKS, kv_evict="lru", **kw)
+        toks = [r.tokens for r in res]
+        summary["requests_identical_to_unpressured"] = sum(
+            a == b for a, b in zip(toks, ref_tokens))
+        mode = kw["kv_evict_mode"]
+        if summary["by_mode"][mode] < 4:
+            fail(f"kv_pressure {name}: {summary['by_mode'][mode]} "
+                 f"preemptions by {mode}, expected at least 4")
+        if mode == "swap" and toks != ref_tokens:
+            fail(f"kv_pressure {name}: swap-resumed tokens differ from the "
+                 "unpressured run")
+        if name == "swap_async_disk" and not (
+                summary["disk_demotions"] >= 1
+                and summary["disk_promotions"] >= 1):
+            fail(f"kv_pressure {name}: no disk round trip ({summary})")
+        out[name] = summary
+        if name == "swap_sync":
+            out["swap_bandwidth"] = swap_bandwidth(torch, eng)
+    q_ref = new_engine(torch, net, overlap=False, kv_quant=True)
+    q_ref_res, q_wall, _, _ = serve_traffic(torch, np, q_ref)
+    _, q_res, _, _, q_sum = pressured_serve(
+        torch, np, net, kv_quant=True, kv_blocks=PRESSURE_BLOCKS,
+        kv_evict="lru", kv_evict_mode="swap", kv_swap_async=True,
+        kv_swap_bytes=spill_bytes(1), kv_disk=os.path.join(spill, "int8"))
+    if [r.tokens for r in q_res] != [r.tokens for r in q_ref_res]:
+        fail("kv_pressure int8: swap-resumed tokens differ from the "
+             "unpressured int8 run")
+    if q_sum["by_mode"]["swap"] < 4 or q_sum["disk_promotions"] < 1:
+        fail(f"kv_pressure int8: {q_sum}")
+    q_sum["unpressured_tokens_per_s"] = MAX_SEQS * NEW_TOKENS / q_wall
+    out["int8_swap_async_disk"] = q_sum
+    out["fp32_oracle"] = {
+        "recompute": fp32_pressure_oracle(torch, np, net, "recompute"),
+        "swap_async_disk": fp32_pressure_oracle(
+            torch, np, net, "swap", os.path.join(spill, "fp32"))}
+    out.update(radix_store_leg(torch, np, net, spill))
+    s_ref_eng = new_engine(torch, net, overlap=False, spec_decode=True,
+                           spec_draft=SPEC_DRAFT)
+    s_ref, s_wall, _, _ = serve_traffic(torch, np, s_ref_eng)
+    _, s_res, _, _, s_sum = pressured_serve(
+        torch, np, net, spec_decode=True, spec_draft=SPEC_DRAFT,
+        kv_blocks=PRESSURE_BLOCKS, kv_evict="lru", kv_evict_mode="swap",
+        kv_swap_async=True, kv_swap_bytes=spill_bytes(2),
+        kv_disk=os.path.join(spill, "spec"))
+    if [r.tokens for r in s_res] != [r.tokens for r in s_ref]:
+        fail("kv_pressure spec: swap-resumed tokens differ from the "
+             "unpressured spec run")
+    if s_sum["by_mode"]["swap"] < 4 or s_sum["disk_promotions"] < 1:
+        fail(f"kv_pressure spec: {s_sum}")
+    s_sum["unpressured_tokens_per_s"] = MAX_SEQS * NEW_TOKENS / s_wall
+    out["spec_swap_async_disk"] = s_sum
     return out
 
 
@@ -4404,6 +4772,7 @@ def main() -> int:
     spec = phase_spec_serve(torch, np)
     spec_oracle = phase_spec_oracle(torch, np)
     phase_int8_serve(torch, np, serve)
+    kvp = phase_kv_pressure(torch, np, smi)
     src = "deeplearning4j_tpu_torch/ops/csrc/flash_decode_paged.cu"
     fsrc = "deeplearning4j_tpu_torch/ops/csrc/flash_attention.cu"
     f90 = "deeplearning4j_tpu_torch/ops/csrc/flash_attention_sm90.cu"
@@ -4417,6 +4786,9 @@ def main() -> int:
         "source": src, "status": "redesigned, PR 12",
         "replaces": "deeplearning4j_tpu/ops/decode_attention.py:281",
         "launches": serve["flash_decode_launches"],
+        "kv_pressure_launches": {
+            k: v["k1_launches"] for k, v in kvp.items()
+            if isinstance(v, dict) and "k1_launches" in v},
         "max_abs_err": max(max(kern["max_abs_err"].values()),
                            max(kern["served_max_abs_err"].values())),
         "ms": kern["ms"], "plain_ms": kern["plain_ms"],

@@ -3,12 +3,14 @@ the refcounted block allocator, the content-addressed prefix registry and
 `chain_digests`. Pure Python, never touches the device.
 
 - `BlockAllocator`: a refcounted heapq free list over physical block ids
-  (lowest id first) and the scheduler-iteration clock. The JAX package's
-  per-block heat stamps feed its KV observatory, which is not ported.
+  (lowest id first), the scheduler-iteration clock and per-block heat
+  stamps (`last_touch`, `alloc_epoch`) that the eviction planner's LRU
+  score reads.
 - `PrefixRegistry`: chain-hash index of RESIDENT prompt blocks. The digest
   of block i covers prompt tokens [0, (i+1)*block_size), so a hit
   certifies the whole prefix; a prompt ending mid-block also registers its
   partial tail under an exact-prompt digest (copy-on-write at admission).
+  A re-registration of a claimed digest counts one lineage hit.
 """
 from __future__ import annotations
 
@@ -28,12 +30,28 @@ class BlockAllocator:
         self._free: List[int] = list(range(self.num_blocks))
         self._ref: List[int] = [0] * self.num_blocks
         self._n_shared = 0          # blocks with refcount >= 2
+        # heat: iteration clock + per-block stamps (meaningful while the
+        # block is mapped)
         self.clock = 0
+        self._last_touch: List[int] = [0] * self.num_blocks
+        self._alloc_epoch: List[int] = [0] * self.num_blocks
 
     def tick(self) -> int:
         """Advance the iteration clock (one scheduler iteration)."""
         self.clock += 1
         return self.clock
+
+    def touch(self, block: int) -> None:
+        """Stamp `block` as written at the current clock."""
+        if self._ref[block] < 1:
+            raise ValueError(f"touch on free block {block}")
+        self._last_touch[block] = self.clock
+
+    def last_touch(self, block: int) -> int:
+        return self._last_touch[block]
+
+    def alloc_epoch(self, block: int) -> int:
+        return self._alloc_epoch[block]
 
     def alloc(self) -> Optional[int]:
         """Claim one free block (lowest id first, refcount 1) or None."""
@@ -41,6 +59,7 @@ class BlockAllocator:
             return None
         b = heapq.heappop(self._free)
         self._ref[b] = 1
+        self._alloc_epoch[b] = self._last_touch[b] = self.clock
         return b
 
     def alloc_many(self, n: int) -> Optional[List[int]]:
@@ -59,6 +78,7 @@ class BlockAllocator:
         self._ref[block] += 1
         if self._ref[block] == 2:
             self._n_shared += 1
+        self._last_touch[block] = self.clock   # a new mapping is a touch
 
     def decref(self, block: int) -> bool:
         """Drop one mapping; True when the block just became free."""
@@ -120,6 +140,7 @@ class PrefixRegistry:
         self._claims: Dict[int, List[Tuple[str, bytes]]] = {}
         self._pool: Optional[weakref.ref] = None
         self.lineage_hits_total = 0
+        self._lineage_hits: Dict[str, int] = {}
 
     def bind_pool(self, pool: object) -> "PrefixRegistry":
         if self._pool is not None:
@@ -173,16 +194,30 @@ class PrefixRegistry:
     def _claim(self, kind: str, digest: bytes, block: int) -> int:
         index = self._full if kind == "full" else self._tail
         if digest in index:
+            hx = digest.hex()
+            self._lineage_hits[hx] = self._lineage_hits.get(hx, 0) + 1
             return 1
         index[digest] = block
         self._claims.setdefault(block, []).append((kind, digest))
         return 0
+
+    def lineage_hit_counts(self) -> Dict[str, int]:
+        """Per-digest re-registration tallies (the popular-prefix signal)."""
+        return dict(self._lineage_hits)
 
     def forget(self, block: int) -> None:
         for kind, digest in self._claims.pop(block, ()):
             index = self._full if kind == "full" else self._tail
             if index.get(digest) == block:
                 del index[digest]
+
+    def lineage(self, block: int) -> Optional[str]:
+        """Hex digest of the prefix chain `block` serves (its first claim),
+        or None when the block backs no entry."""
+        claims = self._claims.get(block)
+        if not claims:
+            return None
+        return claims[0][1].hex()
 
     @property
     def n_entries(self) -> int:

@@ -27,8 +27,24 @@ k_scale/v_scale (n_layers, num_blocks + 1, n_kv_heads), one scale per
 (block, kv head). Whole-block prefill writes quantize the block; every
 sub-block write is a read-modify-write of the blocks it touches
 (dequantize, insert, requantize), and only touched blocks are written back
-with new bytes. The radix prefix tree (`prefix_radix`) is not ported yet
-and raises.
+with new bytes.
+
+Swap and restore (serving/lifecycle.py): `gather_blocks` copies whole
+blocks out of the pool with one `index_select` per buffer on the current
+stream, so the gather is ordered after every write dispatched before it
+and before every write dispatched after it: the blocks may go back on
+the free list right away. `gather_blocks_host` adds the device->host copy
+into pinned memory on a side stream that waits on an event recorded after
+the gather; `PendingHost.get()` waits on the copy's event. Nothing that
+leaves the device keeps a CUDA tensor. `restore_blocks` scatters host
+bytes back through pinned memory and `index_copy_` (the pinned source of
+a non-blocking copy stays reserved by PyTorch's caching host allocator
+until the copy has run on its stream), the exact inverse of the gather.
+
+With `prefix_radix` (serving/radix_tree.py) the registry is a radix tree
+that keeps its own reference on registered prompt blocks, so a retired
+request's prompt stays resident for a later turn; admission reclaims the
+coldest of those blocks before it fails.
 """
 from __future__ import annotations
 
@@ -40,7 +56,7 @@ from typing import Dict, List, Optional, Sequence
 import numpy as np
 import torch
 
-from deeplearning4j_tpu_torch.serving import quant
+from deeplearning4j_tpu_torch.serving import quant, radix_tree
 from deeplearning4j_tpu_torch.serving.block_table import (BlockAllocator,
                                                           PrefixRegistry)
 
@@ -88,6 +104,8 @@ class CacheState:
         self.block_size = block_size
         self.blocks_per_seq = bps
         self.trash = num_blocks
+        # the side stream of device->host block copies (made on first use)
+        self.copy_stream = None
 
     @property
     def quantized(self) -> bool:
@@ -274,6 +292,154 @@ def copy_block(state: CacheState, src: int, dst: int) -> None:
         state.v_scale[:, dst].copy_(state.v_scale[:, src])
 
 
+def is_quantized(state: CacheState) -> bool:
+    return state.quantized
+
+
+def _to_device(x, device: torch.device, dtype=None) -> torch.Tensor:
+    """A host array or CPU tensor on `device` without a blocking copy
+    (through pinned memory on a CUDA device; a tensor already pinned,
+    such as a host-pool payload or a slice of one, is copied as it is)."""
+    x = host_value(x)
+    t = torch.from_numpy(np.ascontiguousarray(x)) \
+        if isinstance(x, np.ndarray) else x
+    if device.type == "cuda" and t.device.type == "cpu":
+        t = t.pin_memory().to(device, non_blocking=True)
+    else:
+        t = t.to(device)
+    return t if dtype is None else t.to(dtype)
+
+
+def block_index(blocks: Sequence[int], device: torch.device) -> torch.Tensor:
+    """Physical block ids as an int64 index tensor on `device`. On a CUDA
+    device a non-blocking copy from pageable memory: CUDA stages
+    these few bytes when the copy is issued, so no pinned buffer is
+    allocated, and the host does not wait for the stream (a blocking
+    copy would synchronize it)."""
+    idx = torch.tensor(list(blocks), dtype=torch.long)
+    return idx.to(device, non_blocking=True) if device.type == "cuda" \
+        else idx
+
+
+def gather_blocks(state: CacheState, blocks: Sequence[int],
+                  with_scales: bool = False) -> tuple:
+    """Copies of the k/v of physical `blocks` across all layers: (k_blk,
+    v_blk), each (n_layers, len(blocks), block_size, n_kv_heads,
+    head_dim), plus (k_scale, v_scale) (n_layers, len(blocks), n_kv_heads)
+    with `with_scales` on an int8 pool. Device tensors, gathered on the
+    current stream."""
+    idx = block_index(blocks, state.k.device)
+    out = (state.k.index_select(1, idx), state.v.index_select(1, idx))
+    if with_scales and state.quantized:
+        out += (state.k_scale.index_select(1, idx),
+                state.v_scale.index_select(1, idx))
+    return out
+
+
+class HostCopy:
+    """Tensors copied into pinned host memory without blocking the host:
+    on `stream` (default: the current stream; another stream first waits
+    for the current one, so the copies follow the work that produced the
+    tensors, and the caching allocator keeps the tensors until copied),
+    then an event recorded after the copies. `wait()` blocks on that event
+    only and returns the host tensors by key; work enqueued later keeps
+    running. On the CPU the tensors are cloned at once."""
+
+    def __init__(self, tensors: Dict[object, torch.Tensor], stream=None):
+        self.event = None
+        devs = [t.device for t in tensors.values() if t.device.type == "cuda"]
+        if not devs:
+            self.host = {k: t.clone() for k, t in tensors.items()}
+            return
+        cur = torch.cuda.current_stream(devs[0])
+        side = cur if stream is None else stream
+        if side is not cur:
+            side.wait_stream(cur)
+        with torch.cuda.stream(side):
+            self.host = {k: torch.empty(t.shape, dtype=t.dtype,
+                                        pin_memory=True).copy_(
+                                            t, non_blocking=True)
+                         for k, t in tensors.items()}
+        if side is not cur:
+            for t in tensors.values():
+                t.record_stream(side)
+        self.event = torch.cuda.Event()
+        self.event.record(side)
+
+    def wait(self) -> Dict[object, torch.Tensor]:
+        if self.event is not None:
+            self.event.synchronize()
+            self.event = None
+        return self.host
+
+    def numpy(self) -> Dict[object, np.ndarray]:
+        """`wait()`, as numpy arrays over the same host memory."""
+        return {k: t.numpy() for k, t in self.wait().items()}
+
+
+class PendingHost:
+    """One tensor of a `HostCopy` (or its block `j` along the block
+    axis): `get()` waits for the copy (the caller counts that wait as a
+    host sync) and returns the CPU tensor."""
+    __slots__ = ("_copy", "_i", "_j")
+
+    def __init__(self, copy: HostCopy, i: int, j: Optional[int] = None):
+        self._copy, self._i, self._j = copy, i, j
+
+    def get(self) -> torch.Tensor:
+        t = self._copy.wait()[self._i]
+        return t if self._j is None else t[:, self._j]
+
+    def block(self, j: int) -> "PendingHost":
+        """Block `j` of this gathered stack, without waiting."""
+        return PendingHost(self._copy, self._i, j)
+
+    @property
+    def dtype(self):
+        return self._copy.host[self._i].dtype
+
+
+def host_value(x):
+    """The host value of a block payload: waits for an in-flight copy;
+    CPU tensors and numpy arrays pass through."""
+    return x.get() if isinstance(x, PendingHost) else x
+
+
+def gather_blocks_host(state: CacheState, blocks: Sequence[int],
+                       with_scales: bool = False) -> tuple:
+    """`gather_blocks`, then the device->host copy started without
+    blocking: a `PendingHost` per gathered tensor."""
+    got = gather_blocks(state, blocks, with_scales=with_scales)
+    side = None
+    if state.k.device.type == "cuda":
+        if state.copy_stream is None:
+            state.copy_stream = torch.cuda.Stream(state.k.device)
+        side = state.copy_stream
+    cp = HostCopy(dict(enumerate(got)), stream=side)
+    return tuple(PendingHost(cp, i) for i in range(len(got)))
+
+
+def restore_blocks(state: CacheState, blocks: Sequence[int], k_blk, v_blk,
+                   k_scale=None, v_scale=None) -> None:
+    """Scatter gathered block bytes (host or device) back into physical
+    `blocks` across all layers, in place: the exact inverse of
+    `gather_blocks`, so a round trip is bit-identical. An int8 pool needs
+    the matching scales."""
+    dev = state.k.device
+    idx = block_index(blocks, dev)
+    state.k.index_copy_(1, idx, _to_device(k_blk, dev, state.k.dtype))
+    state.v.index_copy_(1, idx, _to_device(v_blk, dev, state.v.dtype))
+    if state.quantized:
+        if k_scale is None or v_scale is None:
+            raise ValueError(
+                "restore_blocks on a quantized pool requires k_scale/"
+                "v_scale (gather with with_scales=True)")
+        state.k_scale.index_copy_(1, idx, _to_device(
+            k_scale, dev, state.k_scale.dtype))
+        state.v_scale.index_copy_(1, idx, _to_device(
+            v_scale, dev, state.v_scale.dtype))
+
+
 @dataclass
 class AdmissionPlan:
     """What `KVCache.admit` decided for one request."""
@@ -297,9 +463,6 @@ class KVCache:
                  kv_quant: Optional[bool] = None,
                  prefix_radix: Optional[bool] = None,
                  device="cuda"):
-        if prefix_radix:
-            raise NotImplementedError(
-                "the radix prefix tree (prefix_radix) is not ported yet")
         if max_seqs < 1 or max_len < 1:
             raise ValueError(f"bad cache shape: max_seqs={max_seqs}, "
                              f"max_len={max_len}")
@@ -319,7 +482,6 @@ class KVCache:
         if prefix_share is None:
             prefix_share = os.environ.get("DL4J_TPU_PREFIX_SHARE", "1") != "0"
         self.prefix_share = bool(prefix_share)
-        self.prefix_radix = False
         self.kv_quant = quant.resolve_kv_quant(kv_quant)
         self.state = CacheState(self.n_layers, self.max_seqs, self.max_len,
                                 self.n_kv_heads, self.head_dim, dtype,
@@ -327,7 +489,12 @@ class KVCache:
                                 torch.device(device), kv_quant=self.kv_quant)
         self._free_slots: List[int] = list(range(max_seqs))
         self.allocator = BlockAllocator(self.num_blocks)
-        self.registry = PrefixRegistry(self.block_size).bind_pool(self)
+        if radix_tree.resolve_prefix_radix(prefix_radix):
+            self.registry = radix_tree.RadixPrefixTree(self.block_size)
+        else:
+            self.registry = PrefixRegistry(self.block_size)
+        self.registry.bind_pool(self)
+        self.prefix_radix = bool(getattr(self.registry, "is_radix", False))
         self._owner: Dict[int, object] = {}
         self._slot_blocks: Dict[int, List[int]] = {}
         self._block_sharers: Dict[int, set] = {}
@@ -367,7 +534,18 @@ class KVCache:
                     cow_src = mblocks[n_full]
             else:
                 shared_len = 0
-        fresh = self.allocator.alloc_many(need - len(shared_blocks))
+        n_fresh = need - len(shared_blocks)
+        fresh = self.allocator.alloc_many(n_fresh)
+        if fresh is None and self.prefix_radix:
+            # the tree's cold retained blocks go before the admission
+            # fails; blocks this admission is about to map are protected
+            protect = set(shared_blocks)
+            if cow_src is not None:
+                protect.add(cow_src)
+            short = n_fresh - self.allocator.n_free
+            if short > 0 and self.registry.reclaim(short,
+                                                   protect=protect) > 0:
+                fresh = self.allocator.alloc_many(n_fresh)
         if fresh is None:
             return None
         slot = heapq.heappop(self._free_slots)
@@ -419,6 +597,8 @@ class KVCache:
             set_block_table(self.state, slot, row)
             self._block_sharers[old].discard(slot)
             if not self._block_sharers[old]:
+                # under radix retention refcount 2 may be one slot + the
+                # tree's own reference
                 del self._block_sharers[old]
             self._block_sharers.setdefault(fresh[0], set()).add(slot)
             self.allocator.decref(old)
@@ -429,7 +609,8 @@ class KVCache:
     def register_prefix(self, slot: int, prompt: Sequence[int]) -> int:
         """File the slot's prompt blocks in the prefix registry (after the
         prefill was dispatched: stream order puts its writes ahead of any
-        sharer's reads)."""
+        sharer's reads). Under a radix registry this is also where the
+        tree takes its own reference on new full prompt blocks."""
         if self.prefix_share and len(prompt) >= 2:
             return int(self.registry.register(
                 prompt, self._slot_blocks[slot]) or 0)
@@ -457,20 +638,75 @@ class KVCache:
     def owner(self, slot: int):
         return self._owner.get(slot)
 
-    def pool_snapshot(self) -> Dict[str, object]:
-        """One consistent host-side view of the pool (no device reads)."""
-        return {
-            "clock": self.allocator.clock,
+    # ---------------------------------------------------- heat / snapshot
+    def touch_blocks(self, slot: int, start: int, end: int) -> None:
+        """Stamp every block of `slot` covering logical positions
+        [start, end) as written at the allocator's current clock."""
+        if end <= start:
+            return
+        bs = self.block_size
+        row_blocks = self._slot_blocks.get(slot)
+        if not row_blocks:
+            return
+        for li in range(max(0, start // bs),
+                        min(len(row_blocks), -(-end // bs))):
+            self.allocator.touch(row_blocks[li])
+
+    def sharers(self, block: int) -> frozenset:
+        """Slots currently mapping `block` (empty when free)."""
+        return frozenset(self._block_sharers.get(block, ()))
+
+    def pool_snapshot(self, live_positions: Optional[Dict[int, int]] = None,
+                      include_blocks: bool = True) -> Dict[str, object]:
+        """One consistent host-side view of the pool (no device reads).
+        `live_positions` (slot -> positions written, the engine's
+        bookkeeping) splits reservations into live and waste;
+        `include_blocks=False` skips the per-block table."""
+        alloc = self.allocator
+        slots: Dict[int, Dict[str, object]] = {}
+        for slot in sorted(self._slot_blocks):
+            owner = self._owner.get(slot)
+            req_id = getattr(owner, "req_id", None)
+            if req_id is None and isinstance(owner, (int, str)):
+                req_id = owner
+            blocks = self._slot_blocks[slot]
+            slots[slot] = {
+                "req_id": req_id,
+                "blocks": list(blocks),
+                "reserved_positions": len(blocks) * self.block_size,
+                "live_positions": None if live_positions is None
+                else int(live_positions.get(slot, 0)),
+                "deadline": getattr(owner, "deadline", None),
+                "t_submit": getattr(owner, "t_submit", None),
+            }
+        cached = (self.registry.retained_blocks()
+                  if self.prefix_radix else frozenset())
+        snap: Dict[str, object] = {
+            "clock": alloc.clock,
             "num_blocks": self.num_blocks,
             "block_size": self.block_size,
-            "blocks_free": self.allocator.n_free,
-            "blocks_shared": self.allocator.n_shared,
+            "bytes_per_position": self.bytes_per_position,
+            "block_overhead_bytes": self.block_overhead_bytes,
+            "blocks_free": alloc.n_free,
+            "blocks_shared": alloc.n_shared,
+            "blocks_cached": len(cached),
             "slots_free": len(self._free_slots),
             "slots_active": self.max_seqs - len(self._free_slots),
-            "slots": {slot: {"reserved_positions":
-                             len(blocks) * self.block_size}
-                      for slot, blocks in sorted(self._slot_blocks.items())},
+            "slots": slots,
         }
+        if include_blocks:
+            snap["blocks"] = {
+                b: {
+                    "refcount": alloc.refcount(b),
+                    "last_touch": alloc.last_touch(b),
+                    "alloc_epoch": alloc.alloc_epoch(b),
+                    "sharers": sorted(self._block_sharers.get(b, ())),
+                    "cached": b in cached,
+                    "lineage": self.registry.lineage(b),
+                }
+                for b in sorted(set(self._block_sharers) | set(cached))
+            }
+        return snap
 
     # ------------------------------------------------------------- stats
     @property
@@ -484,6 +720,15 @@ class KVCache:
     @property
     def blocks_shared(self) -> int:
         return self.allocator.n_shared
+
+    @property
+    def blocks_cached(self) -> int:
+        """Blocks held only by the radix tree's reference (0 without it)."""
+        return len(self.registry.retained_blocks()) \
+            if self.prefix_radix else 0
+
+    def active_slots(self) -> List[int]:
+        return sorted(self._owner)
 
     @property
     def bytes_per_position(self) -> int:

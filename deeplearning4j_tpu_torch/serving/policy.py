@@ -1,12 +1,16 @@
 """Scheduler policy, from serving/policy.py: the `SchedulingPolicy`
-admission decision point and the default `ColocatedPolicy`.
+decision points `admit` and `evict` and the default `ColocatedPolicy`.
 
-The engine consults `admit` when the head-of-queue block reservation fails.
-Without a lifecycle manager (KV eviction is not ported yet) the colocated
-policy denies with a hint and the request waits in FIFO order, exactly as
-in the JAX package. The JAX policy's other decision points (route, evict,
-transfer) serve replica groups and the radix tree, which are not ported.
-Pure host bookkeeping: no device access.
+- `admit`: consulted when the head-of-queue block reservation fails.
+  Without a lifecycle manager the colocated policy denies with a hint and
+  the request waits in FIFO order; with one it plans victims
+  (`lifecycle.plan`) and preempts when the plan covers the shortfall.
+- `evict`: consulted once per scheduler iteration; the radix TTL drain
+  (release retained prefix blocks untouched for more than the engine's
+  `radix_ttl` iterations, passed in the pressure view).
+
+The JAX policy's `route` and `transfer` serve replica groups, which are
+not ported. Pure host bookkeeping: no device access.
 """
 from __future__ import annotations
 
@@ -53,16 +57,21 @@ class AdmissionDecision:
 
 
 class SchedulingPolicy:
-    """Base interface; the default decision is to wait (deny)."""
+    """Base interface; the defaults are to wait (deny) and evict
+    nothing."""
 
     def admit(self, request, pool_view: dict) -> AdmissionDecision:
         return AdmissionDecision.deny()
+
+    def evict(self, pressure_view: dict) -> int:
+        return 0
 
 
 class ColocatedPolicy(SchedulingPolicy):
     """The default policy: every replica both prefills and decodes. On a
     failed reservation: deny-with-hint without a lifecycle manager, else
-    plan-then-preempt, held back while an `slo` leaves TTFT slack."""
+    plan-then-preempt, held back while an `slo` leaves TTFT slack. Each
+    iteration: the radix TTL drain."""
 
     def __init__(self, *, slo=None):
         self.slo = slo
@@ -89,3 +98,10 @@ class ColocatedPolicy(SchedulingPolicy):
         if not plan["evicted"] or not plan["satisfies"]:
             return AdmissionDecision.deny(hint)
         return AdmissionDecision.preempt(plan)
+
+    def evict(self, pressure_view: dict) -> int:
+        reg = pressure_view.get("registry")
+        ttl = pressure_view.get("ttl")
+        if reg is None or not hasattr(reg, "expire") or ttl is None:
+            return 0
+        return reg.expire(ttl)

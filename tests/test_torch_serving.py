@@ -198,8 +198,8 @@ def test_unported_option_raises(nets, option):
                       **{option: True})
 
 
-@pytest.mark.parametrize("env", ["DL4J_TPU_PREFIX_RADIX", "DL4J_TPU_KV_EVICT",
-                                 "DL4J_TPU_DISAGG"])
+@pytest.mark.parametrize("env", [e for _, e in tengine._UNPORTED if e]
+                         + ["DL4J_TPU_DISAGG"])
 def test_unported_env_knob_raises(nets, env, monkeypatch):
     _, tnet = nets
     monkeypatch.setenv(env, "1")
@@ -212,8 +212,9 @@ def test_non_colocated_policy_and_cache_options_raise(nets):
     with pytest.raises(NotImplementedError, match="policy"):
         ServingEngine(tnet, max_seqs=2, max_len=32, device="cpu",
                       policy=SchedulingPolicy())
-    with pytest.raises(NotImplementedError):
-        KVCache(1, 2, 8, 1, 2, torch.float64, device="cpu", prefix_radix=True)
+    with pytest.raises(NotImplementedError, match="prefix_registry"):
+        ServingEngine(tnet, max_seqs=2, max_len=32, device="cpu",
+                      prefix_registry=object())
 
 
 def test_kv_append_in_place_with_trash_routing():
